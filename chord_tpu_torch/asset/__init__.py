@@ -1,4 +1,5 @@
 from .procedural import (  # noqa: F401
-    build_bistro_like, build_sponza_like, make_box, make_cylinder,
-    make_plane, make_uv_sphere,
+    bench_texture_pool, build_bistro_like, build_sponza_like, make_box,
+    make_cylinder, make_plane, make_uv_sphere,
 )
+from .texture import TexturePool, build_mips  # noqa: F401

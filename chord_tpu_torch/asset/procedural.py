@@ -7,8 +7,10 @@ so the benchmark runs on procedural stand-ins with matched scale:
 `build_bistro_like` (a street at Bistro scale, 2.6M+ source triangles with
 `target_tris`). The builders are copies of chord_tpu's and draw from
 `numpy.random.default_rng(seed)` in the same order, so both packages build
-identical scenes from one seed. The bench texture pool belongs to the
-textured slice: `textures=True` raises until then.
+identical scenes from one seed. `build_bistro_like(textures=True)` adds the
+bench texture pool (`bench_texture_pool`, on `builder.texture_pool`),
+textured and alpha-masked materials and draws extra rng values per
+building, so its materials differ from the untextured build's.
 """
 
 from __future__ import annotations
@@ -133,6 +135,94 @@ def _mat(builder: SceneBuilder, rng, rough_range=(0.4, 0.95), metal_p=0.1):
         roughness=float(rng.uniform(*rough_range))))
 
 
+def _noise2d(rng, size, octaves=4):
+    """Value-noise texture in [0,1] (seeded, fast)."""
+    img = np.zeros((size, size), np.float32)
+    amp, cells = 1.0, 4
+    for _ in range(octaves):
+        g = rng.uniform(0, 1, (cells + 1, cells + 1)).astype(np.float32)
+        ys = np.linspace(0, cells, size, endpoint=False)
+        xs = np.linspace(0, cells, size, endpoint=False)
+        y0 = ys.astype(int)
+        x0 = xs.astype(int)
+        fy = (ys - y0)[:, None]
+        fx = (xs - x0)[None, :]
+        v = (g[y0][:, x0] * (1 - fy) * (1 - fx) +
+             g[y0][:, x0 + 1] * (1 - fy) * fx +
+             g[y0 + 1][:, x0] * fy * (1 - fx) +
+             g[y0 + 1][:, x0 + 1] * fy * fx)
+        img += amp * v
+        amp *= 0.5
+        cells *= 2
+    return img / img.max()
+
+
+def _height_to_normal(height: np.ndarray, strength: float = 2.0):
+    """Tangent-space normal map from a height field (central differences),
+    encoded [0,1] RGBA like a glTF normal texture."""
+    gy, gx = np.gradient(height.astype(np.float32))
+    n = np.stack([-gx * strength, gy * strength,
+                  np.ones_like(height)], -1)
+    n /= np.maximum(np.linalg.norm(n, axis=-1, keepdims=True), 1e-8)
+    out = np.ones(height.shape + (4,), np.float32)
+    out[..., :3] = n * 0.5 + 0.5
+    return out
+
+
+def bench_texture_pool(seed: int = 5, size: int = 256):
+    """Procedural texture set of the benchmark scenes: brick, plaster and
+    asphalt albedo, a leaf card with alpha (the masked bucket's content),
+    and a normal map and a metallic-roughness map per surface — 12 layers
+    of size², drawn from their own generator (so the scene's rng is not
+    consumed here)."""
+    from .texture import TexturePool
+
+    rng = np.random.default_rng(seed)
+    pool = TexturePool(size)
+
+    def rgba(rgb, a=None):
+        out = np.zeros((size, size, 4), np.float32)
+        out[..., :3] = rgb
+        out[..., 3] = 1.0 if a is None else a
+        return out
+
+    def mr(rough, metal):
+        # glTF convention: G=roughness, B=metallic
+        out = np.ones((size, size, 4), np.float32)
+        out[..., 1] = np.clip(rough, 0.02, 1.0)
+        out[..., 2] = np.clip(metal, 0.0, 1.0)
+        return out
+
+    n = _noise2d(rng, size)
+    # brick: horizontal bands + noise; mortar rows are the height valleys
+    rows = (np.arange(size)[:, None] // (size // 16)) % 2
+    brick = np.stack([0.45 + 0.2 * n + 0.08 * rows,
+                      0.22 + 0.12 * n, 0.18 + 0.08 * n], -1)
+    pool.add("bench:brick", rgba(np.clip(brick, 0, 1)))
+    brick_h = 0.6 * n + 0.4 * rows
+    pool.add("bench:brick_n", _height_to_normal(brick_h, 3.0))
+    pool.add("bench:brick_mr", mr(0.75 + 0.2 * n, 0.0 * n))
+    plaster = np.stack([0.7 + 0.2 * n] * 3, -1) * \
+        np.asarray([1.0, 0.97, 0.9])
+    pool.add("bench:plaster", rgba(np.clip(plaster, 0, 1)))
+    pool.add("bench:plaster_n", _height_to_normal(n, 1.5))
+    pool.add("bench:plaster_mr", mr(0.55 + 0.3 * n, 0.0 * n))
+    asphalt = np.stack([0.18 + 0.12 * n] * 3, -1)
+    pool.add("bench:asphalt", rgba(np.clip(asphalt, 0, 1)))
+    pool.add("bench:asphalt_n", _height_to_normal(n, 2.0))
+    # wet-spot variation: roughness dips where the noise pools
+    pool.add("bench:asphalt_mr", mr(0.95 - 0.5 * (n > 0.7) * n, 0.0 * n))
+    # leaf card: radial blobs with alpha holes (masked content)
+    yy, xx = np.mgrid[0:size, 0:size].astype(np.float32) / size - 0.5
+    rr = np.sqrt(yy * yy + xx * xx)
+    alpha = ((n > 0.45) & (rr < 0.5)).astype(np.float32)
+    leaf = np.stack([0.15 + 0.1 * n, 0.4 + 0.3 * n, 0.12 + 0.05 * n], -1)
+    pool.add("bench:leaf", rgba(np.clip(leaf, 0, 1), alpha))
+    pool.add("bench:leaf_n", _height_to_normal(n * alpha, 1.0))
+    pool.add("bench:leaf_mr", mr(0.7 + 0.2 * n, 0.0 * n))
+    return pool
+
+
 def build_sponza_like(seed: int = 7, detail: int = 2) -> SceneBuilder:
     """Atrium scene: floor, two-story colonnade, walls. ~(detail²)·90k tris."""
     rng = np.random.default_rng(seed)
@@ -208,9 +298,9 @@ def build_bistro_like(seed: int = 11, detail: int = 3,
                            "asphalt_mr", "brick_mr", "plaster_mr",
                            "leaf_mr")}
     if textures:
-        raise NotImplementedError(
-            "build_bistro_like(textures=True): the bench texture pool "
-            "belongs to the textured slice")
+        pool = bench_texture_pool()
+        b.texture_pool = pool
+        tex = {k: pool.descs[f"bench:{k}"].layer for k in tex}
 
     asphalt = b.add_material(MaterialData(base_color=(0.6, 0.6, 0.62, 1.0)
                                           if textures else

@@ -1,10 +1,11 @@
 """Build and load the hand-written CUDA kernels (chord_tpu_torch/csrc/).
 
 The kernels have a plain C interface and are compiled with nvcc for
-sm_90a into one shared library under the ignored `build/` directory at
-first use, then loaded with ctypes (no PyTorch headers: the build takes
-seconds). The library name carries a hash of the sources and flags, so an
-edited kernel is rebuilt and a stale library is never loaded.
+sm_90a — one nvcc per source, all started together, then one link — into
+one shared library under the ignored `build/` directory at first use, and
+loaded with ctypes (no PyTorch headers: the build takes seconds). The
+library name carries a hash of the sources and flags, so an edited kernel
+is rebuilt and a stale library is never loaded.
 
 `-fmad=false` keeps every multiply and add separately rounded, so each
 kernel is bit-comparable to its plain PyTorch version; a later change that
@@ -27,7 +28,7 @@ _ROOT = Path(__file__).resolve().parents[2]
 CSRC = _ROOT / "chord_tpu_torch" / "csrc"
 BUILD_DIR = _ROOT / "build" / "kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC"]
+              "-O3", "-fmad=false", "-Xcompiler", "-fPIC"]
 
 _lib: Optional[ctypes.CDLL] = None
 
@@ -55,20 +56,39 @@ def library_path() -> Path:
     return BUILD_DIR / f"libchord_kernels_{h.hexdigest()[:16]}.so"
 
 
+def _run_all(cmds):
+    """Run the commands at once; -> [(returncode, stderr)] in order."""
+    procs = [subprocess.Popen(c, stdout=subprocess.DEVNULL,
+                              stderr=subprocess.PIPE, text=True)
+             for c in cmds]
+    return [(p.wait(), p.stderr.read()) for p in procs]
+
+
 def build(verbose: bool = False) -> Path:
-    """Compile csrc/*.cu into the build directory (if not already there)."""
+    """Compile csrc/*.cu into the build directory (if not already there):
+    one nvcc per source in parallel, then one link."""
     out = library_path()
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    tag = f"{out.stem}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in sources()]
+    ptxas = ["-Xptxas", "-v"] if verbose else []
+    results = _run_all([[nvcc, *NVCC_FLAGS, *ptxas, "-c", "-o", str(o),
+                         str(src)] for src, o in zip(sources(), objs)])
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
-           "-o", str(tmp), *map(str, sources())]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
-    if verbose and res.stderr:
-        print(res.stderr)
+    if all(rc == 0 for rc, _ in results):
+        results += _run_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp),
+                              *map(str, objs)]])
+    for o in objs:
+        o.unlink(missing_ok=True)
+    for (rc, err), name in zip(results, [s.name for s in sources()] +
+                               ["link"]):
+        if rc != 0:
+            raise RuntimeError(f"nvcc failed on {name} ({rc}):\n{err}")
+        if verbose and err:
+            print(f"{name}:\n{err}")
     os.replace(tmp, out)
     return out
 

@@ -2,21 +2,25 @@
 
 One entry per kernel: the module, the wrapper that launches the CUDA
 kernel (and counts its launches in `wrapper.launches`), the plain PyTorch
-version with the same signature, the CUDA source and the chord_tpu Pallas
-kernel it replaces. `capture_inputs` records the arguments each wrapper
-receives while the frame runs, so a check can hold kernel and plain
-version against each other on the main path's own inputs and shapes.
+version with the same signature, the CUDA source, the chord_tpu Pallas
+kernel it replaces and the bench rungs (`paths`) whose frame launches it.
+`capture_inputs` records the arguments each wrapper receives while a frame
+runs, so a check can hold kernel and plain version against each other on
+a path's own inputs and shapes.
 """
 
 from __future__ import annotations
 
 import contextlib
 from dataclasses import dataclass
-from typing import Callable, Dict, List
+from typing import Callable, Dict, List, Tuple
 
 import torch
 
-from . import mesh_shader, raster, row_gather, tile_reproject
+from . import mesh_shader, paged_texture, raster, row_gather, tile_reproject
+
+# the bench rungs the port renders (bench.py FEATURE_LEVELS)
+PATHS = ("off", "geo_tex")
 
 
 @dataclass(frozen=True)
@@ -27,6 +31,7 @@ class Kernel:
     plain: Callable
     source: str
     replaces: str
+    paths: Tuple[str, ...] = PATHS
 
     def fn(self) -> Callable:
         return getattr(self.module, self.wrapper)
@@ -47,6 +52,10 @@ KERNELS: List[Kernel] = [
            tile_reproject.reproject_tiles_plain,
            "chord_tpu_torch/csrc/tile_reproject.cu",
            "chord_tpu/ops/tile_reproject.py:55"),
+    Kernel("paged_texture", paged_texture, "paged_sample",
+           paged_texture.paged_sample_plain,
+           "chord_tpu_torch/csrc/paged_texture.cu",
+           "chord_tpu/ops/paged_texture.py:251", paths=("geo_tex",)),
 ]
 
 

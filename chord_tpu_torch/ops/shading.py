@@ -1,24 +1,26 @@
 """Deferred shading from the visibility buffer (port of
-chord_tpu/ops/shading.py: GBuffer, SunLight, the untextured
-`resolve_gbuffer_raster_rt` and `shade_pixels`; reference
-lighting.hlsl:270-385).
+chord_tpu/ops/shading.py: GBuffer, SunLight, `resolve_gbuffer_raster_rt`
+with its textured branch, `shade_pixels`, the masked bucket's alpha test
+and the blend bucket's forward shade; reference lighting.hlsl:270-385).
 
 Normals and uv come from the rasterizer's attribute planes, position from
 depth unprojection; material constants and the per-object rigid motion
 delta are per-draw table rows fetched per pixel with kernel K3
-(ops/row_gather.py). All radiometric quantities are linear ACEScg.
+(ops/row_gather.py); material maps are sampled with kernel K5
+(ops/paged_texture.py via ops/texture.py). All radiometric quantities are
+linear ACEScg.
 """
 
 from __future__ import annotations
 
 import math
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
-from . import colorspace
+from . import colorspace, row_gather
+from . import texture as texture_ops
 from ._util import bits_f32
-from . import row_gather
 from .row_gather import pack_table
 from ..rhi.framebuffer import unpack_visibility
 
@@ -56,14 +58,20 @@ def _project_xy(p3: torch.Tensor, vp: torch.Tensor) -> torch.Tensor:
 
 def resolve_gbuffer_raster_rt(
     vis, depth, nx, ny, nz, u, v, draw_object, pools, instances,
-    clip_to_tw, tw_to_clip, prev_tw_to_clip, motion_div: int = 1,
+    clip_to_tw, tw_to_clip, prev_tw_to_clip, textured: bool = False,
+    normal_mapped: bool = False, pbr_textures: bool = False,
+    mip_dither_frame=None, motion_div: int = 1,
 ) -> GBuffer:
-    """Visibility + raster attribute planes -> g-buffer (untextured).
+    """Visibility + raster attribute planes -> g-buffer.
 
     Motion is per object: the pixel's previous position is rebuilt through
     the draw's rigid delta inv(M) @ M_prev, fetched per pixel at 1/motion_div
     resolution and nearest-upsampled; misses take the identity (pure camera
-    reprojection)."""
+    reprojection). `textured` multiplies the base colour by its map;
+    `pbr_textures` adds the metal-rough (G = roughness, B = metallic) and
+    emissive maps, `normal_mapped` the tangent-space normal map; all maps
+    of a pixel come from one K5 pass. `mip_dither_frame` (a frame counter)
+    switches to the stochastic-trilinear mip."""
     from . import post
 
     h, w = vis.shape
@@ -125,6 +133,10 @@ def resolve_gbuffer_raster_rt(
     base = torch.stack([f(0), f(1), f(2)], -1)
     metal, rough = f(3), f(4)
     emissive = torch.stack([f(5), f(6), f(7)], -1)
+    if textured:
+        base, metal, rough, emissive, nrm = _textured_maps(
+            pools, mplanes, slot, valid, uv, pos_tw, nrm, base, metal, rough,
+            emissive, normal_mapped, pbr_textures, mip_dither_frame)
 
     vz = valid[..., None]
     zero = torch.zeros((), device=dev)
@@ -139,6 +151,157 @@ def resolve_gbuffer_raster_rt(
         uv=torch.where(vz, uv, zero),
         motion=torch.where(vz, motion, zero),
     )
+
+
+def _textured_maps(pools, mplanes, slot, valid, uv, pos_tw, nrm, base, metal,
+                   rough, emissive, normal_mapped: bool, pbr_textures: bool,
+                   mip_dither_frame):
+    """The textured branch of the resolve (chord_tpu shading.py:257-332):
+    one K5 pass over [base, (mr, emissive), (normal)] layer planes ->
+    (base, metal, rough, emissive, normal)."""
+    size = pools.tex_size
+    if mip_dither_frame is not None:
+        mip = texture_ops.mip_dithered(uv, size, mip_dither_frame)
+    else:
+        mip = texture_ops.mip_from_uv_density(uv, size)
+    layer_list = [mplanes[8]]
+    if pbr_textures:
+        layer_list += [mplanes[10], mplanes[11]]
+    if normal_mapped:
+        layer_list.append(mplanes[9])
+    texels = texture_ops.sample_material_maps(pools, torch.stack(layer_list),
+                                              uv, mip)
+    # maps are stored with linear-sRGB primaries; convert to AP1
+    base = base * colorspace.srgb_to_acescg(texels[0][..., :3])
+    if pbr_textures:
+        metal = metal * texels[1][..., 2]
+        rough = rough * texels[1][..., 1]
+        emissive = emissive * colorspace.srgb_to_acescg(texels[2][..., :3])
+    if normal_mapped:
+        nrm = _normal_map(nrm, texels[-1], layer_list[-1], bits_f32(
+            mplanes[12])[..., None], slot, valid, uv, pos_tw)
+    return base, metal, rough, emissive, nrm
+
+
+def _normal_map(nrm, n_texel, n_layer, n_scale, slot, valid, uv, pos_tw):
+    """Tangent-space normal mapping without stored tangents: the cotangent
+    frame from screen-space differences of position and uv (Schüler's
+    method), masked to same-surface neighbours so silhouettes keep the
+    geometric normal. Row differences run y-down, which flips both frame
+    vectors; the flipped cross orders restore glTF's +u/+v handedness."""
+    n_ts = n_texel[..., :3] * 2.0 - 1.0
+    ddx = lambda a: a - torch.roll(a, 1, dims=1)
+    ddy = lambda a: a - torch.roll(a, 1, dims=0)
+    same_x = (slot == torch.roll(slot, 1, dims=1)) & valid
+    same_y = (slot == torch.roll(slot, 1, dims=0)) & valid
+    zero = torch.zeros((), device=nrm.device)
+    dp1 = torch.where(same_x[..., None], ddx(pos_tw), zero)
+    dp2 = torch.where(same_y[..., None], ddy(pos_tw), zero)
+    du1 = torch.where(same_x[..., None], ddx(uv), zero)
+    du2 = torch.where(same_y[..., None], ddy(uv), zero)
+    dp2perp = torch.linalg.cross(nrm, dp2, dim=-1)
+    dp1perp = torch.linalg.cross(dp1, nrm, dim=-1)
+    t = dp2perp * du1[..., 0:1] + dp1perp * du2[..., 0:1]
+    b = dp2perp * du1[..., 1:2] + dp1perp * du2[..., 1:2]
+    m2 = torch.maximum((t * t).sum(-1), (b * b).sum(-1))
+    inv = torch.rsqrt(torch.clamp_min(m2, 1e-24))[..., None]
+    pert = (t * inv * (n_ts[..., 0:1] * n_scale) +
+            b * inv * (n_ts[..., 1:2] * n_scale) +
+            nrm * torch.clamp_min(n_ts[..., 2:3], 0.05))
+    pert = pert * torch.rsqrt(torch.clamp_min(
+        (pert * pert).sum(-1, keepdim=True), 1e-12))
+    ok = (n_layer >= 0) & (m2 > 1e-24) & same_x & same_y
+    return torch.where(ok[..., None], pert, nrm)
+
+
+def alpha_mask_accept(vis_m, depth_m, depth_o, u_m, v_m, draw_object_m,
+                      payload_base: int, pools, instances) -> torch.Tensor:
+    """Deferred punch-through of the masked bucket (the reference's Masked
+    raster permutation discards in the pixel shader): a masked fragment
+    survives where it hit, lies in front of the opaque layer and passes
+    its alpha test. One masked layer: a masked surface behind a failing
+    texel falls back to the opaque layer."""
+    hit, keep = masked_alpha_keep(vis_m, u_m, v_m, draw_object_m,
+                                  payload_base, pools, instances)
+    return hit & (depth_m > depth_o) & keep
+
+
+def masked_alpha_keep(vis_m, u_m, v_m, draw_object_m, payload_base: int,
+                      pools, instances) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-pixel masked alpha test -> (hit, alpha >= cutoff): the draw's
+    [cutoff, base alpha, base layer] row via K3, the base map's alpha via
+    K5 with NEAREST taps (the test is binary; bilinear would only shift
+    the cutoff crossing by under a texel)."""
+    slot_g, _tri = unpack_visibility(vis_m)
+    slot = slot_g - payload_base
+    hit = slot_g >= 0
+    slot_safe = torch.where(hit, torch.clamp_min(slot, 0),
+                            torch.zeros_like(slot))
+    mat_d = instances.object_material[draw_object_m.long()].long()
+    cm = pack_table([pools.mat_alpha_cutoff[mat_d],
+                     pools.mat_base_color[mat_d][:, 3],
+                     pools.mat_base_tex[mat_d]])
+    rows = row_gather.gather_rows(cm, slot_safe.contiguous())
+    cutoff, factor, layer = bits_f32(rows[0]), bits_f32(rows[1]), rows[2]
+    uv = torch.stack([u_m, v_m], dim=-1)
+    mip = texture_ops.mip_from_uv_density(uv, pools.tex_size)
+    texel = texture_ops.sample_material_maps(pools, layer[None], uv, mip,
+                                             bilinear=False)[0]
+    alpha = factor * torch.where(layer >= 0, texel[..., 3],
+                                 torch.ones((), device=texel.device))
+    return hit, alpha >= cutoff
+
+
+def shade_blend_layer(vis_b, depth_b, depth_o, nx, ny, nz, u_b, v_b,
+                      draw_object_b, pools, instances, sun: SunLight,
+                      sun_shadow: Optional[torch.Tensor] = None,
+                      ambient: Optional[torch.Tensor] = None,
+                      textured: bool = True
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Forward-shade ONE depth-peeled translucent layer (the glTF Blend
+    bucket; the rasterizer's closest-fragment rule is the peel) ->
+    (colour (H,W,3) AP1, alpha (H,W)), composited by the caller with
+    src-alpha blending. `textured=False` skips the base-map sample (no
+    blend material of the scene carries one)."""
+    slot, _tri = unpack_visibility(vis_b)
+    hit = (slot >= 0) & (depth_b > depth_o)      # in front of opaque
+    slot_safe = torch.clamp_min(slot, 0)
+    mat_d = instances.object_material[draw_object_b.long()].long()
+    base_b = colorspace.srgb_to_acescg(pools.mat_base_color[mat_d][:, :3])
+    em_b = colorspace.srgb_to_acescg(pools.mat_emissive[mat_d])
+    cm = pack_table([base_b[:, 0], base_b[:, 1], base_b[:, 2],
+                     pools.mat_base_color[mat_d][:, 3],
+                     em_b[:, 0], em_b[:, 1], em_b[:, 2],
+                     pools.mat_base_tex[mat_d]])
+    rows = row_gather.gather_rows(cm, slot_safe.contiguous())
+    fb = lambda c: bits_f32(rows[c])
+    alpha = fb(3)
+    albedo = torch.stack([fb(0), fb(1), fb(2)], -1)
+    emissive = torch.stack([fb(4), fb(5), fb(6)], -1)
+    layer = rows[7]
+    one = torch.ones((), device=alpha.device)
+    if textured:
+        uv = torch.stack([u_b, v_b], dim=-1)
+        mip = texture_ops.mip_from_uv_density(uv, pools.tex_size)
+        texel = texture_ops.sample_material_maps(pools, layer[None], uv,
+                                                 mip)[0]
+        has_tex = (layer >= 0)[..., None]
+        albedo = torch.where(
+            has_tex, albedo * colorspace.srgb_to_acescg(texel[..., :3]),
+            albedo)
+        alpha = alpha * torch.where(layer >= 0, texel[..., 3], one)
+
+    n = torch.stack([nx, ny, nz], dim=-1)
+    n = n / torch.clamp_min(_norm3(n), 1e-6)
+    ndl = torch.clamp((n * sun.direction).sum(-1), 0.0, 1.0)
+    lit = ndl if sun_shadow is None else ndl * sun_shadow
+    amb = (ambient if ambient is not None
+           else sun.sky_ambient[None, None, :] * 0.5)
+    color = albedo * (sun.radiance * lit[..., None] / math.pi + amb) + \
+        emissive
+    alpha = torch.where(hit, torch.clamp(alpha, 0.0, 1.0),
+                        torch.zeros((), device=alpha.device))
+    return color, alpha
 
 
 def _norm3(x: torch.Tensor) -> torch.Tensor:

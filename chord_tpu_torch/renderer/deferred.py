@@ -16,6 +16,7 @@ from ..ops import colorspace
 from ..ops.raster import RasterConfig
 from ..utils.camera import ViewUniform
 from ..utils.cvar import cvars
+from ..utils.device import resolve
 
 
 @dataclass
@@ -39,7 +40,9 @@ class DeviceView:
     def from_uniform(cls, u: ViewUniform, sun_direction=(0.3, 0.8, 0.5),
                      sun_radiance=(8.0, 7.6, 7.0),
                      sky_ambient=(0.3, 0.4, 0.6), dt: float = 1.0 / 60.0,
-                     shadow_cfg=None, device="cpu") -> "DeviceView":
+                     shadow_cfg=None, device=None) -> "DeviceView":
+        """Host view uniform -> tensors on `device` (None = the card)."""
+        device = resolve(device)
         if shadow_cfg is not None:
             raise NotImplementedError(
                 "DeviceView.from_uniform(shadow_cfg=...): shadow cascades "

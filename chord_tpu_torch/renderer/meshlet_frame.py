@@ -1,18 +1,23 @@
-"""The GPU-driven meshlet frame (port of chord_tpu/renderer/meshlet_frame.py,
-the `off` feature set: geometry + post).
+"""The GPU-driven meshlet frame (port of chord_tpu/renderer/meshlet_frame.py:
+the bench's `off` feature set, geometry + post, and its `geo_tex` set,
+which adds material maps and the alpha-masked and blend buckets).
 
 Pass order (chord_tpu meshlet_frame.py:470-1166; reference
 renderer.cpp:316-343 and mesh_raster.cpp:269-330):
 cull.object_precull -> cull.phase0 (vs last frame's HZB) -> raster.phase0
 -> hzb.mid -> cull.phase1 (the occluded remainder vs the fresh HZB) ->
-raster.phase1 (seeded with phase 0) -> hzb.final -> gbuffer_resolve ->
-tsr.prepare + disocclusion_mask -> lighting -> auto_exposure -> tsr
-(render -> post upscale, tile reprojection) -> bloom -> tonemap.
+raster.phase1 (seeded with phase 0) -> hzb.final -> [masked.cull ->
+masked.raster -> masked.accept] -> gbuffer_resolve (textured or not) ->
+tsr.prepare + disocclusion_mask -> lighting -> [blend.cull -> blend.raster
+-> blend.shade] -> auto_exposure -> tsr (render -> post upscale, tile
+reprojection) -> bloom -> tonemap. With alpha_masked the occlusion phases
+take the opaque bucket only.
 
-Every flag outside that slice raises NotImplementedError naming the flag.
-A frame is plain eager PyTorch around the four kernels (K1 raster, K2 mesh
-shader, K3 row gather, K4 tile reproject) and needs no host sync: counts
-and overflows stay on the device until the caller reads them.
+Every flag outside those sets raises NotImplementedError naming the flag.
+A frame is plain eager PyTorch around the five kernels (K1 raster, K2 mesh
+shader, K3 row gather, K4 tile reproject, K5 paged texture sampler) and
+needs no host sync: counts and overflows stay on the device until the
+caller reads them.
 """
 
 from __future__ import annotations
@@ -32,8 +37,10 @@ from .deferred import DeviceView, RendererConfig
 
 
 class MeshletFrameConfig(NamedTuple):
-    """chord_tpu MeshletFrameConfig's fields. The port runs the `off` set:
-    occlusion + object_precull on, every optional feature off."""
+    """chord_tpu MeshletFrameConfig's fields. The port runs occlusion +
+    object_precull with material maps, trilinear mip dither and the masked
+    (one layer) and blend buckets; shadows, atmosphere, GI and SSR are
+    not ported yet."""
 
     draw_capacity: int = 4096
     occlusion: bool = True
@@ -50,22 +57,30 @@ class MeshletFrameConfig(NamedTuple):
     pbr_textures: bool = False
     trilinear: bool = False
     alpha_masked: bool = False
+    masked_draw_capacity: int = 1024
+    masked_layers: int = 1         # 2 = depth-peel a second masked layer
     alpha_blend: bool = False
+    blend_draw_capacity: int = 512
+    # does any Blend-bucket material carry a base map? False skips the
+    # blend pass's texture sample; set from the scene's material list
+    blend_textured: bool = True
     motion_res_div: int = 2
     debug_mode: str = "none"
 
 
-_OFF_FLAGS = ("shadows", "atmosphere", "gi", "gi_rt", "ssr", "textured",
-              "normal_mapped", "pbr_textures", "trilinear", "alpha_masked",
-              "alpha_blend")
+_UNPORTED_FLAGS = ("shadows", "atmosphere", "gi", "gi_rt", "ssr")
 
 
 def check_slice(config: RendererConfig, mcfg: MeshletFrameConfig) -> None:
     """Raise NotImplementedError for any flag outside the ported slice."""
-    for name in _OFF_FLAGS:
+    for name in _UNPORTED_FLAGS:
         if getattr(mcfg, name):
             raise NotImplementedError(
                 f"MeshletFrameConfig.{name}=True is not ported yet")
+    if mcfg.masked_layers != 1:
+        raise NotImplementedError(
+            f"MeshletFrameConfig.masked_layers={mcfg.masked_layers}: only "
+            "one masked layer is ported")
     if mcfg.debug_mode != "none":
         raise NotImplementedError(
             f"MeshletFrameConfig.debug_mode={mcfg.debug_mode!r} is not "
@@ -122,12 +137,14 @@ def render_frame_meshlet(pools, instances, view: DeviceView,
     stats["active_overflow"] = active.overflow
 
     # cull.phase0 vs last frame's HZB (invalid history -> all zeros -> all
-    # pass), raster.phase0
+    # pass), raster.phase0; with a masked bucket both phases are opaque-only
     prev_hzb = HZBPyramid(flat=history.hzb_flat, widths=ws, heights=hs,
                           offsets=offs, mip0_w=w, mip0_h=h)
+    opq = False if mcfg.alpha_masked else None
     res0 = cull_pairs(pools, instances, view.frustum_planes, proj_scale, cap,
                       hzb=prev_hzb, hzb_tw_to_clip=view.prev_tw_to_clip_nj,
-                      lod_threshold=mcfg.lod_threshold_px, active=active)
+                      lod_threshold=mcfg.lod_threshold_px, masked=opq,
+                      active=active)
     setup0 = mesh_shader_setup(res0.draws, pools, instances, view.tw_to_clip,
                                cap, w, h, sub_s=rc_a.sub_s)
     queue0 = bin_windows(setup0, rc_a)
@@ -137,7 +154,8 @@ def render_frame_meshlet(pools, instances, view: DeviceView,
     res1 = cull_pairs(pools, instances, view.frustum_planes, proj_scale, cap1,
                       hzb=hzb_now, hzb_tw_to_clip=view.tw_to_clip_nj,
                       lod_threshold=mcfg.lod_threshold_px,
-                      extra_mask=res0.occluded_mask, active=active)
+                      extra_mask=res0.occluded_mask, masked=opq,
+                      active=active)
     setup1 = mesh_shader_setup(res1.draws, pools, instances, view.tw_to_clip,
                                cap1, w, h, payload_base=cap,
                                sub_s=rc_a.sub_s)
@@ -152,12 +170,43 @@ def render_frame_meshlet(pools, instances, view: DeviceView,
     stats["draw_overflow"] = res0.draws.overflow + res1.draws.overflow
 
     depth, vis = rt[0], rt[1]
-    hzb_final = build_hzb(depth)     # next frame's phase-0 occluders
+    # next frame's phase-0 occluders: opaque only (a masked surface full
+    # of holes must not occlude)
+    hzb_final = build_hzb(depth)
+
+    if mcfg.alpha_masked:
+        # the masked bucket (reference pipeline_filter + Masked raster
+        # permutation): cull vs the fresh opaque HZB, raster into its own
+        # layer, then punch through with the deferred alpha test
+        cap_m = min(mcfg.masked_draw_capacity,
+                    -(-pools.num_pairs // 128) * 128)
+        base_m = cap + cap1
+        res_m = cull_pairs(pools, instances, view.frustum_planes, proj_scale,
+                           cap_m, hzb=hzb_final,
+                           hzb_tw_to_clip=view.tw_to_clip_nj,
+                           lod_threshold=mcfg.lod_threshold_px, masked=True,
+                           active=active)
+        setup_m = mesh_shader_setup(res_m.draws, pools, instances,
+                                    view.tw_to_clip, cap_m, w, h,
+                                    payload_base=base_m, sub_s=rc_a.sub_s)
+        rt_m = raster_queue(bin_windows(setup_m, rc_a), setup_m, rc_a)
+        accept = shading.alpha_mask_accept(
+            rt_m[1], rt_m[0], depth, rt_m[5], rt_m[6], res_m.draws.object_id,
+            base_m, pools, instances)
+        rt = [torch.where(accept, m_, o_) for m_, o_ in zip(rt_m, rt)]
+        depth, vis = rt[0], rt[1]
+        draw_object = torch.cat([draw_object, res_m.draws.object_id])
+        stats["draws_masked"] = res_m.draws.count
+        stats["draw_overflow"] = stats["draw_overflow"] + res_m.draws.overflow
 
     gbuf = shading.resolve_gbuffer_raster_rt(
         vis, depth, rt[2], rt[3], rt[4], rt[5], rt[6], draw_object, pools,
         instances, view.clip_to_tw, view.tw_to_clip_nj,
-        view.prev_tw_to_clip_nj, motion_div=mcfg.motion_res_div)
+        view.prev_tw_to_clip_nj, textured=mcfg.textured,
+        normal_mapped=mcfg.normal_mapped, pbr_textures=mcfg.pbr_textures,
+        mip_dither_frame=(history.frame_count
+                          if mcfg.trilinear and mcfg.textured else None),
+        motion_div=mcfg.motion_res_div)
 
     # tsr.prepare + the quarter-res disocclusion mask
     motion_dilated = post.tsr_prepare(gbuf.motion, depth)
@@ -171,6 +220,27 @@ def render_frame_meshlet(pools, instances, view: DeviceView,
                            radiance=view.sun_radiance,
                            sky_ambient=view.sky_ambient)
     hdr = shading.shade_pixels(gbuf, sun)
+
+    if mcfg.alpha_blend:
+        # one depth-peeled translucent layer, forward-shaded and
+        # composited over the lit scene
+        cap_b = min(mcfg.blend_draw_capacity,
+                    -(-pools.num_pairs // 128) * 128)
+        res_b = cull_pairs(pools, instances, view.frustum_planes, proj_scale,
+                           cap_b, hzb=hzb_final,
+                           hzb_tw_to_clip=view.tw_to_clip_nj,
+                           lod_threshold=mcfg.lod_threshold_px,
+                           masked="blend", active=active)
+        setup_b = mesh_shader_setup(res_b.draws, pools, instances,
+                                    view.tw_to_clip, cap_b, w, h,
+                                    sub_s=rc_a.sub_s)
+        rt_b = raster_queue(bin_windows(setup_b, rc_a), setup_b, rc_a)
+        b_col, b_alpha = shading.shade_blend_layer(
+            rt_b[1], rt_b[0], depth, rt_b[2], rt_b[3], rt_b[4], rt_b[5],
+            rt_b[6], res_b.draws.object_id, pools, instances, sun,
+            textured=mcfg.blend_textured and mcfg.textured)
+        hdr = hdr * (1.0 - b_alpha[..., None]) + b_col * b_alpha[..., None]
+        stats["draws_blend"] = res_b.draws.count
 
     ecfg = post.ExposureConfig(fix_exposure=float(cvars.get("r.exposure.fix")))
     exposure = post.adapt_exposure(post.luminance_histogram(hdr, ecfg),
@@ -199,7 +269,8 @@ def render_frame_meshlet(pools, instances, view: DeviceView,
 
 
 SEQUENCE_STATS = ("drawn_tris", "bin_overflow", "draw_overflow",
-                  "active_overflow", "draws_phase0", "draws_phase1")
+                  "active_overflow", "draws_phase0", "draws_phase1",
+                  "draws_masked")
 
 
 def render_sequence_meshlet(pools, instances, views_stacked: DeviceView,
@@ -220,13 +291,14 @@ def render_sequence_meshlet(pools, instances, views_stacked: DeviceView,
     if not with_stats:
         return images, history
     seq = {k: torch.stack([s[k] for s in per_frame])
-           for k in SEQUENCE_STATS}
+           for k in SEQUENCE_STATS if k in per_frame[0]}
     return images, history, seq
 
 
 class MeshletRenderer:
     """Host-side runner for the meshlet frame (chord_tpu MeshletRenderer without
-    the shadow / atmosphere / GI branches)."""
+    the shadow / atmosphere / GI branches). History and views go to the
+    device the pools live on."""
 
     def __init__(self, config: RendererConfig,
                  mcfg: MeshletFrameConfig = MeshletFrameConfig()):

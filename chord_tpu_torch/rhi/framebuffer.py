@@ -59,9 +59,12 @@ class FrameHistory:
 
     @classmethod
     def empty(cls, h: int, w: int, post_h: Optional[int] = None,
-              post_w: Optional[int] = None, device="cpu") -> "FrameHistory":
+              post_w: Optional[int] = None, device=None) -> "FrameHistory":
+        """Invalid (valid=0) history on `device` (None = the card)."""
         from ..ops.hzb import hzb_layout
+        from ..utils.device import resolve
 
+        device = resolve(device)
         ph, pw = post_h or h, post_w or w
         ws, hs, offs = hzb_layout(w, h)
         total = offs[-1] + ws[-1] * hs[-1]

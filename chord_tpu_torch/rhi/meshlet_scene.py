@@ -2,10 +2,12 @@
 (port of chord_tpu/rhi/meshlet_scene.py).
 
 The tables are built on the host with numpy exactly as chord_tpu builds
-them, then moved to the device the caller names. Each mesh's geometry is
-stored once; the pair table expands instances x their mesh's meshlets
-(reference: instance_culling.hlsl:48-208 draw stream). The texture pools
-belong to the textured slice and are not built here.
+them, then moved to the device the caller names (the card by default).
+Each mesh's geometry is stored once; the pair table expands instances x
+their mesh's meshlets (reference: instance_culling.hlsl:48-208 draw
+stream). The texture pool rides along twice: the raw u8 flat-mip stack
+(`tex_pool`, the sampling oracle's input and the source of `tex_size`)
+and its paged form (`tex_pages` + `tex_meta`, kernel K5's input).
 """
 
 from __future__ import annotations
@@ -17,12 +19,19 @@ import numpy as np
 import torch
 
 from ..geometry.meshlet import build_meshlets
+from ..ops.paged_texture import pack_paged_pool
+from ..utils.device import resolve
 from ..utils.log import get_logger
 from .scene_arrays import SceneBuilder
 
 log = get_logger("rhi.meshlet")
 
 MESHLET_TRIS = 128   # raster window width == meshlet max tris
+
+
+def _empty_tex_pool() -> np.ndarray:
+    """1-layer 1x1 placeholder (total texels for size=1 is 1)."""
+    return np.full((1, 1, 4), 255, np.uint8)
 
 
 @dataclass
@@ -61,6 +70,16 @@ class MeshletScenePools:
     mat_mr_tex: torch.Tensor      # (Mt,) i32
     mat_emissive_tex: torch.Tensor  # (Mt,) i32
     mat_alpha_cutoff: torch.Tensor  # (Mt,) f32
+    tex_pool: torch.Tensor        # (L, total_texels, 4) u8 flat-mip stack
+    # paged pool (ops/paged_texture.py): apron-tiled pages + entry table
+    tex_pages: torch.Tensor       # (n_pages*8 | n_pages*2, 128) i32
+    tex_meta: torch.Tensor        # (2|3, E_pad) i32 [page base | avg | fmt]
+
+    @property
+    def tex_size(self) -> int:
+        # total = sum_k (size/2^k)^2 = (4*size^2 - 1) / 3
+        import math
+        return int(math.isqrt((3 * self.tex_pool.shape[1] + 1) // 4))
 
     @property
     def num_meshlets(self) -> int:
@@ -99,13 +118,32 @@ def _mesh_tables(builder: SceneBuilder, cache: Dict[int, dict],
         }
 
 
+def _texture_arrays(texture_pool, compress: Optional[bool]
+                    ) -> Dict[str, np.ndarray]:
+    """The raw and the paged texture pool (chord_tpu
+    meshlet_scene.py:240-255, 293-296); no pool -> a 1x1 white
+    placeholder."""
+    if compress is None:
+        from ..utils.cvar import cvars
+        compress = bool(cvars.get("r.texture.compress"))
+    if texture_pool is not None and texture_pool.textures:
+        raw = texture_pool.u8()
+        pages, meta, _ = pack_paged_pool(raw, texture_pool.mip_sizes,
+                                         texture_pool.mip_offsets,
+                                         compress=compress)
+    else:
+        pages, meta, _ = pack_paged_pool(_empty_tex_pool(), (1,), (0,),
+                                         compress=compress)
+        raw = (texture_pool.u8() if texture_pool is not None
+               else _empty_tex_pool())
+    return dict(tex_pool=raw, tex_pages=pages, tex_meta=meta)
+
+
 def _pool_arrays(builder: SceneBuilder, meshlet_cache: Optional[Dict[int, dict]],
                  nanite: bool) -> Dict[str, np.ndarray]:
     """SceneBuilder -> dict of numpy pool arrays (MeshletScenePools field
-    names). Meshlets are built per MESH and shared across instances."""
-    if getattr(builder, "texture_pool", None) is not None:
-        raise NotImplementedError(
-            "build_meshlet_pools: texture pools belong to the textured slice")
+    names, textures aside). Meshlets are built per MESH and shared across
+    instances."""
     cache = meshlet_cache if meshlet_cache is not None else {}
     _mesh_tables(builder, cache, nanite)
 
@@ -210,13 +248,21 @@ def _pool_arrays(builder: SceneBuilder, meshlet_cache: Optional[Dict[int, dict]]
 def build_meshlet_pools(builder: SceneBuilder,
                         meshlet_cache: Optional[Dict[int, dict]] = None,
                         nanite: bool = False,
-                        device="cpu") -> MeshletScenePools:
-    """SceneBuilder (meshes + instances) -> meshlet pools on `device`.
+                        texture_pool=None,
+                        texture_compress: Optional[bool] = None,
+                        device=None) -> MeshletScenePools:
+    """SceneBuilder (meshes + instances) -> meshlet pools on `device`
+    (None = the card).
 
     With nanite=True the shared C++ builder (native/nanite.cpp) produces
     the full cluster-LOD DAG — meshlets of every LOD level in one flat
     table; the runtime cut (ops/cull.py lod_cut_visible) picks one level
-    per screen size (reference: asset/nanite_builder.cpp GMSS)."""
+    per screen size (reference: asset/nanite_builder.cpp GMSS).
+    `texture_pool` (an asset.texture.TexturePool, e.g. the SceneBuilder's
+    `texture_pool`) is packed into pages, block-compressed unless
+    `texture_compress` (default: the r.texture.compress cvar) says no."""
+    device = resolve(device)
     arrays = _pool_arrays(builder, meshlet_cache, nanite)
+    arrays.update(_texture_arrays(texture_pool, texture_compress))
     return MeshletScenePools(**{k: torch.from_numpy(v).to(device)
                                 for k, v in arrays.items()})

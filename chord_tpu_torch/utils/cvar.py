@@ -2,8 +2,8 @@
 
 Typed, flagged console variables with change callbacks, settable from code
 or ini-style text (reference: source/utils/cvar.h). Only the variables the
-ported frame reads are registered here: the raster tiling knobs and the
-fixed-exposure override.
+ported frame reads are registered here: the raster tiling knobs, the
+fixed-exposure override and the texture-pool compression switch.
 """
 
 from __future__ import annotations
@@ -113,3 +113,8 @@ cvars.register("r.raster.bricks", False,
                "False).")
 cvars.register("r.exposure.fix", -1.0,
                "fixed exposure; <=0 enables auto exposure")
+cvars.register("r.texture.compress", True,
+               "Block-compress the paged texture pool (BC-style 4x4 blocks, "
+               "4x smaller pages decoded per texel fetch — "
+               "ops/paged_texture.py compress_page; chord_tpu's default, "
+               "chord_tpu/utils/cvar.py:155).")

@@ -3,7 +3,9 @@
 Marked `cuda`: each test skips where torch sees no CUDA device (the CPU
 test runs); on the GPU machine run them with
 
-    python -m pytest tests/test_torch_cuda.py -q
+    python3 -m pytest tests/test_torch_cuda.py -q --noconftest
+
+(--noconftest: tests/conftest.py configures JAX, which that machine lacks).
 
 Tolerance: 0. The kernels are built with -fmad=false and round every
 product and sum as the plain versions do, so every output must match bit
@@ -15,8 +17,11 @@ import numpy as np
 import pytest
 import torch
 
-from chord_tpu_torch.asset.procedural import build_sponza_like
-from chord_tpu_torch.ops import kernels, raster, row_gather, tile_reproject
+from chord_tpu_torch.asset.procedural import (bench_texture_pool,
+                                              build_bistro_like,
+                                              build_sponza_like)
+from chord_tpu_torch.ops import (kernels, paged_texture, raster, row_gather,
+                                 tile_reproject)
 from chord_tpu_torch.renderer import (DeviceView, MeshletFrameConfig,
                                       RendererConfig,
                                       render_sequence_meshlet)
@@ -28,6 +33,11 @@ W, H, PW, PH = 128, 64, 192, 96
 CFG = RendererConfig(width=W, height=H, post_width=PW, post_height=PH,
                      pair_capacity=4096, big_capacity=128, tsr_mode="tile")
 MCFG = MeshletFrameConfig(draw_capacity=1024)
+# the geo_tex rung (bench.py:204-219): maps, masked and blend buckets
+TEX_MCFG = MeshletFrameConfig(draw_capacity=1024, masked_draw_capacity=256,
+                              textured=True, normal_mapped=True,
+                              pbr_textures=True, alpha_masked=True,
+                              alpha_blend=True, blend_textured=False)
 
 
 @pytest.fixture
@@ -35,6 +45,29 @@ def dev():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the port's kernels run on the GPU)")
     return torch.device("cuda", 0)
+
+
+def _tex_sequence(d, frames=3):
+    """The small textured bistro along bench.py's camera path, jittered."""
+    b = build_bistro_like(detail=1, textures=True)
+    cam = Camera(width=W, height=H)
+    vs = []
+    for i in range(frames):
+        t = i / 15
+        cam.position = np.array([-45.0 + 70.0 * t, 5.0, 4.0])
+        cam.look_at(np.array([55.0, 3.0, -4.0]))
+        vs.append(DeviceView.from_uniform(cam.view_uniform(i, jitter=True),
+                                          device=d))
+    return (build_meshlet_pools(b, texture_pool=b.texture_pool, device=d),
+            b.frame_instances(cam, device=d), DeviceView.stack(vs),
+            FrameHistory.empty(H, W, PH, PW, device=d))
+
+
+def _path_run(path, d):
+    """-> (sequence inputs on `d`, frame config) of a kernels.PATHS path."""
+    if path == "off":
+        return _sequence(d), MCFG
+    return _tex_sequence(d), TEX_MCFG
 
 
 def _sequence(d, frames=3):
@@ -60,16 +93,48 @@ def _exact(k, args, kwargs):
 
 @pytest.mark.cuda
 def test_kernels_match_plain_on_frame_inputs(dev):
-    pools, inst, views, hist = _sequence(dev)
-    kernels.reset_launch_counts()
-    with kernels.capture_inputs() as captured:
-        render_sequence_meshlet(pools, inst, views, hist, CFG, MCFG)
-    counts = kernels.launch_counts()
-    for k in kernels.KERNELS:
-        assert captured[k.name], k.name
-        assert counts[k.name] == len(captured[k.name]), k.name
-        for args, kwargs in captured[k.name]:
-            _exact(k, args, kwargs)
+    """Every kernel, on the inputs of every path that lists it."""
+    for path in kernels.PATHS:
+        inputs, mcfg = _path_run(path, dev)
+        kernels.reset_launch_counts()
+        with kernels.capture_inputs() as captured:
+            render_sequence_meshlet(*inputs, CFG, mcfg)
+        counts = kernels.launch_counts()
+        for k in kernels.KERNELS:
+            if path not in k.paths:
+                assert not captured[k.name], (path, k.name)
+                continue
+            assert captured[k.name], (path, k.name)
+            assert counts[k.name] == len(captured[k.name]), (path, k.name)
+            for args, kwargs in captured[k.name]:
+                _exact(k, args, kwargs)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("compress", [False, True])
+def test_paged_sample_random_inputs(dev, compress):
+    """K5 on the bench pool at 720x1280: the resolve's 4-map bilinear call
+    and the masked test's nearest call, random layers / uv / mips."""
+    tp = bench_texture_pool()
+    pages, meta, n_mips = paged_texture.pack_paged_pool(
+        tp.u8(), tp.mip_sizes, tp.mip_offsets, compress)
+    rng = np.random.default_rng(5)
+    for c, bilinear in ((4, True), (1, False)):
+        layers = torch.from_numpy(rng.integers(-1, 12, (c, 720, 1280),
+                                               dtype=np.int64)
+                                  .astype(np.int32))
+        uv = torch.from_numpy(rng.uniform(-3, 3, (720, 1280, 2))
+                              .astype(np.float32))
+        mip = torch.from_numpy(rng.integers(-1, 11, (720, 1280),
+                                            dtype=np.int64).astype(np.int32))
+        args = [torch.from_numpy(pages), torch.from_numpy(meta), n_mips,
+                tp.mip_sizes, layers, uv, mip]
+        ref = paged_texture.paged_sample_plain(*args, bilinear=bilinear)
+        got = paged_texture.paged_sample(
+            *[a.to(dev) if isinstance(a, torch.Tensor) else a for a in args],
+            bilinear=bilinear)
+        torch.cuda.synchronize()
+        assert torch.equal(got.cpu(), ref), (compress, c)
 
 
 @pytest.mark.cuda
@@ -120,6 +185,19 @@ def test_wrappers_reject_bad_inputs(dev):
         tile_reproject.reproject_tiles(
             torch.zeros((3, 10, 10), device=dev),
             torch.zeros((1, 4), dtype=torch.int32, device=dev), 32, 128)
+    pages = torch.zeros((16, 128), dtype=torch.int32, device=dev)
+    meta = torch.zeros((3, 128), dtype=torch.int32, device=dev)
+    layers = torch.zeros((2, 4, 4), dtype=torch.int32, device=dev)
+    uv = torch.zeros((4, 4, 2), device=dev)
+    for bad in (dict(meta=meta[:1]), dict(pages=pages[:, :64]),
+                dict(layers=layers.float()), dict(uv=uv[..., :1]),
+                dict(mip=slot.float()), dict(n_mips=17),
+                dict(uv=uv.transpose(0, 1))):
+        a = dict(pages=pages, meta=meta, n_mips=2, mip_sizes=(2, 1),
+                 layers=layers, uv=uv, mip=slot)
+        a.update(bad)
+        with pytest.raises(ValueError):
+            paged_texture.paged_sample(**a)
     with pytest.raises(NotImplementedError):
         raster.raster_queue(None, raster.TriangleSetup(
             coefT=table, window_bbox=slot, window_valid=slot, valid=slot),
@@ -127,16 +205,21 @@ def test_wrappers_reject_bad_inputs(dev):
 
 
 @pytest.mark.cuda
-def test_gpu_frames_match_cpu_plain(dev):
-    """The tiny sequence through the kernels on the GPU equals the plain
-    versions on the CPU (the path the CPU tests hold against chord_tpu):
-    stats exactly, images within 2 u8 levels on >= 99.9% of values."""
+@pytest.mark.parametrize("path", ["off", "geo_tex"])
+def test_gpu_frames_match_cpu_plain(dev, path):
+    """The tiny sequence of each path through the kernels on the GPU equals
+    the plain versions on the CPU (the path the CPU tests hold against
+    chord_tpu): stats exactly, images within 2 u8 levels on >= 99.9% of
+    values."""
     out = {}
     for d in (dev, torch.device("cpu")):
-        imgs, _, st = render_sequence_meshlet(*_sequence(d), CFG, MCFG,
+        inputs, mcfg = _path_run(path, d)
+        imgs, _, st = render_sequence_meshlet(*inputs, CFG, mcfg,
                                               with_stats=True)
         out[d.type] = (imgs.cpu().numpy().astype(np.int32),
                        {k: v.cpu().tolist() for k, v in st.items()})
     assert out["cuda"][1] == out["cpu"][1]
+    if path == "geo_tex":
+        assert max(out["cuda"][1]["draws_masked"]) > 0
     diff = np.abs(out["cuda"][0] - out["cpu"][0])
     assert (diff <= 2).mean() >= 0.999, diff.max()

@@ -41,9 +41,9 @@ def state():
     view = JView.from_uniform(cam.view_uniform(0))
     inst = b.frame_instances(cam)
     return dict(j=(pools, inst, view),
-                t=(interop.pools_from_numpy(_np(pools)),
-                   interop.instances_from_numpy(_np(inst)),
-                   interop.view_from_numpy(_np(view))))
+                t=(interop.pools_from_numpy(_np(pools), device="cpu"),
+                   interop.instances_from_numpy(_np(inst), device="cpu"),
+                   interop.view_from_numpy(_np(view), device="cpu")))
 
 
 def _same_draws(port, ref):

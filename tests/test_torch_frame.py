@@ -67,11 +67,12 @@ def runs():
 
     b = build_sponza_like(detail=1)
     cam = Camera(width=W, height=H)
-    views = DeviceView.stack([DeviceView.from_uniform(u) for u in _path(cam)])
-    inst = b.frame_instances(cam)
-    pools = build_meshlet_pools(b)
+    views = DeviceView.stack([DeviceView.from_uniform(u, device="cpu")
+                              for u in _path(cam)])
+    inst = b.frame_instances(cam, device="cpu")
+    pools = build_meshlet_pools(b, device="cpu")
     imgs, hist, stats = render_sequence_meshlet(
-        pools, inst, views, FrameHistory.empty(H, W, PH, PW),
+        pools, inst, views, FrameHistory.empty(H, W, PH, PW, device="cpu"),
         RendererConfig(**CFG), MeshletFrameConfig(draw_capacity=1024),
         with_stats=True)
     return dict(jax=(np.asarray(j_imgs), j_hist, j_stats),
@@ -130,10 +131,11 @@ def test_renderer_matches_sequence(runs):
 
 def test_flags_outside_the_slice_raise(runs):
     b, pools, inst, views = runs["scene"]
-    hist = FrameHistory.empty(H, W, PH, PW)
+    hist = FrameHistory.empty(H, W, PH, PW, device="cpu")
     for mcfg, cfg in [
             (MeshletFrameConfig(shadows=True), RendererConfig(**CFG)),
-            (MeshletFrameConfig(textured=True), RendererConfig(**CFG)),
+            (MeshletFrameConfig(masked_layers=2), RendererConfig(**CFG)),
+            (MeshletFrameConfig(gi=True), RendererConfig(**CFG)),
             (MeshletFrameConfig(occlusion=False), RendererConfig(**CFG)),
             (MeshletFrameConfig(), RendererConfig(**{**CFG,
                                                      "tsr_mode": "gather"})),

@@ -46,8 +46,8 @@ def state():
     inst = b.frame_instances(cam)
     ps = 0.5 * H * view.tw_to_clip_nj[1, 1]
     res = jcull.cull_pairs(pools, inst, view.frustum_planes, ps, CAP)
-    tpools = interop.pools_from_numpy(_np(pools))
-    tinst = interop.instances_from_numpy(_np(inst))
+    tpools = interop.pools_from_numpy(_np(pools), device="cpu")
+    tinst = interop.instances_from_numpy(_np(inst), device="cpu")
     tdraws = cull.DrawList(*[torch.from_numpy(np.array(x))
                              for x in res.draws])
     return dict(j=(pools, inst, view, res.draws),

@@ -1,0 +1,127 @@
+"""K5's plain version (the port's paged texture sampler on the CPU) against
+chord_tpu's Pallas `paged_sample` in interpret mode, with its palette
+coverage output.
+
+The inputs cover raw and block-compressed pools, bilinear and nearest
+taps, every mip of the 256² bench pool down to the 1x1 tail (and mips out
+of range, which clamp), untextured channels (layer -1), u and v that wrap
+and go negative, and a wrap seam inside one block. uv is coherent within
+each 8x128 block, so chord_tpu's K-page palette covers every pixel; the
+test asserts that before comparing.
+
+Tolerances: nearest returns a stored texel, so it is exact. Bilinear
+rounds an f32 filter of four u8 texels to u8: XLA's CPU backend contracts
+the filter sum into FMAs, which moves a value that lies on a .5 boundary
+by one level, so >= 99.9% must be exact and none may differ by more than
+one level.
+
+Where chord_tpu's palette MISSES (incoherent uv, a 2-page palette), it
+falls back to a coarser mip; the port has no palette and returns the
+full-resolution sample everywhere. That documented difference is checked
+in code: on the missed pixels the port equals the full-coverage oracle,
+the port's `sample_pool` over the pool quantised as the kernel rounds.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from chord_tpu.ops import paged_texture as jpt
+
+from chord_tpu_torch.asset.procedural import bench_texture_pool
+from chord_tpu_torch.ops import paged_texture as pt
+from chord_tpu_torch.ops import texture as to
+
+BH = 8                 # chord_tpu's palette block height for these inputs
+
+
+@pytest.fixture(scope="module")
+def pool():
+    tp = bench_texture_pool()
+    return tp, tp.u8()
+
+
+def _packed(pool_raw, tp, compress):
+    pages, meta, n_mips = pt.pack_paged_pool(pool_raw, tp.mip_sizes,
+                                             tp.mip_offsets, compress)
+    return pages, meta, n_mips
+
+
+def _coherent_inputs(seed=0):
+    """9 blocks of 8 rows; block i samples mip i over <= 2x2 page tiles."""
+    rng = np.random.default_rng(seed)
+    h, w = 8 * 9, 128
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+    blk = (yy // BH).astype(np.int32)
+    u0 = (-2.37 + 0.31 * blk).astype(np.float32)
+    v0 = (3.71 - 0.53 * blk).astype(np.float32)
+    u0[blk == 3] = 0.95            # a wrap seam inside block 3
+    uv = np.stack([u0 + xx * (0.1 / w), v0 + (yy % BH) * 0.0013], -1)
+    mip = blk.copy()
+    mip[0, :5] = -1                # clamps to 0
+    mip[-1, :5] = 12               # clamps to the 1x1 tail
+    layers = np.stack([(blk * 5 + 1) % 12, (blk * 7 + 4) % 12])
+    layers[1][(xx.astype(np.int32) % 7) == 0] = -1
+    layers[0][:, :3] = -1
+    return (layers.astype(np.int32), uv.astype(np.float32),
+            mip.astype(np.int32))
+
+
+@pytest.mark.parametrize("compress", [False, True])
+@pytest.mark.parametrize("bilinear", [True, False])
+def test_paged_sample_matches_chord_tpu(pool, compress, bilinear):
+    tp, raw = pool
+    pages, meta, n_mips = _packed(raw, tp, compress)
+    layers, uv, mip = _coherent_inputs()
+    ref, cov = jpt.paged_sample(
+        jnp.asarray(pages), jnp.asarray(meta), n_mips, tp.mip_sizes,
+        jnp.asarray(layers), jnp.asarray(uv), jnp.asarray(mip),
+        bilinear=bilinear, block_h=BH, k_pages=8, with_coverage=True)
+    assert bool(np.asarray(cov).all()), "the reference palette must cover"
+    packed = pt.paged_sample(torch.from_numpy(pages), torch.from_numpy(meta),
+                             n_mips, tp.mip_sizes, torch.from_numpy(layers),
+                             torch.from_numpy(uv), torch.from_numpy(mip),
+                             bilinear=bilinear)
+    assert packed.dtype == torch.int32 and packed.shape == layers.shape
+    got = pt.unpack_rgba(packed).numpy()
+    ref = np.asarray(ref)
+    assert (got[layers < 0] == 1.0).all()
+    levels = np.abs(np.rint(got * 255) - np.rint(ref * 255))
+    if bilinear:
+        assert (levels == 0).mean() >= 0.999 and levels.max() <= 1, \
+            ((levels > 0).mean(), levels.max())
+    else:
+        np.testing.assert_array_equal(got, ref)
+
+
+def test_palette_miss_port_takes_the_full_sample(pool):
+    tp, raw = pool
+    pages, meta, n_mips = _packed(raw, tp, compress=False)
+    rng = np.random.default_rng(3)
+    h, w = 16, 128
+    layers = rng.integers(0, 12, (1, h, w)).astype(np.int32)
+    uv = rng.uniform(-2, 2, (h, w, 2)).astype(np.float32)
+    mip = rng.integers(0, 4, (h, w)).astype(np.int32)
+    ref, cov = jpt.paged_sample(
+        jnp.asarray(pages), jnp.asarray(meta), n_mips, tp.mip_sizes,
+        jnp.asarray(layers), jnp.asarray(uv), jnp.asarray(mip),
+        bilinear=True, block_h=BH, k_pages=2, with_coverage=True)
+    cov = np.asarray(cov)
+    assert cov.mean() < 0.5, "the 2-page palette must miss"
+    packed = pt.paged_sample(torch.from_numpy(pages), torch.from_numpy(meta),
+                             n_mips, tp.mip_sizes, torch.from_numpy(layers),
+                             torch.from_numpy(uv), torch.from_numpy(mip))
+    got = np.rint(pt.unpack_rgba(packed).numpy() * 255)
+    # the oracle: bilinear over the full pool in u8 units, rounded as the
+    # kernel rounds its filter
+    filt = to.sample_pool(torch.from_numpy(raw.astype(np.float32)),
+                          tp.mip_sizes, tp.mip_offsets,
+                          torch.from_numpy(layers[0]), torch.from_numpy(uv),
+                          torch.from_numpy(mip))
+    oracle = torch.clamp(filt + 0.5, 0.0, 255.0).to(torch.int32).numpy()
+    np.testing.assert_array_equal(got[0], oracle)
+    # covered pixels agree with chord_tpu; missed ones took its fallback
+    levels = np.abs(got - np.rint(np.asarray(ref) * 255))
+    assert (levels[cov] == 0).mean() >= 0.999 and levels[cov].max() <= 1
+    assert (levels[~cov] > 1).any()

@@ -247,8 +247,8 @@ def test_no_phantom_from_invalid_lanes():
     rc = jr.RasterConfig(width=r, height=r, pair_capacity=4096,
                          big_capacity=64, interpret=True)
     cfg = _port_cfg(rc)
-    tpools = interop.pools_from_numpy(_np(pools))
-    tinst = interop.instances_from_numpy(_np(inst))
+    tpools = interop.pools_from_numpy(_np(pools), device="cpu")
+    tinst = interop.instances_from_numpy(_np(inst), device="cpu")
     draws = cull.DrawList(*[torch.from_numpy(np.array(x))
                             for x in res.draws])
     outs = {}

@@ -48,7 +48,8 @@ def _pool_fields():
 
 def test_sponza_pools_match():
     ref = _np(jax_pools(jax_sponza(detail=1)))
-    _assert_same(build_meshlet_pools(build_sponza_like(detail=1)), ref,
+    _assert_same(build_meshlet_pools(build_sponza_like(detail=1),
+                                     device="cpu"), ref,
                  _pool_fields())
 
 
@@ -58,12 +59,23 @@ def test_small_bistro_pools_match(nanite):
         assert native_available(), "the shared native library must load"
     ref = _np(jax_pools(jax_bistro(detail=1), nanite=nanite))
     _assert_same(build_meshlet_pools(build_bistro_like(detail=1),
-                                     nanite=nanite), ref, _pool_fields())
+                                     nanite=nanite, device="cpu"), ref,
+                 _pool_fields())
 
 
 def test_bistro_textures_raise():
-    with pytest.raises(NotImplementedError):
-        build_bistro_like(detail=1, textures=True)
+    """The textured bistro (bench texture pool, masked leaves) builds
+    the same meshlet pools as chord_tpu's, the paged texture pool
+    (compressed, the r.texture.compress default) included."""
+    jb = jax_bistro(detail=1, textures=True)
+    ref = _np(jax_pools(jb, texture_pool=jb.texture_pool))
+    b = build_bistro_like(detail=1, textures=True)
+    pools = build_meshlet_pools(b, texture_pool=b.texture_pool, device="cpu")
+    _assert_same(pools, ref, _pool_fields())
+    assert pools.tex_size == 256 and tuple(pools.tex_meta.shape) == (3, 128)
+    assert pools.tex_pages.shape[0] == 2 * 12 * 124
+    _assert_same(interop.pools_from_numpy(ref, device="cpu"), ref,
+                 ["tex_pool", "tex_pages", "tex_meta"])
 
 
 def _cams():
@@ -79,7 +91,7 @@ def _cams():
 def test_frame_instances_match():
     jcam, cam = _cams()
     ref = _np(jax_bistro(detail=1).frame_instances(jcam))
-    inst = build_bistro_like(detail=1).frame_instances(cam)
+    inst = build_bistro_like(detail=1).frame_instances(cam, device="cpu")
     _assert_same(inst, ref, [f.name for f in dataclasses.fields(inst)])
 
 
@@ -87,10 +99,11 @@ def test_frame_instances_match():
 def test_device_view_matches(jitter):
     jcam, cam = _cams()
     ref = _np(JView.from_uniform(jcam.view_uniform(3, jitter=jitter)))
-    view = DeviceView.from_uniform(cam.view_uniform(3, jitter=jitter))
+    view = DeviceView.from_uniform(cam.view_uniform(3, jitter=jitter),
+                                  device="cpu")
     _assert_same(view, ref, [f.name for f in dataclasses.fields(view)])
     # interop carries chord_tpu's view across unchanged
-    _assert_same(interop.view_from_numpy(ref), ref,
+    _assert_same(interop.view_from_numpy(ref, device="cpu"), ref,
                  [f.name for f in dataclasses.fields(view)])
 
 
@@ -137,8 +150,32 @@ def test_empty_history_matches():
     from chord_tpu_torch.rhi.framebuffer import FrameHistory
 
     jh = JHistory.empty(64, 128, post_h=96, post_w=192)
-    got = FrameHistory.empty(64, 128, 96, 192)
+    got = FrameHistory.empty(64, 128, 96, 192, device="cpu")
     names = [f.name for f in dataclasses.fields(got)]
     ref = {n: np.asarray(getattr(jh, n)) for n in names}
     _assert_same(got, ref, names)
-    _assert_same(interop.history_from_numpy(ref), ref, names)
+    _assert_same(interop.history_from_numpy(ref, device="cpu"), ref, names)
+
+
+def test_entry_points_default_to_the_card():
+    """Without device=..., the entry points put their tensors on the
+    card; with no CUDA device that raises instead of running on the CPU."""
+    import torch
+    from chord_tpu_torch.asset.texture import TexturePool
+    from chord_tpu_torch.rhi.framebuffer import FrameHistory
+
+    if torch.cuda.is_available():
+        assert FrameHistory.empty(8, 8).depth.is_cuda
+        return
+    b = build_sponza_like(detail=1)
+    _, cam = _cams()
+    for call in (lambda: FrameHistory.empty(8, 8),
+                 lambda: build_meshlet_pools(b),
+                 lambda: b.frame_instances(cam),
+                 lambda: DeviceView.from_uniform(cam.view_uniform(0)),
+                 lambda: interop.history_from_numpy(
+                     {f.name: np.zeros(2, np.float32) for f in
+                      dataclasses.fields(FrameHistory)}),
+                 lambda: TexturePool(8).device_array()):
+        with pytest.raises((RuntimeError, AssertionError)):
+            call()
