@@ -4,39 +4,61 @@
     python3 chip_smoke.py              # the default run
     python3 chip_smoke.py --profile    # + a torch.profiler breakdown per path
 
-Two paths, the bench's `off` and `geo_tex` rungs (bench.py:35-54): the
-1280x720 render of the 2.6M-triangle procedural bistro (Nanite LOD cut),
-upscaled to 1920x1080 by tile-mode TSR, bloom and the ACES tonemap;
-`geo_tex` adds the bench texture pool (12 layers of 256², block-compressed
-pages), base / normal / metal-rough maps, the alpha-masked bucket and the
-blend bucket, on the bistro built with textures=True.
+Three paths, the bench's `off`, `geo_tex` and `geo_shadow_atmo` rungs
+(bench.py:35-54): the 1280x720 render of the 2.6M-triangle procedural
+bistro (Nanite LOD cut), upscaled to 1920x1080 by tile-mode TSR, bloom and
+the ACES tonemap; `geo_tex` adds the bench texture pool (12 layers of 256²,
+block-compressed pages), base / normal / metal-rough maps, the
+alpha-masked bucket and the blend bucket, on the bistro built with
+textures=True; `geo_shadow_atmo` renders the same textured bistro with
+ShadowConfig() (4 cascades of 1024², round-robin refresh, scrolled cache,
+alpha-tested masked casters, PCSS on a 2x2 phase of the 1/4-res grid,
+temporal mask), the physically based sky, sun tint, ambient and aerial
+perspective, with the atmosphere LUTs built once (bench.py:236-256).
 
 Phases (any failure raises and the script exits non-zero):
 
 1. Requires a CUDA device; prints the card's name and power limit.
-2. Builds the five hand-written kernels (chord_tpu_torch/csrc/*.cu, one
+2. Builds the six hand-written kernels (chord_tpu_torch/csrc/*.cu, one
    nvcc per source, all at once) into build/kernels/.
-3. Builds both scenes (sharing the Nanite DAG of their common meshes) and
-   prints build time, page count and pool bytes.
-4. Kernel vs plain version, per path: runs two frames of the path while
-   recording every kernel call's inputs, then runs each kernel and its
-   plain PyTorch version on the second frame's calls (K1 raster, K2 mesh
-   shader, K3 row gather, K4 tile reproject on both paths; K5 paged
-   texture sampler on `geo_tex`, both its calls: 4 maps bilinear and 1 map
-   nearest). Tolerance 0: the kernels are built with -fmad=false and round
-   every operation as the plain versions do. Times each call (CUDA
-   events, inputs L2-warm), computes its bound (the larger of the bytes
-   its inputs and outputs occupy over 3.35 TB/s and the f32 operations
-   this run's data needs over 67 TFLOP/s) and, for K3, times one
-   torch.index_select of the same rows as a library yardstick.
+3. Builds both scenes (sharing the Nanite DAG of their common meshes; the
+   shadow path reuses the textured one) and the LUTs, and prints build
+   time, page count and pool bytes.
+4. Kernel vs plain version, per path: renders the path's first frame
+   (on the shadow path its first four, so every cascade holds depth),
+   then records every kernel call's inputs through the next frame, and
+   runs each kernel and its plain PyTorch version on those calls (K1
+   raster, K2 mesh shader, K3 row gather, K4 tile reproject on every path;
+   K5 paged texture sampler on `geo_tex` and `geo_shadow_atmo`, the latter
+   with its masked shadow casters; K6 PCSS on `geo_shadow_atmo`).
+   Tolerance 0: the kernels are built with -fmad=false and round every
+   operation as the plain versions do. Times each call (CUDA events,
+   inputs L2-warm, queued behind a device-side sleep so the events see the
+   device's time and not the host's issue rate; the issue-paced time is
+   kept beside it), computes its bound (the larger of the bytes it must
+   move over 3.35 TB/s and the f32 operations this run's data needs over
+   67 TFLOP/s; the bytes are its inputs and outputs, except that K6 counts
+   the 32-B sectors of the stack its taps touch, not the whole stack) and,
+   for K3, times one torch.index_select of the same rows as a library
+   yardstick.
 5. Each path's 16-frame sequence, render_sequence_meshlet(with_stats=True),
    with every launch count set to 0 just before and read just after:
    worst-frame overflows 0, drawn triangles > 0, a finite non-constant
-   image, every kernel of the path launched (K5 32 times on `geo_tex`,
-   with masked draws on some frame); then the sequence again for ms/frame.
+   image, every kernel of the path launched (K5 32 times on `geo_tex`, 40
+   on `geo_shadow_atmo`: 32 plus the masked casters of the 8 frames that
+   refresh cascade 0 or 1; K6 16 times), masked draws on some frame, a
+   finite cascade cache and shadow mask, and per cascade the shadow draws
+   (read from the K2 calls) beside what the cull asked for and the pairs
+   the bins dropped (none allowed); then the sequence three more times for
+   ms/frame (median and spread). At bench.py's shadow_draw_capacity=2048
+   the far cascade asks for more draws than that and drops the rest, as
+   chord_tpu does at this config: printed, not failed. The shadow path
+   then runs once more at 4096, where every cascade must stay below its
+   capacity, and is timed there too.
 6. A small-input cross-check per path (tiny atrium; small textured
-   bistro): kernels on the GPU vs plain versions on the CPU (the path the
-   tests hold against chord_tpu), stats exact, images within 2 u8 levels.
+   bistro, with 2 cascades of 256² on the shadow path): kernels on the GPU
+   vs plain versions on the CPU (the path the tests hold against
+   chord_tpu), stats exact, images within 2 u8 levels.
 
 The line before the last is the nvidia-smi name/power-limit line, the one
 before that the per-kernel JSON (one entry per kernel and path: launches,
@@ -50,12 +72,18 @@ from __future__ import annotations
 
 import json
 import os
+import statistics
 import subprocess
 import sys
 import time
 
 W, H, PW, PH = 1280, 720, 1920, 1080
 FRAMES = 16
+# bench.py's shadow_draw_capacity (MeshletFrameConfig's default); the far
+# cascade of the bench path asks for more, so the shadow path also runs at
+# a capacity that holds every cascade
+BENCH_SHADOW_DRAWS = 2048
+FULL_SHADOW_DRAWS = 4096
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory
 F32_OPS_PER_S = 67e12         # H100 SXM f32 outside the tensor cores
 
@@ -74,8 +102,9 @@ def card_line() -> str:
 
 def bench_scenes(dev, paths):
     """The bench bistro of each path (bench.py:88-100; textures off for
-    `off`, on for `geo_tex`) and the bench camera path
-    (bench.py:112-131)."""
+    `off`, on for the others) and the bench camera path (bench.py:112-131);
+    `geo_shadow_atmo` reuses the textured build, its views carry the host
+    cascade fit and the LUTs (bench.py:236-256)."""
     import numpy as np
 
     from chord_tpu_torch.asset.procedural import build_bistro_like
@@ -90,72 +119,132 @@ def bench_scenes(dev, paths):
     scenes = {}
     for path in paths:
         t0 = time.time()
-        textured = path == "geo_tex"
-        b = build_bistro_like(detail=3, target_tris=2_600_000,
-                              textures=textured)
-        pools = build_meshlet_pools(
-            b, meshlet_cache=cache, nanite=True, device=dev,
-            texture_pool=b.texture_pool if textured else None)
-        n_src = sum(b.meshes[m].num_triangles for m, _, _ in b.instances)
+        textured = path != "off"
+        shadows = path == "geo_shadow_atmo"
+        if shadows:     # the textured bistro of geo_tex (PATHS order)
+            pools, inst, _, blend_tex = scenes["geo_tex"]
+        else:
+            b = build_bistro_like(detail=3, target_tris=2_600_000,
+                                  textures=textured)
+            pools = build_meshlet_pools(
+                b, meshlet_cache=cache, nanite=True, device=dev,
+                texture_pool=b.texture_pool if textured else None)
+            n_src = sum(b.meshes[m].num_triangles for m, _, _ in b.instances)
+            blend_tex = any(m.alpha_mode == "blend" and
+                            m.base_color_texture >= 0 for m in b.materials)
+        mcfg = configs(path)[1]
         cam = Camera(width=W, height=H)
         views = []
         for i in range(FRAMES):
             t = i / (FRAMES - 1)
             cam.position = np.array([-45.0 + 70.0 * t, 5.0, 4.0])
             cam.look_at(np.array([55.0, 3.0, -4.0]))
-            views.append(DeviceView.from_uniform(cam.view_uniform(i),
-                                                 device=dev))
-        inst = b.frame_instances(cam, device=dev)
-        rows = 2 if pools.tex_meta.shape[0] == 3 else 8
-        log(f"scene {path}: {n_src} source tris, {pools.num_meshlets} "
-            f"meshlets, {pools.num_pairs} pairs, "
-            f"{len(b.materials)} materials, texture pages "
-            f"{pools.tex_pages.shape[0] // rows} "
-            f"({pools.tex_pages.numel() * 4} B, "
-            f"{'compressed' if rows == 2 else 'raw'}), built in "
-            f"{time.time() - t0:.2f} s (nanite on)")
-        blend_tex = any(m.alpha_mode == "blend" and m.base_color_texture >= 0
-                        for m in b.materials)
+            views.append(DeviceView.from_uniform(
+                cam.view_uniform(i), device=dev,
+                shadow_cfg=mcfg.shadow_cfg if shadows else None))
+        if shadows:
+            views = with_luts(views, dev)
+            log(f"scene {path}: the geo_tex scene, views with the host "
+                f"cascade fit and the atmosphere LUTs in "
+                f"{time.time() - t0:.2f} s")
+        else:
+            inst = b.frame_instances(cam, device=dev)
+            rows = 2 if pools.tex_meta.shape[0] == 3 else 8
+            log(f"scene {path}: {n_src} source tris, {pools.num_meshlets} "
+                f"meshlets, {pools.num_pairs} pairs, "
+                f"{len(b.materials)} materials, texture pages "
+                f"{pools.tex_pages.shape[0] // rows} "
+                f"({pools.tex_pages.numel() * 4} B, "
+                f"{'compressed' if rows == 2 else 'raw'}), built in "
+                f"{time.time() - t0:.2f} s (nanite on)")
         scenes[path] = (pools, inst, DeviceView.stack(views), blend_tex)
     return scenes
 
 
-def configs(path: str, blend_textured: bool = False):
+def with_luts(views, dev):
+    """The views with the atmosphere LUTs, built once for the path's static
+    sun (bench.py:239-256)."""
+    from chord_tpu_torch.ops import atmosphere as atm
+
+    p = atm.AtmosphereParams()
+    t = atm.build_transmittance_lut(p, 40, device=dev)
+    ms = atm.build_multiscatter_lut(p, t, dir_samples=16, steps=12)
+    sky = atm.build_sky_view_lut(p, t, ms, views[0].sun_direction)
+    return [v.replace(atmo_t_lut=t, atmo_ms_lut=ms, atmo_sky_lut=sky)
+            for v in views]
+
+
+def configs(path: str, blend_textured: bool = False, shadow_cfg=None,
+            shadow_draws: int = BENCH_SHADOW_DRAWS):
     """bench.py's RendererConfig and MeshletFrameConfig for a rung
     (bench.py:171-219 at render scale 0.6667)."""
+    from chord_tpu_torch.ops.shadow import ShadowConfig
     from chord_tpu_torch.renderer import MeshletFrameConfig, RendererConfig
 
     config = RendererConfig(width=W, height=H, post_width=PW, post_height=PH,
                             pair_capacity=8192, big_capacity=64,
                             enable_bloom=True, enable_tsr=True,
                             tsr_mode="tile")
-    tex = path == "geo_tex"
+    tex = path != "off"
+    shadows = path == "geo_shadow_atmo"
     return config, MeshletFrameConfig(
         draw_capacity=2048, masked_draw_capacity=256, occlusion=True,
         object_precull=True, textured=tex, normal_mapped=tex,
         pbr_textures=tex, alpha_masked=tex, alpha_blend=tex,
-        blend_textured=blend_textured)
+        blend_textured=blend_textured, shadows=shadows, atmosphere=shadows,
+        shadow_masked=True, shadow_draw_capacity=shadow_draws,
+        shadow_cfg=shadow_cfg or ShadowConfig())
 
 
-def timed(fn, reps: int) -> float:
-    """Mean ms per call over `reps` calls after one warm-up (CUDA events)."""
+def history(path, mcfg, h, w, ph, pw, dev):
+    """A fresh history for the path (with the cascade cache on the shadow
+    path, bench.py:259-269)."""
+    from chord_tpu_torch.rhi.framebuffer import FrameHistory
+
+    s = mcfg.shadow_cfg
+    if not mcfg.shadows:
+        return FrameHistory.empty(h, w, ph, pw, device=dev)
+    return FrameHistory.empty(h, w, ph, pw, shadow_div=s.eval_res_div,
+                              shadow_cascades=s.cascade_count,
+                              shadow_res=s.resolution,
+                              shadow_phase=s.temporal_phase, device=dev)
+
+
+def timed(fn, reps: int):
+    """-> (device ms, issue ms) per call, the mean over `reps` calls after
+    one warm-up, by CUDA events. Issue ms brackets the calls as the host
+    issues them: a call shorter than its host-side wrapper reads the
+    wrapper's time. Device ms queues the same calls behind a device-side
+    sleep longer than their issue time, so the events see them back to
+    back (a call that synchronises inside still reads host gaps)."""
     import torch
 
     fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
+
+    def run():
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+
+    t0 = time.perf_counter()
+    run()
+    issue_s = time.perf_counter() - t0
     torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+    issue_ms = start.elapsed_time(end) / reps
+    # twice the issue time at the H100's ~2 GHz SM clock, at most ~2 s
+    torch.cuda._sleep(int(min(2.0 * issue_s, 2.0) * 2e9))
+    run()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps, issue_ms
 
 
-def first_frames(views, n: int):
+def frames(views, lo: int, hi: int):
     from chord_tpu_torch.renderer import DeviceView
-    return DeviceView.stack([views.frame(i) for i in range(n)])
+    return DeviceView.stack([views.frame(i) for i in range(lo, hi)])
 
 
 # --- bounds -------------------------------------------------------------------
@@ -195,13 +284,43 @@ def _ops(name: str, args, kwargs) -> float:
         per += taps * 4 * (7 if compressed else 0)      # block decode
         per += 4 * 13 if bilinear else 0                # filter + round
         return float((layers >= 0).sum()) * per
+    if name == "pcss":
+        # per in-map pixel: 5 blocker + 6 PCF taps (rotation 6, tap
+        # coordinates 4, compare / accumulate 2; PCF offsets scaled 2)
+        # and the penumbra (~8)
+        maps, pre, cfg = args
+        taps = cfg.pcss_blocker_samples + cfg.pcss_pcf_samples
+        per = taps * 12 + cfg.pcss_pcf_samples * 2 + 8
+        return float((pre.cascade >= 0).sum()) * per
     return 0.0
+
+
+def _pcss_bytes(args, out) -> int:
+    """What K6 must move on this call's data: the 32-B sectors of the
+    stack its taps touch (the taps of the plain version on the same
+    inputs), the cascade plane and, at in-map pixels, the six other
+    prepass planes, the per-cascade scalars and the output."""
+    import torch
+
+    from chord_tpu_torch.ops import shadow
+
+    maps, pre, cfg = args
+    taps = []
+    shadow.pcss_plain(maps, pre, cfg, tap_index=taps)
+    inside = pre.cascade >= 0
+    sectors = torch.unique(torch.stack(taps)[:, inside] // 8).numel()
+    return (sectors * 32 + _nbytes(pre.cascade) + int(inside.sum()) * 6 * 4 +
+            _nbytes([pre.depth_range, pre.texel]) + _nbytes(out))
 
 
 def bound(name: str, args, kwargs, out) -> tuple:
     """-> (bound ms, "bytes" | "operations")."""
-    t_bytes = (_nbytes(args) + _nbytes(list(kwargs.values())) +
-               _nbytes(out)) / HBM_BYTES_PER_S
+    if name == "pcss":
+        n_bytes = _pcss_bytes(args, out)
+    else:
+        n_bytes = (_nbytes(args) + _nbytes(list(kwargs.values())) +
+                   _nbytes(out))
+    t_bytes = n_bytes / HBM_BYTES_PER_S
     t_ops = _ops(name, args, kwargs) / F32_OPS_PER_S
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
@@ -220,6 +339,10 @@ def library_call(name: str, args):
 
 
 def describe(name: str, args, kwargs) -> str:
+    if name == "pcss":
+        maps, pre, _ = args
+        return (f"stack {'x'.join(map(str, maps.shape))} eval "
+                f"{'x'.join(map(str, pre.u.shape))}")
     if name == "paged_texture":
         c, h, w = args[4].shape
         mode = "bilinear" if kwargs.get("bilinear", True) else "nearest"
@@ -232,20 +355,24 @@ def describe(name: str, args, kwargs) -> str:
 
 def check_kernels(path, scene):
     """Phase 4 for one path: each kernel of the path against its plain
-    version on the path's own inputs (frame 1, so history and both
-    occlusion phases are real)."""
+    version on the path's own inputs, those of a frame with real history
+    and both occlusion phases and, on the shadow path, with every cascade
+    refreshed once before it (frame 4: its K6 call taps depth in all four
+    cascades)."""
     import torch
 
     from chord_tpu_torch.ops import kernels
     from chord_tpu_torch.renderer import render_sequence_meshlet
-    from chord_tpu_torch.rhi.framebuffer import FrameHistory
 
     pools, inst, views, blend_tex = scene
     config, mcfg = configs(path, blend_tex)
-    history = FrameHistory.empty(H, W, PH, PW, device=pools.positions.device)
+    hist = history(path, mcfg, H, W, PH, PW, pools.positions.device)
+    warm = mcfg.shadow_cfg.cascade_count if mcfg.shadows else 1
+    _, hist = render_sequence_meshlet(pools, inst, frames(views, 0, warm),
+                                      hist, config, mcfg)
     with kernels.capture_inputs() as captured:
-        render_sequence_meshlet(pools, inst, first_frames(views, 2),
-                                history, config, mcfg)
+        render_sequence_meshlet(pools, inst, frames(views, warm, warm + 1),
+                                hist, config, mcfg)
     torch.cuda.synchronize()
     rows = {}
     for k in kernels.KERNELS:
@@ -256,9 +383,8 @@ def check_kernels(path, scene):
             continue
         if not calls:
             raise RuntimeError(f"kernel {k.name} was not called by {path}")
-        second = calls[len(calls) // 2:]
         err, per_call = 0.0, []
-        for i, (args, kwargs) in enumerate(second):
+        for i, (args, kwargs) in enumerate(calls):
             got = kernels.outputs_list(k.fn()(*args, **kwargs))
             ref = kernels.outputs_list(k.plain(*args, **kwargs))
             torch.cuda.synchronize()
@@ -267,16 +393,17 @@ def check_kernels(path, scene):
             if e != 0.0:
                 raise AssertionError(f"kernel {k.name} disagrees with its "
                                      f"plain version on {path}: {e}")
-            ms = timed(lambda: k.fn()(*args, **kwargs), 20)
+            ms, issue_ms = timed(lambda: k.fn()(*args, **kwargs), 20)
             plain_ms = timed(lambda: k.plain(*args, **kwargs),
-                             3 if k.name == "raster" else 10)
+                             3 if k.name == "raster" else 10)[0]
             lib = library_call(k.name, args)
-            lib_ms = timed(lib, 20) if lib else None
+            lib_ms = timed(lib, 20)[0] if lib else None
             b_ms, b_by = bound(k.name, args, kwargs, got)
             per_call.append(dict(call=f"#{i} " + describe(k.name, args,
                                                           kwargs), ms=ms,
-                                 plain_ms=plain_ms, bound_ms=b_ms,
-                                 bound_by=b_by, library_ms=lib_ms))
+                                 issue_ms=issue_ms, plain_ms=plain_ms,
+                                 bound_ms=b_ms, bound_by=b_by,
+                                 library_ms=lib_ms))
         tot = lambda key: sum(c[key] for c in per_call)
         by = max(per_call, key=lambda c: c["bound_ms"])["bound_by"]
         rows[k.name] = dict(
@@ -286,9 +413,11 @@ def check_kernels(path, scene):
             library_ms=(tot("library_ms") if per_call[0]["library_ms"]
                         is not None else None),
             calls_per_frame=len(per_call), per_call=per_call)
-        log(f"kernel {k.name} on {path}: {len(second)} calls compared, max "
+        log(f"kernel {k.name} on {path}: {len(calls)} calls of frame "
+            f"{warm} compared, max "
             f"|kernel - plain| = {err} (tolerance 0); per call: " +
-            "; ".join(f"[{c['call']}] {c['ms']:.4f} ms vs plain "
+            "; ".join(f"[{c['call']}] {c['ms']:.4f} ms (issue-paced "
+                      f"{c['issue_ms']:.4f}) vs plain "
                       f"{c['plain_ms']:.4f}, bound {c['bound_ms']:.4f} "
                       f"({c['bound_by']})" +
                       (f", library {c['library_ms']:.4f}"
@@ -297,27 +426,75 @@ def check_kernels(path, scene):
     return rows
 
 
-def main_path(path, scene, card: str):
-    """Phase 5 for one path: the 16-frame sequence, counted and timed."""
+def check_shadow_draws(k2_calls, stats, mcfg, fail_at_capacity: bool):
+    """Per cascade and bucket, the worst frame's shadow draws: drawn (the
+    live count of the depth-pass K2 calls, in frame order: frame f
+    refreshes cascade f % N, opaque then masked casters), asked for (drawn
+    plus what the cull dropped past its capacity, from the frame's stats)
+    and the capacity. Fails when a shadow bin drops pairs and, with
+    `fail_at_capacity`, when a cascade's draws reach their capacity."""
+    s = mcfg.shadow_cfg
+    calls = [(args[0].shape[0], int(args[2])) for args, _ in k2_calls
+             if not args[9]]                      # backface_cull=False
+    over = {kind: stats[f"shadow_{kind}"].tolist()
+            for kind in ("draw_overflow", "masked_overflow")}
+    worst, i = {}, 0
+    for f in range(FRAMES):
+        k = f % s.cascade_count
+        kinds = [("opaque", "draw_overflow")]
+        if mcfg.alpha_masked and mcfg.shadow_masked and \
+                k < mcfg.shadow_masked_cascades:
+            kinds.append(("masked", "masked_overflow"))
+        for kind, stat in kinds:
+            cap, n = calls[i]
+            key = f"cascade {k} {kind}"
+            w = worst.get(key, (0, 0))
+            worst[key] = (max(w[0], n), max(w[1], n + over[stat][f]), cap)
+            i += 1
+    if i != len(calls):
+        raise AssertionError(f"{len(calls)} shadow K2 calls, expected {i}")
+    dropped = int(stats["shadow_bin_overflow"].max())
+    log(f"shadow draws at capacity {mcfg.shadow_draw_capacity} (worst "
+        "frame: drawn / asked for / capacity): " +
+        ", ".join(f"{k} {n}/{a}/{cap}" for k, (n, a, cap) in worst.items()) +
+        f"; pairs dropped by the shadow bins: {dropped}")
+    if dropped > 0:
+        raise AssertionError(f"the shadow bins dropped {dropped} pairs")
+    full = [f"{k} ({a} asked for, capacity {cap})"
+            for k, (n, a, cap) in worst.items() if n >= cap]
+    if full and fail_at_capacity:
+        raise AssertionError("shadow draws at capacity: " + ", ".join(full))
+    if full:
+        log("casters dropped at bench.py's capacity, as chord_tpu drops them "
+            "at this config: " + ", ".join(full))
+
+
+def main_path(path, scene, card: str,
+              shadow_draws: int = BENCH_SHADOW_DRAWS):
+    """Phase 5 for one path: the 16-frame sequence, counted, checked and
+    timed, at bench.py's shadow draw capacity unless `shadow_draws` is
+    given (and then no cascade may reach it)."""
     import torch
 
     from chord_tpu_torch.ops import kernels
     from chord_tpu_torch.renderer import render_sequence_meshlet
-    from chord_tpu_torch.rhi.framebuffer import FrameHistory
 
     pools, inst, views, blend_tex = scene
-    config, mcfg = configs(path, blend_tex)
-    history = FrameHistory.empty(H, W, PH, PW, device=pools.positions.device)
+    config, mcfg = configs(path, blend_tex, shadow_draws=shadow_draws)
+    bench = shadow_draws == BENCH_SHADOW_DRAWS
+    label = path if bench else f"{path} at shadow_draw_capacity {shadow_draws}"
+    hist0 = history(path, mcfg, H, W, PH, PW, pools.positions.device)
     torch.cuda.synchronize()
     kernels.reset_launch_counts()
     t0 = time.time()
-    imgs, hist, stats = render_sequence_meshlet(
-        pools, inst, views, history, config, mcfg, with_stats=True)
+    with kernels.capture_inputs() as captured:
+        imgs, hist, stats = render_sequence_meshlet(
+            pools, inst, views, hist0, config, mcfg, with_stats=True)
     torch.cuda.synchronize()
     first_s = time.time() - t0
     launches = kernels.launch_counts()
     worst = {k: int(v.max()) for k, v in stats.items()}
-    log(f"{path} path: {FRAMES} frames in {first_s:.3f} s (first run), "
+    log(f"{label} path: {FRAMES} frames in {first_s:.3f} s (first run), "
         f"worst-frame stats {worst}, launches {launches}")
     for k in ("bin_overflow", "draw_overflow", "active_overflow"):
         if worst[k] != 0:
@@ -329,7 +506,8 @@ def main_path(path, scene, card: str):
     last = imgs[-1].float()
     if float(last.std()) < 1.0:
         raise AssertionError(f"{path}: the final image is constant")
-    for name in ("depth", "tsr_color", "exposure", "hzb_flat"):
+    for name in ("depth", "tsr_color", "exposure", "hzb_flat",
+                 "shadow_mask", "shadow_maps", "depth_range"):
         if not bool(torch.isfinite(getattr(hist, name)).all()):
             raise AssertionError(f"{path}: history {name} is not finite")
     for k in kernels.KERNELS:
@@ -339,28 +517,50 @@ def main_path(path, scene, card: str):
                                  f"{path} path")
         if path not in k.paths and n != 0:
             raise AssertionError(f"kernel {k.name} ran on the {path} path")
-    if path == "geo_tex":
-        if launches["paged_texture"] != 2 * FRAMES:
-            raise AssertionError(f"K5 launched {launches['paged_texture']} "
-                                 f"times, expected {2 * FRAMES}")
-        if int(stats["draws_masked"].max()) <= 0:
-            raise AssertionError("no masked draws on any frame")
+    expect = {"geo_tex": {"paged_texture": 2 * FRAMES},
+              "geo_shadow_atmo": {"paged_texture": 2 * FRAMES + FRAMES // 2,
+                                  "pcss": FRAMES}}.get(path, {})
+    for name, n in expect.items():
+        if launches[name] != n:
+            raise AssertionError(f"{name} launched {launches[name]} times "
+                                 f"on {path}, expected {n}")
+    if path != "off" and int(stats["draws_masked"].max()) <= 0:
+        raise AssertionError("no masked draws on any frame")
+    k2_calls = captured["mesh_shader"]
+    del captured
+    if mcfg.shadows:
+        check_shadow_draws(k2_calls, stats, mcfg, fail_at_capacity=not bench)
+        m = hist.shadow_mask
+        cover = [round(float((c > 0).float().mean()), 4)
+                 for c in hist.shadow_maps]
+        log(f"{path}: shadow mask {tuple(m.shape)} in [{float(m.min()):.4f}"
+            f", {float(m.max()):.4f}], shadowed (< 0.5) "
+            f"{float((m < 0.5).float().mean()):.4f}; cascade coverage "
+            f"{cover}")
+        if not float(m.min()) < 0.5 < float(m.max()):
+            raise AssertionError(f"{path}: the shadow mask is not both lit "
+                                 "and shadowed")
 
-    torch.cuda.synchronize()
-    t0 = time.time()
-    render_sequence_meshlet(pools, inst, views, history, config, mcfg,
-                            with_stats=True)
-    torch.cuda.synchronize()
-    ms = (time.time() - t0) / FRAMES * 1000.0
-    log(f"{path} path: {ms:.3f} ms/frame (second run, {FRAMES} frames, "
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        render_sequence_meshlet(pools, inst, views, hist0, config, mcfg,
+                                with_stats=True)
+        torch.cuda.synchronize()
+        times.append((time.time() - t0) / FRAMES * 1000.0)
+    ms = statistics.median(times)
+    log(f"{label} path: {ms:.3f} ms/frame median of 3 runs "
+        f"({', '.join(f'{t:.3f}' for t in times)}; spread "
+        f"{max(times) / min(times):.3f}x; {FRAMES} frames each, "
         f"synchronize-bounded host clock) on {card}; mean u8 of the last "
         f"frame {float(last.mean()):.3f}")
     return {k.name: launches[k.name] for k in kernels.KERNELS
-            if path in k.paths}, ms
+            if path in k.paths}, dict(median=ms, runs=times)
 
 
-def profile(path, scene, frames: int = 4) -> None:
-    """Optional (--profile): torch.profiler over `frames` frames after a
+def profile(path, scene, n: int = 4) -> None:
+    """Optional (--profile): torch.profiler over `n` frames after a
     warm-up; prints the device time by kernel and the device's busy share
     of the host wall time."""
     import torch
@@ -368,28 +568,27 @@ def profile(path, scene, frames: int = 4) -> None:
     from torch.profiler import profile as tprofile
 
     from chord_tpu_torch.renderer import render_sequence_meshlet
-    from chord_tpu_torch.rhi.framebuffer import FrameHistory
 
     pools, inst, views, blend_tex = scene
     config, mcfg = configs(path, blend_tex)
-    history = FrameHistory.empty(H, W, PH, PW, device=pools.positions.device)
-    part = first_frames(views, frames)
-    render_sequence_meshlet(pools, inst, part, history, config, mcfg)
+    hist = history(path, mcfg, H, W, PH, PW, pools.positions.device)
+    part = frames(views, 0, n)
+    render_sequence_meshlet(pools, inst, part, hist, config, mcfg)
     torch.cuda.synchronize()
     with tprofile(activities=[ProfilerActivity.CPU,
                               ProfilerActivity.CUDA]) as prof:
         t0 = time.time()
-        render_sequence_meshlet(pools, inst, part, history, config, mcfg)
+        render_sequence_meshlet(pools, inst, part, hist, config, mcfg)
         torch.cuda.synchronize()
         wall = time.time() - t0
     events = prof.key_averages()
     dev_us = sum(e.self_device_time_total for e in events)
     n_launch = sum(e.count for e in events if e.self_device_time_total > 0)
     log(events.table(sort_by="self_device_time_total", row_limit=25))
-    log(f"profile {path}: {frames} frames, host wall "
-        f"{wall * 1000 / frames:.3f} ms/frame (profiler on), device busy "
-        f"{dev_us / 1000 / frames:.3f} ms/frame = {dev_us / 1e6 / wall:.4f} "
-        f"of wall, {n_launch / frames:.1f} device ops/frame")
+    log(f"profile {path}: {n} frames, host wall "
+        f"{wall * 1000 / n:.3f} ms/frame (profiler on), device busy "
+        f"{dev_us / 1000 / n:.3f} ms/frame = {dev_us / 1e6 / wall:.4f} "
+        f"of wall, {n_launch / n:.1f} device ops/frame")
 
 
 def small_cross_check(path, dev):
@@ -400,21 +599,20 @@ def small_cross_check(path, dev):
 
     from chord_tpu_torch.asset.procedural import (build_bistro_like,
                                                   build_sponza_like)
-    from chord_tpu_torch.renderer import (DeviceView, MeshletFrameConfig,
-                                          RendererConfig,
+    from chord_tpu_torch.ops.shadow import ShadowConfig
+    from chord_tpu_torch.renderer import (DeviceView, RendererConfig,
                                           render_sequence_meshlet)
-    from chord_tpu_torch.rhi.framebuffer import FrameHistory
     from chord_tpu_torch.rhi.meshlet_scene import build_meshlet_pools
     from chord_tpu_torch.utils.camera import Camera
 
-    tex = path == "geo_tex"
+    tex = path != "off"
+    shadows = path == "geo_shadow_atmo"
     cfg = RendererConfig(width=128, height=64, post_width=192,
                          post_height=96, pair_capacity=4096, big_capacity=128,
                          tsr_mode="tile")
-    mcfg = MeshletFrameConfig(draw_capacity=1024, masked_draw_capacity=256,
-                              textured=tex, normal_mapped=tex,
-                              pbr_textures=tex, alpha_masked=tex,
-                              alpha_blend=tex, blend_textured=False)
+    _, mcfg = configs(path, shadow_cfg=ShadowConfig(cascade_count=2,
+                                                    resolution=256))
+    mcfg = mcfg._replace(draw_capacity=1024)
     out = {}
     for d in (dev, torch.device("cpu")):
         b = (build_bistro_like(detail=1, textures=True) if tex
@@ -428,14 +626,17 @@ def small_cross_check(path, dev):
             else:
                 cam.position = np.array([-15.0 + 0.5 * i, 4.0, 0.3 * i])
                 cam.look_at(np.array([10.0, 2.0, 0.0]))
-            vs.append(DeviceView.from_uniform(cam.view_uniform(i, jitter=True),
-                                              device=d))
+            vs.append(DeviceView.from_uniform(
+                cam.view_uniform(i, jitter=True), device=d,
+                shadow_cfg=mcfg.shadow_cfg if shadows else None))
+        if shadows:
+            vs = with_luts(vs, d)
         imgs, _, st = render_sequence_meshlet(
             build_meshlet_pools(b, device=d,
                                 texture_pool=getattr(b, "texture_pool",
                                                      None)),
             b.frame_instances(cam, device=d), DeviceView.stack(vs),
-            FrameHistory.empty(64, 128, 96, 192, device=d), cfg, mcfg,
+            history(path, mcfg, 64, 128, 96, 192, d), cfg, mcfg,
             with_stats=True)
         out[d.type] = (imgs.cpu().numpy().astype(np.int32),
                        {k: v.cpu().tolist() for k, v in st.items()})
@@ -472,7 +673,7 @@ def main() -> int:
         f"cuda {torch.version.cuda}")
 
     dev = torch.device("cuda", 0)
-    t0 = time.time()
+    t_start = t0 = time.time()
     path = _cuda.build(verbose=True)
     _cuda.lib()
     log(f"kernels built: {path.name} from {len(_cuda.sources())} sources in "
@@ -483,6 +684,9 @@ def main() -> int:
     for p in PATHS:
         krows = check_kernels(p, scenes[p])
         launches, ms_per_frame[p] = main_path(p, scenes[p], smi)
+        if configs(p)[1].shadows:
+            ms_per_frame[f"{p} shadow_draw_capacity {FULL_SHADOW_DRAWS}"] = \
+                main_path(p, scenes[p], smi, FULL_SHADOW_DRAWS)[1]
         for name, n in launches.items():
             krows[name]["launches"] = n
         rows += list(krows.values())
@@ -490,6 +694,7 @@ def main() -> int:
             profile(p, scenes[p])
     for p in PATHS:
         small_cross_check(p, dev)
+    log(f"chip_smoke: all phases passed in {time.time() - t_start:.1f} s")
 
     order = ("name", "path", "route", "source", "replaces", "launches",
              "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",

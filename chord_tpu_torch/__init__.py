@@ -5,13 +5,16 @@ here carries the name of its counterpart there, and the tests hold the two
 against each other on the same inputs. This package imports torch and
 never jax.
 
-What is ported so far is the GPU-driven meshlet frame with every optional
-feature off (the benchmark's `off` rung): object pre-cull, two-phase HZB
-occlusion culling with the Nanite LOD cut, the mesh-shader setup, the tiled
-visibility raster, the g-buffer resolve, sun + ambient lighting, auto
-exposure, tile-mode TSR upscale, bloom and the ACES tonemap.
+What is ported so far is the GPU-driven meshlet frame of three benchmark
+rungs: `off` (object pre-cull, two-phase HZB occlusion culling with the
+Nanite LOD cut, the mesh-shader setup, the tiled visibility raster, the
+g-buffer resolve, sun + ambient lighting, auto exposure, tile-mode TSR
+upscale, bloom and the ACES tonemap), `geo_tex` (material maps from the
+paged texture pool, the alpha-masked and blend buckets) and
+`geo_shadow_atmo` (cascaded shadow maps with PCSS and a temporal mask, the
+physically based sky and aerial perspective).
 
-Every Pallas kernel on that path is a hand-written CUDA kernel for sm_90a
+Every Pallas kernel on those paths is a hand-written CUDA kernel for sm_90a
 (`csrc/`, built with nvcc at first use into `build/` and loaded with
 ctypes). Each kernel's wrapper sits beside a plain PyTorch version of the
 same function: a tensor on the CPU takes the plain version, a CUDA tensor
@@ -22,8 +25,9 @@ Layout (mirrors chord_tpu):
     native/    ctypes binding to the shared native/ C++ library
     geometry/  meshlet clustering (host)
     rhi/       scene builder, meshlet pools, frame history
-    asset/     procedural benchmark scenes
-    ops/       cull, hzb, mesh shader, raster, row gather, shading, post
+    asset/     procedural benchmark scenes, texture pool
+    ops/       cull, hzb, mesh shader, raster, row gather, textures,
+               shading, shadows + PCSS, atmosphere, post
     renderer/  the meshlet frame, the sequence runner, MeshletRenderer
     interop.py numpy state from chord_tpu -> this package's tensors
 """

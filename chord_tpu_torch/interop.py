@@ -17,7 +17,7 @@ from typing import Mapping
 import numpy as np
 import torch
 
-from .renderer.deferred import DeviceView
+from .renderer.deferred import SHARED_FIELDS, DeviceView
 from .rhi.framebuffer import FrameHistory
 from .rhi.meshlet_scene import MeshletScenePools
 from .rhi.scene_arrays import FrameInstances
@@ -25,15 +25,18 @@ from .utils.device import resolve
 
 
 def _build(cls, arrays: Mapping[str, np.ndarray], device):
+    """Fields with a default (the optional ones) may be missing or None."""
     device = resolve(device)
 
-    def conv(name):
-        a = np.asarray(arrays[name])
+    def conv(f):
+        if arrays.get(f.name) is None and f.default is None:
+            return None
+        a = np.asarray(arrays[f.name])
         if a.dtype == np.uint32:
             a = a.view(np.int32)
         # np.array copies: contiguous, writable, and 0-d stays 0-d
         return torch.from_numpy(np.array(a)).to(device)
-    return cls(**{f.name: conv(f.name) for f in dataclasses.fields(cls)})
+    return cls(**{f.name: conv(f) for f in dataclasses.fields(cls)})
 
 
 def pools_from_numpy(arrays, device=None) -> MeshletScenePools:
@@ -46,9 +49,16 @@ def instances_from_numpy(arrays, device=None) -> FrameInstances:
 
 
 def view_from_numpy(arrays, device=None) -> DeviceView:
-    """A single or a stacked (leading (N,) axis) view."""
+    """A single or a stacked (leading (N,) axis) view, with the shadow,
+    camera and atmosphere-LUT fields where present. A LUT stacked per frame
+    (chord_tpu stacks every view leaf) is carried once: a path shares it."""
+    arrays = dict(arrays)
+    for name in SHARED_FIELDS:
+        if arrays.get(name) is not None and np.ndim(arrays[name]) == 4:
+            arrays[name] = np.asarray(arrays[name])[0]
     return _build(DeviceView, arrays, device)
 
 
 def history_from_numpy(arrays, device=None) -> FrameHistory:
+    """With the shadow fields (mask, cached maps and their matrices)."""
     return _build(FrameHistory, arrays, device)

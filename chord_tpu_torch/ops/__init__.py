@@ -6,6 +6,11 @@ mesh_shader     draw expansion + triangle setup          (kernel K2)
 raster          work-queue binning + tiled visibility raster (kernel K1)
 row_gather      per-pixel rows of per-draw tables         (kernel K3)
 shading         g-buffer resolve + GGX sun/ambient lighting
+texture         mip pick, material-map sampling
+paged_texture   paged, block-compressed texture sampler   (kernel K5)
+shadow          cascade fits, PCSS prepass + plain PCSS
+shadow_kernel   PCSS taps over the cascade stack           (kernel K6)
+atmosphere      sky LUTs, sun disk, ambient, aerial perspective
 tile_reproject  per-tile history reprojection             (kernel K4)
 post            auto-exposure, bloom, tile-mode TSR upscale
 colorspace      ACEScg pipeline + ACES tonemap

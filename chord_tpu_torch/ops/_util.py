@@ -2,6 +2,8 @@
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 _I32_MAX_F = 2147483520.0   # largest f32 below 2**31
@@ -23,3 +25,10 @@ def bits_i32(x: torch.Tensor) -> torch.Tensor:
 def bits_f32(x: torch.Tensor) -> torch.Tensor:
     """int32 bit pattern -> f32."""
     return x.contiguous().view(torch.float32)
+
+
+@functools.lru_cache(maxsize=None)
+def const(values, device: torch.device) -> torch.Tensor:
+    """An f32 constant (a float or a tuple) on `device`, made once: a
+    host-to-device copy inside a frame would synchronise the stream."""
+    return torch.tensor(values, dtype=torch.float32, device=device)

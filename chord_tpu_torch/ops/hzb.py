@@ -73,6 +73,22 @@ def build_hzb(depth: torch.Tensor) -> HZBPyramid:
                       offsets=offs, mip0_w=w, mip0_h=h)
 
 
+def valid_depth_range(depth: torch.Tensor, z_near: torch.Tensor
+                      ) -> torch.Tensor:
+    """Valid-depth min/max reduce -> (2,) view-space (near, far) distances
+    of the frame's occupied depth (reference hzb.hlsl:11-19; feeds next
+    frame's cascade fit). Reverse-Z infinite far: ndc = z_near / view_z.
+    Empty pixels (ndc 0) are excluded; an all-empty frame gives near >
+    far, which callers read as "no valid range"."""
+    valid = depth > 0.0
+    near_ndc = depth.amax()                             # nearest pixel
+    far_ndc = torch.where(valid, depth, torch.full_like(depth, float("inf"))
+                          ).amin()
+    near_v = z_near / torch.clamp_min(near_ndc, 1e-12)
+    far_v = z_near / torch.clamp_min(far_ndc, 1e-12)    # inf ndc -> ~0
+    return torch.stack([near_v, far_v]).to(torch.float32)
+
+
 _CORNERS = [[sx, sy, sz] for sx in (-1, 1) for sy in (-1, 1)
             for sz in (-1, 1)]
 

@@ -17,10 +17,11 @@ from typing import Callable, Dict, List, Tuple
 
 import torch
 
-from . import mesh_shader, paged_texture, raster, row_gather, tile_reproject
+from . import (mesh_shader, paged_texture, raster, row_gather, shadow,
+               shadow_kernel, tile_reproject)
 
 # the bench rungs the port renders (bench.py FEATURE_LEVELS)
-PATHS = ("off", "geo_tex")
+PATHS = ("off", "geo_tex", "geo_shadow_atmo")
 
 
 @dataclass(frozen=True)
@@ -55,7 +56,12 @@ KERNELS: List[Kernel] = [
     Kernel("paged_texture", paged_texture, "paged_sample",
            paged_texture.paged_sample_plain,
            "chord_tpu_torch/csrc/paged_texture.cu",
-           "chord_tpu/ops/paged_texture.py:251", paths=("geo_tex",)),
+           "chord_tpu/ops/paged_texture.py:251",
+           paths=("geo_tex", "geo_shadow_atmo")),
+    Kernel("pcss", shadow_kernel, "pcss", shadow.pcss_plain,
+           "chord_tpu_torch/csrc/pcss.cu",
+           "chord_tpu/ops/shadow_kernel.py:145",
+           paths=("geo_shadow_atmo",)),
 ]
 
 

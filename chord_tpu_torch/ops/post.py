@@ -47,6 +47,41 @@ def upsample_nearest(x: torch.Tensor, k, out_h: int, out_w: int
     return x[..., 0] if squeeze else x
 
 
+def upsample2x_linear(x: torch.Tensor) -> torch.Tensor:
+    """Half-pixel-centre 2x bilinear upsample of (h,w[,c]) by shift and
+    lerp: output row y samples v = (y+0.5)/2 - 0.5, so even rows blend
+    rows (k-1, k) by (0.25, 0.75) and odd rows (k, k+1) by (0.75, 0.25);
+    the same in x; edges clamp."""
+    squeeze = x.dim() == 2
+    if squeeze:
+        x = x[..., None]
+
+    def axis_up(a, axis):
+        first, last = a.narrow(axis, 0, 1), a.narrow(axis, a.shape[axis] - 1, 1)
+        prev = torch.cat([first, a.narrow(axis, 0, a.shape[axis] - 1)], axis)
+        nxt = torch.cat([a.narrow(axis, 1, a.shape[axis] - 1), last], axis)
+        even = 0.25 * prev + 0.75 * a
+        odd = 0.75 * a + 0.25 * nxt
+        sh = list(a.shape)
+        sh[axis] *= 2
+        return torch.stack([even, odd], dim=axis + 1).reshape(sh)
+
+    x = axis_up(axis_up(x, 0), 1)
+    return x[..., 0] if squeeze else x
+
+
+def upsample_linear(x: torch.Tensor, k: int, out_h: int, out_w: int
+                    ) -> torch.Tensor:
+    """Power-of-two k-x bilinear upsample by repeated 2x steps, cropped to
+    (out_h, out_w) (chord_tpu post.py:277; not equal to one k-x resize)."""
+    if k & (k - 1):
+        raise ValueError(f"k={k} must be a power of two")
+    while k > 1:
+        x = upsample2x_linear(x)
+        k //= 2
+    return x[:out_h, :out_w]
+
+
 def _roll(x: torch.Tensor, dy: int, dx: int) -> torch.Tensor:
     return torch.roll(x, shifts=(dy, dx), dims=(0, 1))
 

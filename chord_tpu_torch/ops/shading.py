@@ -1,7 +1,8 @@
 """Deferred shading from the visibility buffer (port of
 chord_tpu/ops/shading.py: GBuffer, SunLight, `resolve_gbuffer_raster_rt`
-with its textured branch, `shade_pixels`, the masked bucket's alpha test
-and the blend bucket's forward shade; reference lighting.hlsl:270-385).
+with its textured branch, `shade_pixels` with the shadow mask and the
+atmosphere's sky and ambient, the masked bucket's alpha test and the blend
+bucket's forward shade; reference lighting.hlsl:270-385).
 
 Normals and uv come from the rasterizer's attribute planes, position from
 depth unprojection; material constants and the per-object rigid motion
@@ -310,9 +311,12 @@ def _norm3(x: torch.Tensor) -> torch.Tensor:
 
 def shade_pixels(g: GBuffer, sun: SunLight,
                  sun_shadow: Optional[torch.Tensor] = None,
-                 ambient: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Per-pixel sun (GGX, height-correlated Smith, Schlick) + flat
-    hemispherical sky ambient -> (H,W,3) HDR AP1; misses take the sky."""
+                 ambient: Optional[torch.Tensor] = None,
+                 sky_radiance: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Per-pixel sun (GGX, height-correlated Smith, Schlick) with the
+    optional (H,W) shadow mask + ambient (the atmosphere's, else a flat
+    hemispherical sky term) -> (H,W,3) HDR AP1. Misses take `sky_radiance`
+    (H,W,3), else the flat sky colour."""
     n = g.normal
     vv = -g.position_tw
     vv = vv / torch.clamp_min(_norm3(vv), 1e-8)
@@ -345,5 +349,6 @@ def shade_pixels(g: GBuffer, sun: SunLight,
         up_wrap = torch.clamp(n[..., 1] * 0.5 + 0.5, 0.0, 1.0)[..., None]
         ambient = sun.sky_ambient * up_wrap
     lit = direct + diffuse_color * ambient + g.emissive
-    sky = sun.sky_ambient.expand_as(lit)
+    sky = (sky_radiance if sky_radiance is not None
+           else sun.sky_ambient.expand_as(lit))
     return torch.where(g.valid[..., None], lit, sky)

@@ -44,10 +44,9 @@ def vis_to_uint32(vis: torch.Tensor):
 
 @dataclass
 class FrameHistory:
-    """State carried frame -> frame by the `off` path. `valid` gates all
-    history reads; a camera cut sets valid=0 (reference clearHistory).
-    chord_tpu's history also carries GI, shadow and DDGI state; those
-    fields join with their slices."""
+    """State carried frame -> frame. `valid` gates all history reads; a
+    camera cut sets valid=0 (reference clearHistory). chord_tpu's history
+    also carries GI and DDGI state; those fields join with their slice."""
 
     valid: torch.Tensor         # () f32 0/1
     frame_count: torch.Tensor   # () i32
@@ -55,19 +54,33 @@ class FrameHistory:
     depth: torch.Tensor         # (H,W) f32 previous depth
     exposure: torch.Tensor      # () f32 adapted exposure
     tsr_color: torch.Tensor     # (Hp,Wp,3) f32 accumulated TSR colour
-    depth_range: torch.Tensor   # (2,) f32 view-space (near, far)
+    depth_range: torch.Tensor   # (2,) f32 view-space (near, far) of the
+                                # frame's valid depth (next frame's fit)
+    shadow_mask: torch.Tensor   # (Hs,Ws) f32 temporal PCSS mask (1 = lit)
+    # cached cascades (one re-renders per frame, round robin), each with
+    # the fit matrix it was rendered with
+    shadow_maps: torch.Tensor   # (N,R,R) f32 reverse-Z ((1,1,1) when off)
+    shadow_mats: torch.Tensor   # (N,4,4) f32 tw -> light of each cached map
 
     @classmethod
     def empty(cls, h: int, w: int, post_h: Optional[int] = None,
-              post_w: Optional[int] = None, device=None) -> "FrameHistory":
-        """Invalid (valid=0) history on `device` (None = the card)."""
+              post_w: Optional[int] = None, shadow_div: int = 2,
+              shadow_cascades: int = 0, shadow_res: int = 1,
+              shadow_phase: int = 1, device=None) -> "FrameHistory":
+        """Invalid (valid=0) history on `device` (None = the card).
+        `shadow_div` is the PCSS eval divisor (ShadowConfig.eval_res_div),
+        `shadow_cascades` / `shadow_res` size the cascade cache (0 = off).
+        `shadow_phase` is accepted as chord_tpu's signature has it; the
+        phase-decimated eval does not ride in the history."""
         from ..ops.hzb import hzb_layout
         from ..utils.device import resolve
 
+        del shadow_phase
         device = resolve(device)
         ph, pw = post_h or h, post_w or w
         ws, hs, offs = hzb_layout(w, h)
         total = offs[-1] + ws[-1] * hs[-1]
+        n = max(shadow_cascades, 1)
         f32 = dict(dtype=torch.float32, device=device)
         return cls(
             valid=torch.zeros((), **f32),
@@ -77,4 +90,8 @@ class FrameHistory:
             exposure=torch.ones((), **f32),
             tsr_color=torch.zeros((ph, pw, 3), **f32),
             depth_range=torch.zeros((2,), **f32),
+            shadow_mask=torch.ones((-(-h // shadow_div), -(-w // shadow_div)),
+                                   **f32),
+            shadow_maps=torch.zeros((n, shadow_res, shadow_res), **f32),
+            shadow_mats=torch.zeros((n, 4, 4), **f32),
         )

@@ -21,7 +21,8 @@ from chord_tpu_torch.asset.procedural import (bench_texture_pool,
                                               build_bistro_like,
                                               build_sponza_like)
 from chord_tpu_torch.ops import (kernels, paged_texture, raster, row_gather,
-                                 tile_reproject)
+                                 shadow, shadow_kernel, tile_reproject)
+from chord_tpu_torch.ops import atmosphere as atm
 from chord_tpu_torch.renderer import (DeviceView, MeshletFrameConfig,
                                       RendererConfig,
                                       render_sequence_meshlet)
@@ -38,6 +39,10 @@ TEX_MCFG = MeshletFrameConfig(draw_capacity=1024, masked_draw_capacity=256,
                               textured=True, normal_mapped=True,
                               pbr_textures=True, alpha_masked=True,
                               alpha_blend=True, blend_textured=False)
+# the geo_shadow_atmo rung (bench.py:42-44): geo_tex + shadows + atmosphere
+SHADOW_CFG = shadow.ShadowConfig(cascade_count=2, resolution=256)
+SHADOW_MCFG = TEX_MCFG._replace(shadows=True, atmosphere=True,
+                                shadow_cfg=SHADOW_CFG)
 
 
 @pytest.fixture
@@ -47,8 +52,10 @@ def dev():
     return torch.device("cuda", 0)
 
 
-def _tex_sequence(d, frames=3):
-    """The small textured bistro along bench.py's camera path, jittered."""
+def _tex_sequence(d, frames=3, shadows=False):
+    """The small textured bistro along bench.py's camera path, jittered;
+    with shadows, the views carry the cascade fit and the atmosphere LUTs
+    and the history the cascade cache."""
     b = build_bistro_like(detail=1, textures=True)
     cam = Camera(width=W, height=H)
     vs = []
@@ -56,18 +63,31 @@ def _tex_sequence(d, frames=3):
         t = i / 15
         cam.position = np.array([-45.0 + 70.0 * t, 5.0, 4.0])
         cam.look_at(np.array([55.0, 3.0, -4.0]))
-        vs.append(DeviceView.from_uniform(cam.view_uniform(i, jitter=True),
-                                          device=d))
+        vs.append(DeviceView.from_uniform(
+            cam.view_uniform(i, jitter=True), device=d,
+            shadow_cfg=SHADOW_CFG if shadows else None))
+    hist = FrameHistory.empty(H, W, PH, PW, device=d)
+    if shadows:
+        p = atm.AtmosphereParams()
+        t_lut = atm.build_transmittance_lut(p, 40, device=d)
+        ms = atm.build_multiscatter_lut(p, t_lut, dir_samples=16, steps=12)
+        sky = atm.build_sky_view_lut(p, t_lut, ms, vs[0].sun_direction)
+        vs = [v.replace(atmo_t_lut=t_lut, atmo_ms_lut=ms, atmo_sky_lut=sky)
+              for v in vs]
+        hist = FrameHistory.empty(H, W, PH, PW, shadow_div=4,
+                                  shadow_cascades=2, shadow_res=256,
+                                  device=d)
     return (build_meshlet_pools(b, texture_pool=b.texture_pool, device=d),
-            b.frame_instances(cam, device=d), DeviceView.stack(vs),
-            FrameHistory.empty(H, W, PH, PW, device=d))
+            b.frame_instances(cam, device=d), DeviceView.stack(vs), hist)
 
 
 def _path_run(path, d):
     """-> (sequence inputs on `d`, frame config) of a kernels.PATHS path."""
     if path == "off":
         return _sequence(d), MCFG
-    return _tex_sequence(d), TEX_MCFG
+    if path == "geo_tex":
+        return _tex_sequence(d), TEX_MCFG
+    return _tex_sequence(d, shadows=True), SHADOW_MCFG
 
 
 def _sequence(d, frames=3):
@@ -175,6 +195,51 @@ def test_gather_and_reproject_random_inputs(dev):
     _exact(kernels.KERNELS[3], args, kwargs)
 
 
+def _pcss_inputs(d, n=4, r=1024, h=90, w=160, seed=7):
+    """K6 at its bench shapes: a random stack (zeros = empty texels) and a
+    random prepass, edge and out-of-map taps included."""
+    rng = np.random.default_rng(seed)
+    maps = rng.uniform(0.0, 1.0, (n, r, r)).astype(np.float32)
+    maps[rng.uniform(size=maps.shape) < 0.4] = 0.0
+    f = lambda lo, hi: torch.from_numpy(rng.uniform(lo, hi, (h, w)).astype(
+        np.float32)).to(d)
+    theta = f(0.0, 2 * np.pi)
+    z = f(0.0, 1.0)
+    pre = shadow.ShadowPrepass(
+        cascade=torch.from_numpy(rng.integers(-1, n, (h, w)).astype(
+            np.int32)).to(d),
+        u=f(-8.0, r + 8.0), v=f(-8.0, r + 8.0), z_cmp=z + f(0.0, 2e-3),
+        z_recv=z, ca=torch.cos(theta), sa=torch.sin(theta),
+        depth_range=torch.from_numpy(rng.uniform(5, 500, n).astype(
+            np.float32)).to(d),
+        texel=torch.from_numpy(rng.uniform(0.01, 0.5, n).astype(
+            np.float32)).to(d))
+    return torch.from_numpy(maps).to(d), pre
+
+
+@pytest.mark.cuda
+def test_pcss_random_inputs(dev):
+    """K6 against its plain version on the card and on the CPU (bench
+    shapes, random stack and prepass), bit for bit; eval_kernel=False has
+    no path on the card."""
+    maps, pre = _pcss_inputs(dev)
+    cfg = shadow.ShadowConfig()
+    got = shadow_kernel.pcss(maps, pre, cfg)
+    torch.cuda.synchronize()
+    assert torch.equal(got, shadow.pcss_plain(maps, pre, cfg))
+    cpu = shadow.pcss_plain(maps.cpu(), shadow.ShadowPrepass(
+        *[x.cpu() for x in pre]), cfg)
+    assert torch.equal(got.cpu(), cpu)
+    assert 0.0 < float((got < 1.0).float().mean()) < 1.0
+    with pytest.raises(NotImplementedError):
+        shadow.evaluate_shadow_auto(
+            torch.zeros((4, 4, 3), device=dev), torch.zeros((4, 4, 3),
+                                                            device=dev),
+            torch.ones(3, device=dev), maps, torch.zeros((4, 4, 4),
+                                                         device=dev),
+            cfg._replace(eval_kernel=False))
+
+
 @pytest.mark.cuda
 def test_wrappers_reject_bad_inputs(dev):
     table = torch.zeros((16, 8), dtype=torch.float32, device=dev)
@@ -198,6 +263,14 @@ def test_wrappers_reject_bad_inputs(dev):
         a.update(bad)
         with pytest.raises(ValueError):
             paged_texture.paged_sample(**a)
+    maps, pre = _pcss_inputs(dev, n=2, r=64, h=4, w=4)
+    for bad in (dict(u=pre.u.double()), dict(cascade=pre.cascade.float()),
+                dict(texel=pre.texel[:1]), dict(v=pre.v[:, :2])):
+        with pytest.raises(ValueError):
+            shadow_kernel.pcss(maps, pre._replace(**bad),
+                               shadow.ShadowConfig())
+    with pytest.raises(ValueError):
+        shadow_kernel.pcss(maps[:, :, :32], pre, shadow.ShadowConfig())
     with pytest.raises(NotImplementedError):
         raster.raster_queue(None, raster.TriangleSetup(
             coefT=table, window_bbox=slot, window_valid=slot, valid=slot),
@@ -205,7 +278,7 @@ def test_wrappers_reject_bad_inputs(dev):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("path", ["off", "geo_tex"])
+@pytest.mark.parametrize("path", ["off", "geo_tex", "geo_shadow_atmo"])
 def test_gpu_frames_match_cpu_plain(dev, path):
     """The tiny sequence of each path through the kernels on the GPU equals
     the plain versions on the CPU (the path the CPU tests hold against
@@ -219,7 +292,7 @@ def test_gpu_frames_match_cpu_plain(dev, path):
         out[d.type] = (imgs.cpu().numpy().astype(np.int32),
                        {k: v.cpu().tolist() for k, v in st.items()})
     assert out["cuda"][1] == out["cpu"][1]
-    if path == "geo_tex":
+    if path != "off":
         assert max(out["cuda"][1]["draws_masked"]) > 0
     diff = np.abs(out["cuda"][0] - out["cpu"][0])
     assert (diff <= 2).mean() >= 0.999, diff.max()

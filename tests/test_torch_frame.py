@@ -30,6 +30,7 @@ from chord_tpu.rhi.meshlet_scene import build_meshlet_pools as jax_pools
 from chord_tpu.utils.camera import Camera as JCamera
 
 from chord_tpu_torch.asset.procedural import build_sponza_like
+from chord_tpu_torch.ops.shadow import ShadowConfig
 from chord_tpu_torch.renderer import (DeviceView, MeshletFrameConfig,
                                       MeshletRenderer, RendererConfig,
                                       render_sequence_meshlet)
@@ -133,9 +134,11 @@ def test_flags_outside_the_slice_raise(runs):
     b, pools, inst, views = runs["scene"]
     hist = FrameHistory.empty(H, W, PH, PW, device="cpu")
     for mcfg, cfg in [
-            (MeshletFrameConfig(shadows=True), RendererConfig(**CFG)),
+            (MeshletFrameConfig(shadows=True, shadow_cfg=ShadowConfig(
+                pipelined=True)), RendererConfig(**CFG)),
             (MeshletFrameConfig(masked_layers=2), RendererConfig(**CFG)),
             (MeshletFrameConfig(gi=True), RendererConfig(**CFG)),
+            (MeshletFrameConfig(ssr=True), RendererConfig(**CFG)),
             (MeshletFrameConfig(occlusion=False), RendererConfig(**CFG)),
             (MeshletFrameConfig(), RendererConfig(**{**CFG,
                                                      "tsr_mode": "gather"})),

@@ -101,10 +101,13 @@ def test_device_view_matches(jitter):
     ref = _np(JView.from_uniform(jcam.view_uniform(3, jitter=jitter)))
     view = DeviceView.from_uniform(cam.view_uniform(3, jitter=jitter),
                                   device="cpu")
-    _assert_same(view, ref, [f.name for f in dataclasses.fields(view)])
+    # the fields a view without shadows or atmosphere carries
+    names = [f.name for f in dataclasses.fields(view)
+             if getattr(view, f.name) is not None]
+    assert set(names) == set(ref)
+    _assert_same(view, ref, names)
     # interop carries chord_tpu's view across unchanged
-    _assert_same(interop.view_from_numpy(ref, device="cpu"), ref,
-                 [f.name for f in dataclasses.fields(view)])
+    _assert_same(interop.view_from_numpy(ref, device="cpu"), ref, names)
 
 
 def test_port_imports_no_jax():
