@@ -4,33 +4,45 @@
     python3 chip_smoke.py              # the default run
     python3 chip_smoke.py --profile    # + a torch.profiler breakdown per path
 
-Three paths, the bench's `off`, `geo_tex` and `geo_shadow_atmo` rungs
-(bench.py:35-54): the 1280x720 render of the 2.6M-triangle procedural
-bistro (Nanite LOD cut), upscaled to 1920x1080 by tile-mode TSR, bloom and
-the ACES tonemap; `geo_tex` adds the bench texture pool (12 layers of 256²,
-block-compressed pages), base / normal / metal-rough maps, the
-alpha-masked bucket and the blend bucket, on the bistro built with
+Five paths. Three are the bench's `off`, `geo_tex` and `geo_shadow_atmo`
+rungs (bench.py:35-54): the 1280x720 render of the 2.6M-triangle
+procedural bistro (Nanite LOD cut), upscaled to 1920x1080 by tile-mode
+TSR, bloom and the ACES tonemap; `geo_tex` adds the bench texture pool (12
+layers of 256², block-compressed pages), base / normal / metal-rough maps,
+the alpha-masked bucket and the blend bucket, on the bistro built with
 textures=True; `geo_shadow_atmo` renders the same textured bistro with
 ShadowConfig() (4 cascades of 1024², round-robin refresh, scrolled cache,
 alpha-tested masked casters, PCSS on a 2x2 phase of the 1/4-res grid,
 temporal mask), the physically based sky, sun tint, ambient and aerial
 perspective, with the atmosphere LUTs built once (bench.py:236-256).
+`geo_tex_bricks` is `geo_tex` with the r.raster.bricks cvar set for the
+whole path: the brick raster (K7) replaces K1 in both occlusion phases
+and the masked and blend buckets. `flat` is the flat DeferredRenderer
+frame (BASELINE config #1: object frustum cull, every triangle of the
+visible objects, deferred PBR) of build_sponza_like(detail=4) (367,104
+padded triangles) at 1920x1080 along bench.py's Sponza camera path
+(bench.py:127-129), with RendererConfig(subtiles=True): the sub-tile
+raster (K8) at pair capacity 16384 (the class default 8192 drops pairs on
+this scene), big capacity 128, bloom and gather-mode TSR.
 
 Phases (any failure raises and the script exits non-zero):
 
 1. Requires a CUDA device; prints the card's name and power limit.
-2. Builds the six hand-written kernels (chord_tpu_torch/csrc/*.cu, one
+2. Builds the eight hand-written kernels (chord_tpu_torch/csrc/*.cu, one
    nvcc per source, all at once) into build/kernels/.
-3. Builds both scenes (sharing the Nanite DAG of their common meshes; the
-   shadow path reuses the textured one) and the LUTs, and prints build
-   time, page count and pool bytes.
+3. Builds the scenes (the two bistros share the Nanite DAG of their common
+   meshes; the shadow and brick paths reuse the textured one; the flat
+   Sponza pools with a per-frame instance table) and the LUTs, and prints
+   build time, page count and pool bytes.
 4. Kernel vs plain version, per path: renders the path's first frame
    (on the shadow path its first four, so every cascade holds depth),
    then records every kernel call's inputs through the next frame, and
    runs each kernel and its plain PyTorch version on those calls (K1
-   raster, K2 mesh shader, K3 row gather, K4 tile reproject on every path;
-   K5 paged texture sampler on `geo_tex` and `geo_shadow_atmo`, the latter
-   with its masked shadow casters; K6 PCSS on `geo_shadow_atmo`).
+   raster on the three bench rungs; K2 mesh shader, K3 row gather, K4 tile
+   reproject on every meshlet path; K5 paged texture sampler on the
+   textured paths, with the masked shadow casters on `geo_shadow_atmo`;
+   K6 PCSS on `geo_shadow_atmo`; K7 brick raster on `geo_tex_bricks`; K8
+   sub-tile raster on `flat`).
    Tolerance 0: the kernels are built with -fmad=false and round every
    operation as the plain versions do. Times each call (CUDA events,
    inputs L2-warm, queued behind a device-side sleep so the events see the
@@ -38,15 +50,18 @@ Phases (any failure raises and the script exits non-zero):
    kept beside it), computes its bound (the larger of the bytes it must
    move over 3.35 TB/s and the f32 operations this run's data needs over
    67 TFLOP/s; the bytes are its inputs and outputs, except that K6 counts
-   the 32-B sectors of the stack its taps touch, not the whole stack) and,
-   for K3, times one torch.index_select of the same rows as a library
-   yardstick.
-5. Each path's 16-frame sequence, render_sequence_meshlet(with_stats=True),
-   with every launch count set to 0 just before and read just after:
-   worst-frame overflows 0, drawn triangles > 0, a finite non-constant
-   image, every kernel of the path launched (K5 32 times on `geo_tex`, 40
-   on `geo_shadow_atmo`: 32 plus the masked casters of the 8 frames that
-   refresh cascade 0 or 1; K6 16 times), masked draws on some frame, a
+   the 32-B sectors of the stack its taps touch, not the whole stack; the
+   rasters' operations are their pixel-row visits on this run's queue x
+   the triangles per group x 21 flops) and, for K3, times one
+   torch.index_select of the same rows as a library yardstick.
+5. Each path's 16-frame sequence (render_sequence_meshlet(with_stats=True);
+   on `flat`, DeferredRenderer.render frame by frame), with every launch
+   count set to 0 just before and read just after: worst-frame overflows
+   0, drawn triangles > 0, a finite non-constant image, every kernel of
+   the path launched and no other (K5 32 times on `geo_tex` and
+   `geo_tex_bricks`, 40 on `geo_shadow_atmo`: 32 plus the masked casters
+   of the 8 frames that refresh cascade 0 or 1; K6 16 times; K7 64 times;
+   K8 16 times), masked draws on some frame of the textured paths, a
    finite cascade cache and shadow mask, and per cascade the shadow draws
    (read from the K2 calls) beside what the cull asked for and the pairs
    the bins dropped (none allowed); then the sequence three more times for
@@ -55,10 +70,10 @@ Phases (any failure raises and the script exits non-zero):
    chord_tpu does at this config: printed, not failed. The shadow path
    then runs once more at 4096, where every cascade must stay below its
    capacity, and is timed there too.
-6. A small-input cross-check per path (tiny atrium; small textured
-   bistro, with 2 cascades of 256² on the shadow path): kernels on the GPU
-   vs plain versions on the CPU (the path the tests hold against
-   chord_tpu), stats exact, images within 2 u8 levels.
+6. A small-input cross-check per path (tiny atrium, its flat pools on
+   `flat`; small textured bistro, with 2 cascades of 256² on the shadow
+   path): kernels on the GPU vs plain versions on the CPU (the path the
+   tests hold against chord_tpu), stats exact, images within 2 u8 levels.
 
 The line before the last is the nvidia-smi name/power-limit line, the one
 before that the per-kernel JSON (one entry per kernel and path: launches,
@@ -76,6 +91,7 @@ import statistics
 import subprocess
 import sys
 import time
+from typing import Optional
 
 W, H, PW, PH = 1280, 720, 1920, 1080
 FRAMES = 16
@@ -84,6 +100,13 @@ FRAMES = 16
 # a capacity that holds every cascade
 BENCH_SHADOW_DRAWS = 2048
 FULL_SHADOW_DRAWS = 4096
+# the flat path: BASELINE config #1 at 1080p on a production-sized Sponza;
+# at RendererConfig's pair capacity of 8192 its sub-tile queue runs out of
+# rounds (r_cap = capacity // 4) and drops pairs on every frame
+FLAT_W, FLAT_H = 1920, 1080
+FLAT_DETAIL = 4
+FLAT_PAIRS = 16384
+TEXTURED_PATHS = ("geo_tex", "geo_shadow_atmo", "geo_tex_bricks")
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory
 F32_OPS_PER_S = 67e12         # H100 SXM f32 outside the tensor cores
 
@@ -101,10 +124,11 @@ def card_line() -> str:
 
 
 def bench_scenes(dev, paths):
-    """The bench bistro of each path (bench.py:88-100; textures off for
-    `off`, on for the others) and the bench camera path (bench.py:112-131);
-    `geo_shadow_atmo` reuses the textured build, its views carry the host
-    cascade fit and the LUTs (bench.py:236-256)."""
+    """The scene of each path: the bench bistro (bench.py:88-100; textures
+    off for `off`, on for the others) and the bench camera path
+    (bench.py:112-131); `geo_shadow_atmo` and `geo_tex_bricks` reuse the
+    textured build, the former with views carrying the host cascade fit
+    and the LUTs (bench.py:236-256); `flat` is flat_scene()."""
     import numpy as np
 
     from chord_tpu_torch.asset.procedural import build_bistro_like
@@ -119,6 +143,13 @@ def bench_scenes(dev, paths):
     scenes = {}
     for path in paths:
         t0 = time.time()
+        if path == "flat":
+            scenes[path] = flat_scene(dev)
+            continue
+        if path == "geo_tex_bricks":   # geo_tex's scene (PATHS order)
+            scenes[path] = scenes["geo_tex"]
+            log(f"scene {path}: the geo_tex scene")
+            continue
         textured = path != "off"
         shadows = path == "geo_shadow_atmo"
         if shadows:     # the textured bistro of geo_tex (PATHS order)
@@ -161,6 +192,41 @@ def bench_scenes(dev, paths):
     return scenes
 
 
+def flat_scene(dev, detail: int = FLAT_DETAIL, w: int = FLAT_W,
+               h: int = FLAT_H, frames: int = FRAMES, jitter: bool = False):
+    """The flat path's scene: build_sponza_like(detail)'s flat pools on
+    `dev`, and along bench.py's Sponza camera path (bench.py:127-129) each
+    frame's view uniform and instance table (rebased to that frame's
+    camera) -> (pools, [instances], [view uniforms], None)."""
+    import numpy as np
+
+    from chord_tpu_torch.asset.procedural import build_sponza_like
+    from chord_tpu_torch.utils.camera import Camera
+
+    t0 = time.time()
+    b = build_sponza_like(detail=detail)
+    pools = b.build_pools(device=dev)
+    cam = Camera(width=w, height=h)
+    insts, uniforms = [], []
+    for i in range(frames):
+        t = i / max(frames - 1, 1)
+        cam.position = np.array([-16.0 + 6.0 * t, 4.5, 3.0])
+        cam.look_at(np.array([12.0, 2.0, -2.0]))
+        uniforms.append(cam.view_uniform(i, jitter=jitter))
+        insts.append(b.frame_instances(cam, device=dev))
+    n_src = sum(b.meshes[m].num_triangles for m, _, _ in b.instances)
+    pool_bytes = sum(_nbytes(getattr(pools, f)) for f in (
+        "positions", "normals", "uv0", "vertex_object", "indices",
+        "tri_object", "tri_valid"))
+    if detail == FLAT_DETAIL:
+        log(f"scene flat: build_sponza_like(detail={detail}), "
+            f"{len(b.instances)} instances, {n_src} source tris "
+            f"({pools.num_triangles} padded), {pools.num_vertices} "
+            f"vertices, {len(b.materials)} materials, {pool_bytes} B of "
+            f"pools, built in {time.time() - t0:.2f} s")
+    return pools, insts, uniforms, None
+
+
 def with_luts(views, dev):
     """The views with the atmosphere LUTs, built once for the path's static
     sun (bench.py:239-256)."""
@@ -176,11 +242,17 @@ def with_luts(views, dev):
 
 def configs(path: str, blend_textured: bool = False, shadow_cfg=None,
             shadow_draws: int = BENCH_SHADOW_DRAWS):
-    """bench.py's RendererConfig and MeshletFrameConfig for a rung
-    (bench.py:171-219 at render scale 0.6667)."""
+    """The path's RendererConfig and MeshletFrameConfig: bench.py's for a
+    rung (bench.py:171-219 at render scale 0.6667); on `flat` the flat
+    frame's config and no MeshletFrameConfig."""
     from chord_tpu_torch.ops.shadow import ShadowConfig
     from chord_tpu_torch.renderer import MeshletFrameConfig, RendererConfig
 
+    if path == "flat":
+        return RendererConfig(width=FLAT_W, height=FLAT_H,
+                              pair_capacity=FLAT_PAIRS, big_capacity=128,
+                              subtiles=True, enable_bloom=True,
+                              enable_tsr=True), None
     config = RendererConfig(width=W, height=H, post_width=PW, post_height=PH,
                             pair_capacity=8192, big_capacity=64,
                             enable_bloom=True, enable_tsr=True,
@@ -196,11 +268,15 @@ def configs(path: str, blend_textured: bool = False, shadow_cfg=None,
         shadow_cfg=shadow_cfg or ShadowConfig())
 
 
-def history(path, mcfg, h, w, ph, pw, dev):
+def history(config, mcfg, dev):
     """A fresh history for the path (with the cascade cache on the shadow
     path, bench.py:259-269)."""
     from chord_tpu_torch.rhi.framebuffer import FrameHistory
 
+    h, w = config.height, config.width
+    if mcfg is None:
+        return FrameHistory.empty(h, w, device=dev)
+    ph, pw = config.post_height, config.post_width
     s = mcfg.shadow_cfg
     if not mcfg.shadows:
         return FrameHistory.empty(h, w, ph, pw, device=dev)
@@ -208,6 +284,37 @@ def history(path, mcfg, h, w, ph, pw, dev):
                               shadow_cascades=s.cascade_count,
                               shadow_res=s.resolution,
                               shadow_phase=s.temporal_phase, device=dev)
+
+
+def run_path(path, scene, config, mcfg, hist, lo: int = 0,
+             hi: Optional[int] = None):
+    """Frames lo..hi-1 (default: all) of a path -> (images, history,
+    per-frame stats), through the entry points a user calls:
+    render_sequence_meshlet, or DeferredRenderer.render frame by frame on
+    `flat`. The r.raster.bricks cvar holds for the run on `geo_tex_bricks`
+    and is off otherwise."""
+    import torch
+
+    from chord_tpu_torch.renderer import (DeferredRenderer,
+                                          render_sequence_meshlet)
+    from chord_tpu_torch.utils.cvar import cvars
+
+    pools, inst, views, _ = scene
+    hi = FRAMES if hi is None else hi
+    with cvars.override("r.raster.bricks", path == "geo_tex_bricks"):
+        if path != "flat":
+            return render_sequence_meshlet(pools, inst,
+                                           frames(views, lo, hi), hist,
+                                           config, mcfg, with_stats=True)
+        r = DeferredRenderer(config)
+        r.history = hist
+        imgs, per = [], []
+        for i in range(lo, hi):
+            img, st = r.render(pools, inst[i], views[i])
+            imgs.append(img)
+            per.append(st)
+        return (torch.stack(imgs), r.history,
+                {k: torch.stack([st[k] for st in per]) for k in per[0]})
 
 
 def timed(fn, reps: int):
@@ -270,6 +377,26 @@ def _ops(name: str, args, kwargs) -> float:
         pair_win, starts, counts, sb, coefT, seeds, zclip, c = args
         nrows = raster._groups(pair_win, starts, counts, sb, c)[-1]
         return float(nrows.sum()) * c.tile_w * (raster.WINDOW // c.sub_s) * 21
+    if name == "raster_bricks":
+        # K7: per visited (row, 32-px brick, subwindow) the group's 16
+        # triangles on 32 lanes
+        from chord_tpu_torch.ops import raster
+
+        pair_win, starts, counts, sb, coefT, seeds, zclip, c = args
+        nrows = raster._brick_groups(pair_win, starts, counts, sb, c)[-1]
+        return (float(nrows.sum()) * raster.BRICK_W *
+                (raster.WINDOW // c.sub_s) * 21)
+    if name == "raster_subtile":
+        # K8: per visited (row, 32-px sub-tile) the window's 128 triangles
+        # on 32 lanes
+        from chord_tpu_torch.ops import raster
+
+        gwin, starts, counts, y0r, y1r, coefT, seeds, c = args
+        nrows = raster._subtile_groups(
+            gwin, starts, counts, y0r, y1r,
+            coefT.shape[0] // raster.WINDOW - 1, c)[-1]
+        return (float(nrows.sum()) * (c.tile_w // raster.SUB_TILES) *
+                raster.WINDOW * 21)
     if name == "mesh_shader":
         # per drawn triangle: 3 vertex transforms (28), 3 normal
         # transforms (15) and edge / plane setup (~100)
@@ -362,17 +489,13 @@ def check_kernels(path, scene):
     import torch
 
     from chord_tpu_torch.ops import kernels
-    from chord_tpu_torch.renderer import render_sequence_meshlet
 
-    pools, inst, views, blend_tex = scene
-    config, mcfg = configs(path, blend_tex)
-    hist = history(path, mcfg, H, W, PH, PW, pools.positions.device)
-    warm = mcfg.shadow_cfg.cascade_count if mcfg.shadows else 1
-    _, hist = render_sequence_meshlet(pools, inst, frames(views, 0, warm),
-                                      hist, config, mcfg)
+    config, mcfg = configs(path, scene[3])
+    hist = history(config, mcfg, scene[0].positions.device)
+    warm = mcfg.shadow_cfg.cascade_count if mcfg and mcfg.shadows else 1
+    hist = run_path(path, scene, config, mcfg, hist, 0, warm)[1]
     with kernels.capture_inputs() as captured:
-        render_sequence_meshlet(pools, inst, frames(views, warm, warm + 1),
-                                hist, config, mcfg)
+        run_path(path, scene, config, mcfg, hist, warm, warm + 1)
     torch.cuda.synchronize()
     rows = {}
     for k in kernels.KERNELS:
@@ -395,7 +518,7 @@ def check_kernels(path, scene):
                                      f"plain version on {path}: {e}")
             ms, issue_ms = timed(lambda: k.fn()(*args, **kwargs), 20)
             plain_ms = timed(lambda: k.plain(*args, **kwargs),
-                             3 if k.name == "raster" else 10)[0]
+                             3 if k.name.startswith("raster") else 10)[0]
             lib = library_call(k.name, args)
             lib_ms = timed(lib, 20)[0] if lib else None
             b_ms, b_by = bound(k.name, args, kwargs, got)
@@ -477,31 +600,36 @@ def main_path(path, scene, card: str,
     import torch
 
     from chord_tpu_torch.ops import kernels
-    from chord_tpu_torch.renderer import render_sequence_meshlet
 
-    pools, inst, views, blend_tex = scene
-    config, mcfg = configs(path, blend_tex, shadow_draws=shadow_draws)
+    config, mcfg = configs(path, scene[3], shadow_draws=shadow_draws)
     bench = shadow_draws == BENCH_SHADOW_DRAWS
     label = path if bench else f"{path} at shadow_draw_capacity {shadow_draws}"
-    hist0 = history(path, mcfg, H, W, PH, PW, pools.positions.device)
+    hist0 = history(config, mcfg, scene[0].positions.device)
     torch.cuda.synchronize()
     kernels.reset_launch_counts()
     t0 = time.time()
     with kernels.capture_inputs() as captured:
-        imgs, hist, stats = render_sequence_meshlet(
-            pools, inst, views, hist0, config, mcfg, with_stats=True)
+        imgs, hist, stats = run_path(path, scene, config, mcfg, hist0)
     torch.cuda.synchronize()
     first_s = time.time() - t0
     launches = kernels.launch_counts()
     worst = {k: int(v.max()) for k, v in stats.items()}
     log(f"{label} path: {FRAMES} frames in {first_s:.3f} s (first run), "
         f"worst-frame stats {worst}, launches {launches}")
+    if path == "flat":
+        log(f"flat path per frame: drawn_tris {stats['drawn_tris'].tolist()}"
+            f", binned_pairs {stats['binned_pairs'].tolist()}, "
+            f"bin_overflow {stats['bin_overflow'].tolist()} (pair capacity "
+            f"{config.pair_capacity})")
     for k in ("bin_overflow", "draw_overflow", "active_overflow"):
-        if worst[k] != 0:
+        if worst.get(k, 0) != 0:
             raise AssertionError(f"{path}: worst-frame {k} = {worst[k]}")
     if int(stats["drawn_tris"].min()) <= 0:
         raise AssertionError(f"{path}: a frame drew no triangles")
-    if tuple(imgs.shape) != (FRAMES, PH, PW, 3):
+    out_hw = ((config.post_height or config.height,
+               config.post_width or config.width) if mcfg
+              else (config.height, config.width))
+    if tuple(imgs.shape) != (FRAMES, *out_hw, 3):
         raise AssertionError(f"{path}: image shape {tuple(imgs.shape)}")
     last = imgs[-1].float()
     if float(last.std()) < 1.0:
@@ -519,16 +647,19 @@ def main_path(path, scene, card: str,
             raise AssertionError(f"kernel {k.name} ran on the {path} path")
     expect = {"geo_tex": {"paged_texture": 2 * FRAMES},
               "geo_shadow_atmo": {"paged_texture": 2 * FRAMES + FRAMES // 2,
-                                  "pcss": FRAMES}}.get(path, {})
+                                  "pcss": FRAMES},
+              "geo_tex_bricks": {"paged_texture": 2 * FRAMES,
+                                 "raster_bricks": 4 * FRAMES},
+              "flat": {"raster_subtile": FRAMES}}.get(path, {})
     for name, n in expect.items():
         if launches[name] != n:
             raise AssertionError(f"{name} launched {launches[name]} times "
                                  f"on {path}, expected {n}")
-    if path != "off" and int(stats["draws_masked"].max()) <= 0:
+    if path in TEXTURED_PATHS and int(stats["draws_masked"].max()) <= 0:
         raise AssertionError("no masked draws on any frame")
     k2_calls = captured["mesh_shader"]
     del captured
-    if mcfg.shadows:
+    if mcfg is not None and mcfg.shadows:
         check_shadow_draws(k2_calls, stats, mcfg, fail_at_capacity=not bench)
         m = hist.shadow_mask
         cover = [round(float((c > 0).float().mean()), 4)
@@ -545,8 +676,7 @@ def main_path(path, scene, card: str,
     for _ in range(3):
         torch.cuda.synchronize()
         t0 = time.time()
-        render_sequence_meshlet(pools, inst, views, hist0, config, mcfg,
-                                with_stats=True)
+        run_path(path, scene, config, mcfg, hist0)
         torch.cuda.synchronize()
         times.append((time.time() - t0) / FRAMES * 1000.0)
     ms = statistics.median(times)
@@ -567,18 +697,14 @@ def profile(path, scene, n: int = 4) -> None:
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as tprofile
 
-    from chord_tpu_torch.renderer import render_sequence_meshlet
-
-    pools, inst, views, blend_tex = scene
-    config, mcfg = configs(path, blend_tex)
-    hist = history(path, mcfg, H, W, PH, PW, pools.positions.device)
-    part = frames(views, 0, n)
-    render_sequence_meshlet(pools, inst, part, hist, config, mcfg)
+    config, mcfg = configs(path, scene[3])
+    hist = history(config, mcfg, scene[0].positions.device)
+    run_path(path, scene, config, mcfg, hist, 0, n)
     torch.cuda.synchronize()
     with tprofile(activities=[ProfilerActivity.CPU,
                               ProfilerActivity.CUDA]) as prof:
         t0 = time.time()
-        render_sequence_meshlet(pools, inst, part, hist, config, mcfg)
+        run_path(path, scene, config, mcfg, hist, 0, n)
         torch.cuda.synchronize()
         wall = time.time() - t0
     events = prof.key_averages()
@@ -600,44 +726,51 @@ def small_cross_check(path, dev):
     from chord_tpu_torch.asset.procedural import (build_bistro_like,
                                                   build_sponza_like)
     from chord_tpu_torch.ops.shadow import ShadowConfig
-    from chord_tpu_torch.renderer import (DeviceView, RendererConfig,
-                                          render_sequence_meshlet)
+    from chord_tpu_torch.renderer import DeviceView, RendererConfig
     from chord_tpu_torch.rhi.meshlet_scene import build_meshlet_pools
     from chord_tpu_torch.utils.camera import Camera
 
-    tex = path != "off"
+    tex = path in TEXTURED_PATHS
     shadows = path == "geo_shadow_atmo"
-    cfg = RendererConfig(width=128, height=64, post_width=192,
-                         post_height=96, pair_capacity=4096, big_capacity=128,
-                         tsr_mode="tile")
-    _, mcfg = configs(path, shadow_cfg=ShadowConfig(cascade_count=2,
-                                                    resolution=256))
-    mcfg = mcfg._replace(draw_capacity=1024)
+    mcfg = None
+    if path == "flat":
+        cfg = RendererConfig(width=128, height=64, pair_capacity=4096,
+                             big_capacity=128, subtiles=True)
+    else:
+        cfg = RendererConfig(width=128, height=64, post_width=192,
+                             post_height=96, pair_capacity=4096,
+                             big_capacity=128, tsr_mode="tile")
+        _, mcfg = configs(path, shadow_cfg=ShadowConfig(cascade_count=2,
+                                                        resolution=256))
+        mcfg = mcfg._replace(draw_capacity=1024)
     out = {}
     for d in (dev, torch.device("cpu")):
-        b = (build_bistro_like(detail=1, textures=True) if tex
-             else build_sponza_like(detail=1))
-        cam = Camera(width=128, height=64)
-        vs = []
-        for i in range(3):
-            if tex:
-                cam.position = np.array([-45.0 + 70.0 * i / 15, 5.0, 4.0])
-                cam.look_at(np.array([55.0, 3.0, -4.0]))
-            else:
-                cam.position = np.array([-15.0 + 0.5 * i, 4.0, 0.3 * i])
-                cam.look_at(np.array([10.0, 2.0, 0.0]))
-            vs.append(DeviceView.from_uniform(
-                cam.view_uniform(i, jitter=True), device=d,
-                shadow_cfg=mcfg.shadow_cfg if shadows else None))
-        if shadows:
-            vs = with_luts(vs, d)
-        imgs, _, st = render_sequence_meshlet(
-            build_meshlet_pools(b, device=d,
-                                texture_pool=getattr(b, "texture_pool",
-                                                     None)),
-            b.frame_instances(cam, device=d), DeviceView.stack(vs),
-            history(path, mcfg, 64, 128, 96, 192, d), cfg, mcfg,
-            with_stats=True)
+        if path == "flat":
+            scene = flat_scene(d, detail=1, w=128, h=64, frames=3,
+                               jitter=True)
+        else:
+            b = (build_bistro_like(detail=1, textures=True) if tex
+                 else build_sponza_like(detail=1))
+            cam = Camera(width=128, height=64)
+            vs = []
+            for i in range(3):
+                if tex:
+                    cam.position = np.array([-45.0 + 70.0 * i / 15, 5.0,
+                                             4.0])
+                    cam.look_at(np.array([55.0, 3.0, -4.0]))
+                else:
+                    cam.position = np.array([-15.0 + 0.5 * i, 4.0, 0.3 * i])
+                    cam.look_at(np.array([10.0, 2.0, 0.0]))
+                vs.append(DeviceView.from_uniform(
+                    cam.view_uniform(i, jitter=True), device=d,
+                    shadow_cfg=mcfg.shadow_cfg if shadows else None))
+            if shadows:
+                vs = with_luts(vs, d)
+            scene = (build_meshlet_pools(
+                b, device=d, texture_pool=getattr(b, "texture_pool", None)),
+                b.frame_instances(cam, device=d), DeviceView.stack(vs), None)
+        imgs, _, st = run_path(path, scene, cfg, mcfg,
+                               history(cfg, mcfg, d), 0, 3)
         out[d.type] = (imgs.cpu().numpy().astype(np.int32),
                        {k: v.cpu().tolist() for k, v in st.items()})
     diff = np.abs(out["cuda"][0] - out["cpu"][0])
@@ -684,7 +817,7 @@ def main() -> int:
     for p in PATHS:
         krows = check_kernels(p, scenes[p])
         launches, ms_per_frame[p] = main_path(p, scenes[p], smi)
-        if configs(p)[1].shadows:
+        if p == "geo_shadow_atmo":
             ms_per_frame[f"{p} shadow_draw_capacity {FULL_SHADOW_DRAWS}"] = \
                 main_path(p, scenes[p], smi, FULL_SHADOW_DRAWS)[1]
         for name, n in launches.items():

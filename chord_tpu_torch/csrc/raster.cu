@@ -125,7 +125,7 @@ raster_tiles_kernel(const int* __restrict__ pair_win,
             // a new maximum: earlier winners are out
             best = cand;
             n_win = 1;
-            pay_sel = max(tc[15], 0);
+            pay_sel = tc[15];
             if (n_attr) {
               float inv_s = 1.0f / (l[0] + l[1] + l[2]);
               for (int k = 0; k < 5; ++k) {
@@ -149,9 +149,11 @@ raster_tiles_kernel(const int* __restrict__ pair_win,
             }
           }
         }
-        // the group max also runs over the losers' kNeg fill
-        if (n_win < cs)
+        // the group max also runs over the losers' fill (0, kNeg)
+        if (n_win < cs) {
+          pay_sel = max(pay_sel, 0);
           for (int k = 0; k < 5; ++k) sel[k] = max_nan(sel[k], kNeg);
+        }
         const float acc_d = depth[p];
         const int acc_v = vis[p];
         if (best > acc_d || (best == acc_d && pay_sel > acc_v)) {

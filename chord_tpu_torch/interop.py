@@ -2,11 +2,11 @@
 
 chord_tpu's objects go in as mappings of numpy arrays, e.g.
 `{k: np.asarray(v) for k, v in vars(pools).items() if v is not None}` for
-its MeshletScenePools / FrameInstances / DeviceView / FrameHistory; each
-function keeps the fields the port's counterpart has and moves them to
-`device` (None = the card, as everywhere in the port). Nothing here
-imports chord_tpu or jax: the tests use it to feed both packages identical
-state.
+its ScenePools / MeshletScenePools / FrameInstances / DeviceView /
+FrameHistory; each function keeps the fields the port's counterpart has
+and moves them to `device` (None = the card, as everywhere in the port).
+Nothing here imports chord_tpu or jax: the tests use it to feed both
+packages identical state.
 """
 
 from __future__ import annotations
@@ -20,7 +20,7 @@ import torch
 from .renderer.deferred import SHARED_FIELDS, DeviceView
 from .rhi.framebuffer import FrameHistory
 from .rhi.meshlet_scene import MeshletScenePools
-from .rhi.scene_arrays import FrameInstances
+from .rhi.scene_arrays import FrameInstances, ScenePools
 from .utils.device import resolve
 
 
@@ -42,6 +42,11 @@ def _build(cls, arrays: Mapping[str, np.ndarray], device):
 def pools_from_numpy(arrays, device=None) -> MeshletScenePools:
     """Also carries the texture pools (tex_pool u8, tex_pages, tex_meta)."""
     return _build(MeshletScenePools, arrays, device)
+
+
+def scene_pools_from_numpy(arrays, device=None) -> ScenePools:
+    """chord_tpu's flat ScenePools (SceneBuilder.build_pools)."""
+    return _build(ScenePools, arrays, device)
 
 
 def instances_from_numpy(arrays, device=None) -> FrameInstances:

@@ -3,7 +3,7 @@
 One entry per kernel: the module, the wrapper that launches the CUDA
 kernel (and counts its launches in `wrapper.launches`), the plain PyTorch
 version with the same signature, the CUDA source, the chord_tpu Pallas
-kernel it replaces and the bench rungs (`paths`) whose frame launches it.
+kernel it replaces and the paths (`paths`) whose frame launches it.
 `capture_inputs` records the arguments each wrapper receives while a frame
 runs, so a check can hold kernel and plain version against each other on
 a path's own inputs and shapes.
@@ -20,8 +20,11 @@ import torch
 from . import (mesh_shader, paged_texture, raster, row_gather, shadow,
                shadow_kernel, tile_reproject)
 
-# the bench rungs the port renders (bench.py FEATURE_LEVELS)
-PATHS = ("off", "geo_tex", "geo_shadow_atmo")
+# the paths the port renders: the bench rungs (bench.py FEATURE_LEVELS),
+# `geo_tex` with the r.raster.bricks cvar set, and the flat
+# DeferredRenderer frame with RendererConfig(subtiles=True)
+PATHS = ("off", "geo_tex", "geo_shadow_atmo", "geo_tex_bricks", "flat")
+MESHLET = ("off", "geo_tex", "geo_shadow_atmo", "geo_tex_bricks")
 
 
 @dataclass(frozen=True)
@@ -32,7 +35,7 @@ class Kernel:
     plain: Callable
     source: str
     replaces: str
-    paths: Tuple[str, ...] = PATHS
+    paths: Tuple[str, ...] = MESHLET
 
     def fn(self) -> Callable:
         return getattr(self.module, self.wrapper)
@@ -40,7 +43,8 @@ class Kernel:
 
 KERNELS: List[Kernel] = [
     Kernel("raster", raster, "raster_tiles", raster.raster_tiles_plain,
-           "chord_tpu_torch/csrc/raster.cu", "chord_tpu/ops/raster.py:488"),
+           "chord_tpu_torch/csrc/raster.cu", "chord_tpu/ops/raster.py:488",
+           paths=("off", "geo_tex", "geo_shadow_atmo")),
     Kernel("mesh_shader", mesh_shader, "mesh_shader",
            mesh_shader.mesh_shader_plain,
            "chord_tpu_torch/csrc/mesh_shader.cu",
@@ -57,11 +61,19 @@ KERNELS: List[Kernel] = [
            paged_texture.paged_sample_plain,
            "chord_tpu_torch/csrc/paged_texture.cu",
            "chord_tpu/ops/paged_texture.py:251",
-           paths=("geo_tex", "geo_shadow_atmo")),
+           paths=("geo_tex", "geo_shadow_atmo", "geo_tex_bricks")),
     Kernel("pcss", shadow_kernel, "pcss", shadow.pcss_plain,
            "chord_tpu_torch/csrc/pcss.cu",
            "chord_tpu/ops/shadow_kernel.py:145",
            paths=("geo_shadow_atmo",)),
+    Kernel("raster_bricks", raster, "raster_bricks",
+           raster.raster_bricks_plain,
+           "chord_tpu_torch/csrc/raster_bricks.cu",
+           "chord_tpu/ops/raster.py:740", paths=("geo_tex_bricks",)),
+    Kernel("raster_subtile", raster, "raster_subtile",
+           raster.raster_subtile_plain,
+           "chord_tpu_torch/csrc/raster_subtile.cu",
+           "chord_tpu/ops/raster.py:1233", paths=("flat",)),
 ]
 
 

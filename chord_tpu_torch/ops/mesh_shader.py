@@ -33,10 +33,10 @@ import torch
 
 from . import _cuda
 from ._util import bits_i32
-from .raster import COEF_ROWS, WINDOW, TriangleSetup, _sub_bounds
+from .raster import (COEF_ROWS, EPS_W, WINDOW, TriangleSetup, _poison_row,
+                     _sub_bounds)
 
 META_ROWS = 5
-EPS_W = 1e-6
 
 
 def matmul4(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -106,12 +106,6 @@ def setup_from_meta(coefT: torch.Tensor, meta: torch.Tensor, cap: int,
                          window_bbox=torch.stack([wx0, wy0, wx1, wy1], 0),
                          window_valid=valid.any(dim=1), valid=vflat,
                          sub_bounds=sub_bounds)
-
-
-def _poison_row(dev) -> torch.Tensor:
-    row = torch.zeros(COEF_ROWS, dtype=torch.float32, device=dev)
-    row[10:13] = -1.0
-    return bits_i32(row)
 
 
 # --- K2: the plain version --------------------------------------------------

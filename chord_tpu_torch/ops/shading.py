@@ -1,10 +1,14 @@
 """Deferred shading from the visibility buffer (port of
-chord_tpu/ops/shading.py: GBuffer, SunLight, `resolve_gbuffer_raster_rt`
-with its textured branch, `shade_pixels` with the shadow mask and the
-atmosphere's sky and ambient, the masked bucket's alpha test and the blend
-bucket's forward shade; reference lighting.hlsl:270-385).
+chord_tpu/ops/shading.py: GBuffer, SunLight, the flat frame's
+`resolve_gbuffer`, `resolve_gbuffer_raster_rt` with its textured branch,
+`shade_pixels` with the shadow mask and the atmosphere's sky and ambient,
+the masked bucket's alpha test and the blend bucket's forward shade;
+reference lighting.hlsl:270-385).
 
-Normals and uv come from the rasterizer's attribute planes, position from
+The flat frame's resolve re-fetches each pixel's triangle from the flat
+pools (payload - 1) and interpolates its vertices with perspective-correct
+barycentrics. On the meshlet frame normals and uv come from the
+rasterizer's attribute planes, position from
 depth unprojection; material constants and the per-object rigid motion
 delta are per-draw table rows fetched per pixel with kernel K3
 (ops/row_gather.py); material maps are sampled with kernel K5
@@ -55,6 +59,114 @@ def _project_xy(p3: torch.Tensor, vp: torch.Tensor) -> torch.Tensor:
     wc = torch.where(torch.abs(c[..., 3:4]) > 1e-8, c[..., 3:4],
                      torch.ones((), device=c.device))
     return c[..., :2] / wc
+
+
+def _barycentrics_from_clip(c0, c1, c2, px_ndc, py_ndc):
+    """Perspective-correct barycentrics (b0, b1, b2) at an NDC point from
+    three (...,4) clip-space vertices: the 2D homogeneous cofactors at the
+    point, normalised by their sum (chord_tpu shading.py:62-96)."""
+    x0, y0, w0 = c0[..., 0], c0[..., 1], c0[..., 3]
+    x1, y1, w1 = c1[..., 0], c1[..., 1], c1[..., 3]
+    x2, y2, w2 = c2[..., 0], c2[..., 1], c2[..., 3]
+
+    def edge(ax, ay, aw, bx, by, bw):
+        return ((ay * bw - aw * by) * px_ndc + (aw * bx - ax * bw) * py_ndc +
+                (ax * by - ay * bx))
+
+    l0 = edge(x1, y1, w1, x2, y2, w2)
+    l1 = edge(x2, y2, w2, x0, y0, w0)
+    l2 = edge(x0, y0, w0, x1, y1, w1)
+    s = l0 + l1 + l2
+    inv = 1.0 / torch.where(torch.abs(s) > 1e-20, s,
+                            torch.ones((), device=s.device))
+    return l0 * inv, l1 * inv, l2 * inv
+
+
+def resolve_gbuffer(vis, pools, instances, view_tw_to_clip: torch.Tensor,
+                    prev_tw_to_clip: torch.Tensor) -> GBuffer:
+    """Visibility (payload = flat pool triangle + 1, 0 = sky) -> g-buffer
+    (chord_tpu shading.py:99-120)."""
+    tri = vis.long() - 1
+    valid = tri >= 0
+    tri_safe = torch.clamp_min(tri, 0)
+    return _resolve_from_ids(pools.indices[tri_safe].long(),
+                             pools.tri_object[tri_safe].long(), valid, pools,
+                             instances, view_tw_to_clip, prev_tw_to_clip)
+
+
+def _resolve_from_ids(idx, obj, valid, pools, instances,
+                      view_tw_to_clip: torch.Tensor,
+                      prev_tw_to_clip: torch.Tensor) -> GBuffer:
+    """Per pixel: its triangle's pool vertices `idx` (H,W,3) and object
+    `obj` (H,W) -> interpolated position, normal, uv, per-object motion
+    (object_prev_to_tw) and material constants (chord_tpu
+    shading.py:566-663)."""
+    h, w = valid.shape
+    dev = valid.device
+    p = [pools.positions[idx[..., k]] for k in range(3)]   # (H,W,3) local
+    n = [pools.normals[idx[..., k]] for k in range(3)]
+    t = [pools.uv0[idx[..., k]] for k in range(3)]
+    m = instances.object_to_tw[obj]                         # (H,W,4,4)
+    mp = instances.object_prev_to_tw[obj]
+    nm = instances.object_normal_mat[obj]                   # (H,W,3,3)
+
+    def xf(q, mat):   # row vector: q' = (q, 1) @ mat
+        return (q[..., 0:1] * mat[..., 0, :] + q[..., 1:2] * mat[..., 1, :] +
+                q[..., 2:3] * mat[..., 2, :] + mat[..., 3, :])
+
+    def clip_of(q, vp):
+        return (q[..., 0:1] * vp[0] + q[..., 1:2] * vp[1] +
+                q[..., 2:3] * vp[2] + q[..., 3:4] * vp[3])
+
+    tw = [xf(q, m) for q in p]
+    c = [clip_of(q, view_tw_to_clip) for q in tw]
+    # pixel-centre NDC (y up in NDC, y down in pixels)
+    xs = (torch.arange(w, dtype=torch.float32, device=dev) + 0.5) / w * 2.0 \
+        - 1.0
+    ys = 1.0 - (torch.arange(h, dtype=torch.float32, device=dev) + 0.5) / h \
+        * 2.0
+    b0, b1, b2 = _barycentrics_from_clip(c[0], c[1], c[2],
+                                         xs[None, :].expand(h, w),
+                                         ys[:, None].expand(h, w))
+    b0, b1, b2 = b0[..., None], b1[..., None], b2[..., None]
+    interp = lambda v0, v1, v2: b0 * v0 + b1 * v1 + b2 * v2
+    pos_tw = interp(tw[0][..., :3], tw[1][..., :3], tw[2][..., :3])
+    nl = interp(*n)
+    nrm = (nl[..., 0:1] * nm[..., 0, :] + nl[..., 1:2] * nm[..., 1, :] +
+           nl[..., 2:3] * nm[..., 2, :])
+    nrm = nrm / torch.clamp_min(torch.linalg.vector_norm(
+        nrm, dim=-1, keepdim=True), 1e-8)
+    uv = interp(*t)
+    # motion: NDC delta of the interpolated point between frames
+    prev = [xf(q, mp) for q in p]
+    prev_pos = interp(prev[0][..., :3], prev[1][..., :3], prev[2][..., :3])
+
+    def project_ndc(q, vp):
+        cc = (q[..., 0:1] * vp[0] + q[..., 1:2] * vp[1] +
+              q[..., 2:3] * vp[2] + vp[3])
+        return cc[..., :2] / torch.clamp_min(torch.abs(cc[..., 3:4]),
+                                             1e-8) * torch.sign(cc[..., 3:4])
+
+    motion = (project_ndc(pos_tw, view_tw_to_clip) -
+              project_ndc(prev_pos, prev_tw_to_clip))
+    mat_id = instances.object_material[obj].long()
+    base = colorspace.srgb_to_acescg(pools.mat_base_color[mat_id][..., :3])
+    metal_rough = pools.mat_metal_rough[mat_id]
+    emissive = colorspace.srgb_to_acescg(pools.mat_emissive[mat_id])
+    vz = valid[..., None]
+    zero = torch.zeros((), device=dev)
+    return GBuffer(
+        valid=valid,
+        position_tw=torch.where(vz, pos_tw, zero),
+        normal=torch.where(vz, nrm, zero),
+        base_color=torch.where(vz, base, zero),
+        metallic=torch.where(valid, metal_rough[..., 0], zero),
+        roughness=torch.where(valid, metal_rough[..., 1],
+                              torch.ones((), device=dev)),
+        emissive=torch.where(vz, emissive, zero),
+        uv=torch.where(vz, uv, zero),
+        motion=torch.where(vz, motion, zero),
+    )
 
 
 def resolve_gbuffer_raster_rt(

@@ -19,9 +19,12 @@ tsr (render -> post upscale, tile reprojection) -> bloom -> tonemap. With
 alpha_masked the occlusion phases take the opaque bucket only.
 
 Every flag outside those sets raises NotImplementedError naming the flag.
-A frame is plain eager PyTorch around the six kernels (K1 raster, K2 mesh
-shader, K3 row gather, K4 tile reproject, K5 paged texture sampler, K6
-PCSS). Counts and overflows stay on the device until the caller reads
+RendererConfig.subtiles is read only by the flat frame's rasterize() and is
+ignored here, as in chord_tpu. The r.raster.bricks cvar switches every
+main-view raster (both phases, the masked and blend buckets) from K1 to
+K7; the shadow cascades build their own config and keep K1. A frame is
+plain eager PyTorch around the kernels (K1 or K7 raster, K2 mesh shader,
+K3 row gather, K4 tile reproject, K5 paged texture sampler, K6 PCSS). Counts and overflows stay on the device until the caller reads
 them. The shadow pass needs the frame counter on the host (which cascade
 refreshes, which PCSS phase runs): render_frame_meshlet takes it as
 `frame_index`, which the sequence runner reads once per call and
@@ -137,9 +140,6 @@ def check_slice(config: RendererConfig, mcfg: MeshletFrameConfig) -> None:
         raise NotImplementedError(
             "RendererConfig.post_width/post_height equal to the render "
             "size (TSR without upscale) is not ported yet")
-    if config.subtiles:
-        raise NotImplementedError("RendererConfig.subtiles=True is not "
-                                  "ported")
     if config.output != "srgb8":
         raise NotImplementedError(
             f"RendererConfig.output={config.output!r} is not ported yet")

@@ -1,9 +1,10 @@
-"""Scene builder and per-frame instance table (port of
+"""Scene builder, flat pools and per-frame instance table (port of
 chord_tpu/rhi/scene_arrays.py).
 
 The host side is numpy, as in chord_tpu: MeshData, MaterialData and the
-SceneBuilder are copies. FrameInstances is a dataclass of torch tensors on
-the device the caller names (reference: GPUScene object uploads,
+SceneBuilder are copies. ScenePools (the flat frame's geometry, flattened
+per instance) and FrameInstances are dataclasses of torch tensors on the
+device the caller names (reference: GPUScene pools and object uploads,
 renderer/gpu_scene.h:21-171 and renderer.cpp:224-263).
 """
 
@@ -16,6 +17,17 @@ import numpy as np
 import torch
 
 from ..utils.allocator import Span, SpanAllocator
+from ..utils.log import get_logger
+
+log = get_logger("rhi")
+
+
+def _pad_rows(a: np.ndarray, multiple: int, fill=0) -> np.ndarray:
+    pad = (-a.shape[0]) % multiple
+    if pad == 0:
+        return a
+    return np.concatenate(
+        [a, np.full((pad,) + a.shape[1:], fill, dtype=a.dtype)], axis=0)
 
 
 @dataclass
@@ -92,6 +104,31 @@ class MaterialData:
 
 
 @dataclass
+class ScenePools:
+    """Flat geometry + material pools (the flat frame's scene): every
+    instance's mesh copied into one pool, rows padded to 128."""
+
+    positions: torch.Tensor      # (V,3) f32 object-local
+    normals: torch.Tensor        # (V,3) f32
+    uv0: torch.Tensor            # (V,2) f32
+    vertex_object: torch.Tensor  # (V,) i32 object slot per vertex
+    indices: torch.Tensor        # (T,3) i32 pool-space
+    tri_object: torch.Tensor     # (T,) i32 object slot per triangle
+    tri_valid: torch.Tensor      # (T,) bool, False on the padding
+    mat_base_color: torch.Tensor   # (M,4) f32
+    mat_metal_rough: torch.Tensor  # (M,2) f32
+    mat_emissive: torch.Tensor     # (M,3) f32
+
+    @property
+    def num_triangles(self) -> int:
+        return self.indices.shape[0]
+
+    @property
+    def num_vertices(self) -> int:
+        return self.positions.shape[0]
+
+
+@dataclass
 class FrameInstances:
     """Per-frame object table in translated world (row-vector matrices)."""
 
@@ -136,6 +173,48 @@ class SceneBuilder:
         self.instances.append((mesh_id, material_id,
                                np.asarray(local_to_world, np.float64)))
         return len(self.instances) - 1
+
+    def build_pools(self, pad_multiple: int = 128,
+                    device=None) -> ScenePools:
+        """Concatenate per-instance geometry into flat pools on `device`
+        (None = the card). Shared meshes are copied per instance, so
+        tri_object is a plain array (chord_tpu rhi/scene_arrays.py:216)."""
+        from ..utils.device import resolve
+
+        device = resolve(device)
+        pos, nrm, uv, idx, tobj, vobj = [], [], [], [], [], []
+        vbase = 0
+        for oid, (mesh_id, _mat, _m) in enumerate(self.instances):
+            mesh = self.meshes[mesh_id]
+            pos.append(mesh.positions)
+            nrm.append(mesh.normals)
+            uv.append(mesh.uv0)
+            idx.append(mesh.indices + vbase)
+            tobj.append(np.full(mesh.num_triangles, oid, np.int32))
+            vobj.append(np.full(mesh.num_vertices, oid, np.int32))
+            vbase += mesh.num_vertices
+        indices = np.concatenate(idx)
+        n_tris = len(indices)
+        indices = _pad_rows(indices, pad_multiple)
+        tri_valid = np.zeros(len(indices), bool)
+        tri_valid[:n_tris] = True
+        mats = self.materials
+        log.info("ScenePools: %d instances, %d verts, %d tris (%d padded), "
+                 "%d materials", len(self.instances), vbase, n_tris,
+                 len(indices), len(mats))
+        t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
+        padded = lambda parts: t(_pad_rows(np.concatenate(parts),
+                                           pad_multiple))
+        return ScenePools(
+            positions=padded(pos), normals=padded(nrm), uv0=padded(uv),
+            vertex_object=padded(vobj), indices=t(indices),
+            tri_object=padded(tobj), tri_valid=t(tri_valid),
+            mat_base_color=t(np.array([m.base_color for m in mats],
+                                      np.float32)),
+            mat_metal_rough=t(np.array([[m.metallic, m.roughness]
+                                        for m in mats], np.float32)),
+            mat_emissive=t(np.array([m.emissive for m in mats],
+                                    np.float32)))
 
     def frame_instances(self, camera,
                         prev_matrices: Optional[Dict[int, np.ndarray]] = None,

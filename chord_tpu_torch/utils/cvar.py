@@ -8,6 +8,7 @@ fixed-exposure override and the texture-pool compression switch.
 
 from __future__ import annotations
 
+import contextlib
 import threading
 from dataclasses import dataclass, field
 from enum import IntFlag
@@ -69,6 +70,17 @@ class CVarSystem:
 
     def set(self, name: str, value: Any) -> None:
         self._vars[name].set(value)
+
+    @contextlib.contextmanager
+    def override(self, name: str, value: Any):
+        """Within the block `name` holds `value`; the old value comes back
+        after, whatever happened inside."""
+        old = self.get(name)
+        self.set(name, value)
+        try:
+            yield
+        finally:
+            self.set(name, old)
 
     def exists(self, name: str) -> bool:
         return name in self._vars

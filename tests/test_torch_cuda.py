@@ -23,12 +23,14 @@ from chord_tpu_torch.asset.procedural import (bench_texture_pool,
 from chord_tpu_torch.ops import (kernels, paged_texture, raster, row_gather,
                                  shadow, shadow_kernel, tile_reproject)
 from chord_tpu_torch.ops import atmosphere as atm
-from chord_tpu_torch.renderer import (DeviceView, MeshletFrameConfig,
-                                      RendererConfig,
+from chord_tpu_torch.renderer import (DeferredRenderer, DeviceView,
+                                      MeshletFrameConfig, RendererConfig,
+                                      render_frame_flat,
                                       render_sequence_meshlet)
 from chord_tpu_torch.rhi.framebuffer import FrameHistory
 from chord_tpu_torch.rhi.meshlet_scene import build_meshlet_pools
 from chord_tpu_torch.utils.camera import Camera
+from chord_tpu_torch.utils.cvar import cvars
 
 W, H, PW, PH = 128, 64, 192, 96
 CFG = RendererConfig(width=W, height=H, post_width=PW, post_height=PH,
@@ -82,12 +84,43 @@ def _tex_sequence(d, frames=3, shadows=False):
 
 
 def _path_run(path, d):
-    """-> (sequence inputs on `d`, frame config) of a kernels.PATHS path."""
+    """-> (sequence inputs on `d`, frame config) of a meshlet path."""
     if path == "off":
         return _sequence(d), MCFG
-    if path == "geo_tex":
+    if path in ("geo_tex", "geo_tex_bricks"):
         return _tex_sequence(d), TEX_MCFG
     return _tex_sequence(d, shadows=True), SHADOW_MCFG
+
+
+# the flat path: the tiny atrium's flat pools through DeferredRenderer
+FLAT_CFG = RendererConfig(width=W, height=H, pair_capacity=4096,
+                          big_capacity=128, subtiles=True)
+
+
+def _render_path(path, d):
+    """Render a kernels.PATHS path's tiny sequence on `d` -> (images (N,H,W,3)
+    u8, stats {name: per-frame list}); geo_tex_bricks with the
+    r.raster.bricks cvar set for the run."""
+    if path == "flat":
+        b = build_sponza_like(detail=1)
+        pools = b.build_pools(device=d)
+        r = DeferredRenderer(FLAT_CFG)
+        cam = Camera(width=W, height=H)
+        imgs, stats = [], []
+        for i in range(3):
+            cam.position = np.array([-15.0 + 0.5 * i, 4.0, 0.3 * i])
+            cam.look_at(np.array([10.0, 2.0, 0.0]))
+            img, st = r.render(pools, b.frame_instances(cam, device=d),
+                               cam.view_uniform(i, jitter=True))
+            imgs.append(img)
+            stats.append(st)
+        return torch.stack(imgs), {k: [int(s[k]) for s in stats]
+                                   for k in stats[0]}
+    inputs, mcfg = _path_run(path, d)
+    with cvars.override("r.raster.bricks", path == "geo_tex_bricks"):
+        imgs, _, st = render_sequence_meshlet(*inputs, CFG, mcfg,
+                                              with_stats=True)
+    return imgs, {k: v.cpu().tolist() for k, v in st.items()}
 
 
 def _sequence(d, frames=3):
@@ -115,10 +148,9 @@ def _exact(k, args, kwargs):
 def test_kernels_match_plain_on_frame_inputs(dev):
     """Every kernel, on the inputs of every path that lists it."""
     for path in kernels.PATHS:
-        inputs, mcfg = _path_run(path, dev)
         kernels.reset_launch_counts()
         with kernels.capture_inputs() as captured:
-            render_sequence_meshlet(*inputs, CFG, mcfg)
+            _render_path(path, dev)
         counts = kernels.launch_counts()
         for k in kernels.KERNELS:
             if path not in k.paths:
@@ -271,14 +303,38 @@ def test_wrappers_reject_bad_inputs(dev):
                                shadow.ShadowConfig())
     with pytest.raises(ValueError):
         shadow_kernel.pcss(maps[:, :, :32], pre, shadow.ShadowConfig())
+    # the brick raster needs tile_h % (4*sub_s) == 0, K7 a bricks config,
+    # K8 a 128-px tile; the flat frame's multi-device histogram is not
+    # ported
+    setup = raster.TriangleSetup(coefT=table, window_bbox=slot,
+                                 window_valid=slot, valid=slot)
+    with pytest.raises(ValueError):
+        raster.raster_queue(None, setup, raster.RasterConfig(
+            width=8, height=8, tile_h=24, sub_s=4, bricks=True))
+    k7_args = _brick_inputs(dev, attrs=False)
+    with pytest.raises(ValueError):
+        raster.raster_bricks(*k7_args[:-1], k7_args[-1]._replace(
+            bricks=False))
+    k8_args = _subtile_inputs(dev, attrs=False)
+    with pytest.raises(ValueError):
+        raster.raster_subtile(*k8_args[:-1], k8_args[-1]._replace(
+            tile_w=64))
+    with pytest.raises(ValueError):   # a seed plane missing
+        raster.raster_subtile(*k8_args[:-2], k8_args[-2][:1], k8_args[-1])
+    b = build_sponza_like(detail=1)
+    cam = Camera(width=W, height=H)
     with pytest.raises(NotImplementedError):
-        raster.raster_queue(None, raster.TriangleSetup(
-            coefT=table, window_bbox=slot, window_valid=slot, valid=slot),
-            raster.RasterConfig(width=8, height=8, bricks=True))
+        render_frame_flat(b.build_pools(device=dev),
+                          b.frame_instances(cam, device=dev),
+                          DeviceView.from_uniform(cam.view_uniform(0),
+                                                  device=dev),
+                          FrameHistory.empty(H, W, device=dev), FLAT_CFG,
+                          axis_name="x")
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("path", ["off", "geo_tex", "geo_shadow_atmo"])
+@pytest.mark.parametrize("path", ["off", "geo_tex", "geo_shadow_atmo",
+                                  "geo_tex_bricks", "flat"])
 def test_gpu_frames_match_cpu_plain(dev, path):
     """The tiny sequence of each path through the kernels on the GPU equals
     the plain versions on the CPU (the path the CPU tests hold against
@@ -286,13 +342,99 @@ def test_gpu_frames_match_cpu_plain(dev, path):
     values."""
     out = {}
     for d in (dev, torch.device("cpu")):
-        inputs, mcfg = _path_run(path, d)
-        imgs, _, st = render_sequence_meshlet(*inputs, CFG, mcfg,
-                                              with_stats=True)
-        out[d.type] = (imgs.cpu().numpy().astype(np.int32),
-                       {k: v.cpu().tolist() for k, v in st.items()})
+        imgs, st = _render_path(path, d)
+        out[d.type] = (imgs.cpu().numpy().astype(np.int32), st)
     assert out["cuda"][1] == out["cpu"][1]
-    if path != "off":
+    if path not in ("off", "flat"):
         assert max(out["cuda"][1]["draws_masked"]) > 0
     diff = np.abs(out["cuda"][0] - out["cpu"][0])
     assert (diff <= 2).mean() >= 0.999, diff.max()
+
+
+def _rand_setup(rng, d, n_win, w, h, attrs):
+    """A random TriangleSetup of n_win windows of random triangles spread
+    over a (h, w) screen (some windows empty), with the port's own
+    setup_triangles."""
+    n = n_win * 128
+    clip = np.zeros((n * 3, 4), np.float32)
+    cen = rng.uniform(-1.1, 1.1, (n, 2))
+    cen = cen[np.argsort(np.floor(cen[:, 1] * 4) * 8 + cen[:, 0])]
+    pts = cen[:, None, :] + rng.uniform(-0.2, 0.2, (n, 3, 2))
+    wv = rng.uniform(0.6, 2.5, (n, 3))
+    clip[:, 0:2] = (pts * wv[..., None]).reshape(-1, 2)
+    clip[:, 2] = (rng.uniform(0.1, 0.9, (n, 1)) * wv).reshape(-1)
+    clip[:, 3] = wv.reshape(-1)
+    valid = rng.uniform(size=n) < 0.9
+    valid[128:256] = False                     # an empty window
+    c = raster.RasterConfig(width=w, height=h, tile_h=32, sub_s=8,
+                            with_attrs=attrs, pair_capacity=2048,
+                            big_capacity=32)
+    t = lambda a: torch.from_numpy(a).to(d)
+    setup = raster.setup_triangles(
+        t(clip), t(np.arange(n * 3, dtype=np.int32).reshape(n, 3)), t(valid),
+        t(np.arange(1, n + 1, dtype=np.int32)), c, backface_cull=False,
+        attrs=t(rng.normal(size=(n * 3, 5)).astype(np.float32)))
+    return setup, c
+
+
+def _seed_planes(rng, d, c, n):
+    """Random seed planes: depth in [0, 0.5) with holes, vis ids."""
+    h_pad, w_pad = c.tiles_y * c.tile_h, c.tiles_x * c.tile_w
+    dep = rng.uniform(0, 0.5, (h_pad, w_pad)).astype(np.float32)
+    dep[rng.uniform(size=dep.shape) < 0.5] = 0.0
+    seeds = [dep, rng.integers(0, 1 << 20, (h_pad, w_pad)).astype(np.int32)]
+    seeds += [rng.normal(size=(h_pad, w_pad)).astype(np.float32)
+              for _ in range(n - 2)]
+    return [torch.from_numpy(x).to(d) for x in seeds]
+
+
+def _brick_inputs(d, attrs=True, seeded=False, zclip=False, seed=3):
+    rng = np.random.default_rng(seed)
+    setup, c = _rand_setup(rng, d, 6, 256, 96, attrs)
+    c = c._replace(bricks=True, z_clip=zclip)
+    q = raster.bin_windows(setup, c)
+    n = 7 if attrs else 2
+    seeds = (_seed_planes(rng, d, c, n) if seeded else
+             raster._seed_planes(None, c, d))
+    zc = None
+    if zclip:
+        zc = torch.from_numpy(rng.uniform(0.2, 1.0, seeds[0].shape).astype(
+            np.float32)).to(d)
+    return (q.pair_win, q.starts, q.counts, setup.sub_bounds, setup.coefT,
+            seeds, zc, c)
+
+
+def _subtile_inputs(d, attrs=True, seeded=False, seed=4):
+    rng = np.random.default_rng(seed)
+    setup, c = _rand_setup(rng, d, 6, 256, 96, attrs)
+    c = c._replace(subtiles=True, tile_h=24)
+    q = raster.bin_windows_subtile(setup, c)
+    seeds = (_seed_planes(rng, d, c, 7 if attrs else 2) if seeded else
+             raster._seed_planes(None, c, d))
+    return (q.gwin, q.starts, q.counts, q.y0r, q.y1r, setup.coefT, seeds, c)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("attrs,seeded,zclip", [(True, False, False),
+                                                (True, True, True),
+                                                (False, True, False)])
+def test_brick_and_subtile_rasters_random_inputs(dev, attrs, seeded, zclip):
+    """K7 and K8 against their plain versions on the card and on the CPU:
+    random perspective triangles on 256x96 (6 tiles; an empty window,
+    poison slots in the sub-tile rounds, empty tiles at the edges), with
+    and without attributes, random seeds, a z_clip plane (K7)."""
+    k7 = next(k for k in kernels.KERNELS if k.name == "raster_bricks")
+    k8 = next(k for k in kernels.KERNELS if k.name == "raster_subtile")
+    for k, args in ((k7, _brick_inputs(dev, attrs, seeded, zclip)),
+                    (k8, _subtile_inputs(dev, attrs, seeded))):
+        _exact(k, args, {})
+        cpu = [a.cpu() if isinstance(a, torch.Tensor) else
+               [x.cpu() for x in a] if isinstance(a, list) else a
+               for a in args]
+        got = kernels.outputs_list(k.fn()(*args))
+        ref = kernels.outputs_list(k.plain(*cpu))
+        assert kernels.max_abs_err([g.cpu() for g in got], ref) == 0.0
+        assert float((got[0] > 0).float().mean()) > 0.2
+    gw = args[0].view(-1, 4)
+    assert (gw == args[5].shape[0] // 128 - 1).any()   # poison slots
+

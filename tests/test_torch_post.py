@@ -159,3 +159,34 @@ def test_resample_helpers_and_tonemap_match():
     assert got.dtype == torch.uint8
     d = np.abs(got.numpy().astype(int) - np.asarray(ref).astype(int))
     assert d.max() <= 1
+
+
+@pytest.mark.parametrize("bilinear", [True, False])
+def test_temporal_resolve_gather_matches(bilinear):
+    """Gather-mode TSR at render size (the flat frame's): history fetched
+    from its bf16 copy at each pixel's previous position (off screen
+    included), clamped, blended, sharpened; with a disocclusion mask and
+    with invalid history. Tolerance 1e-4 relative to max(|ref|, 1): the
+    bilinear weights and the blend in another rounding (bf16 texels
+    convert exactly); a fetch whose coordinate sits on a texel boundary
+    may take the neighbour texel in nearest mode, so >= 99.9% of values."""
+    rng = np.random.default_rng(9)
+    h, w = 48, 96
+    color = rng.uniform(0, 4, (h, w, 3)).astype(np.float32)
+    hist = rng.uniform(0, 4, (h, w, 3)).astype(np.float32)
+    mot = (_field(rng, h, w, 4.0) / np.array([w * 0.5, -h * 0.5],
+                                              np.float32)).astype(np.float32)
+    dis = (rng.uniform(size=(h, w)) < 0.1).astype(np.float32)
+    for valid, d in ((1.0, None), (1.0, dis), (0.0, None)):
+        cfg = dict(mode="gather", bilinear_history=bilinear)
+        args = (color, mot, hist, np.float32(valid))
+        ref = np.asarray(jpost.temporal_resolve(
+            *map(jnp.asarray, args), jpost.TSRConfig(**cfg),
+            disocclusion=None if d is None else jnp.asarray(d)))
+        got = post.temporal_resolve(
+            *map(_t, args), post.TSRConfig(**cfg),
+            disocclusion=None if d is None else _t(d)).numpy()
+        bad = np.abs(got - ref) > 1e-4 * np.maximum(np.abs(ref), 1.0)
+        assert bad.mean() <= 1e-3, (valid, np.abs(got - ref).max())
+    assert post.TSRConfig().mode == jpost.TSRConfig().mode == "gather"
+

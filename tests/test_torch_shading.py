@@ -214,3 +214,54 @@ def test_shade_blend_layer_matches(state, oracle_sampler, textured):
     _close(gc.numpy(), rc, "color")
     _close(ga.numpy(), ra, "alpha")
     assert (ga.numpy() > 0).any() and (ga.numpy() == 0).any()
+
+
+def test_flat_resolve_gbuffer_matches():
+    """The flat frame's resolve (triangle = payload - 1 into the flat pools,
+    perspective-correct barycentrics, per-object motion) on the port's own
+    raster of the tiny atrium, with moved objects. Tolerance: 1e-4
+    relative to max(|ref|, 1) on >= 99.9% of values (barycentric sums and
+    the matrix chains in another rounding; a pixel on a triangle's edge
+    magnifies them), masks exact."""
+    from chord_tpu.asset.procedural import build_sponza_like as jax_sponza
+    from chord_tpu_torch.ops.raster import RasterConfig, rasterize
+    from chord_tpu_torch.ops.transform import transform_to_clip
+
+    jb = jax_sponza(detail=1)
+    jpools = jb.build_pools()
+    cam = JCamera(width=W, height=H)
+    cam.position = np.array([-15.0, 4.0, 0.0])
+    cam.look_at(np.array([10.0, 2.0, 0.0]))
+    # every third object moved since the previous frame
+    prev = {}
+    for o, (_, _, m) in enumerate(jb.instances):
+        if o % 3 == 0:
+            mm = np.array(m, np.float64)
+            mm[3, :3] += [0.2, 0.1, -0.3]
+            prev[o] = cam.rebase_matrix(mm)
+    jinst = jb.frame_instances(cam, prev_matrices=prev)
+    jview = JView.from_uniform(cam.view_uniform(1, jitter=True))
+    pools = interop.scene_pools_from_numpy(_np(jpools), device="cpu")
+    inst = interop.instances_from_numpy(_np(jinst), device="cpu")
+    view = interop.view_from_numpy(_np(jview), device="cpu")
+    clip = transform_to_clip(pools.positions, pools.vertex_object,
+                             inst.object_to_tw, view.tw_to_clip)
+    n = pools.num_triangles
+    _, vis, _ = rasterize(clip, pools.indices, pools.tri_valid,
+                          torch.arange(1, n + 1, dtype=torch.int32),
+                          RasterConfig(width=W, height=H, tile_h=32,
+                                       sub_s=8, big_capacity=128))
+    assert 0.3 < (vis > 0).float().mean() < 1.0
+    ref = jshading.resolve_gbuffer(
+        jnp.asarray(vis.numpy().view(np.uint32)), jpools, jinst,
+        jview.tw_to_clip_nj, jview.prev_tw_to_clip_nj)
+    got = shading.resolve_gbuffer(vis, pools, inst, view.tw_to_clip_nj,
+                                  view.prev_tw_to_clip_nj)
+    np.testing.assert_array_equal(got.valid.numpy(), np.asarray(ref.valid))
+    for name in got._fields[1:]:
+        g, r = getattr(got, name).numpy(), np.asarray(getattr(ref, name))
+        assert g.shape == r.shape, name
+        bad = np.abs(g - r) > 1e-4 * np.maximum(np.abs(r), 1.0)
+        assert bad.mean() <= 1e-3, (name, np.abs(g - r).max())
+    assert np.abs(np.asarray(ref.motion)).max() > 1e-3   # real motion
+
