@@ -4,31 +4,37 @@
     python3 chip_smoke.py              # the default run
     python3 chip_smoke.py --profile    # + a torch.profiler breakdown per path
 
-Five paths. Three are the bench's `off`, `geo_tex` and `geo_shadow_atmo`
-rungs (bench.py:35-54): the 1280x720 render of the 2.6M-triangle
-procedural bistro (Nanite LOD cut), upscaled to 1920x1080 by tile-mode
-TSR, bloom and the ACES tonemap; `geo_tex` adds the bench texture pool (12
-layers of 256², block-compressed pages), base / normal / metal-rough maps,
-the alpha-masked bucket and the blend bucket, on the bistro built with
-textures=True; `geo_shadow_atmo` renders the same textured bistro with
-ShadowConfig() (4 cascades of 1024², round-robin refresh, scrolled cache,
-alpha-tested masked casters, PCSS on a 2x2 phase of the 1/4-res grid,
-temporal mask), the physically based sky, sun tint, ambient and aerial
-perspective, with the atmosphere LUTs built once (bench.py:236-256).
-`geo_tex_bricks` is `geo_tex` with the r.raster.bricks cvar set for the
-whole path: the brick raster (K7) replaces K1 in both occlusion phases
-and the masked and blend buckets. `flat` is the flat DeferredRenderer
-frame (BASELINE config #1: object frustum cull, every triangle of the
-visible objects, deferred PBR) of build_sponza_like(detail=4) (367,104
-padded triangles) at 1920x1080 along bench.py's Sponza camera path
-(bench.py:127-129), with RendererConfig(subtiles=True): the sub-tile
-raster (K8) at pair capacity 16384 (the class default 8192 drops pairs on
-this scene), big capacity 128, bloom and gather-mode TSR.
+Seven paths: five frame paths and two tool paths. Three are the bench's
+`off`, `geo_tex` and `geo_shadow_atmo` rungs (bench.py:35-54): the
+1280x720 render of the 2.6M-triangle procedural bistro (Nanite LOD cut),
+upscaled to 1920x1080 by tile-mode TSR, bloom and the ACES tonemap;
+`geo_tex` adds the bench texture pool (12 layers of 256², block-compressed
+pages), base / normal / metal-rough maps, the alpha-masked bucket and the
+blend bucket, on the bistro built with textures=True; `geo_shadow_atmo`
+renders the same textured bistro with ShadowConfig() (4 cascades of 1024²,
+round-robin refresh, scrolled cache, alpha-tested masked casters, PCSS on
+a 2x2 phase of the 1/4-res grid, temporal mask), the physically based sky,
+sun tint, ambient and aerial perspective, with the atmosphere LUTs built
+once (bench.py:236-256). `geo_tex_bricks` is `geo_tex` with the
+r.raster.bricks cvar set for the whole path: the brick raster (K7)
+replaces K1 in both occlusion phases and the masked and blend buckets.
+`flat` is the flat DeferredRenderer frame (BASELINE config #1: object
+frustum cull, every triangle of the visible objects, deferred PBR) of
+build_sponza_like(detail=4) (367,104 padded triangles) at 1920x1080 along
+bench.py's Sponza camera path (bench.py:127-129), with
+RendererConfig(subtiles=True): the sub-tile raster (K8) at pair capacity
+16384 (the class default 8192 drops pairs on this scene), big capacity
+128, bloom and gather-mode TSR. The tool paths are the port's
+chord_tpu_torch/tools: `repro_eval` runs all 22 variants of the
+shadow-evaluate fault bisection at its bench shapes (`tm_pallas` puts the
+fusion barrier K9 between the evaluate and the temporal blend), and
+`proto_paged_tex` the paged-texture prototype (palette sampler K10) at its
+own size, 1056x1920.
 
 Phases (any failure raises and the script exits non-zero):
 
 1. Requires a CUDA device; prints the card's name and power limit.
-2. Builds the eight hand-written kernels (chord_tpu_torch/csrc/*.cu, one
+2. Builds the ten hand-written kernels (chord_tpu_torch/csrc/*.cu, one
    nvcc per source, all at once) into build/kernels/.
 3. Builds the scenes (the two bistros share the Nanite DAG of their common
    meshes; the shadow and brick paths reuse the textured one; the flat
@@ -70,16 +76,31 @@ Phases (any failure raises and the script exits non-zero):
    chord_tpu does at this config: printed, not failed. The shadow path
    then runs once more at 4096, where every cascade must stay below its
    capacity, and is timed there too.
-6. A small-input cross-check per path (tiny atrium, its flat pools on
+6. `repro_eval`: every variant through the tool's run_variant (one call
+   at frame 1, three steady), launch counts set to 0 before each variant
+   and read after it (K9 1 + 3 times on `tm_pallas`, no kernel on any
+   other), the first call's outputs against the same variant on the CPU,
+   each variant's steady ms; K9 against its plain version on
+   `tm_pallas`'s first call (tolerance 0), timed, with x.clone() as its
+   library yardstick.
+7. `proto_paged_tex`: the tool's main() (K10 1 + 8 times, no other
+   kernel); 100% of covered pixels equal to its numpy oracle, every
+   untextured pixel -1; K10 against its plain version on main's first
+   call (tolerance 0), timed (bound: bytes of u, v, lm, meta, out, cov
+   and the 32-B pool sectors the served texels lie in; operations 47 per
+   pixel at the f32 rate).
+8. A small-input cross-check per frame path (tiny atrium, its flat pools on
    `flat`; small textured bistro, with 2 cascades of 256² on the shadow
    path): kernels on the GPU vs plain versions on the CPU (the path the
    tests hold against chord_tpu), stats exact, images within 2 u8 levels.
 
-The line before the last is the nvidia-smi name/power-limit line, the one
-before that the per-kernel JSON (one entry per kernel and path: launches,
-max_abs_err, per-frame ms / plain_ms / bound_ms / library_ms summed over
-the kernel's calls in one frame, and the per-call detail; plus each
-path's ms/frame); the last line is
+Phases 4-5 run per frame path, then 6, 7 and 8. The line before the last
+is the nvidia-smi name/power-limit line, the one before that the
+per-kernel JSON (one entry per kernel and path: launches, max_abs_err,
+per-frame ms / plain_ms / bound_ms / library_ms summed over the kernel's
+calls in one frame, and the per-call detail; plus each path's ms/frame),
+and before that the tools' JSON (each repro variant's first-call seconds
+and steady ms, the proto tool's coverage, match and ms); the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
@@ -419,6 +440,13 @@ def _ops(name: str, args, kwargs) -> float:
         taps = cfg.pcss_blocker_samples + cfg.pcss_pcf_samples
         per = taps * 12 + cfg.pcss_pcf_samples * 2 + 8
         return float((pre.cascade >= 0).sum()) * per
+    if name == "proto_paged_sample":
+        # K10 per pixel: remainder, scale, truncate and clamp of u and v
+        # (2 x 6), the tile and slot (8), K rounds of min, compare and
+        # select (3 each), K compares on resolve and the final selects (3),
+        # all 32-bit, counted at the f32 rate
+        u = args[2]
+        return float(u.numel()) * (12 + 8 + 3 * 6 + 6 + 3)
     return 0.0
 
 
@@ -440,10 +468,27 @@ def _pcss_bytes(args, out) -> int:
             _nbytes([pre.depth_range, pre.texel]) + _nbytes(out))
 
 
+def _proto_bytes(args, out) -> int:
+    """What K10 must move on this call's data: the 32-B sectors of the
+    pool that hold the texels it serves (those the plain version serves on
+    the same inputs), u, v, lm, meta and both outputs."""
+    import torch
+
+    from chord_tpu_torch.ops import proto_paged_tex
+
+    _, meta, u, v, lm = args
+    texels = []
+    proto_paged_tex.paged_sample_plain(*args, texel_index=texels)
+    sectors = torch.unique(texels[0] // 8).numel()
+    return sectors * 32 + _nbytes([meta, u, v, lm]) + _nbytes(out)
+
+
 def bound(name: str, args, kwargs, out) -> tuple:
     """-> (bound ms, "bytes" | "operations")."""
     if name == "pcss":
         n_bytes = _pcss_bytes(args, out)
+    elif name == "proto_paged_sample":
+        n_bytes = _proto_bytes(args, out)
     else:
         n_bytes = (_nbytes(args) + _nbytes(list(kwargs.values())) +
                    _nbytes(out))
@@ -455,9 +500,12 @@ def bound(name: str, args, kwargs, out) -> tuple:
 
 def library_call(name: str, args):
     """One PyTorch call computing the same function, where one exists: K3's
-    rows are an index_select of the table along the flattened slot."""
+    rows are an index_select of the table along the flattened slot; K9 is
+    a clone."""
     import torch
 
+    if name == "fusion_barrier":
+        return lambda: args[0].clone()
     if name != "row_gather":
         return None
     table, slot = args
@@ -474,6 +522,14 @@ def describe(name: str, args, kwargs) -> str:
         c, h, w = args[4].shape
         mode = "bilinear" if kwargs.get("bilinear", True) else "nearest"
         return f"C={c} {mode} {h}x{w}"
+    if name == "proto_paged_sample":
+        pool, _, u = args[:3]
+        return (f"{'x'.join(map(str, u.shape))}, pool "
+                f"{pool.shape[0] // 8} tiles")
+    if name == "fusion_barrier":
+        x = args[0]
+        return (f"{'x'.join(map(str, x.shape))} {str(x.dtype)[6:]}, "
+                f"{x.numel() * x.element_size()} B")
     return " ".join("x".join(map(str, a.shape)) for a in args
                     if hasattr(a, "shape"))[:80]
 
@@ -497,6 +553,17 @@ def check_kernels(path, scene):
     with kernels.capture_inputs() as captured:
         run_path(path, scene, config, mcfg, hist, warm, warm + 1)
     torch.cuda.synchronize()
+    return compare_kernels(path, captured, f"frame {warm}")
+
+
+def compare_kernels(path, captured, what: str):
+    """Each kernel of `path` against its plain version on the calls
+    captured while `path` ran (none of another kernel may be among them),
+    tolerance 0, and timed -> {name: JSON row without "launches"}."""
+    import torch
+
+    from chord_tpu_torch.ops import kernels
+
     rows = {}
     for k in kernels.KERNELS:
         calls = captured[k.name]
@@ -536,9 +603,9 @@ def check_kernels(path, scene):
             library_ms=(tot("library_ms") if per_call[0]["library_ms"]
                         is not None else None),
             calls_per_frame=len(per_call), per_call=per_call)
-        log(f"kernel {k.name} on {path}: {len(calls)} calls of frame "
-            f"{warm} compared, max "
-            f"|kernel - plain| = {err} (tolerance 0); per call: " +
+        log(f"kernel {k.name} on {path}: {len(calls)} calls of {what} "
+            f"compared, max |kernel - plain| = {err} (tolerance 0); per "
+            "call: " +
             "; ".join(f"[{c['call']}] {c['ms']:.4f} ms (issue-paced "
                       f"{c['issue_ms']:.4f}) vs plain "
                       f"{c['plain_ms']:.4f}, bound {c['bound_ms']:.4f} "
@@ -717,8 +784,114 @@ def profile(path, scene, n: int = 4) -> None:
         f"of wall, {n_launch / n:.1f} device ops/frame")
 
 
+def _agree(got, ref, variant: str):
+    """-> (fraction of elements within 1e-5, max |got - ref|) of a repro
+    variant's outputs on the card and on the CPU."""
+    import numpy as np
+
+    fr, worst = 1.0, 0.0
+    for a, b in zip(got, ref):
+        if a.shape != b.shape or not bool(a.isfinite().all()):
+            raise AssertionError(f"repro {variant}: output {tuple(a.shape)} "
+                                 f"(CPU {tuple(b.shape)}) or not finite")
+        d = np.abs(a.double().numpy() - b.double().numpy())
+        fr, worst = min(fr, float((d <= 1e-5).mean())), max(worst, d.max())
+    return fr, float(worst)
+
+
+def repro_eval_path(dev, card):
+    """Phase 6: every variant of the port's repro_eval_kernel tool on the
+    card through its run_variant (one call at frame 1, three steady), the
+    launch counts set to 0 before each variant and read after it (K9
+    launched 1 + 3 times by tm_pallas, no kernel by any other variant);
+    each variant's first outputs against the same variant on the CPU
+    (>= 99.9% of elements within 1e-5: CUDA's cos/sin/exp may move a PCSS
+    tap across a texel edge; the scan means within 5e-3); then K9 against
+    its plain version on tm_pallas's first call, timed. -> (kernel rows,
+    {variant: timings})."""
+    import torch
+
+    from chord_tpu_torch.ops import kernels
+    from chord_tpu_torch.tools import repro_eval_kernel as tool
+
+    steady = 3
+    timings, k9_calls = {}, None
+    for v in tool.VARIANTS:
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        with kernels.capture_inputs() as captured:
+            res = tool.run_variant(v, dev, steady)
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        want = {k.name: 0 for k in kernels.KERNELS}
+        if v == "tm_pallas":
+            want["fusion_barrier"] = 1 + steady
+            k9_calls = {k: calls[:1] for k, calls in captured.items()}
+        if counts != want:
+            raise AssertionError(f"repro {v}: launches {counts}, expected "
+                                 f"{want}")
+        run, args = tool.build(v, "cpu")
+        extra = ((torch.zeros((tool.HP, tool.WP)),) if v == "tm_hist"
+                 else ())
+        out = run(*args, 1, *extra)
+        cpu = list(out) if isinstance(out, tuple) else [out]
+        frac, worst = _agree(res["out"], cpu, v)
+        ok = worst <= 5e-3 if v.startswith("scan_") else frac >= 0.999
+        log(f"repro {v} on {card}: first call {res['first_s']:.3f} s, "
+            f"steady {res['steady_ms']:.3f} ms, launches "
+            f"{ {k: n for k, n in counts.items() if n} }; vs CPU: "
+            f"{frac:.6f} within 1e-5, max |diff| {worst:.3g}")
+        if not ok:
+            raise AssertionError(f"repro {v}: the card and the CPU disagree")
+        timings[v] = dict(first_s=res["first_s"], steady_ms=res["steady_ms"],
+                          sum=res["sum"], within_1e5_of_cpu=frac)
+    rows = compare_kernels("repro_eval", k9_calls, "tm_pallas frame 1")
+    rows["fusion_barrier"]["launches"] = 1 + steady
+    return rows, timings
+
+
+def proto_paged_tex_path(card):
+    """Phase 7: the port's proto_paged_tex tool at its own size (1056x1920,
+    360-tile pool) through main(), the launch counts set to 0 before and
+    read after (K10 1 + REPS times, no other kernel); 100% of the covered
+    pixels must equal the tool's numpy oracle and every untextured pixel be
+    -1; then K10 against its plain version on main's first call, timed.
+    -> (kernel rows, the tool's result)."""
+    import torch
+
+    from chord_tpu_torch.ops import kernels
+    from chord_tpu_torch.tools import proto_paged_tex as tool
+
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    with kernels.capture_inputs() as captured:
+        res = tool.main()
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    want = {k.name: 0 for k in kernels.KERNELS}
+    want["proto_paged_sample"] = 1 + tool.REPS
+    log(f"proto_paged_tex on {card}: covered {res['covered']:.6f}, exact "
+        f"match among covered {res['match']:.6f}, untextured all -1 "
+        f"{res['untextured_ok']}, {res['ms']:.4f} ms per call (host clock, "
+        f"{tool.REPS} calls), launches "
+        f"{ {k: n for k, n in counts.items() if n} }")
+    if counts != want:
+        raise AssertionError(f"proto_paged_tex: launches {counts}, expected "
+                             f"{want}")
+    if res["match"] != 1.0 or not res["untextured_ok"] or \
+            not res["covered"] > 0.0:
+        raise AssertionError("proto_paged_tex: the sampler disagrees with "
+                             "the numpy oracle")
+    rows = compare_kernels("proto_paged_tex",
+                           {k: calls[:1] for k, calls in captured.items()},
+                           "main's first call")
+    rows["proto_paged_sample"]["launches"] = want["proto_paged_sample"]
+    return rows, {k: res[k] for k in ("hw", "pool_bytes", "covered", "match",
+                                      "ms")}
+
+
 def small_cross_check(path, dev):
-    """Phase 6 for one path: tiny inputs, kernels on the GPU vs plain
+    """Phase 8 for one path: tiny inputs, kernels on the GPU vs plain
     versions on the CPU."""
     import numpy as np
     import torch
@@ -798,7 +971,7 @@ def main() -> int:
     # where chip_smoke.py stands alone)
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from chord_tpu_torch.ops import _cuda
-    from chord_tpu_torch.ops.kernels import PATHS
+    from chord_tpu_torch.ops.kernels import PATHS, TOOL_PATHS
 
     smi = card_line()
     log(f"card: {smi}")
@@ -825,9 +998,16 @@ def main() -> int:
         rows += list(krows.values())
         if "--profile" in sys.argv[1:]:
             profile(p, scenes[p])
+    tool_phase = {"repro_eval": lambda: repro_eval_path(dev, smi),
+                  "proto_paged_tex": lambda: proto_paged_tex_path(smi)}
+    tools = {}
+    for p in TOOL_PATHS:
+        krows, tools[p] = tool_phase[p]()
+        rows += list(krows.values())
     for p in PATHS:
         small_cross_check(p, dev)
     log(f"chip_smoke: all phases passed in {time.time() - t_start:.1f} s")
+    print(json.dumps({"tools": tools}))
 
     order = ("name", "path", "route", "source", "replaces", "launches",
              "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",

@@ -28,7 +28,10 @@ Layout (mirrors chord_tpu):
     asset/     procedural benchmark scenes, texture pool
     ops/       cull, hzb, mesh shader, raster, row gather, textures,
                shading, shadows + PCSS, atmosphere, post
-    renderer/  the meshlet frame, the sequence runner, MeshletRenderer
+    renderer/  the meshlet frame, the flat frame, the sequence runner,
+               MeshletRenderer
+    tools/     the paged-texture prototype (kernel K10) and the shadow
+               evaluate fault bisection (kernel K9)
     interop.py numpy state from chord_tpu -> this package's tensors
 """
 

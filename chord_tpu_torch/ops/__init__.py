@@ -14,4 +14,6 @@ atmosphere      sky LUTs, sun disk, ambient, aerial perspective
 tile_reproject  per-tile history reprojection             (kernel K4)
 post            auto-exposure, bloom, tile-mode TSR upscale
 colorspace      ACEScg pipeline + ACES tonemap
+fusion_barrier  identity copy into a new tensor            (kernel K9)
+proto_paged_tex palette sampler of the texture prototype   (kernel K10)
 """

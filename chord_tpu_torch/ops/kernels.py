@@ -3,7 +3,8 @@
 One entry per kernel: the module, the wrapper that launches the CUDA
 kernel (and counts its launches in `wrapper.launches`), the plain PyTorch
 version with the same signature, the CUDA source, the chord_tpu Pallas
-kernel it replaces and the paths (`paths`) whose frame launches it.
+kernel it replaces and the paths (`paths`) that launch it: a frame path
+of PATHS or a tool path of TOOL_PATHS.
 `capture_inputs` records the arguments each wrapper receives while a frame
 runs, so a check can hold kernel and plain version against each other on
 a path's own inputs and shapes.
@@ -17,14 +18,17 @@ from typing import Callable, Dict, List, Tuple
 
 import torch
 
-from . import (mesh_shader, paged_texture, raster, row_gather, shadow,
-               shadow_kernel, tile_reproject)
+from . import (fusion_barrier, mesh_shader, paged_texture, proto_paged_tex,
+               raster, row_gather, shadow, shadow_kernel, tile_reproject)
 
 # the paths the port renders: the bench rungs (bench.py FEATURE_LEVELS),
 # `geo_tex` with the r.raster.bricks cvar set, and the flat
 # DeferredRenderer frame with RendererConfig(subtiles=True)
 PATHS = ("off", "geo_tex", "geo_shadow_atmo", "geo_tex_bricks", "flat")
 MESHLET = ("off", "geo_tex", "geo_shadow_atmo", "geo_tex_bricks")
+# the port's tools: every variant of tools/repro_eval_kernel.py, and
+# tools/proto_paged_tex.py's main at its own size
+TOOL_PATHS = ("repro_eval", "proto_paged_tex")
 
 
 @dataclass(frozen=True)
@@ -74,6 +78,14 @@ KERNELS: List[Kernel] = [
            raster.raster_subtile_plain,
            "chord_tpu_torch/csrc/raster_subtile.cu",
            "chord_tpu/ops/raster.py:1233", paths=("flat",)),
+    Kernel("fusion_barrier", fusion_barrier, "fusion_barrier",
+           fusion_barrier.fusion_barrier_plain,
+           "chord_tpu_torch/csrc/fusion_barrier.cu",
+           "chord_tpu/ops/fusion_barrier.py:29", paths=("repro_eval",)),
+    Kernel("proto_paged_sample", proto_paged_tex, "paged_sample",
+           proto_paged_tex.paged_sample_plain,
+           "chord_tpu_torch/csrc/proto_paged_tex.cu",
+           "tools/proto_paged_tex.py:70", paths=("proto_paged_tex",)),
 ]
 
 

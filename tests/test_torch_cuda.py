@@ -20,15 +20,18 @@ import torch
 from chord_tpu_torch.asset.procedural import (bench_texture_pool,
                                               build_bistro_like,
                                               build_sponza_like)
-from chord_tpu_torch.ops import (kernels, paged_texture, raster, row_gather,
-                                 shadow, shadow_kernel, tile_reproject)
+from chord_tpu_torch.ops import (fusion_barrier, kernels, paged_texture,
+                                 raster, row_gather, shadow, shadow_kernel,
+                                 tile_reproject)
 from chord_tpu_torch.ops import atmosphere as atm
+from chord_tpu_torch.ops import proto_paged_tex as proto_sampler
 from chord_tpu_torch.renderer import (DeferredRenderer, DeviceView,
                                       MeshletFrameConfig, RendererConfig,
                                       render_frame_flat,
                                       render_sequence_meshlet)
 from chord_tpu_torch.rhi.framebuffer import FrameHistory
 from chord_tpu_torch.rhi.meshlet_scene import build_meshlet_pools
+from chord_tpu_torch.tools import proto_paged_tex, repro_eval_kernel
 from chord_tpu_torch.utils.camera import Camera
 from chord_tpu_torch.utils.cvar import cvars
 
@@ -323,6 +326,26 @@ def test_wrappers_reject_bad_inputs(dev):
         raster.raster_subtile(*k8_args[:-2], k8_args[-2][:1], k8_args[-1])
     b = build_sponza_like(detail=1)
     cam = Camera(width=W, height=H)
+    # K10: H % 32, W % 128, dtypes, pool rows % 8, meta (4, 128); K9:
+    # contiguous CUDA tensors only
+    pool, meta, u, v, lm = _proto_inputs(dev, 64, 256)
+    for bad in (dict(u=u[:48], v=v[:48], lm=lm[:48]),
+                dict(u=u[:, :192], v=v[:, :192], lm=lm[:, :192]),
+                dict(u=u.double()), dict(v=v.half()), dict(lm=lm.long()),
+                dict(lm=lm.float()), dict(pool=pool[:12]),
+                dict(pool=pool.float()), dict(meta=meta[:3]),
+                dict(meta=meta[:, :64]), dict(u=u.t().contiguous().t())):
+        a = dict(pool=pool, meta=meta, u=u, v=v, lm=lm)
+        a.update(bad)
+        with pytest.raises(ValueError):
+            proto_sampler.paged_sample(**a)
+    with pytest.raises(ValueError):      # a CPU tensor into the kernel
+        proto_sampler.paged_sample(pool.cpu(), meta, u, v, lm)
+    x = torch.zeros((8, 6), device=dev)
+    with pytest.raises(ValueError):
+        fusion_barrier.fusion_barrier(x.t())
+    with pytest.raises(ValueError):
+        fusion_barrier.copy_cuda(x.cpu())
     with pytest.raises(NotImplementedError):
         render_frame_flat(b.build_pools(device=dev),
                           b.frame_instances(cam, device=dev),
@@ -438,3 +461,81 @@ def test_brick_and_subtile_rasters_random_inputs(dev, attrs, seeded, zclip):
     gw = args[0].view(-1, 4)
     assert (gw == args[5].shape[0] // 128 - 1).any()   # poison slots
 
+
+
+def _proto_inputs(d, h, w, seed=6):
+    """K10's inputs: the tool's 36-entry pool, random uv in [-2, 3)
+    (negative coordinates and partial coverage) and lm in [-1, 36)."""
+    rng = np.random.default_rng(seed)
+    images = [rng.integers(0, 255, (s, s, 4)).astype(np.uint8)
+              for _ in range(4) for s in (256, 128, 64, 32, 16, 8, 4, 2, 1)]
+    pool, meta = proto_paged_tex.build_tiled_pool(images)
+    f = lambda a: torch.from_numpy(a).to(d)
+    return (f(pool), f(meta),
+            f(rng.uniform(-2, 3, (h, w)).astype(np.float32)),
+            f(rng.uniform(-2, 3, (h, w)).astype(np.float32)),
+            f(rng.integers(-1, 36, (h, w)).astype(np.int32)))
+
+
+@pytest.mark.cuda
+def test_fusion_barrier_random_inputs(dev):
+    """K9 against x.clone(), byte for byte, on every dtype and on byte
+    counts and offsets that leave a scalar tail or an unaligned buffer; the
+    result never aliases its input; an empty tensor launches nothing."""
+    rng = np.random.default_rng(8)
+    raw = torch.from_numpy(rng.integers(0, 256, 1 << 20, dtype=np.int64)
+                           .astype(np.uint8)).to(dev)
+    cases = [raw[:135 * 240 * 4].view(torch.float32).view(135, 240),
+             raw[:4 * 7].view(torch.int32), raw[:30].view(3, 5, 2),
+             raw[:100] > 127, raw[3:3 + 1001], raw[:(1 << 20) - 5],
+             raw.view(torch.int32)]
+    for x in cases:
+        before = fusion_barrier.fusion_barrier.launches
+        got = fusion_barrier.fusion_barrier(x)
+        torch.cuda.synchronize()
+        assert fusion_barrier.fusion_barrier.launches == before + 1
+        assert got.shape == x.shape and got.dtype == x.dtype
+        assert got.data_ptr() != x.data_ptr()
+        assert torch.equal(got.view(torch.uint8), x.view(torch.uint8))
+    before = fusion_barrier.fusion_barrier.launches
+    empty = fusion_barrier.fusion_barrier(torch.empty((0, 4), device=dev))
+    assert empty.shape == (0, 4)
+    assert fusion_barrier.fusion_barrier.launches == before
+
+
+@pytest.mark.cuda
+def test_proto_sampler_random_inputs(dev):
+    """K10 against its plain version on the card and on the CPU, bit for
+    bit: random uv (negative too), untextured pixels, partial coverage;
+    then the tool's own coherent field through main() at full size."""
+    args = _proto_inputs(dev, 1056, 1920)
+    got = proto_sampler.paged_sample(*args)
+    torch.cuda.synchronize()
+    for ref in (proto_sampler.paged_sample_plain(*args),
+                proto_sampler.paged_sample_plain(*[a.cpu() for a in args])):
+        assert torch.equal(got[0].cpu(), ref[0].cpu())
+        assert torch.equal(got[1].cpu(), ref[1].cpu())
+    lm = args[4]
+    assert torch.equal(got[0][lm < 0], torch.full_like(got[0][lm < 0], -1))
+    served = got[1][lm >= 0].float().mean()
+    assert 0.0 < float(served) < 1.0
+    res = proto_paged_tex.main(device=dev)
+    assert res["match"] == 1.0 and res["untextured_ok"]
+
+
+@pytest.mark.cuda
+def test_tool_paths_launch_their_kernels(dev):
+    """tm_pallas launches K9 once per call (1 + 3), no other variant
+    launches a kernel; the card's first call agrees with the CPU's."""
+    for variant in ("tm_pallas", "tm_copy", "eval"):
+        kernels.reset_launch_counts()
+        res = repro_eval_kernel.run_variant(variant, dev)
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        assert counts.pop("fusion_barrier") == (4 if variant == "tm_pallas"
+                                                else 0)
+        assert not any(counts.values())
+        run, a = repro_eval_kernel.build(variant, "cpu")
+        cpu = run(*a, 1)
+        d = (res["out"][0] - cpu).abs()
+        assert float((d <= 1e-5).float().mean()) >= 0.999
