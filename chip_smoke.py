@@ -59,7 +59,12 @@ Phases (any failure raises and the script exits non-zero):
    the 32-B sectors of the stack its taps touch, not the whole stack; the
    rasters' operations are their pixel-row visits on this run's queue x
    the triangles per group x 21 flops) and, for K3, times one
-   torch.index_select of the same rows as a library yardstick.
+   torch.index_select of the same rows as a library yardstick. For each
+   K1 and K8 call it prints a `work` line, off the timed window: per tile
+   the pairs (K1) or rounds (K8) and the row visits, per block of the
+   kernels' decomposition (32 columns x raster.K1_BAND / K8_BAND rows) the
+   row visits, the blocks launched, and the per-block max/mean at other
+   band heights (raster.band_split).
 5. Each path's 16-frame sequence (render_sequence_meshlet(with_stats=True);
    on `flat`, DeferredRenderer.render frame by frame), with every launch
    count set to 0 just before and read just after: worst-frame overflows
@@ -98,7 +103,8 @@ Phases 4-5 run per frame path, then 6, 7 and 8. The line before the last
 is the nvidia-smi name/power-limit line, the one before that the
 per-kernel JSON (one entry per kernel and path: launches, max_abs_err,
 per-frame ms / plain_ms / bound_ms / library_ms summed over the kernel's
-calls in one frame, and the per-call detail; plus each path's ms/frame),
+calls in one frame, and the per-call detail, with K1 and K8's work stats;
+plus each path's ms/frame),
 and before that the tools' JSON (each repro variant's first-call seconds
 and steady ms, the proto tool's coverage, match and ms); the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -513,6 +519,67 @@ def library_call(name: str, args):
     return lambda: torch.index_select(table, 1, idx)
 
 
+def _dist(v) -> dict:
+    """min, median, max and max/mean of a 1-D tensor of counts."""
+    v = v.double()
+    mean = float(v.mean())
+    return dict(min=int(v.min()), median=float(v.median()), max=int(v.max()),
+                max_over_mean=float(v.max()) / mean if mean else None)
+
+
+def work_stats(name: str, args) -> Optional[dict]:
+    """K1 / K8's work distribution on a call's queue, from the plain
+    versions' visit lists (raster._groups, raster._subtile_groups): per
+    tile its pairs (K1) or rounds (K8) and its row visits (a visit's rows:
+    128 px each for K1, 32 px for K8's sub-tile); per block of the
+    kernel's decomposition (32 columns x a band of raster.K1_BAND /
+    K8_BAND rows, raster.band_split) its row visits, and the blocks
+    launched; and the per-block max/mean at other band heights."""
+    import torch
+
+    from chord_tpu_torch.ops import raster
+
+    if name == "raster":
+        pair_win, starts, counts, sb, coefT, seeds, zclip, c = args
+        _, _, py0, x0, r0, nrows = raster._groups(pair_win, starts, counts,
+                                                  sb, c)
+        band = raster.K1_BAND
+    elif name == "raster_subtile":
+        gwin, starts, counts, y0r, y1r, coefT, seeds, c = args
+        _, py0, x0, r0, nrows = raster._subtile_groups(
+            gwin, starts, counts, y0r, y1r,
+            coefT.shape[0] // raster.WINDOW - 1, c)
+        band = raster.K8_BAND
+    else:
+        return None
+    n_tiles, cols = c.n_tiles, c.tile_w // 32
+    tile = (py0 // c.tile_h) * c.tiles_x + x0 // c.tile_w
+    per_tile = torch.zeros(n_tiles, dtype=torch.long, device=r0.device)
+    per_tile.index_add_(0, tile, nrows)
+    # a K1 visit covers all of its tile's 32-px columns, a K8 visit one
+    col = (tile * cols + x0 % c.tile_w // 32 if name == "raster_subtile"
+           else None)
+    out = dict(tiles=n_tiles, queue_per_tile=_dist(counts),
+               row_visits=int(nrows.sum()), row_visits_per_tile=_dist(per_tile),
+               band_rows=band)
+    scan = {}
+    for b in sorted({band, 8, 16, 24, 32, 48, 72}):
+        n_bands = -(-c.tile_h // b)
+        item, bi, _, n = raster.band_split(r0, nrows, b)
+        if col is None:    # every column of a tile band has the same work
+            key, n_keys = tile[item] * n_bands + bi, n_tiles * n_bands
+        else:
+            key, n_keys = col[item] * n_bands + bi, n_tiles * cols * n_bands
+        blk = torch.zeros(n_keys, dtype=torch.long, device=r0.device)
+        blk.index_add_(0, key, n)
+        d = _dist(blk)
+        scan[b] = d["max_over_mean"]
+        if b == band:    # K1: a block holds all 4 columns of its band
+            out.update(blocks=n_keys, row_visits_per_block=d)
+    out["max_over_mean_by_band"] = scan
+    return out
+
+
 def describe(name: str, args, kwargs) -> str:
     if name == "pcss":
         maps, pre, _ = args
@@ -594,6 +661,11 @@ def compare_kernels(path, captured, what: str):
                                  issue_ms=issue_ms, plain_ms=plain_ms,
                                  bound_ms=b_ms, bound_by=b_by,
                                  library_ms=lib_ms))
+            work = work_stats(k.name, args)
+            if work is not None:
+                per_call[-1]["work"] = work
+                log(f"work {k.name} on {path} {per_call[-1]['call']}: "
+                    f"{json.dumps(work)}")
         tot = lambda key: sum(c[key] for c in per_call)
         by = max(per_call, key=lambda c: c["bound_ms"])["bound_by"]
         rows[k.name] = dict(

@@ -39,6 +39,11 @@ triangles per pixel group, on the rows of the round's union y range. The
 TPU layouts (brick-packed planes, lane-grouped coefficient columns) are
 not reproduced: every plane is linear (h_pad, w_pad).
 
+K1 and K8 split a tile among blocks of 32 columns x a band of K1_BAND /
+K8_BAND rows; a block walks, in queue order, the visits whose rows meet
+its band (`band_split`), so every pixel sees the plain versions' visits in
+their order.
+
 Reverse-Z: larger depth wins. Visibility is (slot+1):25 | tri:7 on the
 meshlet frame and triangle+1 on the flat frame, carried as int32 bit
 patterns.
@@ -60,6 +65,8 @@ NEG = -3e38     # attribute fill of a group without a winner
 BRICK_W = 32    # K7's x-brick width (px)
 BRICK_H = 4     # K7's brick height (rows per brick row)
 SUB_TILES = 4   # K8's 32-px sub-tiles per 128-px tile
+K1_BAND = 2     # rows of a K1 block (csrc/raster.cu kRows)
+K8_BAND = 8     # rows of a K8 block (csrc/raster_subtile.cu kBand)
 EPS_W = 1e-6    # a vertex with w at or below this is behind the eye
 
 
@@ -726,6 +733,24 @@ def _subtile_groups(gwin, starts, counts, y0r, y1r, poison: int,
     keep = (win != poison) & (y1 > y0)
     sx0 = (tile_of % c.tiles_x) * c.tile_w + sub * (c.tile_w // SUB_TILES)
     return (win[keep], py0[keep], sx0[keep], y0[keep], (y1 - y0)[keep])
+
+
+def band_split(r0: torch.Tensor, nrows: torch.Tensor, band: int):
+    """The band rule of K1 and K8 (csrc/raster.cu, csrc/raster_subtile.cu):
+    a block owns 32 columns of a tile and the tile rows [b*band, (b+1)*band)
+    of one band b, and walks, in queue order, the visits whose rows meet its
+    band, each cut to the band. Visit i's tile rows [r0[i], r0[i]+nrows[i])
+    (nrows > 0) -> per piece, ordered by visit then band: (visit, band,
+    first row, row count)."""
+    dev = r0.device
+    b0 = r0 // band
+    nb = (r0 + nrows - 1) // band - b0 + 1
+    item = torch.repeat_interleave(torch.arange(r0.numel(), device=dev), nb)
+    b = b0[item] + torch.arange(item.numel(), device=dev) - \
+        (torch.cumsum(nb, 0) - nb)[item]
+    lo = torch.maximum(r0[item], b * band)
+    hi = torch.minimum((r0 + nrows)[item], (b + 1) * band)
+    return item, b, lo, hi - lo
 
 
 def _eval_items(coefT, seeds, zclip, n_attr: int, tri0, n_tri: int, x0,

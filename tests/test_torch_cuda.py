@@ -34,6 +34,8 @@ from chord_tpu_torch.rhi.meshlet_scene import build_meshlet_pools
 from chord_tpu_torch.tools import proto_paged_tex, repro_eval_kernel
 from chord_tpu_torch.utils.camera import Camera
 from chord_tpu_torch.utils.cvar import cvars
+from test_torch_raster_bands import CASES as BAND_CASES
+from test_torch_raster_bands import band_inputs
 
 W, H, PW, PH = 128, 64, 192, 96
 CFG = RendererConfig(width=W, height=H, post_width=PW, post_height=PH,
@@ -460,6 +462,37 @@ def test_brick_and_subtile_rasters_random_inputs(dev, attrs, seeded, zclip):
         assert float((got[0] > 0).float().mean()) > 0.2
     gw = args[0].view(-1, 4)
     assert (gw == args[5].shape[0] // 128 - 1).any()   # poison slots
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "kernel,scene,attrs,tile_h,sub_s,rp,zclip",
+    BAND_CASES + [("k1", "imbalance", True, 32, 8, 16, True),
+                  ("k1", "ties", False, 16, 4, 8, False),
+                  ("k8", "negative", True, 24, 8, 0, False),
+                  ("k8", "imbalance", False, 40, 8, 0, False)])
+def test_raster_band_cases(dev, kernel, scene, attrs, tile_h, sub_s, rp,
+                           zclip):
+    """K1 and K8's block decomposition (32 columns x a band of rows per
+    block, the corner cull) against their plain versions on the card and
+    on the CPU, bit for bit: one tile holding nearly every pair beside
+    empty tiles, tall windows over every band boundary, exact depth ties
+    within groups and across visits, signed payloads and seeds (a visit
+    that covers nothing still replaces a (0, < 0) seed), n_attr 0 and 5;
+    K1 with z_clip, rp != sub_s and 32- or 64-triangle groups; K8 with
+    poison slots and tile_h 24, 40 and 72 (not multiples of its band)."""
+    name = "raster" if kernel == "k1" else "raster_subtile"
+    k = next(k for k in kernels.KERNELS if k.name == name)
+    args = band_inputs(dev, kernel, scene, attrs, tile_h, sub_s, rp, zclip)
+    _exact(k, args, {})
+    cpu = [a.cpu() if isinstance(a, torch.Tensor) else
+           [x.cpu() for x in a] if isinstance(a, list) else a for a in args]
+    got = kernels.outputs_list(k.fn()(*args))
+    ref = kernels.outputs_list(k.plain(*cpu))
+    assert kernels.max_abs_err([g.cpu() for g in got], ref) == 0.0
+    assert float((got[0] > 0).float().mean()) > 0.1
+    if kernel == "k8":
+        assert (args[0].view(-1, 4) == args[5].shape[0] // 128 - 1).any()
 
 
 
