@@ -56,15 +56,18 @@ Phases (any failure raises and the script exits non-zero):
    kept beside it), computes its bound (the larger of the bytes it must
    move over 3.35 TB/s and the f32 operations this run's data needs over
    67 TFLOP/s; the bytes are its inputs and outputs, except that K6 counts
-   the 32-B sectors of the stack its taps touch, not the whole stack; the
-   rasters' operations are their pixel-row visits on this run's queue x
-   the triangles per group x 21 flops) and, for K3, times one
-   torch.index_select of the same rows as a library yardstick. For each
-   K1 and K8 call it prints a `work` line, off the timed window: per tile
-   the pairs (K1) or rounds (K8) and the row visits, per block of the
-   kernels' decomposition (32 columns x raster.K1_BAND / K8_BAND rows) the
-   row visits, the blocks launched, and the per-block max/mean at other
-   band heights (raster.band_split).
+   the 32-B sectors of the stack its taps touch, not the whole stack; K7's
+   operations are its pixel-row visits on this run's queue x the
+   triangles per group x 21 flops, K1 and K8's the pixel tests their
+   exact per-warp corner cull leaves on this run's queue x 21 flops plus
+   12 per cull evaluation (raster.cull_tests), with the bound of every
+   test of the visit list kept beside it as `bound_all_tests_ms`) and, for
+   K3, times one torch.index_select of the same rows as a library
+   yardstick. For each K1 and K8 call it prints a `work` line, off the
+   timed window: per tile the pairs (K1) or rounds (K8) and the row
+   visits, per block of the kernels' decomposition (32 columns a warp x
+   raster.K1_BAND / K8_BAND rows, raster.band_split) the row visits, and
+   the blocks launched.
 5. Each path's 16-frame sequence (render_sequence_meshlet(with_stats=True);
    on `flat`, DeferredRenderer.render frame by frame), with every launch
    count set to 0 just before and read just after: worst-frame overflows
@@ -393,17 +396,23 @@ def _nbytes(x) -> int:
     return 0
 
 
-def _ops(name: str, args, kwargs) -> float:
+def _ops(name: str, args, kwargs, cull: bool = True) -> float:
     """f32 operations the call's data needs (0 for pure data movement)."""
-    if name == "raster":
-        # every (pixel row, subwindow group) the queue visits tests the
-        # group's 16 triangles on 128 lanes: 5 plane evaluations (4 flops)
-        # and the depth divide
+    if name in ("raster", "raster_subtile"):
+        # K1 / K8: per pixel test 5 plane evaluations (4 flops) and the
+        # depth divide; per cull evaluation 3 edge planes. With cull, the
+        # tests their per-warp corner cull leaves on this run's data (the
+        # kernels' own cull, raster.cull_tests); without, every test of the
+        # visit list.
         from chord_tpu_torch.ops import raster
 
-        pair_win, starts, counts, sb, coefT, seeds, zclip, c = args
-        nrows = raster._groups(pair_win, starts, counts, sb, c)[-1]
-        return float(nrows.sum()) * c.tile_w * (raster.WINDOW // c.sub_s) * 21
+        tri0, n_tri, py0, cols, r0, nrows = raster.kernel_visits(name, args)
+        if not cull:
+            return float(nrows.sum()) * cols.shape[1] * 32 * n_tri * 21
+        coefT = args[4] if name == "raster" else args[5]
+        tests, culls = raster.cull_tests(coefT, tri0, n_tri, py0, cols, r0,
+                                         nrows)
+        return tests * 21.0 + culls * 12.0
     if name == "raster_bricks":
         # K7: per visited (row, 32-px brick, subwindow) the group's 16
         # triangles on 32 lanes
@@ -413,17 +422,6 @@ def _ops(name: str, args, kwargs) -> float:
         nrows = raster._brick_groups(pair_win, starts, counts, sb, c)[-1]
         return (float(nrows.sum()) * raster.BRICK_W *
                 (raster.WINDOW // c.sub_s) * 21)
-    if name == "raster_subtile":
-        # K8: per visited (row, 32-px sub-tile) the window's 128 triangles
-        # on 32 lanes
-        from chord_tpu_torch.ops import raster
-
-        gwin, starts, counts, y0r, y1r, coefT, seeds, c = args
-        nrows = raster._subtile_groups(
-            gwin, starts, counts, y0r, y1r,
-            coefT.shape[0] // raster.WINDOW - 1, c)[-1]
-        return (float(nrows.sum()) * (c.tile_w // raster.SUB_TILES) *
-                raster.WINDOW * 21)
     if name == "mesh_shader":
         # per drawn triangle: 3 vertex transforms (28), 3 normal
         # transforms (15) and edge / plane setup (~100)
@@ -489,8 +487,8 @@ def _proto_bytes(args, out) -> int:
     return sectors * 32 + _nbytes([meta, u, v, lm]) + _nbytes(out)
 
 
-def bound(name: str, args, kwargs, out) -> tuple:
-    """-> (bound ms, "bytes" | "operations")."""
+def bound(name: str, args, kwargs, out, cull: bool = True) -> tuple:
+    """-> (bound ms, "bytes" | "operations"); `cull` as in _ops."""
     if name == "pcss":
         n_bytes = _pcss_bytes(args, out)
     elif name == "proto_paged_sample":
@@ -499,7 +497,7 @@ def bound(name: str, args, kwargs, out) -> tuple:
         n_bytes = (_nbytes(args) + _nbytes(list(kwargs.values())) +
                    _nbytes(out))
     t_bytes = n_bytes / HBM_BYTES_PER_S
-    t_ops = _ops(name, args, kwargs) / F32_OPS_PER_S
+    t_ops = _ops(name, args, kwargs, cull) / F32_OPS_PER_S
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
 
@@ -529,55 +527,35 @@ def _dist(v) -> dict:
 
 def work_stats(name: str, args) -> Optional[dict]:
     """K1 / K8's work distribution on a call's queue, from the plain
-    versions' visit lists (raster._groups, raster._subtile_groups): per
-    tile its pairs (K1) or rounds (K8) and its row visits (a visit's rows:
-    128 px each for K1, 32 px for K8's sub-tile); per block of the
-    kernel's decomposition (32 columns x a band of raster.K1_BAND /
-    K8_BAND rows, raster.band_split) its row visits, and the blocks
-    launched; and the per-block max/mean at other band heights."""
+    versions' visit lists (raster.kernel_visits): per tile its pairs (K1)
+    or rounds (K8) and its row visits (a visit's rows: 128 px each for K1,
+    32 px for K8's sub-tile); per block of the kernel's decomposition (32
+    columns a warp x a band of raster.K1_BAND / K8_BAND rows,
+    raster.band_split) its row visits; and the blocks launched."""
     import torch
 
     from chord_tpu_torch.ops import raster
 
-    if name == "raster":
-        pair_win, starts, counts, sb, coefT, seeds, zclip, c = args
-        _, _, py0, x0, r0, nrows = raster._groups(pair_win, starts, counts,
-                                                  sb, c)
-        band = raster.K1_BAND
-    elif name == "raster_subtile":
-        gwin, starts, counts, y0r, y1r, coefT, seeds, c = args
-        _, py0, x0, r0, nrows = raster._subtile_groups(
-            gwin, starts, counts, y0r, y1r,
-            coefT.shape[0] // raster.WINDOW - 1, c)
-        band = raster.K8_BAND
-    else:
+    if name not in ("raster", "raster_subtile"):
         return None
-    n_tiles, cols = c.n_tiles, c.tile_w // 32
-    tile = (py0 // c.tile_h) * c.tiles_x + x0 // c.tile_w
-    per_tile = torch.zeros(n_tiles, dtype=torch.long, device=r0.device)
+    c, counts = args[-1], args[2]
+    _, _, py0, cols, r0, nrows = raster.kernel_visits(name, args)
+    band = raster.K1_BAND if name == "raster" else raster.K8_BAND
+    n_bands = c.tile_h // band
+    tile = (py0 // c.tile_h) * c.tiles_x + cols[:, 0] // c.tile_w
+    per_tile = torch.zeros(c.n_tiles, dtype=torch.long, device=r0.device)
     per_tile.index_add_(0, tile, nrows)
-    # a K1 visit covers all of its tile's 32-px columns, a K8 visit one
-    col = (tile * cols + x0 % c.tile_w // 32 if name == "raster_subtile"
-           else None)
-    out = dict(tiles=n_tiles, queue_per_tile=_dist(counts),
-               row_visits=int(nrows.sum()), row_visits_per_tile=_dist(per_tile),
-               band_rows=band)
-    scan = {}
-    for b in sorted({band, 8, 16, 24, 32, 48, 72}):
-        n_bands = -(-c.tile_h // b)
-        item, bi, _, n = raster.band_split(r0, nrows, b)
-        if col is None:    # every column of a tile band has the same work
-            key, n_keys = tile[item] * n_bands + bi, n_tiles * n_bands
-        else:
-            key, n_keys = col[item] * n_bands + bi, n_tiles * cols * n_bands
-        blk = torch.zeros(n_keys, dtype=torch.long, device=r0.device)
-        blk.index_add_(0, key, n)
-        d = _dist(blk)
-        scan[b] = d["max_over_mean"]
-        if b == band:    # K1: a block holds all 4 columns of its band
-            out.update(blocks=n_keys, row_visits_per_block=d)
-    out["max_over_mean_by_band"] = scan
-    return out
+    # a K1 block holds its band of all 4 columns, a K8 block one sub-tile's
+    n_cols = 1 if name == "raster" else c.tile_w // 32
+    unit = tile * n_cols + cols[:, 0] % c.tile_w // 32 * (n_cols > 1)
+    item, b, _, n = raster.band_split(r0, nrows, band)
+    blk = torch.zeros(c.n_tiles * n_cols * n_bands, dtype=torch.long,
+                      device=r0.device)
+    blk.index_add_(0, unit[item] * n_bands + b, n)
+    return dict(tiles=c.n_tiles, queue_per_tile=_dist(counts),
+                row_visits=int(nrows.sum()), row_visits_per_tile=_dist(per_tile),
+                band_rows=band, blocks=blk.numel(),
+                row_visits_per_block=_dist(blk))
 
 
 def describe(name: str, args, kwargs) -> str:
@@ -663,6 +641,8 @@ def compare_kernels(path, captured, what: str):
                                  library_ms=lib_ms))
             work = work_stats(k.name, args)
             if work is not None:
+                per_call[-1]["bound_all_tests_ms"] = bound(
+                    k.name, args, kwargs, got, cull=False)[0]
                 per_call[-1]["work"] = work
                 log(f"work {k.name} on {path} {per_call[-1]['call']}: "
                     f"{json.dumps(work)}")
@@ -675,6 +655,8 @@ def compare_kernels(path, captured, what: str):
             library_ms=(tot("library_ms") if per_call[0]["library_ms"]
                         is not None else None),
             calls_per_frame=len(per_call), per_call=per_call)
+        if "bound_all_tests_ms" in per_call[0]:
+            rows[k.name]["bound_all_tests_ms"] = tot("bound_all_tests_ms")
         log(f"kernel {k.name} on {path}: {len(calls)} calls of {what} "
             f"compared, max |kernel - plain| = {err} (tolerance 0); per "
             "call: " +
@@ -682,6 +664,8 @@ def compare_kernels(path, captured, what: str):
                       f"{c['issue_ms']:.4f}) vs plain "
                       f"{c['plain_ms']:.4f}, bound {c['bound_ms']:.4f} "
                       f"({c['bound_by']})" +
+                      (f", every test {c['bound_all_tests_ms']:.4f}"
+                       if "bound_all_tests_ms" in c else "") +
                       (f", library {c['library_ms']:.4f}"
                        if c["library_ms"] is not None else "")
                       for c in per_call))
@@ -1042,7 +1026,7 @@ def main() -> int:
     # the port must come from this checkout (fails, printing nothing,
     # where chip_smoke.py stands alone)
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    from chord_tpu_torch.ops import _cuda
+    from chord_tpu_torch.ops import _cuda, raster
     from chord_tpu_torch.ops.kernels import PATHS, TOOL_PATHS
 
     smi = card_line()
@@ -1056,6 +1040,12 @@ def main() -> int:
     _cuda.lib()
     log(f"kernels built: {path.name} from {len(_cuda.sources())} sources in "
         f"{time.time() - t0:.2f} s")
+    # the band rule, the work stats and the cull count mirror these
+    lib = _cuda.lib()
+    bands = (lib.chord_raster_tiles_band(), lib.chord_raster_subtile_band(),
+             lib.chord_raster_subtile_rows())
+    if bands != (raster.K1_BAND, raster.K8_BAND, raster.WARP_ROWS):
+        raise AssertionError(f"kernel bands {bands} != raster's constants")
 
     scenes = bench_scenes(dev, PATHS)
     rows, ms_per_frame = [], {}
@@ -1083,8 +1073,10 @@ def main() -> int:
 
     order = ("name", "path", "route", "source", "replaces", "launches",
              "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-             "library_ms", "calls_per_frame", "per_call")
-    print(json.dumps({"kernels": [{k: r[k] for k in order} for r in rows],
+             "bound_all_tests_ms", "library_ms", "calls_per_frame",
+             "per_call")
+    print(json.dumps({"kernels": [{k: r[k] for k in order if k in r}
+                                  for r in rows],
                       "ms_per_frame": ms_per_frame}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -11,15 +11,18 @@
 // non-winners' fill) replaces the accumulator when deeper, or as deep with
 // a larger payload.
 //
-// What bounds it on the H100: the edge tests, ~16 triangles x 21 flops
-// per pixel and subwindow row visit (0.085 ms at the f32 peak for the
-// `off` frame's main phase 0; under -fmad=false no multiply-add fuses, so
-// twice that at perfect issue), and latency: each pixel's visits run in
-// queue order, and one tile can hold 5x the mean tile's pairs. The
-// previous design ran one 512-thread block per tile (40 blocks at 720p on
-// 132 SMs), staged each pair's 16 KB coefficient block between two
-// barriers, tested every triangle at every pixel and read-modified-wrote
-// the output planes per visit: 9.7-10.1 ms.
+// What bounds it on the H100: the bytes it must move (queue,
+// coefficients, seed and output planes: 0.029 ms at the memory rate for
+// the `off` frame's main phase 0), ahead of the edge tests the corner
+// cull leaves (raster.cull_tests; every test of the visit list, 16
+// triangles x 21 flops per pixel and subwindow row visit, would take
+// 0.085 ms at the f32 peak, and under -fmad=false twice that at perfect
+// issue); and latency: each pixel's visits run in queue order, and one
+// tile can hold 5x the mean tile's pairs. The previous design ran one
+// 512-thread block per tile (40 blocks at 720p on 132 SMs), staged each
+// pair's 16 KB coefficient block between two barriers, tested every
+// triangle at every pixel and read-modified-wrote the output planes per
+// visit: 9.7-10.1 ms.
 //
 // This design (the shared core in raster_core.cuh):
 // - One block of 4 warps per (tile, band of kRows = 2 rows): warp w owns
@@ -105,7 +108,7 @@ raster_tiles_kernel(const int* __restrict__ pair_win,
                     tile_h};
   raster_band<kRows, kBricks, 1, ATTR, ZCLIP>(
       q, cs, coef, seed_depth, seed_vis, seed_attr, zclip, depth, vis, attr,
-      py0, px0, blockIdx.y * kRows, tile_h, w_pad, (size_t)h_pad * w_pad);
+      py0, px0, blockIdx.y * kRows, w_pad, (size_t)h_pad * w_pad);
 }
 
 template <bool ATTR, bool ZCLIP>
@@ -132,8 +135,11 @@ extern "C" int chord_raster_tiles(
     void* depth, void* vis, void* attr, int n_tiles, int tiles_x, int tile_h,
     int w_pad, int sub_s, int rp, int n_attr, void* stream) {
   if (n_tiles <= 0) return 0;
+  // whole bands, and rows rounded out to rp stay inside the tile
+  if (tile_h % kRows != 0 || rp <= 0 || tile_h % rp != 0)
+    return (int)cudaErrorInvalidValue;
   const int h_pad = (n_tiles / tiles_x) * tile_h;
-  const dim3 grid(n_tiles, (tile_h + kRows - 1) / kRows);
+  const dim3 grid(n_tiles, tile_h / kRows);
   const cudaStream_t st = (cudaStream_t)stream;
   auto* fn = n_attr ? (zclip ? launch<true, true> : launch<true, false>)
                     : (zclip ? launch<false, true> : launch<false, false>);
@@ -142,3 +148,6 @@ extern "C" int chord_raster_tiles(
      h_pad, sub_s, rp);
   return (int)cudaGetLastError();
 }
+
+// The band height, for the Python side's mirror (raster.K1_BAND).
+extern "C" int chord_raster_tiles_band() { return kRows; }

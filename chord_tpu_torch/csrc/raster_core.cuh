@@ -42,6 +42,18 @@
 // non-winners' fill (payload 0, attributes -3e38) when not every triangle
 // won. Each output is written once, at the end.
 //
+// The first and last winner are triangle indices in a group of at most
+// kWindow = 128, so they and the count pack into one int (meta). The
+// alternative, each new or tied winner's attributes evaluated inline from
+// the staged words (no meta, no re-test), ran K1 9-10% slower without
+// attributes and 17% slower on the masked pass with them, and K8 within
+// 1.5% (H100 80GB HBM3 at 700 W, chip_smoke's phase-4 timing, both
+// designs alternating in one run; PERF.md section 6).
+//
+// The band height divides tile_h (the entry points check it; RasterConfig
+// makes tile_h a multiple of 8, and rp divide it), so no block reaches
+// past its tile and no visit's rows past tile_h.
+//
 // Every value is computed with the plain version's expression and
 // association, built with -fmad=false: l = a*px + (b*yf + c),
 // cand = l3 / l4 (IEEE), inv_s = 1 / ((l0 + l1) + l2), attribute
@@ -148,8 +160,8 @@ __device__ __forceinline__ void raster_band(
     const float* __restrict__ seed_depth, const int* __restrict__ seed_vis,
     const float* __restrict__ seed_attr, const float* __restrict__ zclip,
     float* __restrict__ depth, int* __restrict__ vis,
-    float* __restrict__ attr, int py0, int x0, int band0, int tile_h,
-    int w_pad, size_t plane) {
+    float* __restrict__ attr, int py0, int x0, int band0, int w_pad,
+    size_t plane) {
   constexpr int kWarps = WX * WY;
   constexpr int kThreads = 32 * kWarps;
   constexpr int kStride = Staged<ATTR>::kStride;
@@ -161,7 +173,7 @@ __device__ __forceinline__ void raster_band(
   const int wx = warp % WX, wy = warp / WX;
   const int x = x0 + 32 * wx + lane;
   const int my0 = band0 + K * wy;            // this thread's first row
-  const int band1 = min(band0 + K * WY, tile_h);
+  const int band1 = band0 + K * WY;
   const float px = (float)x;
   const float x_lo = (float)(x0 + 32 * wx), x_hi = x_lo + 31.0f;
   const unsigned below = (1u << lane) - 1u;
@@ -174,13 +186,12 @@ __device__ __forceinline__ void raster_band(
     const int row = my0 + i;
     const size_t p = (size_t)(py0 + row) * w_pad + x;
     yf[i] = (float)(py0 + row);
-    const bool in = row < tile_h;
-    acc_d[i] = in ? seed_depth[p] : 0.0f;
-    acc_v[i] = in ? seed_vis[p] : 0;
-    zc[i] = (ZCLIP && in) ? zclip[p] : 0.0f;
+    acc_d[i] = seed_depth[p];
+    acc_v[i] = seed_vis[p];
+    zc[i] = ZCLIP ? zclip[p] : 0.0f;
 #pragma unroll
     for (int k = 0; k < 5; ++k)
-      acc_a[k][i] = (ATTR && in) ? seed_attr[k * plane + p] : 0.0f;
+      acc_a[k][i] = ATTR ? seed_attr[k * plane + p] : 0.0f;
   }
 
   const int n_cand = q.size();
@@ -232,7 +243,7 @@ __device__ __forceinline__ void raster_band(
       const int vi = s / nch, c = s - vi * nch;
       const int2 v = list[vi];
       const int lo = max(v.y >> 16, my0) - my0;
-      const int hi = min(min(v.y & 0xffff, tile_h), my0 + K) - my0;
+      const int hi = min(v.y & 0xffff, my0 + K) - my0;
       if (c == 0) {
 #pragma unroll
         for (int i = 0; i < K; ++i) {
@@ -344,9 +355,7 @@ __device__ __forceinline__ void raster_band(
 
 #pragma unroll
   for (int i = 0; i < K; ++i) {
-    const int row = my0 + i;
-    if (row >= tile_h) continue;
-    const size_t p = (size_t)(py0 + row) * w_pad + x;
+    const size_t p = (size_t)(py0 + my0 + i) * w_pad + x;
     depth[p] = acc_d[i];
     vis[p] = acc_v[i];
     if (ATTR) {

@@ -11,14 +11,16 @@
 // max of the attributes at it, with the non-winners' fill) replaces the
 // accumulator when deeper, or as deep with a larger payload.
 //
-// What bounds it on the H100: the edge tests, 128 triangles x 21 flops per
-// (row, sub-tile) visit (1.24 ms at the f32 peak on the flat frame at
-// 1080p; under -fmad=false no multiply-add fuses, so twice that at
-// perfect issue), and the spread of the rounds over tiles: one tile of the
-// flat frame holds 267 rounds, the median tile 9. The previous design ran
-// one 512-thread block per (tile, sub-tile), 300 blocks at 1080p of which
-// 264 fit at once, walked every round through a two-barrier 16 KB staging
-// and tested every triangle at every pixel: 23.5-24.9 ms.
+// What bounds it on the H100: the edge tests the corner cull leaves, about
+// 3% of the visit list's (raster.cull_tests; 0.038 ms at the f32 peak on
+// the flat frame at 1080p, where every test, 128 triangles x 21 flops per
+// (row, sub-tile) visit, would take 1.24 ms, and under -fmad=false twice
+// that at perfect issue), and the spread of the rounds over tiles: one
+// tile of the flat frame holds 267 rounds, the median tile 9. The
+// previous design ran one 512-thread block per (tile, sub-tile), 300
+// blocks at 1080p of which 264 fit at once, walked every round through a
+// two-barrier 16 KB staging and tested every triangle at every pixel:
+// 23.5-24.9 ms.
 //
 // This design (the shared core in raster_core.cuh):
 // - One block of 4 warps per (tile, sub-tile, band of kBand = 8 rows):
@@ -101,8 +103,7 @@ raster_subtile_kernel(const int* __restrict__ gwin,
                      sub,  poison, py0, tile_h};
   raster_band<kRows, 1, kWarps, ATTR, false>(
       q, kWindow, coef, seed_depth, seed_vis, seed_attr, nullptr, depth, vis,
-      attr, py0, x0, blockIdx.y * kBand, tile_h, w_pad,
-      (size_t)h_pad * w_pad);
+      attr, py0, x0, blockIdx.y * kBand, w_pad, (size_t)h_pad * w_pad);
 }
 
 }  // namespace
@@ -114,8 +115,9 @@ extern "C" int chord_raster_subtile(
     void* depth, void* vis, void* attr, int n_tiles, int tiles_x, int tile_h,
     int w_pad, int n_attr, void* stream) {
   if (n_tiles <= 0) return 0;
+  if (tile_h % kBand != 0) return (int)cudaErrorInvalidValue;   // whole bands
   const int h_pad = (n_tiles / tiles_x) * tile_h;
-  const dim3 grid(n_tiles * kSubTiles, (tile_h + kBand - 1) / kBand);
+  const dim3 grid(n_tiles * kSubTiles, tile_h / kBand);
   const cudaStream_t st = (cudaStream_t)stream;
   auto* kernel = n_attr ? raster_subtile_kernel<true>
                         : raster_subtile_kernel<false>;
@@ -127,3 +129,8 @@ extern "C" int chord_raster_subtile(
       tiles_x, tile_h, w_pad, h_pad);
   return (int)cudaGetLastError();
 }
+
+// The band height and the rows a thread holds, for the Python side's
+// mirror (raster.K8_BAND, raster.WARP_ROWS).
+extern "C" int chord_raster_subtile_band() { return kBand; }
+extern "C" int chord_raster_subtile_rows() { return kRows; }

@@ -67,6 +67,8 @@ BRICK_H = 4     # K7's brick height (rows per brick row)
 SUB_TILES = 4   # K8's 32-px sub-tiles per 128-px tile
 K1_BAND = 2     # rows of a K1 block (csrc/raster.cu kRows)
 K8_BAND = 8     # rows of a K8 block (csrc/raster_subtile.cu kBand)
+WARP_ROWS = 2   # rows a K1 / K8 thread holds and its warp culls on (kRows)
+CULL_MAX = 1e29  # coefficients the cull trusts (csrc/raster_core.cuh)
 EPS_W = 1e-6    # a vertex with w at or below this is behind the eye
 
 
@@ -751,6 +753,63 @@ def band_split(r0: torch.Tensor, nrows: torch.Tensor, band: int):
     lo = torch.maximum(r0[item], b * band)
     hi = torch.minimum((r0 + nrows)[item], (b + 1) * band)
     return item, b, lo, hi - lo
+
+
+def kernel_visits(name: str, args):
+    """The plain visit list of a K1 ("raster") or K8 ("raster_subtile")
+    call's arguments -> per visit, in queue order: (first triangle,
+    triangles in its group, tile py0, the x0 of the 32-px columns it
+    covers (visits, columns), first tile row, row count)."""
+    if name == "raster":
+        pair_win, starts, counts, sb, coefT, seeds, zclip, c = args
+        g_win, g_s, py0, px0, r0, nrows = _groups(pair_win, starts, counts,
+                                                  sb, c)
+        cs = WINDOW // c.sub_s
+        cols = px0[:, None] + 32 * torch.arange(c.tile_w // 32,
+                                                device=px0.device)
+        return g_win * WINDOW + g_s * cs, cs, py0, cols, r0, nrows
+    gwin, starts, counts, y0r, y1r, coefT, seeds, c = args
+    win, py0, sx0, r0, nrows = _subtile_groups(
+        gwin, starts, counts, y0r, y1r, coefT.shape[0] // WINDOW - 1, c)
+    return win * WINDOW, WINDOW, py0, sx0[:, None], r0, nrows
+
+
+def corner_cull(a, b, c, x_lo, y_lo, y_hi) -> torch.Tensor:
+    """K1 and K8's per-warp cull of one edge plane (csrc/raster_core.cuh
+    edge_misses), on float32 tensors that broadcast: True where
+    a*x + (b*y + c), evaluated as the test evaluates it, is negative at the
+    corner of [x_lo, x_lo + 31] x [y_lo, y_hi] where it is largest, so on
+    the whole rectangle."""
+    ok = (a.abs() <= CULL_MAX) & (b.abs() <= CULL_MAX) & (c.abs() <= CULL_MAX)
+    xs = torch.where(a >= 0, x_lo + 31.0, x_lo)
+    ys = torch.where(b >= 0, y_hi, y_lo)
+    return ok & (a * xs + (b * ys + c) < 0)
+
+
+def cull_tests(coefT, tri0, n_tri: int, py0, cols, r0, nrows,
+               chunk: int = 8192) -> Tuple[int, int]:
+    """What K1 and K8 evaluate on a visit list (kernel_visits) after the
+    cull: each visit is cut into runs of the WARP_ROWS-row thread groups;
+    per run and column the cull evaluates every triangle of the group, and
+    the triangles it keeps are tested on the run's 32 x rows pixels ->
+    (pixel tests, cull evaluations)."""
+    coef = bits_f32(coefT)[:, :15]
+    item, _, lo, n = band_split(r0, nrows, WARP_ROWS)
+    tri = torch.arange(n_tri, device=coef.device)
+    tests = 0
+    for s in range(0, item.numel(), chunk):
+        it, n_s = item[s:s + chunk], n[s:s + chunk]
+        y_lo = (py0[it] + lo[s:s + chunk]).float()[:, None, None]
+        y_hi = y_lo + (n_s - 1).float()[:, None, None]
+        x_lo = cols[it].float()[:, :, None]          # (runs, columns, 1)
+        cf = coef[tri0[it][:, None] + tri][:, None]  # (runs, 1, tri, 15)
+        miss = torch.zeros((), dtype=torch.bool, device=coef.device)
+        for k in range(3):
+            miss = miss | corner_cull(cf[..., k], cf[..., 5 + k],
+                                      cf[..., 10 + k], x_lo, y_lo, y_hi)
+        miss = miss.expand(it.numel(), cols.shape[1], n_tri)
+        tests += int(((~miss).sum((1, 2)) * n_s).sum()) * 32
+    return tests, item.numel() * cols.shape[1] * n_tri
 
 
 def _eval_items(coefT, seeds, zclip, n_attr: int, tri0, n_tri: int, x0,

@@ -20,9 +20,9 @@ import torch
 from chord_tpu_torch.asset.procedural import (bench_texture_pool,
                                               build_bistro_like,
                                               build_sponza_like)
-from chord_tpu_torch.ops import (fusion_barrier, kernels, paged_texture,
-                                 raster, row_gather, shadow, shadow_kernel,
-                                 tile_reproject)
+from chord_tpu_torch.ops import (_cuda, fusion_barrier, kernels,
+                                 paged_texture, raster, row_gather, shadow,
+                                 shadow_kernel, tile_reproject)
 from chord_tpu_torch.ops import atmosphere as atm
 from chord_tpu_torch.ops import proto_paged_tex as proto_sampler
 from chord_tpu_torch.renderer import (DeferredRenderer, DeviceView,
@@ -480,7 +480,8 @@ def test_raster_band_cases(dev, kernel, scene, attrs, tile_h, sub_s, rp,
     within groups and across visits, signed payloads and seeds (a visit
     that covers nothing still replaces a (0, < 0) seed), n_attr 0 and 5;
     K1 with z_clip, rp != sub_s and 32- or 64-triangle groups; K8 with
-    poison slots and tile_h 24, 40 and 72 (not multiples of its band)."""
+    poison slots and tile_h 24, 40 and 72 (3, 5 and 9 bands a tile: tile_h
+    is a multiple of 8, so no band is partial)."""
     name = "raster" if kernel == "k1" else "raster_subtile"
     k = next(k for k in kernels.KERNELS if k.name == name)
     args = band_inputs(dev, kernel, scene, attrs, tile_h, sub_s, rp, zclip)
@@ -494,6 +495,15 @@ def test_raster_band_cases(dev, kernel, scene, attrs, tile_h, sub_s, rp,
     if kernel == "k8":
         assert (args[0].view(-1, 4) == args[5].shape[0] // 128 - 1).any()
 
+
+@pytest.mark.cuda
+def test_band_constants_match_the_kernels(dev):
+    """raster.K1_BAND, K8_BAND and WARP_ROWS, which the band rule, the work
+    stats and the cull count read, are the kernels' own constants."""
+    lib = _cuda.lib()
+    assert lib.chord_raster_tiles_band() == raster.K1_BAND == raster.WARP_ROWS
+    assert lib.chord_raster_subtile_band() == raster.K8_BAND
+    assert lib.chord_raster_subtile_rows() == raster.WARP_ROWS
 
 
 def _proto_inputs(d, h, w, seed=6):

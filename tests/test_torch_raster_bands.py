@@ -14,9 +14,10 @@ queues at 256x96:
 - evaluating block by block through raster._eval_items (each block's 32
   columns and band, in block order) gives planes equal to
   raster_tiles_plain / raster_subtile_plain bit for bit;
-- the corner test, evaluated as the kernels evaluate it (float32, the
-  plain version's association), never skips a triangle that covers a
-  pixel of the rectangle.
+- the corner test (raster.corner_cull, evaluated as the kernels evaluate
+  it: float32, the plain version's association) never skips a triangle
+  that covers a pixel of the rectangle, and raster.cull_tests counts the
+  tests it leaves.
 
 `band_inputs` builds the seeded cases; tests/test_torch_cuda.py runs the
 kernels on them against the plain versions on the card.
@@ -29,9 +30,6 @@ import torch
 from chord_tpu_torch.ops import raster
 
 W, H = 256, 96
-CULL_MAX = 1e29   # csrc/raster_core.cuh kCullMax
-# a warp's rows: K1's band, a quarter of K8's (csrc kRows)
-WARP_ROWS = raster.K1_BAND
 
 
 def _scene(rng, scene: str, n_win: int, tile_h: int):
@@ -140,22 +138,11 @@ def _coef(kernel, args):
 def _visits(kernel, args):
     """-> (first triangle, group size, tile index, tile py0, 32-px column
     x0s of the visit, first row, row count) per visit, in queue order."""
-    if kernel == "k1":
-        pair_win, starts, counts, sb, coefT, seeds, zc, c = args
-        g_win, g_s, py0, px0, r0, nrows = raster._groups(
-            pair_win, starts, counts, sb, c)
-        cs = raster.WINDOW // c.sub_s
-        cols = px0[:, None] + 32 * torch.arange(4)[None, :]
-        return (g_win * raster.WINDOW + g_s * cs, cs,
-                (py0 // c.tile_h) * c.tiles_x + px0 // c.tile_w, py0, cols,
-                r0, nrows)
-    gwin, starts, counts, y0r, y1r, coefT, seeds, c = args
-    win, py0, sx0, r0, nrows = raster._subtile_groups(
-        gwin, starts, counts, y0r, y1r, coefT.shape[0] // raster.WINDOW - 1,
-        c)
-    return (win * raster.WINDOW, raster.WINDOW,
-            (py0 // c.tile_h) * c.tiles_x + sx0 // c.tile_w, py0,
-            sx0[:, None], r0, nrows)
+    c = args[-1]
+    tri0, cs, py0, cols, r0, nrows = raster.kernel_visits(
+        "raster" if kernel == "k1" else "raster_subtile", args)
+    tile = (py0 // c.tile_h) * c.tiles_x + cols[:, 0] // c.tile_w
+    return tri0, cs, tile, py0, cols, r0, nrows
 
 
 def _blocks(kernel, args):
@@ -177,13 +164,15 @@ def _blocks(kernel, args):
     return block[order], item[order], x0[order], lo[order], n[order]
 
 
+# tile_h is a multiple of 8 (RasterConfig), so every tile holds whole
+# bands of both kernels; the windows' rows cross band edges everywhere
 CASES = [("k1", "random", True, 24, 8, 0, False),
          ("k1", "imbalance", False, 16, 8, 0, False),
-         ("k1", "straddle", True, 48, 4, 0, True),      # rp 4: half bands
-         ("k1", "ties", True, 24, 8, 24, False),        # rp 24: 3 bands
+         ("k1", "straddle", True, 48, 4, 0, True),      # groups of 4 rows
+         ("k1", "ties", True, 24, 8, 24, False),        # rp 24: whole tile
          ("k1", "negative", False, 24, 2, 0, True),     # 64-tri groups
          ("k8", "random", True, 24, 8, 0, False),
-         ("k8", "straddle", False, 72, 8, 0, False),    # 3 bands, 1 partial
+         ("k8", "straddle", False, 72, 8, 0, False),    # 9 bands a tile
          ("k8", "ties", True, 40, 8, 0, False),
          ("k8", "imbalance", True, 24, 8, 0, False)]
 
@@ -256,18 +245,14 @@ def test_block_by_block_evaluation_equals_plain(case):
 
 
 def _corner_cull(coef, x_lo, y_lo, y_hi):
-    """The kernels' cull for one 32-column rectangle: per triangle row of
-    `coef` (float32 (T, 15)), True where some edge's plane, evaluated as
-    the kernel evaluates it at the corner where it is largest, is < 0."""
-    x_hi = x_lo + 31.0
+    """raster.corner_cull of every edge for one 32-column rectangle: per
+    triangle row of `coef` (float32 (T, 15)), True where some edge's plane
+    is < 0 on the whole rectangle."""
+    f = lambda v: torch.tensor(float(v))
     out = torch.zeros(coef.shape[0], dtype=torch.bool)
     for k in range(3):
-        a, b, cc = coef[:, k], coef[:, 5 + k], coef[:, 10 + k]
-        ok = ((a.abs() <= CULL_MAX) & (b.abs() <= CULL_MAX) &
-              (cc.abs() <= CULL_MAX))
-        xs = torch.where(a >= 0, torch.tensor(x_hi), torch.tensor(x_lo))
-        ys = torch.where(b >= 0, y_hi, y_lo)
-        out |= ok & (a * xs + (b * ys + cc) < 0)
+        out |= raster.corner_cull(coef[:, k], coef[:, 5 + k],
+                                  coef[:, 10 + k], f(x_lo), f(y_lo), f(y_hi))
     return out
 
 
@@ -276,14 +261,15 @@ def _corner_cull(coef, x_lo, y_lo, y_hi):
                                           ("k1", "ties")])
 def test_corner_cull_skips_only_uncovered_triangles(kernel, scene):
     """For every warp rectangle a visit reaches (32 columns x the rows of
-    a warp's row run it visits), a triangle the corner test skips has
-    l0, l1, l2 >= 0 at no pixel of it; the test skips most of them."""
+    a thread group it visits), a triangle the corner test skips has
+    l0, l1, l2 >= 0 at no pixel of it; the test skips most of them, and
+    raster.cull_tests counts the pixel tests and cull evaluations left."""
     args = band_inputs(torch.device("cpu"), kernel, scene, False,
                        24 if kernel == "k1" else 40)
     coef = raster.bits_f32(_coef(kernel, args))
     tri0, cs, tile, py0, cols, r0, nrows = _visits(kernel, args)
-    item, b, lo, n = raster.band_split(r0, nrows, WARP_ROWS)
-    skipped = total = 0
+    item, b, lo, n = raster.band_split(r0, nrows, raster.WARP_ROWS)
+    skipped = total = tests = 0
     for i in range(item.numel()):
         v = int(item[i])
         tri = coef[int(tri0[v]):int(tri0[v]) + cs, :15]
@@ -302,4 +288,7 @@ def test_corner_cull_skips_only_uncovered_triangles(kernel, scene):
             assert not bool((cull & cov).any())
             skipped += int(cull.sum())
             total += cull.numel()
+            tests += int((~cull).sum()) * ys.numel() * 32
     assert skipped > total // 2
+    assert raster.cull_tests(_coef(kernel, args), tri0, cs, py0, cols, r0,
+                             nrows, chunk=7) == (tests, total)
