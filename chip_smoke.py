@@ -56,18 +56,19 @@ Phases (any failure raises and the script exits non-zero):
    kept beside it), computes its bound (the larger of the bytes it must
    move over 3.35 TB/s and the f32 operations this run's data needs over
    67 TFLOP/s; the bytes are its inputs and outputs, except that K6 counts
-   the 32-B sectors of the stack its taps touch, not the whole stack; K7's
-   operations are its pixel-row visits on this run's queue x the
-   triangles per group x 21 flops, K1 and K8's the pixel tests their
-   exact per-warp corner cull leaves on this run's queue x 21 flops plus
-   12 per cull evaluation (raster.cull_tests), with the bound of every
-   test of the visit list kept beside it as `bound_all_tests_ms`) and, for
-   K3, times one torch.index_select of the same rows as a library
-   yardstick. For each K1 and K8 call it prints a `work` line, off the
-   timed window: per tile the pairs (K1) or rounds (K8) and the row
-   visits, per block of the kernels' decomposition (32 columns a warp x
-   raster.K1_BAND / K8_BAND rows, raster.band_split) the row visits, and
-   the blocks launched.
+   the 32-B sectors of the stack its taps touch, not the whole stack; K1,
+   K7 and K8's operations are the pixel tests their exact per-warp corner
+   cull leaves on this run's queue x 21 flops plus 12 per cull evaluation
+   (raster.cull_tests, K7's in its own association), with the bound of
+   every test of the visit list kept beside it as `bound_all_tests_ms`)
+   and, for K3 and K9, times one PyTorch call of the same function
+   (torch.index_select of the same rows, x.clone()) as a library
+   yardstick, kernel and library in turn over 5 rounds of 200 calls
+   (medians, with the rounds' spread). For each K1, K7 and K8 call it
+   prints a `work` line, off the timed window: per tile the pairs (K1, K7)
+   or rounds (K8) and the row visits, per block of the kernels'
+   decomposition (32 columns a warp x raster.K1_BAND / K7_BAND / K8_BAND
+   rows, raster.band_split) the row visits, and the blocks launched.
 5. Each path's 16-frame sequence (render_sequence_meshlet(with_stats=True);
    on `flat`, DeferredRenderer.render frame by frame), with every launch
    count set to 0 just before and read just after: worst-frame overflows
@@ -89,8 +90,8 @@ Phases (any failure raises and the script exits non-zero):
    and read after it (K9 1 + 3 times on `tm_pallas`, no kernel on any
    other), the first call's outputs against the same variant on the CPU,
    each variant's steady ms; K9 against its plain version on
-   `tm_pallas`'s first call (tolerance 0), timed, with x.clone() as its
-   library yardstick.
+   `tm_pallas`'s first call (tolerance 0), timed in turn with x.clone(),
+   its library yardstick.
 7. `proto_paged_tex`: the tool's main() (K10 1 + 8 times, no other
    kernel); 100% of covered pixels equal to its numpy oracle, every
    untextured pixel -1; K10 against its plain version on main's first
@@ -106,7 +107,8 @@ Phases 4-5 run per frame path, then 6, 7 and 8. The line before the last
 is the nvidia-smi name/power-limit line, the one before that the
 per-kernel JSON (one entry per kernel and path: launches, max_abs_err,
 per-frame ms / plain_ms / bound_ms / library_ms summed over the kernel's
-calls in one frame, and the per-call detail, with K1 and K8's work stats;
+calls in one frame, and the per-call detail, with K1, K7 and K8's work
+stats and K3 and K9's alternating rounds;
 plus each path's ms/frame),
 and before that the tools' JSON (each repro variant's first-call seconds
 and steady ms, the proto tool's coverage, match and ms); the last line is
@@ -137,6 +139,7 @@ FLAT_W, FLAT_H = 1920, 1080
 FLAT_DETAIL = 4
 FLAT_PAIRS = 16384
 TEXTURED_PATHS = ("geo_tex", "geo_shadow_atmo", "geo_tex_bricks")
+RASTERS = ("raster", "raster_bricks", "raster_subtile")   # K1, K7, K8
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory
 F32_OPS_PER_S = 67e12         # H100 SXM f32 outside the tensor cores
 
@@ -379,6 +382,25 @@ def timed(fn, reps: int):
     return start.elapsed_time(end) / reps, issue_ms
 
 
+def alternate(fns, rounds: int = 5, reps: int = 200):
+    """Time the functions in turn, `rounds` rounds of `reps` calls each
+    (timed's device ms; the order reverses every other round: A B, B A,
+    ...) -> per function, its device ms per call in each round. Two
+    versions are compared only this way: times taken apart drift."""
+    runs = [[] for _ in fns]
+    for r in range(rounds):
+        order = range(len(fns)) if r % 2 == 0 else reversed(range(len(fns)))
+        for i in order:
+            runs[i].append(timed(fns[i], reps)[0])
+    return runs
+
+
+def spread(runs) -> str:
+    """'median ms (min-max of the rounds)'."""
+    return (f"{statistics.median(runs):.5f} ms ({min(runs):.5f}-"
+            f"{max(runs):.5f})")
+
+
 def frames(views, lo: int, hi: int):
     from chord_tpu_torch.renderer import DeviceView
     return DeviceView.stack([views.frame(i) for i in range(lo, hi)])
@@ -398,30 +420,22 @@ def _nbytes(x) -> int:
 
 def _ops(name: str, args, kwargs, cull: bool = True) -> float:
     """f32 operations the call's data needs (0 for pure data movement)."""
-    if name in ("raster", "raster_subtile"):
-        # K1 / K8: per pixel test 5 plane evaluations (4 flops) and the
-        # depth divide; per cull evaluation 3 edge planes. With cull, the
-        # tests their per-warp corner cull leaves on this run's data (the
-        # kernels' own cull, raster.cull_tests); without, every test of the
-        # visit list.
+    if name in RASTERS:
+        # K1 / K7 / K8: per pixel test 5 plane evaluations (4 flops) and
+        # the depth divide; per cull evaluation 3 edge planes. With cull,
+        # the tests their per-warp corner cull leaves on this run's data
+        # (the kernels' own cull, raster.cull_tests, in K7's association
+        # for K7); without, every test of the visit list.
         from chord_tpu_torch.ops import raster
 
-        tri0, n_tri, py0, cols, r0, nrows = raster.kernel_visits(name, args)
+        tri0, n_tri, py0, cols, r0, nrows, xoff = raster.kernel_visits(
+            name, args)
         if not cull:
             return float(nrows.sum()) * cols.shape[1] * 32 * n_tri * 21
-        coefT = args[4] if name == "raster" else args[5]
+        coefT = args[5] if name == "raster_subtile" else args[4]
         tests, culls = raster.cull_tests(coefT, tri0, n_tri, py0, cols, r0,
-                                         nrows)
+                                         nrows, xoff)
         return tests * 21.0 + culls * 12.0
-    if name == "raster_bricks":
-        # K7: per visited (row, 32-px brick, subwindow) the group's 16
-        # triangles on 32 lanes
-        from chord_tpu_torch.ops import raster
-
-        pair_win, starts, counts, sb, coefT, seeds, zclip, c = args
-        nrows = raster._brick_groups(pair_win, starts, counts, sb, c)[-1]
-        return (float(nrows.sum()) * raster.BRICK_W *
-                (raster.WINDOW // c.sub_s) * 21)
     if name == "mesh_shader":
         # per drawn triangle: 3 vertex transforms (28), 3 normal
         # transforms (15) and edge / plane setup (~100)
@@ -526,26 +540,29 @@ def _dist(v) -> dict:
 
 
 def work_stats(name: str, args) -> Optional[dict]:
-    """K1 / K8's work distribution on a call's queue, from the plain
-    versions' visit lists (raster.kernel_visits): per tile its pairs (K1)
-    or rounds (K8) and its row visits (a visit's rows: 128 px each for K1,
-    32 px for K8's sub-tile); per block of the kernel's decomposition (32
-    columns a warp x a band of raster.K1_BAND / K8_BAND rows,
-    raster.band_split) its row visits; and the blocks launched."""
+    """K1 / K7 / K8's work distribution on a call's queue, from the plain
+    versions' visit lists (raster.kernel_visits): per tile its pairs (K1,
+    K7) or rounds (K8) and its row visits (a visit's rows: 128 px each for
+    K1, 32 px for K7's brick and K8's sub-tile); per block of the kernel's
+    decomposition (32 columns a warp x a band of raster.K1_BAND / K7_BAND /
+    K8_BAND rows, raster.band_split) its row visits; and the blocks
+    launched."""
     import torch
 
     from chord_tpu_torch.ops import raster
 
-    if name not in ("raster", "raster_subtile"):
+    if name not in RASTERS:
         return None
     c, counts = args[-1], args[2]
-    _, _, py0, cols, r0, nrows = raster.kernel_visits(name, args)
-    band = raster.K1_BAND if name == "raster" else raster.K8_BAND
+    _, _, py0, cols, r0, nrows, _ = raster.kernel_visits(name, args)
+    band = {"raster": raster.K1_BAND, "raster_bricks": raster.K7_BAND,
+            "raster_subtile": raster.K8_BAND}[name]
     n_bands = c.tile_h // band
     tile = (py0 // c.tile_h) * c.tiles_x + cols[:, 0] // c.tile_w
     per_tile = torch.zeros(c.n_tiles, dtype=torch.long, device=r0.device)
     per_tile.index_add_(0, tile, nrows)
-    # a K1 block holds its band of all 4 columns, a K8 block one sub-tile's
+    # a K1 block holds its band of all 4 columns, a K7 / K8 block one
+    # brick's or sub-tile's
     n_cols = 1 if name == "raster" else c.tile_w // 32
     unit = tile * n_cols + cols[:, 0] % c.tile_w // 32 * (n_cols > 1)
     item, b, _, n = raster.band_split(r0, nrows, band)
@@ -581,12 +598,11 @@ def describe(name: str, args, kwargs) -> str:
 
 # --- phases -------------------------------------------------------------------
 
-def check_kernels(path, scene):
-    """Phase 4 for one path: each kernel of the path against its plain
-    version on the path's own inputs, those of a frame with real history
-    and both occlusion phases and, on the shadow path, with every cascade
+def capture_frame(path, scene):
+    """The kernel calls of one frame of the path with real history and
+    both occlusion phases and, on the shadow path, with every cascade
     refreshed once before it (frame 4: its K6 call taps depth in all four
-    cascades)."""
+    cascades) -> (captured calls, which frame)."""
     import torch
 
     from chord_tpu_torch.ops import kernels
@@ -598,7 +614,13 @@ def check_kernels(path, scene):
     with kernels.capture_inputs() as captured:
         run_path(path, scene, config, mcfg, hist, warm, warm + 1)
     torch.cuda.synchronize()
-    return compare_kernels(path, captured, f"frame {warm}")
+    return captured, f"frame {warm}"
+
+
+def check_kernels(path, scene):
+    """Phase 4 for one path: each kernel of the path against its plain
+    version on the path's own inputs (capture_frame)."""
+    return compare_kernels(path, *capture_frame(path, scene))
 
 
 def compare_kernels(path, captured, what: str):
@@ -628,17 +650,28 @@ def compare_kernels(path, captured, what: str):
             if e != 0.0:
                 raise AssertionError(f"kernel {k.name} disagrees with its "
                                      f"plain version on {path}: {e}")
-            ms, issue_ms = timed(lambda: k.fn()(*args, **kwargs), 20)
+            kern = lambda: k.fn()(*args, **kwargs)
+            ms, issue_ms = timed(kern, 20)
             plain_ms = timed(lambda: k.plain(*args, **kwargs),
                              3 if k.name.startswith("raster") else 10)[0]
             lib = library_call(k.name, args)
-            lib_ms = timed(lib, 20)[0] if lib else None
+            lib_ms = runs = None
+            if lib:   # kernel and library in turn: medians of the rounds
+                runs = alternate([kern, lib])
+                ms, lib_ms = (statistics.median(r) for r in runs)
             b_ms, b_by = bound(k.name, args, kwargs, got)
             per_call.append(dict(call=f"#{i} " + describe(k.name, args,
                                                           kwargs), ms=ms,
                                  issue_ms=issue_ms, plain_ms=plain_ms,
                                  bound_ms=b_ms, bound_by=b_by,
                                  library_ms=lib_ms))
+            if runs:
+                per_call[-1].update(ms_rounds=runs[0],
+                                    library_ms_rounds=runs[1])
+                log(f"kernel {k.name} on {path} {per_call[-1]['call']}: "
+                    f"{spread(runs[0])} vs library {spread(runs[1])}, "
+                    f"medians of {len(runs[0])} alternating rounds of 200 "
+                    "calls")
             work = work_stats(k.name, args)
             if work is not None:
                 per_call[-1]["bound_all_tests_ms"] = bound(
@@ -815,8 +848,11 @@ def main_path(path, scene, card: str,
 def profile(path, scene, n: int = 4) -> None:
     """Optional (--profile): torch.profiler over `n` frames after a
     warm-up; prints the device time by kernel and the device's busy share
-    of the host wall time."""
+    of the host wall time. Busy time and device ops are the device events'
+    (kernels, copies and sets): an operator's row repeats its kernels'
+    time, as the table's own total leaves it out."""
     import torch
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as tprofile
 
@@ -831,8 +867,9 @@ def profile(path, scene, n: int = 4) -> None:
         torch.cuda.synchronize()
         wall = time.time() - t0
     events = prof.key_averages()
-    dev_us = sum(e.self_device_time_total for e in events)
-    n_launch = sum(e.count for e in events if e.self_device_time_total > 0)
+    on_device = [e for e in events if e.device_type == DeviceType.CUDA]
+    dev_us = sum(e.self_device_time_total for e in on_device)
+    n_launch = sum(e.count for e in on_device)
     log(events.table(sort_by="self_device_time_total", row_limit=25))
     log(f"profile {path}: {n} frames, host wall "
         f"{wall * 1000 / n:.3f} ms/frame (profiler on), device busy "
@@ -1042,9 +1079,10 @@ def main() -> int:
         f"{time.time() - t0:.2f} s")
     # the band rule, the work stats and the cull count mirror these
     lib = _cuda.lib()
-    bands = (lib.chord_raster_tiles_band(), lib.chord_raster_subtile_band(),
-             lib.chord_raster_subtile_rows())
-    if bands != (raster.K1_BAND, raster.K8_BAND, raster.WARP_ROWS):
+    bands = (lib.chord_raster_tiles_band(), lib.chord_raster_bricks_band(),
+             lib.chord_raster_subtile_band(), lib.chord_raster_subtile_rows())
+    if bands != (raster.K1_BAND, raster.K7_BAND, raster.K8_BAND,
+                 raster.WARP_ROWS):
         raise AssertionError(f"kernel bands {bands} != raster's constants")
 
     scenes = bench_scenes(dev, PATHS)

@@ -106,9 +106,9 @@ raster_tiles_kernel(const int* __restrict__ pair_win,
   const TileQueue q{pair_win, sb,     nsb, starts[tile], counts[tile],
                     sub_s,    cs,     rp,  py0,          px0,
                     tile_h};
-  raster_band<kRows, kBricks, 1, ATTR, ZCLIP>(
+  raster_band<kRows, kBricks, 1, ATTR, ZCLIP, PlanesXY>(
       q, cs, coef, seed_depth, seed_vis, seed_attr, zclip, depth, vis, attr,
-      py0, px0, blockIdx.y * kRows, w_pad, (size_t)h_pad * w_pad);
+      py0, px0, px0, blockIdx.y * kRows, w_pad, (size_t)h_pad * w_pad);
 }
 
 template <bool ATTR, bool ZCLIP>

@@ -1,6 +1,8 @@
-// Shared core of the raster kernels K1 (raster.cu) and K8
-// (raster_subtile.cu), which compute one function (ops/raster.py
-// _eval_items) over two visit lists (_groups, _subtile_groups).
+// Shared core of the raster kernels K1 (raster.cu), K7 (raster_bricks.cu)
+// and K8 (raster_subtile.cu), which compute one function (ops/raster.py
+// _eval_items) over three visit lists (_groups, _brick_groups,
+// _subtile_groups), K7 in its own plane association (a plane policy,
+// below).
 //
 // A block owns 32*WX columns and a band of WY*K rows of one screen tile:
 // warp (wx, wy) owns the 32 columns from x0 + 32*wx and the K consecutive
@@ -21,14 +23,15 @@
 // lane t evaluates, for edge k = 0..2, the plane at the corner where it is
 // largest (x at the high end when a >= 0, y at the high end when b >= 0).
 // Rounding is monotone and the coefficients are bounded (|a|, |b|, |c| <=
-// 1e29, else no cull: no product or sum overflows), so
-// l = a*x + (b*y + c), evaluated as the test evaluates it, is largest at
-// that corner over the whole rectangle; if it is negative there the
-// triangle fails the test at every pixel of the rectangle and is skipped.
-// A skipped triangle is never covered, so it never wins and the result is
-// unchanged. The survivors (a ballot mask) are tested per pixel: a*px
-// once per triangle, l0..l2 for each row, then l3, l4 and the IEEE divide
-// only where l0..l2 cover.
+// 1e29, else no cull: no product or sum overflows), so the plane,
+// evaluated as the test evaluates it (each correctly rounded product and
+// sum is monotone in x and y in the direction of the sign of a or b), is
+// largest at that corner over the whole rectangle; if it is negative
+// there the triangle fails the test at every pixel of the rectangle and
+// is skipped. A skipped triangle is never covered, so it never wins and
+// the result is unchanged. The survivors (a ballot mask) are tested per
+// pixel: the row-free part of each plane once per triangle (a*px), l0..l2
+// for each row, then l3, l4 and the IEEE divide only where l0..l2 cover.
 //
 // Per pixel the registers hold the accumulator (depth, payload and the 5
 // attributes, seeded once) and, during a visit, the group's best depth,
@@ -55,10 +58,11 @@
 // past its tile and no visit's rows past tile_h.
 //
 // Every value is computed with the plain version's expression and
-// association, built with -fmad=false: l = a*px + (b*yf + c),
-// cand = l3 / l4 (IEEE), inv_s = 1 / ((l0 + l1) + l2), attribute
-// (aa*px + (ab*yf + ac)) * inv_s. So the planes equal the plain version's
-// bit for bit.
+// association, built with -fmad=false: l = plane(a, b, c) in the kernel's
+// policy (K1, K8: a*px + (b*yf + c); K7: (a*xl + b*yl) + (b*yb + (c +
+// a*xoff))), cand = l3 / l4 (IEEE), inv_s = 1 / ((l0 + l1) + l2),
+// attribute plane(aa, ab, ac) * inv_s. So the planes equal the plain
+// version's bit for bit.
 
 #pragma once
 
@@ -121,30 +125,113 @@ __device__ __forceinline__ void stage(int* dst, const int* __restrict__ coef,
   cp_async_commit();
 }
 
-// True when the plane a*x + (b*y + c) is negative on the whole rectangle
-// [x_lo, x_hi] x [y_lo, y_hi] (see the header).
-__device__ __forceinline__ bool edge_misses(int ai, int bi, int ci,
-                                            float x_lo, float x_hi,
-                                            float y_lo, float y_hi) {
+// The plane policies: how a kernel associates l = plane(a, b, c) at a
+// pixel, which decides its bits at a razor edge. A policy holds one
+// thread's column and its K rows and gives, per triangle and plane, the
+// part that does not depend on the row (tri) and the plane at row i from
+// it (row); at() is the same value in one expression, and misses() the
+// corner cull of the warp's rectangle (32 columns from xw0, rows lo..hi-1
+// of the thread's K) in the same association.
+
+// K1 and K8: l = a*x + (b*y + c).
+template <int K>
+struct PlanesXY {
+  struct Tri {
+    float ax, c;
+  };
+  float px, x_lo, x_hi, y[K];
+
+  // x: the thread's column, xw0: the warp's first column, y0: the first
+  // of the thread's K rows (screen coordinates; px0, the tile's first
+  // column, is not read)
+  __device__ PlanesXY(int x, int xw0, int px0, int y0) {
+    (void)px0;
+    px = (float)x;
+    x_lo = (float)xw0;
+    x_hi = x_lo + 31.0f;
+#pragma unroll
+    for (int i = 0; i < K; ++i) y[i] = (float)(y0 + i);
+  }
+  __device__ Tri tri(float a, float b, float c) const {
+    (void)b;
+    return {a * px, c};
+  }
+  __device__ float row(const Tri& t, float b, int i) const {
+    return t.ax + (b * y[i] + t.c);
+  }
+  __device__ float at(float a, float b, float c, int i) const {
+    return a * px + (b * y[i] + c);
+  }
+  __device__ bool misses(float a, float b, float c, int lo, int hi) const {
+    const float xs = a >= 0.0f ? x_hi : x_lo;
+    const float ys = b >= 0.0f ? y[0] + (float)(hi - 1) : y[0] + (float)lo;
+    return a * xs + (b * ys + c) < 0.0f;
+  }
+};
+
+// K7: l = (a*xl + b*yl) + (b*yb + (c + a*xoff)), where xoff = 32*bx is
+// the column brick's offset in its tile, xl = x - xoff (the tile's first
+// column plus the lane), yl = y mod 4 and yb = y - yl. A thread's K rows
+// start at a multiple of K and K divides 4, so they lie in one 4-row
+// brick row: yb is one value, and b*yb + (c + a*xoff) is computed once
+// per triangle. The cull's corner (xl at the high end when a >= 0, yl
+// when b >= 0, at the warp's one yb) is a pixel of the rectangle.
+template <int K>
+struct PlanesBrick {
+  static_assert(4 % K == 0, "a thread's rows must share a brick row");
+  struct Tri {
+    float ax, k;
+  };
+  float xl, xoff, yb, xl_lo, xl_hi, yl[K];
+
+  __device__ PlanesBrick(int x, int xw0, int px0, int y0) {
+    xoff = (float)(xw0 - px0);
+    xl = (float)(x - (xw0 - px0));
+    xl_lo = (float)px0;
+    xl_hi = xl_lo + 31.0f;
+    yb = (float)(y0 - y0 % 4);
+#pragma unroll
+    for (int i = 0; i < K; ++i) yl[i] = (float)((y0 + i) % 4);
+  }
+  __device__ Tri tri(float a, float b, float c) const {
+    return {a * xl, b * yb + (c + a * xoff)};
+  }
+  __device__ float row(const Tri& t, float b, int i) const {
+    return (t.ax + b * yl[i]) + t.k;
+  }
+  __device__ float at(float a, float b, float c, int i) const {
+    return (a * xl + b * yl[i]) + (b * yb + (c + a * xoff));
+  }
+  __device__ bool misses(float a, float b, float c, int lo, int hi) const {
+    const float xs = a >= 0.0f ? xl_hi : xl_lo;
+    const float ys =
+        b >= 0.0f ? yl[0] + (float)(hi - 1) : yl[0] + (float)lo;
+    return (a * xs + b * ys) + (b * yb + (c + a * xoff)) < 0.0f;
+  }
+};
+
+// True when the plane is negative on the whole rectangle of the warp's
+// rows lo..hi-1 (see the header); coefficients above kCullMax are not
+// culled.
+template <class Planes>
+__device__ __forceinline__ bool edge_misses(const Planes& pl, int ai, int bi,
+                                            int ci, int lo, int hi) {
   const float a = __int_as_float(ai), b = __int_as_float(bi),
               c = __int_as_float(ci);
   if (!(fabsf(a) <= kCullMax && fabsf(b) <= kCullMax && fabsf(c) <= kCullMax))
     return false;
-  const float xs = a >= 0.0f ? x_hi : x_lo;
-  const float ys = b >= 0.0f ? y_hi : y_lo;
-  return a * xs + (b * ys + c) < 0.0f;
+  return pl.misses(a, b, c, lo, hi);
 }
 
-// A triangle's depth at one pixel: 0 where not covered (or z-clipped).
-// `g` points at its words, in shared or global memory.
-__device__ __forceinline__ float depth_at(const int* g, float px, float yf,
-                                          float zc, bool zclip, float* l) {
-  for (int k = 0; k < 5; ++k) {
-    const float a = __int_as_float(g[k]);
-    const float b = __int_as_float(g[5 + k]);
-    const float c = __int_as_float(g[10 + k]);
-    l[k] = a * px + (b * yf + c);
-  }
+// A triangle's depth at the thread's row i: 0 where not covered (or
+// z-clipped). `g` points at its words, in shared or global memory.
+template <class Planes>
+__device__ __forceinline__ float depth_at(const Planes& pl, const int* g,
+                                          int i, float zc, bool zclip,
+                                          float* l) {
+  for (int k = 0; k < 5; ++k)
+    l[k] = pl.at(__int_as_float(g[k]), __int_as_float(g[5 + k]),
+                 __int_as_float(g[10 + k]), i);
   const bool covered = (l[0] >= 0.0f) && (l[1] >= 0.0f) && (l[2] >= 0.0f) &&
                        (l[4] > 0.0f) && (l[3] > 0.0f) && (l[3] <= l[4]);
   float cand = covered ? l[3] / l[4] : 0.0f;
@@ -153,15 +240,18 @@ __device__ __forceinline__ float depth_at(const int* g, float px, float yf,
 }
 
 // One block's band: see the header. `q` yields the candidates of the tile
-// (q.size(), q.visit(j, &v): v.x the first triangle, v.y = r0 << 16 | r1).
-template <int K, int WX, int WY, bool ATTR, bool ZCLIP, class Queue>
+// (q.size(), q.visit(j, &v): v.x the first triangle, v.y = r0 << 16 | r1);
+// Planes is the kernel's plane policy; x0 is the block's first column,
+// px0 the tile's.
+template <int K, int WX, int WY, bool ATTR, bool ZCLIP,
+          template <int> class Planes, class Queue>
 __device__ __forceinline__ void raster_band(
     const Queue& q, int cs, const int* __restrict__ coef,
     const float* __restrict__ seed_depth, const int* __restrict__ seed_vis,
     const float* __restrict__ seed_attr, const float* __restrict__ zclip,
     float* __restrict__ depth, int* __restrict__ vis,
-    float* __restrict__ attr, int py0, int x0, int band0, int w_pad,
-    size_t plane) {
+    float* __restrict__ attr, int py0, int px0, int x0, int band0,
+    int w_pad, size_t plane) {
   constexpr int kWarps = WX * WY;
   constexpr int kThreads = 32 * kWarps;
   constexpr int kStride = Staged<ATTR>::kStride;
@@ -174,18 +264,16 @@ __device__ __forceinline__ void raster_band(
   const int x = x0 + 32 * wx + lane;
   const int my0 = band0 + K * wy;            // this thread's first row
   const int band1 = band0 + K * WY;
-  const float px = (float)x;
-  const float x_lo = (float)(x0 + 32 * wx), x_hi = x_lo + 31.0f;
+  const Planes<K> pl(x, x0 + 32 * wx, px0, py0 + my0);
   const unsigned below = (1u << lane) - 1u;
 
-  float acc_d[K], yf[K], zc[K];
+  float acc_d[K], zc[K];
   int acc_v[K];
   float acc_a[5][K];
 #pragma unroll
   for (int i = 0; i < K; ++i) {
     const int row = my0 + i;
     const size_t p = (size_t)(py0 + row) * w_pad + x;
-    yf[i] = (float)(py0 + row);
     acc_d[i] = seed_depth[p];
     acc_v[i] = seed_vis[p];
     zc[i] = ZCLIP ? zclip[p] : 0.0f;
@@ -261,10 +349,9 @@ __device__ __forceinline__ void raster_band(
       if (lane < nt) {
         const int4* tc = reinterpret_cast<const int4*>(buf + lane * kStride);
         const int4 w0 = tc[0], w1 = tc[1], w2 = tc[2], w3 = tc[3];
-        const float y_lo = yf[0] + (float)lo, y_hi = yf[0] + (float)(hi - 1);
-        live = !(edge_misses(w0.x, w1.y, w2.z, x_lo, x_hi, y_lo, y_hi) ||
-                 edge_misses(w0.y, w1.z, w2.w, x_lo, x_hi, y_lo, y_hi) ||
-                 edge_misses(w0.z, w1.w, w3.x, x_lo, x_hi, y_lo, y_hi));
+        live = !(edge_misses(pl, w0.x, w1.y, w2.z, lo, hi) ||
+                 edge_misses(pl, w0.y, w1.z, w2.w, lo, hi) ||
+                 edge_misses(pl, w0.z, w1.w, w3.x, lo, hi));
       }
       unsigned m = __ballot_sync(0xffffffffu, live);
       while (m) {
@@ -283,18 +370,18 @@ __device__ __forceinline__ void raster_band(
                     c4 = __int_as_float(w3.z);
         const int payload = w3.w;
         const int tri = c * kChunk + t;
-        const float ax0 = a0 * px, ax1 = a1 * px, ax2 = a2 * px;
-        const float ax3 = a3 * px, ax4 = a4 * px;
+        const auto t0 = pl.tri(a0, b0, c0), t1 = pl.tri(a1, b1, c1),
+                   t2 = pl.tri(a2, b2, c2);
+        const auto t3 = pl.tri(a3, b3, c3), t4 = pl.tri(a4, b4, c4);
 #pragma unroll
         for (int i = 0; i < K; ++i) {
           if (i < lo || i >= hi) continue;
-          const float y = yf[i];
-          const float l0 = ax0 + (b0 * y + c0);
-          const float l1 = ax1 + (b1 * y + c1);
-          const float l2 = ax2 + (b2 * y + c2);
+          const float l0 = pl.row(t0, b0, i);
+          const float l1 = pl.row(t1, b1, i);
+          const float l2 = pl.row(t2, b2, i);
           if (!(l0 >= 0.0f && l1 >= 0.0f && l2 >= 0.0f)) continue;
-          const float l3 = ax3 + (b3 * y + c3);
-          const float l4 = ax4 + (b4 * y + c4);
+          const float l3 = pl.row(t3, b3, i);
+          const float l4 = pl.row(t4, b4, i);
           if (!(l4 > 0.0f && l3 > 0.0f && l3 <= l4)) continue;
           const float cand = l3 / l4;
           if (ZCLIP && !(cand < zc[i])) continue;
@@ -330,14 +417,14 @@ __device__ __forceinline__ void raster_band(
                              ? buf + (t - c * kChunk) * kStride
                              : coef + (size_t)(v.x + t) * kCoef;
           float l[5];
-          if (depth_at(g, px, yf[i], zc[i], ZCLIP, l) != best[i]) continue;
+          if (depth_at(pl, g, i, zc[i], ZCLIP, l) != best[i]) continue;
           const float inv_s = 1.0f / ((l[0] + l[1]) + l[2]);
 #pragma unroll
           for (int k = 0; k < 5; ++k) {
-            const float aa = __int_as_float(g[16 + 3 * k]);
-            const float ab = __int_as_float(g[17 + 3 * k]);
-            const float ac = __int_as_float(g[18 + 3 * k]);
-            const float val = (aa * px + (ab * yf[i] + ac)) * inv_s;
+            const float val = pl.at(__int_as_float(g[16 + 3 * k]),
+                                    __int_as_float(g[17 + 3 * k]),
+                                    __int_as_float(g[18 + 3 * k]), i) *
+                              inv_s;
             sel[k] = first ? val : max_nan(sel[k], val);
           }
           first = false;

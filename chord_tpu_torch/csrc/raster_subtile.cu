@@ -98,12 +98,13 @@ raster_subtile_kernel(const int* __restrict__ gwin,
   const int tile = blockIdx.x / kSubTiles;
   const int sub = blockIdx.x % kSubTiles;
   const int py0 = (tile / tiles_x) * tile_h;
-  const int x0 = (tile % tiles_x) * kWindow + sub * kSubW;
+  const int px0 = (tile % tiles_x) * kWindow;
+  const int x0 = px0 + sub * kSubW;
   const RoundQueue q{gwin, y0r,    y1r, starts[tile], counts[tile],
                      sub,  poison, py0, tile_h};
-  raster_band<kRows, 1, kWarps, ATTR, false>(
+  raster_band<kRows, 1, kWarps, ATTR, false, PlanesXY>(
       q, kWindow, coef, seed_depth, seed_vis, seed_attr, nullptr, depth, vis,
-      attr, py0, x0, blockIdx.y * kBand, w_pad, (size_t)h_pad * w_pad);
+      attr, py0, px0, x0, blockIdx.y * kBand, w_pad, (size_t)h_pad * w_pad);
 }
 
 }  // namespace

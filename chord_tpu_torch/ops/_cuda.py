@@ -43,13 +43,13 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
-def sources():
-    return sorted(CSRC.glob("*.cu"))
+def sources(csrc: Path = CSRC):
+    return sorted(csrc.glob("*.cu"))
 
 
-def library_path() -> Path:
+def library_path(csrc: Path = CSRC) -> Path:
     h = hashlib.sha256()
-    for src in sources() + sorted(CSRC.glob("*.cuh")):
+    for src in sources(csrc) + sorted(csrc.glob("*.cuh")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
@@ -64,27 +64,28 @@ def _run_all(cmds):
     return [(p.wait(), p.stderr.read()) for p in procs]
 
 
-def build(verbose: bool = False) -> Path:
-    """Compile csrc/*.cu into the build directory (if not already there):
-    one nvcc per source in parallel, then one link."""
-    out = library_path()
+def build(verbose: bool = False, csrc: Path = CSRC) -> Path:
+    """Compile csrc/*.cu (or another source directory's, for comparing
+    designs) into the build directory (if not already there): one nvcc per
+    source in parallel, then one link."""
+    out = library_path(csrc)
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
     tag = f"{out.stem}.{os.getpid()}"
-    objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in sources()]
+    srcs = sources(csrc)
+    objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in srcs]
     ptxas = ["-Xptxas", "-v"] if verbose else []
     results = _run_all([[nvcc, *NVCC_FLAGS, *ptxas, "-c", "-o", str(o),
-                         str(src)] for src, o in zip(sources(), objs)])
+                         str(src)] for src, o in zip(srcs, objs)])
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
     if all(rc == 0 for rc, _ in results):
         results += _run_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp),
                               *map(str, objs)]])
     for o in objs:
         o.unlink(missing_ok=True)
-    for (rc, err), name in zip(results, [s.name for s in sources()] +
-                               ["link"]):
+    for (rc, err), name in zip(results, [s.name for s in srcs] + ["link"]):
         if rc != 0:
             raise RuntimeError(f"nvcc failed on {name} ({rc}):\n{err}")
         if verbose and err:

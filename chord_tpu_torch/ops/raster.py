@@ -39,10 +39,11 @@ triangles per pixel group, on the rows of the round's union y range. The
 TPU layouts (brick-packed planes, lane-grouped coefficient columns) are
 not reproduced: every plane is linear (h_pad, w_pad).
 
-K1 and K8 split a tile among blocks of 32 columns x a band of K1_BAND /
-K8_BAND rows; a block walks, in queue order, the visits whose rows meet
-its band (`band_split`), so every pixel sees the plain versions' visits in
-their order.
+K1, K7 and K8 split a tile among blocks of 32 columns x a band of
+K1_BAND / K7_BAND / K8_BAND rows (K7's block holds one brick and lists
+only its visits); a block walks, in queue order, the visits whose rows
+meet its band (`band_split`), so every pixel sees the plain versions'
+visits in their order.
 
 Reverse-Z: larger depth wins. Visibility is (slot+1):25 | tri:7 on the
 meshlet frame and triangle+1 on the flat frame, carried as int32 bit
@@ -66,8 +67,9 @@ BRICK_W = 32    # K7's x-brick width (px)
 BRICK_H = 4     # K7's brick height (rows per brick row)
 SUB_TILES = 4   # K8's 32-px sub-tiles per 128-px tile
 K1_BAND = 2     # rows of a K1 block (csrc/raster.cu kRows)
+K7_BAND = 8     # rows of a K7 block (csrc/raster_bricks.cu kBand)
 K8_BAND = 8     # rows of a K8 block (csrc/raster_subtile.cu kBand)
-WARP_ROWS = 2   # rows a K1 / K8 thread holds and its warp culls on (kRows)
+WARP_ROWS = 2   # rows a K1 / K7 / K8 thread holds and its warp culls on
 CULL_MAX = 1e29  # coefficients the cull trusts (csrc/raster_core.cuh)
 EPS_W = 1e-6    # a vertex with w at or below this is behind the eye
 
@@ -738,7 +740,8 @@ def _subtile_groups(gwin, starts, counts, y0r, y1r, poison: int,
 
 
 def band_split(r0: torch.Tensor, nrows: torch.Tensor, band: int):
-    """The band rule of K1 and K8 (csrc/raster.cu, csrc/raster_subtile.cu):
+    """The band rule of K1, K7 and K8 (csrc/raster.cu, raster_bricks.cu,
+    raster_subtile.cu):
     a block owns 32 columns of a tile and the tile rows [b*band, (b+1)*band)
     of one band b, and walks, in queue order, the visits whose rows meet its
     band, each cut to the band. Visit i's tile rows [r0[i], r0[i]+nrows[i])
@@ -756,43 +759,64 @@ def band_split(r0: torch.Tensor, nrows: torch.Tensor, band: int):
 
 
 def kernel_visits(name: str, args):
-    """The plain visit list of a K1 ("raster") or K8 ("raster_subtile")
-    call's arguments -> per visit, in queue order: (first triangle,
-    triangles in its group, tile py0, the x0 of the 32-px columns it
-    covers (visits, columns), first tile row, row count)."""
-    if name == "raster":
+    """The plain visit list of a K1 ("raster"), K7 ("raster_bricks") or K8
+    ("raster_subtile") call's arguments -> per visit, in queue order: (first
+    triangle, triangles in its group, tile py0, the x0 of the 32-px columns
+    it covers (visits, columns), first tile row, row count, and for K7 the
+    brick's offset 32*bx in its tile, else None)."""
+    if name in ("raster", "raster_bricks"):
         pair_win, starts, counts, sb, coefT, seeds, zclip, c = args
+        cs = WINDOW // c.sub_s
+        if name == "raster_bricks":
+            g_win, g_s, py0, bx0, bx, r0, nrows = _brick_groups(
+                pair_win, starts, counts, sb, c)
+            return (g_win * WINDOW + g_s * cs, cs, py0, bx0[:, None], r0,
+                    nrows, bx * BRICK_W)
         g_win, g_s, py0, px0, r0, nrows = _groups(pair_win, starts, counts,
                                                   sb, c)
-        cs = WINDOW // c.sub_s
         cols = px0[:, None] + 32 * torch.arange(c.tile_w // 32,
                                                 device=px0.device)
-        return g_win * WINDOW + g_s * cs, cs, py0, cols, r0, nrows
+        return g_win * WINDOW + g_s * cs, cs, py0, cols, r0, nrows, None
     gwin, starts, counts, y0r, y1r, coefT, seeds, c = args
     win, py0, sx0, r0, nrows = _subtile_groups(
         gwin, starts, counts, y0r, y1r, coefT.shape[0] // WINDOW - 1, c)
-    return win * WINDOW, WINDOW, py0, sx0[:, None], r0, nrows
+    return win * WINDOW, WINDOW, py0, sx0[:, None], r0, nrows, None
 
 
-def corner_cull(a, b, c, x_lo, y_lo, y_hi) -> torch.Tensor:
-    """K1 and K8's per-warp cull of one edge plane (csrc/raster_core.cuh
-    edge_misses), on float32 tensors that broadcast: True where
-    a*x + (b*y + c), evaluated as the test evaluates it, is negative at the
-    corner of [x_lo, x_lo + 31] x [y_lo, y_hi] where it is largest, so on
-    the whole rectangle."""
+def corner_cull(a, b, c, x_lo, y_lo, y_hi, xoff=None) -> torch.Tensor:
+    """The raster kernels' per-warp cull of one edge plane
+    (csrc/raster_core.cuh edge_misses), on float32 tensors that broadcast:
+    True where the plane, evaluated as the test evaluates it, is negative
+    at the corner of [x_lo, x_lo + 31] x [y_lo, y_hi] where it is largest,
+    so on the whole rectangle. K1 and K8: a*x + (b*y + c); with `xoff`
+    (K7): (a*xl + b*yl) + (b*yb + (c + a*xoff)), xl = x - xoff, yl = y mod
+    4, yb = y - yl, largest at xl's and, in the direction of b, at
+    (yl, yb)'s high or low end: the rows' own when they share a brick row,
+    else the box's (yl 0 or 3)."""
     ok = (a.abs() <= CULL_MAX) & (b.abs() <= CULL_MAX) & (c.abs() <= CULL_MAX)
-    xs = torch.where(a >= 0, x_lo + 31.0, x_lo)
-    ys = torch.where(b >= 0, y_hi, y_lo)
-    return ok & (a * xs + (b * ys + c) < 0)
+    if xoff is None:
+        xs = torch.where(a >= 0, x_lo + 31.0, x_lo)
+        ys = torch.where(b >= 0, y_hi, y_lo)
+        return ok & (a * xs + (b * ys + c) < 0)
+    xl = x_lo - xoff
+    xs = torch.where(a >= 0, xl + 31.0, xl)
+    yb_lo, yb_hi = y_lo - y_lo % BRICK_H, y_hi - y_hi % BRICK_H
+    one = yb_lo == yb_hi
+    yl_lo = torch.where(one, y_lo - yb_lo, torch.zeros_like(y_lo))
+    yl_hi = torch.where(one, y_hi - yb_hi, torch.full_like(y_hi, BRICK_H - 1))
+    yl = torch.where(b >= 0, yl_hi, yl_lo)
+    yb = torch.where(b >= 0, yb_hi, yb_lo)
+    return ok & ((a * xs + b * yl) + (b * yb + (c + a * xoff)) < 0)
 
 
-def cull_tests(coefT, tri0, n_tri: int, py0, cols, r0, nrows,
+def cull_tests(coefT, tri0, n_tri: int, py0, cols, r0, nrows, xoff=None,
                chunk: int = 8192) -> Tuple[int, int]:
-    """What K1 and K8 evaluate on a visit list (kernel_visits) after the
-    cull: each visit is cut into runs of the WARP_ROWS-row thread groups;
-    per run and column the cull evaluates every triangle of the group, and
-    the triangles it keeps are tested on the run's 32 x rows pixels ->
-    (pixel tests, cull evaluations)."""
+    """What K1, K7 and K8 evaluate on a visit list (kernel_visits) after
+    the cull: each visit is cut into runs of the WARP_ROWS-row thread
+    groups; per run and column the cull evaluates every triangle of the
+    group (in K7's association with `xoff`), and the triangles it keeps
+    are tested on the run's 32 x rows pixels -> (pixel tests, cull
+    evaluations)."""
     coef = bits_f32(coefT)[:, :15]
     item, _, lo, n = band_split(r0, nrows, WARP_ROWS)
     tri = torch.arange(n_tri, device=coef.device)
@@ -802,11 +826,12 @@ def cull_tests(coefT, tri0, n_tri: int, py0, cols, r0, nrows,
         y_lo = (py0[it] + lo[s:s + chunk]).float()[:, None, None]
         y_hi = y_lo + (n_s - 1).float()[:, None, None]
         x_lo = cols[it].float()[:, :, None]          # (runs, columns, 1)
+        xo = None if xoff is None else xoff[it].float()[:, None, None]
         cf = coef[tri0[it][:, None] + tri][:, None]  # (runs, 1, tri, 15)
         miss = torch.zeros((), dtype=torch.bool, device=coef.device)
         for k in range(3):
             miss = miss | corner_cull(cf[..., k], cf[..., 5 + k],
-                                      cf[..., 10 + k], x_lo, y_lo, y_hi)
+                                      cf[..., 10 + k], x_lo, y_lo, y_hi, xo)
         miss = miss.expand(it.numel(), cols.shape[1], n_tri)
         tests += int(((~miss).sum((1, 2)) * n_s).sum()) * 32
     return tests, item.numel() * cols.shape[1] * n_tri

@@ -470,19 +470,29 @@ def test_brick_and_subtile_rasters_random_inputs(dev, attrs, seeded, zclip):
     BAND_CASES + [("k1", "imbalance", True, 32, 8, 16, True),
                   ("k1", "ties", False, 16, 4, 8, False),
                   ("k8", "negative", True, 24, 8, 0, False),
-                  ("k8", "imbalance", False, 40, 8, 0, False)])
+                  ("k8", "imbalance", False, 40, 8, 0, False),
+                  ("k7", "random", False, 96, 8, 0, True),
+                  ("k7", "ties", False, 16, 4, 0, True),
+                  ("k7", "negative", True, 32, 8, 0, False),
+                  ("k7", "straddle", False, 64, 8, 0, False),
+                  # K1 and K8 on the plane policy K7 shares with them
+                  ("k1", "straddle", False, 48, 8, 0, False),
+                  ("k8", "random", False, 96, 8, 0, False)])
 def test_raster_band_cases(dev, kernel, scene, attrs, tile_h, sub_s, rp,
                            zclip):
-    """K1 and K8's block decomposition (32 columns x a band of rows per
-    block, the corner cull) against their plain versions on the card and
-    on the CPU, bit for bit: one tile holding nearly every pair beside
+    """K1, K7 and K8's block decomposition (32 columns x a band of rows
+    per block, the corner cull) against their plain versions on the card
+    and on the CPU, bit for bit: one tile holding nearly every pair beside
     empty tiles, tall windows over every band boundary, exact depth ties
     within groups and across visits, signed payloads and seeds (a visit
     that covers nothing still replaces a (0, < 0) seed), n_attr 0 and 5;
-    K1 with z_clip, rp != sub_s and 32- or 64-triangle groups; K8 with
-    poison slots and tile_h 24, 40 and 72 (3, 5 and 9 bands a tile: tile_h
-    is a multiple of 8, so no band is partial)."""
-    name = "raster" if kernel == "k1" else "raster_subtile"
+    K1 with z_clip, rp != sub_s and 32- or 64-triangle groups; K7 in its
+    plane association, with z_clip, sub_s 4 and 8 (row groups of 16 and
+    32 over 8-row bands) and tile_h 16 to 96; K8 with poison slots and
+    tile_h 24, 40, 72 and 96 (3 to 12 bands a tile: tile_h is a multiple
+    of 8, so no band is partial)."""
+    name = {"k1": "raster", "k7": "raster_bricks",
+            "k8": "raster_subtile"}[kernel]
     k = next(k for k in kernels.KERNELS if k.name == name)
     args = band_inputs(dev, kernel, scene, attrs, tile_h, sub_s, rp, zclip)
     _exact(k, args, {})
@@ -498,10 +508,12 @@ def test_raster_band_cases(dev, kernel, scene, attrs, tile_h, sub_s, rp,
 
 @pytest.mark.cuda
 def test_band_constants_match_the_kernels(dev):
-    """raster.K1_BAND, K8_BAND and WARP_ROWS, which the band rule, the work
-    stats and the cull count read, are the kernels' own constants."""
+    """raster.K1_BAND, K7_BAND, K8_BAND and WARP_ROWS, which the band rule,
+    the work stats and the cull count read, are the kernels' own
+    constants."""
     lib = _cuda.lib()
     assert lib.chord_raster_tiles_band() == raster.K1_BAND == raster.WARP_ROWS
+    assert lib.chord_raster_bricks_band() == raster.K7_BAND
     assert lib.chord_raster_subtile_band() == raster.K8_BAND
     assert lib.chord_raster_subtile_rows() == raster.WARP_ROWS
 

@@ -1,23 +1,24 @@
-"""The block decomposition of the raster kernels K1 and K8, on the CPU.
+"""The block decomposition of the raster kernels K1, K7 and K8, on the CPU.
 
-K1 (csrc/raster.cu) and K8 (csrc/raster_subtile.cu) give each block 32
-columns of a tile and a band of rows (raster.K1_BAND, raster.K8_BAND); a
-block walks, in queue order, only the visits whose rows meet its band
-(raster.band_split), and each warp skips the triangles that a corner test
-shows to fail l0, l1, l2 >= 0 on its whole rectangle of 32 columns x its
-rows. Neither may change a bit of the result. Here, on small seeded
-queues at 256x96:
+K1 (csrc/raster.cu), K7 (csrc/raster_bricks.cu) and K8
+(csrc/raster_subtile.cu) give each block 32 columns of a tile and a band
+of rows (raster.K1_BAND, K7_BAND, K8_BAND); a block walks, in queue order,
+only the visits whose rows meet its band (raster.band_split), and each
+warp skips the triangles that a corner test shows to fail l0, l1, l2 >= 0
+on its whole rectangle of 32 columns x its rows. Neither may change a bit
+of the result. Here, on small seeded queues at 256x96:
 
-- the band pieces of the visit lists (raster._groups, _subtile_groups)
-  cover every visited pixel row once, with each pixel's visits in queue
-  order;
+- the band pieces of the visit lists (raster._groups, _brick_groups,
+  _subtile_groups) cover every visited pixel row once, with each pixel's
+  visits in queue order;
 - evaluating block by block through raster._eval_items (each block's 32
-  columns and band, in block order) gives planes equal to
-  raster_tiles_plain / raster_subtile_plain bit for bit;
+  columns and band, in block order; K7 in its association, with xoff)
+  gives planes equal to raster_tiles_plain / raster_bricks_plain /
+  raster_subtile_plain bit for bit;
 - the corner test (raster.corner_cull, evaluated as the kernels evaluate
-  it: float32, the plain version's association) never skips a triangle
-  that covers a pixel of the rectangle, and raster.cull_tests counts the
-  tests it leaves.
+  it: float32, the plain version's association, K7's with xoff) never
+  skips a triangle that covers a pixel of the rectangle, and
+  raster.cull_tests counts the tests it leaves.
 
 `band_inputs` builds the seeded cases; tests/test_torch_cuda.py runs the
 kernels on them against the plain versions on the card.
@@ -95,8 +96,8 @@ def _scene(rng, scene: str, n_win: int, tile_h: int):
 def band_inputs(d, kernel: str, scene: str, attrs: bool, tile_h: int,
                 sub_s: int = 8, rp: int = 0, zclip: bool = False,
                 seed: int = 11):
-    """The arguments of raster_tiles (kernel "k1") or raster_subtile
-    ("k8") on `d`: n windows of `scene` ("random", "imbalance",
+    """The arguments of raster_tiles (kernel "k1"), raster_bricks ("k7";
+    tile_h a multiple of 4*sub_s) or raster_subtile ("k8") on `d`: n windows of `scene` ("random", "imbalance",
     "straddle", "ties", "negative") at 256x96, random seed planes (depth
     [0, 0.5) with half of it 0; vis ids, signed for "negative" and "ties",
     so a visit that covers nothing still replaces a (0, < 0) seed)."""
@@ -106,7 +107,8 @@ def band_inputs(d, kernel: str, scene: str, attrs: bool, tile_h: int,
     n = valid.shape[0]
     c = raster.RasterConfig(width=W, height=H, tile_h=tile_h, sub_s=sub_s,
                             rp=rp, with_attrs=attrs, z_clip=zclip,
-                            subtiles=kernel == "k8", pair_capacity=2048,
+                            subtiles=kernel == "k8", bricks=kernel == "k7",
+                            pair_capacity=2048,
                             big_capacity=32)
     t = lambda a: torch.from_numpy(a).to(d)
     setup = raster.setup_triangles(
@@ -131,18 +133,23 @@ def band_inputs(d, kernel: str, scene: str, attrs: bool, tile_h: int,
             seeds, zc, c)
 
 
+NAME = {"k1": "raster", "k7": "raster_bricks", "k8": "raster_subtile"}
+BAND = {"k1": raster.K1_BAND, "k7": raster.K7_BAND, "k8": raster.K8_BAND}
+
+
 def _coef(kernel, args):
-    return args[4] if kernel == "k1" else args[5]
+    return args[5] if kernel == "k8" else args[4]
 
 
 def _visits(kernel, args):
     """-> (first triangle, group size, tile index, tile py0, 32-px column
-    x0s of the visit, first row, row count) per visit, in queue order."""
+    x0s of the visit, first row, row count, K7's brick offset or None) per
+    visit, in queue order."""
     c = args[-1]
-    tri0, cs, py0, cols, r0, nrows = raster.kernel_visits(
-        "raster" if kernel == "k1" else "raster_subtile", args)
+    tri0, cs, py0, cols, r0, nrows, xoff = raster.kernel_visits(
+        NAME[kernel], args)
     tile = (py0 // c.tile_h) * c.tiles_x + cols[:, 0] // c.tile_w
-    return tri0, cs, tile, py0, cols, r0, nrows
+    return tri0, cs, tile, py0, cols, r0, nrows, xoff
 
 
 def _blocks(kernel, args):
@@ -150,8 +157,8 @@ def _blocks(kernel, args):
     column, band) in block order, the visits meeting the band in queue
     order -> (visit, x0, first row, row count)."""
     c = args[-1]
-    tri0, cs, tile, py0, cols, r0, nrows = _visits(kernel, args)
-    band = raster.K1_BAND if kernel == "k1" else raster.K8_BAND
+    tri0, cs, tile, py0, cols, r0, nrows, _ = _visits(kernel, args)
+    band = BAND[kernel]
     item, b, lo, n = raster.band_split(r0, nrows, band)
     x0 = cols[item]                                  # (pieces, columns)
     n_col = x0.shape[1]
@@ -165,7 +172,9 @@ def _blocks(kernel, args):
 
 
 # tile_h is a multiple of 8 (RasterConfig), so every tile holds whole
-# bands of both kernels; the windows' rows cross band edges everywhere
+# bands of every kernel; the windows' rows cross band edges everywhere. K7's
+# row groups of 4*sub_s (16, 32) span 2 or 4 of its 8-row bands, and it
+# ignores rp
 CASES = [("k1", "random", True, 24, 8, 0, False),
          ("k1", "imbalance", False, 16, 8, 0, False),
          ("k1", "straddle", True, 48, 4, 0, True),      # groups of 4 rows
@@ -174,7 +183,12 @@ CASES = [("k1", "random", True, 24, 8, 0, False),
          ("k8", "random", True, 24, 8, 0, False),
          ("k8", "straddle", False, 72, 8, 0, False),    # 9 bands a tile
          ("k8", "ties", True, 40, 8, 0, False),
-         ("k8", "imbalance", True, 24, 8, 0, False)]
+         ("k8", "imbalance", True, 24, 8, 0, False),
+         ("k7", "random", True, 32, 8, 0, False),
+         ("k7", "imbalance", False, 16, 4, 0, True),
+         ("k7", "straddle", True, 48, 4, 0, True),      # groups of 16 rows
+         ("k7", "ties", True, 32, 8, 16, False),
+         ("k7", "negative", False, 64, 8, 0, True)]
 
 
 @pytest.fixture(params=CASES, ids=lambda p: "-".join(map(str, p)))
@@ -189,7 +203,7 @@ def test_bands_cover_each_visit_once_in_queue_order(case):
     exactly one block, and each pixel sees its visits in queue order."""
     kernel, args = case
     c = args[-1]
-    tri0, cs, tile, py0, cols, r0, nrows = _visits(kernel, args)
+    tri0, cs, tile, py0, cols, r0, nrows, _ = _visits(kernel, args)
     assert nrows.numel() > 0 and bool((nrows > 0).all())
     # the whole list: per (pixel row, column) its visits in queue order
     it, row = raster._expand_rows(r0, nrows)
@@ -203,7 +217,7 @@ def test_bands_cover_each_visit_once_in_queue_order(case):
     block, item, bx0, lo, n = _blocks(kernel, args)
     for blk in torch.unique(block):            # queue order inside a block
         assert bool((torch.diff(item[block == blk]) > 0).all())
-    band = raster.K1_BAND if kernel == "k1" else raster.K8_BAND
+    band = BAND[kernel]
     assert bool((lo // band == (lo + n - 1) // band).all())
     pi, prow = raster._expand_rows(lo, n)
     pieces = torch.stack([(py0[item[pi]] + prow) * 4096 + bx0[pi],
@@ -223,28 +237,30 @@ def test_block_by_block_evaluation_equals_plain(case):
     kernel, args = case
     c = args[-1]
     n_attr = 5 if c.with_attrs else 0
-    tri0, cs, tile, py0, cols, r0, nrows = _visits(kernel, args)
-    if kernel == "k1":
-        seeds, zc = args[5], args[6]
-        ref = raster.raster_tiles_plain(*args)
-    else:
+    tri0, cs, tile, py0, cols, r0, nrows, xoff = _visits(kernel, args)
+    if kernel == "k8":
         seeds, zc = args[6], None
         ref = raster.raster_subtile_plain(*args)
+    else:
+        seeds, zc = args[5], args[6]
+        ref = (raster.raster_tiles_plain if kernel == "k1" else
+               raster.raster_bricks_plain)(*args)
     block, item, bx0, lo, n = _blocks(kernel, args)
     planes = list(seeds)
     for blk in torch.unique(block):
         sel = block == blk
         it, row = raster._expand_rows(lo[sel], n[sel])
         items = item[sel][it]
-        planes = raster._eval_items(_coef(kernel, args), planes, zc, n_attr,
-                                    tri0[items], cs, bx0[sel][it], 32,
-                                    py0[items] + row)
+        planes = raster._eval_items(
+            _coef(kernel, args), planes, zc, n_attr, tri0[items], cs,
+            bx0[sel][it], 32, py0[items] + row,
+            xoff=None if xoff is None else xoff[items])
     for got, want in zip(_bits(planes), _bits(ref)):
         assert torch.equal(got, want)
     assert float((ref[0] > 0).float().mean()) > 0.1
 
 
-def _corner_cull(coef, x_lo, y_lo, y_hi):
+def _corner_cull(coef, x_lo, y_lo, y_hi, xoff=None):
     """raster.corner_cull of every edge for one 32-column rectangle: per
     triangle row of `coef` (float32 (T, 15)), True where some edge's plane
     is < 0 on the whole rectangle."""
@@ -252,22 +268,27 @@ def _corner_cull(coef, x_lo, y_lo, y_hi):
     out = torch.zeros(coef.shape[0], dtype=torch.bool)
     for k in range(3):
         out |= raster.corner_cull(coef[:, k], coef[:, 5 + k],
-                                  coef[:, 10 + k], f(x_lo), f(y_lo), f(y_hi))
+                                  coef[:, 10 + k], f(x_lo), f(y_lo), f(y_hi),
+                                  None if xoff is None else f(xoff))
     return out
 
 
 @pytest.mark.parametrize("kernel,scene", [("k1", "random"), ("k8", "random"),
                                           ("k8", "straddle"),
-                                          ("k1", "ties")])
+                                          ("k1", "ties"), ("k7", "random"),
+                                          ("k7", "straddle"),
+                                          ("k7", "ties")])
 def test_corner_cull_skips_only_uncovered_triangles(kernel, scene):
     """For every warp rectangle a visit reaches (32 columns x the rows of
     a thread group it visits), a triangle the corner test skips has
-    l0, l1, l2 >= 0 at no pixel of it; the test skips most of them, and
-    raster.cull_tests counts the pixel tests and cull evaluations left."""
+    l0, l1, l2 >= 0 at no pixel of it, brute force in the kernel's
+    association (K7's: (a*xl + b*yl) + (b*yb + (c + a*xoff))); the test
+    skips most of them, and raster.cull_tests counts the pixel tests and
+    cull evaluations left."""
     args = band_inputs(torch.device("cpu"), kernel, scene, False,
-                       24 if kernel == "k1" else 40)
+                       {"k1": 24, "k7": 32, "k8": 40}[kernel])
     coef = raster.bits_f32(_coef(kernel, args))
-    tri0, cs, tile, py0, cols, r0, nrows = _visits(kernel, args)
+    tri0, cs, tile, py0, cols, r0, nrows, xoff = _visits(kernel, args)
     item, b, lo, n = raster.band_split(r0, nrows, raster.WARP_ROWS)
     skipped = total = tests = 0
     for i in range(item.numel()):
@@ -275,15 +296,22 @@ def test_corner_cull_skips_only_uncovered_triangles(kernel, scene):
         tri = coef[int(tri0[v]):int(tri0[v]) + cs, :15]
         ys = (py0[v] + lo[i] + torch.arange(int(n[i]))).float()
         y_lo, y_hi = ys[0], ys[-1]
+        xo = None if xoff is None else int(xoff[v])
         for x0 in cols[v].tolist():
-            cull = _corner_cull(tri, float(x0), y_lo, y_hi)
-            px = (x0 + torch.arange(32)).float()[None, None, :]
+            cull = _corner_cull(tri, float(x0), y_lo, y_hi, xo)
             yy = ys[None, :, None]
             hit = torch.ones((tri.shape[0], ys.numel(), 32), dtype=torch.bool)
             for k in range(3):
                 a, bb, cc = (tri[:, j][:, None, None]
                              for j in (k, 5 + k, 10 + k))
-                hit &= (a * px + (bb * yy + cc)) >= 0
+                if xo is None:
+                    px = (x0 + torch.arange(32)).float()[None, None, :]
+                    hit &= (a * px + (bb * yy + cc)) >= 0
+                else:
+                    xl = (x0 - xo + torch.arange(32)).float()[None, None, :]
+                    yl = yy % 4
+                    hit &= ((a * xl + bb * yl) +
+                            (bb * (yy - yl) + (cc + a * float(xo)))) >= 0
             cov = hit.flatten(1).any(1)
             assert not bool((cull & cov).any())
             skipped += int(cull.sum())
@@ -291,4 +319,4 @@ def test_corner_cull_skips_only_uncovered_triangles(kernel, scene):
             tests += int((~cull).sum()) * ys.numel() * 32
     assert skipped > total // 2
     assert raster.cull_tests(_coef(kernel, args), tri0, cs, py0, cols, r0,
-                             nrows, chunk=7) == (tests, total)
+                             nrows, xoff=xoff, chunk=7) == (tests, total)
