@@ -575,15 +575,50 @@ def work_stats(name: str, args) -> Optional[dict]:
                 row_visits_per_block=_dist(blk))
 
 
+def paged_inputs(args, kwargs) -> str:
+    """K5's inputs: the share of live texels in each channel and, when
+    bilinear, of footprints that read two or four of a compressed page's
+    4x4 blocks (straddling a block edge in x or y, or both), by the
+    kernel's tap math."""
+    import torch
+
+    _, _, n_mips, sizes, layers, uv, mip = args
+    live = "/".join(f"{float((lay >= 0).float().mean()):.2f}"
+                    for lay in layers)
+    if not kwargs.get("bilinear", True):
+        return f"live {live}"
+    m = torch.clamp(mip, 0, n_mips - 1).long()
+    size = torch.tensor([int(v) for v in sizes[:n_mips]],
+                        device=mip.device)[m].float()
+    cross = []
+    for k in (0, 1):
+        t = (uv[..., k] - torch.floor(uv[..., k])) * size
+        b0f = torch.floor(t - 0.5)
+        b0 = torch.minimum(torch.clamp(b0f, min=0.0), size - 1)
+        b1 = torch.minimum(torch.clamp(b0f + 1, min=0.0), size - 1)
+        tile = torch.floor((b0 + 0.5) * (1.0 / 31))
+        cross.append(((b0 - 31 * tile).long() >> 2) !=
+                     ((b1 - 31 * tile).long() >> 2))
+    pct = lambda b: f"{100 * float(b.float().mean()):.1f}%"
+    dx, dy = cross
+    return (f"live {live}, footprints in 2 blocks {pct(dx ^ dy)}, "
+            f"in 4 {pct(dx & dy)}")
+
+
 def describe(name: str, args, kwargs) -> str:
     if name == "pcss":
         maps, pre, _ = args
         return (f"stack {'x'.join(map(str, maps.shape))} eval "
                 f"{'x'.join(map(str, pre.u.shape))}")
+    if name == "mesh_shader":
+        # a K2 time spends the poison windows' share on slack slots
+        cap, live = args[0].shape[0], int(args[2][0])
+        return (f"cap {cap}, live {live}, poison windows {cap - live + 1} "
+                f"of {cap + 1}")
     if name == "paged_texture":
         c, h, w = args[4].shape
         mode = "bilinear" if kwargs.get("bilinear", True) else "nearest"
-        return f"C={c} {mode} {h}x{w}"
+        return f"C={c} {mode} {h}x{w}, " + paged_inputs(args, kwargs)
     if name == "proto_paged_sample":
         pool, _, u = args[:3]
         return (f"{'x'.join(map(str, u.shape))}, pool "

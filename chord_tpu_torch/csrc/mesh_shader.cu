@@ -12,8 +12,16 @@
 // with exact one-hot matmuls. Slots >= count write poison blocks (lanes
 // 10-12 = -1.0f); block `cap` writes the appended poison window.
 //
-// Bound by its ~400 f32 operations per triangle and the 128 B coefficient
-// row it stores per triangle; the corner loads are coalesced across lanes.
+// Bound by the bytes it writes: per slot a 16 KB coefficient block and
+// 2.5 KB of meta (~400 f32 operations a triangle are negligible beside
+// them). So every store is coalesced: a lane puts its 32 words into a
+// shared copy of the window at its sorted rank (16-B chunks, XOR-swizzled
+// by row, so neither the row writes nor the block reads serialise on
+// banks) and its 5 meta values into shared rows; after one barrier the
+// block writes its 16 KB as consecutive int4, 8 a thread, and the meta
+// rows as contiguous 512 B runs. A poison block skips the setup and
+// shared memory: its int4 pattern depends only on the chunk index. The
+// corner loads are coalesced across lanes.
 //
 // Every product and sum is rounded separately and evaluated in chord_tpu's
 // order: the library is built with -fmad=false (a choice a tuned version
@@ -29,14 +37,16 @@ namespace {
 
 constexpr int kWindow = 128;
 constexpr int kCoef = 32;
+constexpr int kChunks = kCoef / 4;     // int4 chunks of a coefficient row
 constexpr int kMeta = 5;
 constexpr int kMatStride = 26;
 constexpr float kEpsW = 1e-6f;
 
-__device__ __forceinline__ void write_poison(int* row) {
-  for (int r = 0; r < kCoef; ++r) {
-    row[r] = (r >= 10 && r < 13) ? __float_as_int(-1.0f) : 0;
-  }
+// Chunk c (words 4c..4c+3) of a poison row: lanes 10-12 = -1.0f.
+__device__ __forceinline__ int4 poison_chunk(int c) {
+  const int m1 = __float_as_int(-1.0f);
+  return c == 2 ? make_int4(0, 0, m1, m1)
+                : (c == 3 ? make_int4(m1, 0, 0, 0) : make_int4(0, 0, 0, 0));
 }
 
 struct Corner {
@@ -74,15 +84,21 @@ mesh_shader_kernel(const int* __restrict__ dm, const int* __restrict__ tcnt,
                    int width, int height, int payload_base, int backface_cull,
                    int sort_tris, int* __restrict__ coef,
                    float* __restrict__ meta) {
-  __shared__ float keys[kWindow];
+  // the sorted window: row r's chunk c at int4 r*8 + (c ^ (r & 7))
+  __shared__ int4 rows[kWindow * kChunks];
+  __shared__ float smeta[kMeta][kWindow];
+  __shared__ __align__(16) float keys[kWindow];
   const int i = blockIdx.x;
   const int lane = threadIdx.x;
   const size_t meta_stride = (size_t)cap * kWindow;
-  if (i >= count[0]) {   // uniform across the block
-    write_poison(coef + ((size_t)i * kWindow + lane) * kCoef);
+  int4* out4 = reinterpret_cast<int4*>(coef) + (size_t)i * kWindow * kChunks;
+  float* meta_i = meta + (size_t)i * kWindow;
+  if (i == cap || i >= count[0]) {   // uniform across the block
+    // q = lane + 128k, so the chunk index q & 7 is lane & 7
+    const int4 p = poison_chunk(lane & 7);
+    for (int k = 0; k < kChunks; ++k) out4[lane + k * kWindow] = p;
     if (i < cap) {
-      for (int r = 0; r < kMeta; ++r)
-        meta[r * meta_stride + (size_t)i * kWindow + lane] = 0.0f;
+      for (int r = 0; r < kMeta; ++r) meta_i[r * meta_stride + lane] = 0.0f;
     }
     return;
   }
@@ -198,13 +214,25 @@ mesh_shader_kernel(const int* __restrict__ dm, const int* __restrict__ tcnt,
     float keyj = key * 256.0f + (float)lane;
     keys[lane] = keyj;
     __syncthreads();
+    const float4* k4 = reinterpret_cast<const float4*>(keys);
     rank = 0;
-    for (int j = 0; j < kWindow; ++j) rank += keys[j] < keyj ? 1 : 0;
+    for (int j = 0; j < kWindow / 4; ++j) {
+      float4 kj = k4[j];
+      rank += (kj.x < keyj ? 1 : 0) + (kj.y < keyj ? 1 : 0) +
+              (kj.z < keyj ? 1 : 0) + (kj.w < keyj ? 1 : 0);
+    }
   }
-  int* dst = coef + ((size_t)i * kWindow + rank) * kCoef;
-  for (int r = 0; r < kCoef; ++r) dst[r] = out[r];
+  for (int c = 0; c < kChunks; ++c)
+    rows[rank * kChunks + (c ^ (rank & 7))] =
+        make_int4(out[4 * c], out[4 * c + 1], out[4 * c + 2], out[4 * c + 3]);
+  for (int r = 0; r < kMeta; ++r) smeta[r][rank] = mrows[r];
+  __syncthreads();
+  for (int k = 0; k < kChunks; ++k) {
+    const int q = lane + k * kWindow, row = q / kChunks, c = q % kChunks;
+    out4[q] = rows[row * kChunks + (c ^ (row & 7))];
+  }
   for (int r = 0; r < kMeta; ++r)
-    meta[r * meta_stride + (size_t)i * kWindow + rank] = mrows[r];
+    meta_i[r * meta_stride + lane] = smeta[r][lane];
 }
 
 }  // namespace
@@ -216,6 +244,7 @@ extern "C" int chord_mesh_shader(const void* dm, const void* tcnt,
                                  int payload_base, int backface_cull,
                                  int sort_tris, void* coef, void* meta,
                                  void* stream) {
+  // cap + 1 blocks: the draws, then the appended poison window
   mesh_shader_kernel<<<cap + 1, kWindow, 0, (cudaStream_t)stream>>>(
       (const int*)dm, (const int*)tcnt, (const int*)count,
       (const float*)mats, (const float*)posT, (const float*)attrT, ncols, cap,

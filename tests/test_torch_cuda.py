@@ -21,8 +21,9 @@ from chord_tpu_torch.asset.procedural import (bench_texture_pool,
                                               build_bistro_like,
                                               build_sponza_like)
 from chord_tpu_torch.ops import (_cuda, fusion_barrier, kernels,
-                                 paged_texture, raster, row_gather, shadow,
-                                 shadow_kernel, tile_reproject)
+                                 mesh_shader, paged_texture, raster,
+                                 row_gather, shadow, shadow_kernel,
+                                 tile_reproject)
 from chord_tpu_torch.ops import atmosphere as atm
 from chord_tpu_torch.ops import proto_paged_tex as proto_sampler
 from chord_tpu_torch.renderer import (DeferredRenderer, DeviceView,
@@ -35,6 +36,7 @@ from chord_tpu_torch.tools import proto_paged_tex, repro_eval_kernel
 from chord_tpu_torch.utils.camera import Camera
 from chord_tpu_torch.utils.cvar import cvars
 from test_torch_raster_bands import CASES as BAND_CASES
+from test_torch_paged_footprint import footprint_inputs
 from test_torch_raster_bands import band_inputs
 
 W, H, PW, PH = 128, 64, 192, 96
@@ -171,27 +173,87 @@ def test_kernels_match_plain_on_frame_inputs(dev):
 @pytest.mark.parametrize("compress", [False, True])
 def test_paged_sample_random_inputs(dev, compress):
     """K5 on the bench pool at 720x1280: the resolve's 4-map bilinear call
-    and the masked test's nearest call, random layers / uv / mips."""
+    and the masked test's nearest call, random layers / uv / mips; then the
+    footprints that read one, two and four 4x4 blocks across the tile seam
+    (test_torch_paged_footprint), at the full and at an odd width."""
     tp = bench_texture_pool()
     pages, meta, n_mips = paged_texture.pack_paged_pool(
         tp.u8(), tp.mip_sizes, tp.mip_offsets, compress)
     rng = np.random.default_rng(5)
+    cases = []
     for c, bilinear in ((4, True), (1, False)):
-        layers = torch.from_numpy(rng.integers(-1, 12, (c, 720, 1280),
-                                               dtype=np.int64)
-                                  .astype(np.int32))
-        uv = torch.from_numpy(rng.uniform(-3, 3, (720, 1280, 2))
-                              .astype(np.float32))
-        mip = torch.from_numpy(rng.integers(-1, 11, (720, 1280),
-                                            dtype=np.int64).astype(np.int32))
+        layers = rng.integers(-1, 12, (c, 720, 1280)).astype(np.int32)
+        uv = rng.uniform(-3, 3, (720, 1280, 2)).astype(np.float32)
+        mip = rng.integers(-1, 11, (720, 1280)).astype(np.int32)
+        cases.append((layers, uv, mip, bilinear))
+    layers, uv, mip = footprint_inputs()
+    for w in (layers.shape[2], layers.shape[2] - 1):
+        for bilinear in (True, False):
+            cases.append((np.ascontiguousarray(layers[..., :w]),
+                          np.ascontiguousarray(uv[:, :w]),
+                          np.ascontiguousarray(mip[:, :w]), bilinear))
+    for layers, uv, mip, bilinear in cases:
         args = [torch.from_numpy(pages), torch.from_numpy(meta), n_mips,
-                tp.mip_sizes, layers, uv, mip]
+                tp.mip_sizes, torch.from_numpy(layers), torch.from_numpy(uv),
+                torch.from_numpy(mip)]
         ref = paged_texture.paged_sample_plain(*args, bilinear=bilinear)
         got = paged_texture.paged_sample(
             *[a.to(dev) if isinstance(a, torch.Tensor) else a for a in args],
             bilinear=bilinear)
         torch.cuda.synchronize()
-        assert torch.equal(got.cpu(), ref), (compress, c)
+        assert torch.equal(got.cpu(), ref), (compress, layers.shape,
+                                             bilinear)
+
+
+def _k2_inputs(cap, count, seed, n_meshlets=24):
+    """Random K2 inputs (CPU): draws of random meshlets with random
+    local->clip matrices whose w row puts some corners behind the eye,
+    zero-area and collinear triangles, two-sided draws, triangle counts
+    below 128; slots >= count are slack (meshlet = the poison window)."""
+    rng = np.random.default_rng(seed)
+    ncols = (n_meshlets + 1) * 128
+    posT = rng.uniform(-1.0, 1.0, (12, ncols)).astype(np.float32)
+    posT[3::4] = 1.0
+    lanes = rng.random(ncols)
+    posT[4:7, lanes < 0.1] = posT[0:3, lanes < 0.1]          # zero area
+    mid = (lanes >= 0.1) & (lanes < 0.15)                     # collinear
+    posT[8:11, mid] = 2.0 * posT[4:7, mid] - posT[0:3, mid]
+    attrT = rng.uniform(-1.0, 1.0, (16, ncols)).astype(np.float32)
+    live = np.arange(cap) < count
+    dm = np.where(live, rng.integers(0, n_meshlets, cap), n_meshlets)
+    tcnt = np.where(live, rng.choice([128, 127, 64, 1, 100], cap), 0)
+    m = rng.normal(0.0, 1.0, (cap, 4, 4)).astype(np.float32)
+    m[:, 3, 3] = rng.uniform(0.5, 3.0, cap)    # w: cw in about [-3, 6]
+    mats = np.concatenate([m.reshape(cap, 16),
+                           rng.normal(0.0, 1.0, (cap, 9)),
+                           (rng.random((cap, 1)) < 0.5)], 1)
+    t = lambda a, dt: torch.from_numpy(np.ascontiguousarray(a).astype(dt))
+    return (t(dm, np.int32), t(tcnt, np.int32),
+            t(np.array([count]), np.int32), t(mats, np.float32),
+            t(posT, np.float32), t(attrT, np.float32))
+
+
+@pytest.mark.cuda
+def test_mesh_shader_random_inputs(dev):
+    """K2 against mesh_shader_plain at tolerance 0: count 0, 1, cap - 1 and
+    cap; corners behind the eye, degenerate triangles, two-sided draws,
+    triangle counts below 128; without the sort, without back-face
+    culling and with a payload base."""
+    cap = 48
+    for count in (0, 1, cap - 1, cap):
+        args = _k2_inputs(cap, count, seed=11 + count)
+        for kw in (dict(), dict(sort_tris=False),
+                   dict(backface_cull=False, payload_base=37)):
+            ref = mesh_shader.mesh_shader_plain(*args, 96, 64, **kw)
+            got = mesh_shader.mesh_shader(*[a.to(dev) for a in args], 96, 64,
+                                          **kw)
+            torch.cuda.synchronize()
+            assert torch.equal(got[0].cpu(), ref[0]), (count, kw)
+            assert torch.equal(got[1].cpu().view(torch.int32),
+                               ref[1].view(torch.int32)), (count, kw)
+            if count >= cap - 1:
+                n_valid = int(ref[1][0].sum())
+                assert 0.05 * count * 128 < n_valid < count * 128, n_valid
 
 
 @pytest.mark.cuda

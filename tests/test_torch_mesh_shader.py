@@ -10,9 +10,12 @@ the interpret-mode kernel (jit(x*y+z) differs from the separately rounded
 result). The planes are built from vertices scaled to |X|,|Y|,|w| <= 1, so
 the bound is |port - ref| <= 2e-6 * max(|ref|, 1) (about 16 ulp at 1;
 measured at most 6.7e-7). Cases: with and without the in-window sort and
-back-face culling, a phase-1 payload base, and slack slots (poison).
+back-face culling, a phase-1 payload base, and slack slots (poison); an
+empty draw list (every slot poison) and a full one (a cull at a capacity
+below the scene's live draws: no slot is slack).
 """
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -29,6 +32,7 @@ from chord_tpu_torch.ops import cull, mesh_shader
 
 W, H = 128, 64
 CAP = 128
+FULL_CAP = 32          # below the scene's live draws: the cull fills it
 
 
 def _np(obj):
@@ -50,9 +54,13 @@ def state():
     tinst = interop.instances_from_numpy(_np(inst), device="cpu")
     tdraws = cull.DrawList(*[torch.from_numpy(np.array(x))
                              for x in res.draws])
+    full = jcull.cull_pairs(pools, inst, view.frustum_planes, ps,
+                            FULL_CAP).draws
     return dict(j=(pools, inst, view, res.draws),
                 t=(tpools, tinst, torch.from_numpy(
-                    np.array(view.tw_to_clip)), tdraws))
+                    np.array(view.tw_to_clip)), tdraws),
+                full=(full, cull.DrawList(*[torch.from_numpy(np.array(x))
+                                            for x in full])))
 
 
 def _compare(ref, got, cap):
@@ -90,3 +98,27 @@ def test_mesh_shader_setup_matches(state, sort_tris, backface_cull,
                                         **kw)
     _compare(ref, got, CAP)
     assert int(got.valid.sum()) > 100
+
+
+@pytest.mark.parametrize("draw_list", ["empty", "full"])
+def test_mesh_shader_setup_edge_counts(state, draw_list):
+    """count == 0 (every slot and the appended window poison) and count ==
+    capacity (no slack slot)."""
+    jpools, jinst, jview, jdraws = state["j"]
+    pools, inst, m, draws = state["t"]
+    cap = CAP
+    if draw_list == "empty":
+        jdraws = jdraws._replace(count=jnp.zeros_like(jdraws.count))
+        draws = draws._replace(count=torch.zeros_like(draws.count))
+    else:
+        cap = FULL_CAP
+        jdraws, draws = state["full"]
+        assert int(draws.count) == cap and int(draws.overflow) > 0
+    kw = dict(sort_tris=True, backface_cull=True, sub_s=8)
+    ref = jms.mesh_shader_setup(jdraws, jpools, jinst, jview.tw_to_clip, cap,
+                                W, H, interpret=True, **kw)
+    got = mesh_shader.mesh_shader_setup(draws, pools, inst, m, cap, W, H,
+                                        **kw)
+    _compare(ref, got, cap)
+    n_valid = int(got.valid.sum())
+    assert n_valid == 0 if draw_list == "empty" else n_valid > 100

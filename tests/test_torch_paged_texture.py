@@ -5,9 +5,11 @@ coverage output.
 The inputs cover raw and block-compressed pools, bilinear and nearest
 taps, every mip of the 256² bench pool down to the 1x1 tail (and mips out
 of range, which clamp), untextured channels (layer -1), u and v that wrap
-and go negative, and a wrap seam inside one block. uv is coherent within
-each 8x128 block, so chord_tpu's K-page palette covers every pixel; the
-test asserts that before comparing.
+and go negative, and a wrap seam inside one block; and bilinear
+footprints that read one, two and four 4x4 blocks of a compressed page,
+across the 31-texel tile seam (test_torch_paged_footprint). uv is
+coherent within each 8x128 block, so chord_tpu's K-page palette covers
+every pixel; the test asserts that before comparing.
 
 Tolerances: nearest returns a stored texel, so it is exact. Bilinear
 rounds an f32 filter of four u8 texels to u8: XLA's CPU backend contracts
@@ -32,6 +34,7 @@ from chord_tpu.ops import paged_texture as jpt
 from chord_tpu_torch.asset.procedural import bench_texture_pool
 from chord_tpu_torch.ops import paged_texture as pt
 from chord_tpu_torch.ops import texture as to
+from test_torch_paged_footprint import footprint_inputs
 
 BH = 8                 # chord_tpu's palette block height for these inputs
 
@@ -68,12 +71,10 @@ def _coherent_inputs(seed=0):
             mip.astype(np.int32))
 
 
-@pytest.mark.parametrize("compress", [False, True])
-@pytest.mark.parametrize("bilinear", [True, False])
-def test_paged_sample_matches_chord_tpu(pool, compress, bilinear):
+def _matches_chord_tpu(pool, compress, bilinear, inputs):
     tp, raw = pool
     pages, meta, n_mips = _packed(raw, tp, compress)
-    layers, uv, mip = _coherent_inputs()
+    layers, uv, mip = inputs
     ref, cov = jpt.paged_sample(
         jnp.asarray(pages), jnp.asarray(meta), n_mips, tp.mip_sizes,
         jnp.asarray(layers), jnp.asarray(uv), jnp.asarray(mip),
@@ -93,6 +94,19 @@ def test_paged_sample_matches_chord_tpu(pool, compress, bilinear):
             ((levels > 0).mean(), levels.max())
     else:
         np.testing.assert_array_equal(got, ref)
+
+
+@pytest.mark.parametrize("compress", [False, True])
+@pytest.mark.parametrize("bilinear", [True, False])
+def test_paged_sample_matches_chord_tpu(pool, compress, bilinear):
+    _matches_chord_tpu(pool, compress, bilinear, _coherent_inputs())
+
+
+@pytest.mark.parametrize("compress", [False, True])
+def test_footprints_match_chord_tpu(pool, compress):
+    """Bilinear footprints straddling a block edge in x, in y and in both,
+    and the tile seam of multi-tile mips."""
+    _matches_chord_tpu(pool, compress, True, footprint_inputs())
 
 
 def test_palette_miss_port_takes_the_full_sample(pool):
