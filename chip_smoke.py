@@ -35,7 +35,10 @@ Phases (any failure raises and the script exits non-zero):
 
 1. Requires a CUDA device; prints the card's name and power limit.
 2. Builds the ten hand-written kernels (chord_tpu_torch/csrc/*.cu, one
-   nvcc per source, all at once) into build/kernels/.
+   nvcc per source, all at once) into build/kernels/, prints the
+   registers, shared memory and spills ptxas reports for K6 and K10, and
+   times the launch floor: an empty one-block grid (csrc/launch_floor.cu)
+   timed as the kernels are, the least time any launched kernel takes.
 3. Builds the scenes (the two bistros share the Nanite DAG of their common
    meshes; the shadow and brick paths reuse the textured one; the flat
    Sponza pools with a per-frame instance table) and the LUTs, and prints
@@ -68,7 +71,10 @@ Phases (any failure raises and the script exits non-zero):
    prints a `work` line, off the timed window: per tile the pairs (K1, K7)
    or rounds (K8) and the row visits, per block of the kernels'
    decomposition (32 columns a warp x raster.K1_BAND / K7_BAND / K8_BAND
-   rows, raster.band_split) the row visits, and the blocks launched.
+   rows, raster.band_split) the row visits, and the blocks launched; for
+   K6 the in-map pixels, the PCF radius's distribution and the stack
+   sectors the taps touch; for K10 the distinct tiles a pixel block asks
+   for and the share of textured pixels the palette serves.
 5. Each path's 16-frame sequence (render_sequence_meshlet(with_stats=True);
    on `flat`, DeferredRenderer.render frame by frame), with every launch
    count set to 0 just before and read just after: worst-frame overflows
@@ -107,9 +113,9 @@ Phases 4-5 run per frame path, then 6, 7 and 8. The line before the last
 is the nvidia-smi name/power-limit line, the one before that the
 per-kernel JSON (one entry per kernel and path: launches, max_abs_err,
 per-frame ms / plain_ms / bound_ms / library_ms summed over the kernel's
-calls in one frame, and the per-call detail, with K1, K7 and K8's work
-stats and K3 and K9's alternating rounds;
-plus each path's ms/frame),
+calls in one frame, and the per-call detail, with K1, K6, K7, K8 and
+K10's work stats and K3 and K9's alternating rounds;
+plus each path's ms/frame and the launch floor),
 and before that the tools' JSON (each repro variant's first-call seconds
 and steady ms, the proto tool's coverage, match and ms); the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -468,11 +474,9 @@ def _ops(name: str, args, kwargs, cull: bool = True) -> float:
     return 0.0
 
 
-def _pcss_bytes(args, out) -> int:
-    """What K6 must move on this call's data: the 32-B sectors of the
-    stack its taps touch (the taps of the plain version on the same
-    inputs), the cascade plane and, at in-map pixels, the six other
-    prepass planes, the per-cascade scalars and the output."""
+def _pcss_sectors(args) -> int:
+    """The 32-B sectors of the stack K6's taps touch at in-map pixels (the
+    taps of the plain version on the same inputs)."""
     import torch
 
     from chord_tpu_torch.ops import shadow
@@ -481,8 +485,16 @@ def _pcss_bytes(args, out) -> int:
     taps = []
     shadow.pcss_plain(maps, pre, cfg, tap_index=taps)
     inside = pre.cascade >= 0
-    sectors = torch.unique(torch.stack(taps)[:, inside] // 8).numel()
-    return (sectors * 32 + _nbytes(pre.cascade) + int(inside.sum()) * 6 * 4 +
+    return torch.unique(torch.stack(taps)[:, inside] // 8).numel()
+
+
+def _pcss_bytes(args, out) -> int:
+    """What K6 must move on this call's data: the 32-B sectors of the
+    stack its taps touch, the cascade plane and, at in-map pixels, the six
+    other prepass planes, the per-cascade scalars and the output."""
+    _, pre, _ = args
+    inside = int((pre.cascade >= 0).sum())
+    return (_pcss_sectors(args) * 32 + _nbytes(pre.cascade) + inside * 6 * 4 +
             _nbytes([pre.depth_range, pre.texel]) + _nbytes(out))
 
 
@@ -539,18 +551,67 @@ def _dist(v) -> dict:
                 max_over_mean=float(v.max()) / mean if mean else None)
 
 
+def pcss_work(args) -> dict:
+    """K6's work on a call's inputs: the eval pixels and those inside a
+    cascade, the PCF radius over the latter (the plain version's: its
+    distribution and the shares clamped at 1 and at PCF_RADIUS_MAX) and
+    the 32-B stack sectors the taps touch."""
+    from chord_tpu_torch.ops import shadow
+
+    maps, pre, cfg = args
+    inside = pre.cascade >= 0
+    rad = shadow.pcf_radius(maps, pre, cfg)[inside]
+    share = lambda b: float(b.float().mean()) if rad.numel() else None
+    return dict(pixels=pre.cascade.numel(), in_map=int(inside.sum()),
+                pcf_radius=dict(
+                    min=float(rad.min()) if rad.numel() else None,
+                    median=float(rad.median()) if rad.numel() else None,
+                    max=float(rad.max()) if rad.numel() else None,
+                    at_1=share(rad == 1.0),
+                    at_max=share(rad == shadow.PCF_RADIUS_MAX)),
+                taps=cfg.pcss_blocker_samples + cfg.pcss_pcf_samples,
+                sectors=_pcss_sectors(args))
+
+
+def proto_work(args) -> dict:
+    """K10's work on a call's inputs: per (32,128) pixel block the
+    distinct tiles its textured pixels ask for (ids below BIG; the
+    palette serves K), the blocks asking for more than K, and the share of
+    textured pixels the palette serves (the plain version's cov)."""
+    import torch
+
+    from chord_tpu_torch.ops import proto_paged_tex as pt
+
+    _, meta, u, v, lm = args
+    tile = pt._blocks(pt.tile_slot(meta, u, v, lm)[0])
+    srt = torch.sort(torch.clamp_max(tile, pt.BIG), 1).values
+    distinct = (1 + (srt[:, 1:] != srt[:, :-1]).sum(1) -
+                (srt[:, -1] == pt.BIG).long())
+    cov = pt.paged_sample_plain(*args)[1]
+    textured = lm >= 0
+    return dict(blocks=tile.shape[0], distinct_tiles_per_block=_dist(distinct),
+                blocks_over_k=int((distinct > pt.K).sum()),
+                textured=int(textured.sum()),
+                served_share=float(cov[textured].float().mean()))
+
+
 def work_stats(name: str, args) -> Optional[dict]:
-    """K1 / K7 / K8's work distribution on a call's queue, from the plain
-    versions' visit lists (raster.kernel_visits): per tile its pairs (K1,
-    K7) or rounds (K8) and its row visits (a visit's rows: 128 px each for
-    K1, 32 px for K7's brick and K8's sub-tile); per block of the kernel's
-    decomposition (32 columns a warp x a band of raster.K1_BAND / K7_BAND /
-    K8_BAND rows, raster.band_split) its row visits; and the blocks
-    launched."""
+    """The work line of a call: K6's and K10's inputs (pcss_work,
+    proto_work) or K1 / K7 / K8's work distribution on a call's queue,
+    from the plain versions' visit lists (raster.kernel_visits): per tile
+    its pairs (K1, K7) or rounds (K8) and its row visits (a visit's rows:
+    128 px each for K1, 32 px for K7's brick and K8's sub-tile); per block
+    of the kernel's decomposition (32 columns a warp x a band of
+    raster.K1_BAND / K7_BAND / K8_BAND rows, raster.band_split) its row
+    visits; and the blocks launched."""
     import torch
 
     from chord_tpu_torch.ops import raster
 
+    if name == "pcss":
+        return pcss_work(args)
+    if name == "proto_paged_sample":
+        return proto_work(args)
     if name not in RASTERS:
         return None
     c, counts = args[-1], args[2]
@@ -709,8 +770,9 @@ def compare_kernels(path, captured, what: str):
                     "calls")
             work = work_stats(k.name, args)
             if work is not None:
-                per_call[-1]["bound_all_tests_ms"] = bound(
-                    k.name, args, kwargs, got, cull=False)[0]
+                if k.name in RASTERS:
+                    per_call[-1]["bound_all_tests_ms"] = bound(
+                        k.name, args, kwargs, got, cull=False)[0]
                 per_call[-1]["work"] = work
                 log(f"work {k.name} on {path} {per_call[-1]['call']}: "
                     f"{json.dumps(work)}")
@@ -1088,6 +1150,46 @@ def small_cross_check(path, dev):
         raise AssertionError("the small textured scene drew no masked draws")
 
 
+def ptxas_lines(sources=("pcss.cu", "proto_paged_tex.cu")) -> None:
+    """Registers, shared memory and spills of each kernel function of the
+    sources, as ptxas reported them when the library was built."""
+    from chord_tpu_torch.ops import _cuda
+
+    report = _cuda.ptxas_report()
+    for src in sources:
+        usage = _cuda.ptxas_usage(report.get(src, ""))
+        if not usage:
+            log(f"ptxas {src}: no report beside the library")
+        names = _demangle([u["function"] for u in usage])
+        for u, name in zip(usage, names):
+            log(f"ptxas {src} {name}: {u.get('registers')} registers, "
+                f"{u.get('smem')} B shared, spill stores "
+                f"{u.get('spill_stores')} B, loads {u.get('spill_loads')} B")
+
+
+def _demangle(names):
+    try:
+        out = subprocess.run(["c++filt"], input="\n".join(names),
+                             capture_output=True, text=True, timeout=60)
+        lines = [n.replace("(anonymous namespace)::", "").split("(")[0]
+                 for n in out.stdout.splitlines()]
+        return lines if len(lines) == len(names) else names
+    except OSError:
+        return names
+
+
+def launch_floor(card: str) -> float:
+    """The device time of an empty one-block launch (csrc/launch_floor.cu),
+    timed as the kernels are -> ms."""
+    from chord_tpu_torch.ops import _cuda
+
+    ms, issue_ms = timed(lambda: _cuda.launch("chord_launch_floor",
+                                              _cuda.stream()), 20)
+    log(f"launch floor: {ms:.5f} ms device (issue-paced {issue_ms:.5f}) "
+        f"for an empty one-block grid on {card}")
+    return ms
+
+
 def main() -> int:
     import torch
 
@@ -1119,6 +1221,8 @@ def main() -> int:
     if bands != (raster.K1_BAND, raster.K7_BAND, raster.K8_BAND,
                  raster.WARP_ROWS):
         raise AssertionError(f"kernel bands {bands} != raster's constants")
+    ptxas_lines()
+    floor_ms = launch_floor(smi)
 
     scenes = bench_scenes(dev, PATHS)
     rows, ms_per_frame = [], {}
@@ -1150,7 +1254,8 @@ def main() -> int:
              "per_call")
     print(json.dumps({"kernels": [{k: r[k] for k in order if k in r}
                                   for r in rows],
-                      "ms_per_frame": ms_per_frame}))
+                      "ms_per_frame": ms_per_frame,
+                      "launch_floor_ms": floor_ms}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -6,17 +6,25 @@
 // decimates the map to a level pyramid, DMAs a 128x384 window per tile and
 // resolves every tap with one-hot matmuls, all because the TPU cannot
 // gather. None of that is the function: the function is evaluate_shadow
-// (chord_tpu/ops/shadow.py:199-316), per pixel. Here one thread per eval
-// pixel reads its prepass values (cascade, u, v, z_cmp, z_recv, disk
-// rotation ca/sa, the cascade's depth span and texel size), makes the
-// blocker taps, the penumbra and the PCF taps straight from
-// maps[c*R*R + y*R + x], and writes `lit` (1 outside every cascade).
+// (chord_tpu/ops/shadow.py:199-316), per pixel: read the prepass values
+// (cascade, u, v, z_cmp, z_recv, disk rotation ca/sa, the cascade's depth
+// span and texel size), make the blocker taps, the penumbra and the PCF
+// taps straight from maps[c*R*R + y*R + x], and write `lit` (1 outside
+// every cascade).
 //
 // Bound: at the bench size the eval grid is 90x160 and the stack 4x1024^2
-// f32 (16.8 MB, resident in the 50 MB L2 after the cascade raster wrote it),
-// of which the taps touch well under a megabyte; each thread makes 11
-// dependent L2 gathers, so the call is L2-latency bound with 113 blocks of
-// 128 threads, under one wave of the 132 SMs.
+// f32 (16.8 MB, resident in the 50 MB L2 after the cascade raster wrote
+// it), of which the taps touch well under a megabyte. The call is latency
+// bound: three dependent rounds of loads (the prepass, the blocker taps,
+// the PCF taps, whose radius needs the blocker average) behind the launch.
+// So every round is issued at once: the prepass loads go out with the
+// cascade's, before the branch on it, and the cascade's depth span and
+// texel size with the blocker taps; the tap counts are template
+// arguments, so each tap loop unrolls and its loads are in flight
+// together; and small blocks (225 of 64 threads at the bench size)
+// spread the gathers over the SMs. The bench's counts (5, 6) have their own
+// instance; every other count in [1, 16] runs the generic one (counts at
+// run time, loops unrolled to 16 with an exit).
 //
 // Numerics follow the plain version (chord_tpu_torch/ops/shadow.py
 // pcss_plain) operation for operation: taps truncate (u+du) toward zero
@@ -40,6 +48,9 @@ struct PcssParams {
 
 namespace {
 
+constexpr int kThreads = 64;
+constexpr int kMaxTaps = 16;
+
 // torch.clamp semantics: a NaN input stays NaN
 __device__ __forceinline__ float clamp_min(float x, float lo) {
   return x < lo ? lo : x;
@@ -54,30 +65,36 @@ __device__ __forceinline__ int tap_coord(float a, int r) {
   return i < 0 ? 0 : (i > r - 1 ? r - 1 : i);
 }
 
-__global__ void pcss_kernel(const float* __restrict__ maps, int r,
-                            const int* __restrict__ cascade,
-                            const float* __restrict__ u,
-                            const float* __restrict__ v,
-                            const float* __restrict__ z_cmp,
-                            const float* __restrict__ z_recv,
-                            const float* __restrict__ ca,
-                            const float* __restrict__ sa,
-                            const float* __restrict__ depth_range,
-                            const float* __restrict__ texel, int npix,
-                            const PcssParams p, float* __restrict__ out) {
-  int i = blockIdx.x * blockDim.x + threadIdx.x;
+// kNB / kNP: the tap counts, 0 for p.n_blk / p.n_pcf at run time
+template <int kNB, int kNP>
+__global__ void __launch_bounds__(kThreads)
+pcss_kernel(const float* __restrict__ maps, int r,
+            const int* __restrict__ cascade, const float* __restrict__ u,
+            const float* __restrict__ v, const float* __restrict__ z_cmp,
+            const float* __restrict__ z_recv, const float* __restrict__ ca,
+            const float* __restrict__ sa,
+            const float* __restrict__ depth_range,
+            const float* __restrict__ texel, int npix, const PcssParams p,
+            float* __restrict__ out) {
+  const int nb = kNB > 0 ? kNB : p.n_blk;
+  const int np = kNP > 0 ? kNP : p.n_pcf;
+  const int i = blockIdx.x * kThreads + threadIdx.x;
   if (i >= npix) return;
-  int c = cascade[i];
+  const int c = cascade[i];
+  const float pu = u[i], pv = v[i], zc = z_cmp[i], zr = z_recv[i];
+  const float cs = ca[i], sn = sa[i];
   if (c < 0) {
     out[i] = 1.0f;
     return;
   }
+  // the cascade's scalars load beside the blocker taps, not after them
+  const float span = depth_range[c], tx = texel[c];
   const float* map = maps + (size_t)c * r * r;
-  float pu = u[i], pv = v[i], zc = z_cmp[i];
-  float cs = ca[i], sn = sa[i];
 
   float bsum = 0.0f, bcnt = 0.0f;
-  for (int s = 0; s < p.n_blk; ++s) {
+#pragma unroll
+  for (int s = 0; s < (kNB > 0 ? kNB : kMaxTaps); ++s) {
+    if (s >= nb) break;
     float ox = p.blk[s][0] * cs - p.blk[s][1] * sn;
     float oy = p.blk[s][0] * sn + p.blk[s][1] * cs;
     float zs = map[tap_coord(pv + oy, r) * r + tap_coord(pu + ox, r)];
@@ -89,19 +106,21 @@ __global__ void pcss_kernel(const float* __restrict__ maps, int r,
   float pen = 0.0f;
   if (bcnt > 0.0f) {
     float avg = bsum / clamp_min(bcnt, 1.0f);
-    float delta = clamp_min(avg - z_recv[i], 0.0f) * depth_range[c];
-    pen = delta * p.light_size / clamp_min(texel[c], 1e-6f);
+    float delta = clamp_min(avg - zr, 0.0f) * span;
+    pen = delta * p.light_size / clamp_min(tx, 1e-6f);
   }
   float pcf_r = clamp(p.pcf_radius + pen, 1.0f, p.pcf_radius_max);
 
   float lit = 0.0f;
-  for (int s = 0; s < p.n_pcf; ++s) {
+#pragma unroll
+  for (int s = 0; s < (kNP > 0 ? kNP : kMaxTaps); ++s) {
+    if (s >= np) break;
     float ox = (p.pcf[s][0] * cs - p.pcf[s][1] * sn) * pcf_r;
     float oy = (p.pcf[s][0] * sn + p.pcf[s][1] * cs) * pcf_r;
     float zs = map[tap_coord(pv + oy, r) * r + tap_coord(pu + ox, r)];
     lit = lit + (zc >= zs ? 1.0f : 0.0f);
   }
-  out[i] = lit / (float)p.n_pcf;
+  out[i] = lit / (float)np;
 }
 
 }  // namespace
@@ -113,9 +132,10 @@ extern "C" int chord_pcss(const void* maps, int r, const void* cascade,
                           int npix, PcssParams params, void* out,
                           void* stream) {
   if (npix <= 0) return 0;
-  int threads = 128;
-  int blocks = (npix + threads - 1) / threads;
-  pcss_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
+  auto kernel = params.n_blk == 5 && params.n_pcf == 6 ? pcss_kernel<5, 6>
+                                                       : pcss_kernel<0, 0>;
+  kernel<<<(npix + kThreads - 1) / kThreads, kThreads, 0,
+           (cudaStream_t)stream>>>(
       (const float*)maps, r, (const int*)cascade, (const float*)u,
       (const float*)v, (const float*)z_cmp, (const float*)z_recv,
       (const float*)ca, (const float*)sa, (const float*)depth_range,

@@ -16,11 +16,13 @@ from __future__ import annotations
 
 import ctypes
 import hashlib
+import json
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Optional
+from typing import Dict, List, Optional
 
 import torch
 
@@ -67,7 +69,9 @@ def _run_all(cmds):
 def build(verbose: bool = False, csrc: Path = CSRC) -> Path:
     """Compile csrc/*.cu (or another source directory's, for comparing
     designs) into the build directory (if not already there): one nvcc per
-    source in parallel, then one link."""
+    source in parallel, then one link. ptxas's report of each source
+    (-Xptxas -v) is kept beside the library (ptxas_report) and printed
+    when `verbose`."""
     out = library_path(csrc)
     if out.exists():
         return out
@@ -76,9 +80,8 @@ def build(verbose: bool = False, csrc: Path = CSRC) -> Path:
     tag = f"{out.stem}.{os.getpid()}"
     srcs = sources(csrc)
     objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in srcs]
-    ptxas = ["-Xptxas", "-v"] if verbose else []
-    results = _run_all([[nvcc, *NVCC_FLAGS, *ptxas, "-c", "-o", str(o),
-                         str(src)] for src, o in zip(srcs, objs)])
+    results = _run_all([[nvcc, *NVCC_FLAGS, "-Xptxas", "-v", "-c", "-o",
+                         str(o), str(src)] for src, o in zip(srcs, objs)])
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
     if all(rc == 0 for rc, _ in results):
         results += _run_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp),
@@ -90,7 +93,44 @@ def build(verbose: bool = False, csrc: Path = CSRC) -> Path:
             raise RuntimeError(f"nvcc failed on {name} ({rc}):\n{err}")
         if verbose and err:
             print(f"{name}:\n{err}")
+    _report_path(out).write_text(json.dumps(
+        {src.name: err for src, (_, err) in zip(srcs, results)}))
     os.replace(tmp, out)
+    return out
+
+
+def _report_path(library: Path) -> Path:
+    return library.with_suffix(".ptxas.json")
+
+
+def ptxas_report(csrc: Path = CSRC) -> Dict[str, str]:
+    """{source file name: its -Xptxas -v report} of the library built from
+    `csrc` ({} if it was built without one)."""
+    path = _report_path(library_path(csrc))
+    return json.loads(path.read_text()) if path.exists() else {}
+
+
+def ptxas_usage(report: str) -> List[dict]:
+    """Per kernel function of a -Xptxas -v report: its (mangled) name,
+    registers, shared memory bytes and spill store / load bytes."""
+    out: List[dict] = []
+    for line in report.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            out.append(dict(function=m.group(1)))
+            continue
+        if not out:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            out[-1].update(spill_stores=int(m.group(1)),
+                           spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[-1]["registers"] = int(m.group(1))
+            m = re.search(r"(\d+) bytes smem", line)
+            out[-1]["smem"] = int(m.group(1)) if m else 0
     return out
 
 

@@ -9,6 +9,7 @@ were served.
 
     paged_sample   CUDA kernel csrc/proto_paged_tex.cu (CUDA tensors) or
                    paged_sample_plain (CPU tensors)
+    palette        the kernel's two-level palette rule, for the tests
 
 Replaces tools/proto_paged_tex.py::paged_sample_kernel (:70). The palette
 is kept (unlike kernel K5's port): the prototype measures what it covers.
@@ -29,6 +30,8 @@ K = 6               # distinct tiles per pixel block
 BH = 32             # pixel rows per block: distinct-tile scope
 BW = 128            # pixel columns per block
 BIG = 1 << 30       # tile id of an untextured pixel
+WARPS = 16          # warps of a kernel block: warp w takes block rows w and
+                    # w + 16 (csrc/proto_paged_tex.cu)
 
 
 def _check_shapes(pool, meta, u, v, lm) -> None:
@@ -63,18 +66,10 @@ def _unblocks(x: torch.Tensor, h: int, w: int) -> torch.Tensor:
             .reshape(h, w))
 
 
-def paged_sample_plain(pool: torch.Tensor, meta: torch.Tensor,
-                       u: torch.Tensor, v: torch.Tensor, lm: torch.Tensor,
-                       texel_index: Optional[list] = None):
-    """Plain version of kernel K10 -> (out, cov), (H, W) int32 each: the
-    packed texel where the block's palette holds the pixel's tile, else
-    the entry's average colour, -1 where lm < 0; cov 1 where served or
-    lm < 0. Pages are read at clamp(id, 0, n_tiles-1). `texel_index`,
-    when given, receives the flat pool index of every served pixel's texel
-    (what the sampler must read)."""
-    _check_shapes(pool, meta, u, v, lm)
-    h, w = u.shape
-    n_tiles = pool.shape[0] // 8
+def tile_slot(meta: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
+              lm: torch.Tensor):
+    """Each pixel's tile id (BIG where lm < 0), slot in the tile and the
+    entry's average colour -> three (H, W) int32 tensors."""
     lmc = torch.clamp(lm, 0, 127).long()
     base, tiles_x, size, avg = (meta[i][lmc] for i in range(4))
     sf = size.to(torch.float32)
@@ -87,7 +82,49 @@ def paged_sample_plain(pool: torch.Tensor, meta: torch.Tensor,
     tile = base + torch.div(yt, TILE, rounding_mode="floor") * tiles_x + \
         torch.div(xt, TILE, rounding_mode="floor")
     slot = torch.remainder(yt, TILE) * TILE + torch.remainder(xt, TILE)
-    tile = torch.where(lm < 0, BIG, tile)
+    return torch.where(lm < 0, BIG, tile), slot, avg
+
+
+def smallest_distinct(ids: torch.Tensor, k: int = K) -> torch.Tensor:
+    """(n, m) int -> (n, k): the k smallest distinct ids of each row, ids
+    at or above BIG taken as BIG, padded with BIG (k rounds of a min, each
+    taking the round's id out, as a warp of the kernel does)."""
+    rem = torch.clamp_max(ids, BIG)
+    out = []
+    for _ in range(k):
+        cur = rem.amin(1, keepdim=True)
+        out.append(cur)
+        rem = torch.where(rem == cur, BIG, rem)
+    return torch.cat(out, 1)
+
+
+def palette(tile: torch.Tensor) -> torch.Tensor:
+    """The kernel's palette of (H, W) tile ids -> (blocks, K), blocks in
+    row-major order of the (BH, BW) pixel blocks: each warp's K smallest
+    distinct ids (rows w and w + WARPS of the block), then the K smallest
+    distinct of the WARPS lists. The K smallest distinct ids of a union
+    are among the union of each part's, so the ids below BIG are those the
+    plain version's K rounds over the whole block serve."""
+    h, w = tile.shape
+    per_warp = (tile.reshape(h // BH, BH // WARPS, WARPS, w // BW, BW)
+                .permute(0, 3, 2, 1, 4).reshape(-1, BH // WARPS * BW))
+    cand = smallest_distinct(per_warp).reshape(-1, WARPS * K)
+    return smallest_distinct(cand)
+
+
+def paged_sample_plain(pool: torch.Tensor, meta: torch.Tensor,
+                       u: torch.Tensor, v: torch.Tensor, lm: torch.Tensor,
+                       texel_index: Optional[list] = None):
+    """Plain version of kernel K10 -> (out, cov), (H, W) int32 each: the
+    packed texel where the block's palette holds the pixel's tile, else
+    the entry's average colour, -1 where lm < 0; cov 1 where served or
+    lm < 0. Pages are read at clamp(id, 0, n_tiles-1). `texel_index`,
+    when given, receives the flat pool index of every served pixel's texel
+    (what the sampler must read)."""
+    _check_shapes(pool, meta, u, v, lm)
+    h, w = u.shape
+    n_tiles = pool.shape[0] // 8
+    tile, slot, avg = tile_slot(meta, u, v, lm)
 
     tile_b, slot_b = _blocks(tile), _blocks(slot).long()
     remaining = tile_b

@@ -316,19 +316,13 @@ def pcss_offsets(cfg: ShadowConfig):
     return blk, pcf
 
 
-def pcss_plain(shadow_maps: torch.Tensor, pre: ShadowPrepass,
-               cfg: ShadowConfig, tap_index: Optional[list] = None
-               ) -> torch.Tensor:
-    """Plain version of kernel K6 -> (H,W) sun visibility in [0,1]: Poisson
-    blocker search, similar-triangles penumbra (in world units through the
-    cascade's depth span and texel size), variable-radius PCF; 1.0 outside
-    every cascade. `tap_index`, when given, receives each tap's (H,W) flat
-    index into the stack (what the taps read)."""
-    n, r, _ = shadow_maps.shape
+def _tap_sampler(shadow_maps: torch.Tensor, pre: ShadowPrepass,
+                 tap_index: Optional[list]):
+    """-> sample_depth(du, dv): each pixel's stack depth at (u+du, v+dv)
+    of its cascade, truncated toward zero and clamped to the map."""
+    r = shadow_maps.shape[-1]
     flat = shadow_maps.reshape(-1)
-    c = torch.clamp_min(pre.cascade, 0)
-    base = c * (r * r)
-    ca, sa = pre.ca, pre.sa
+    base = torch.clamp_min(pre.cascade, 0) * (r * r)
 
     def sample_depth(du, dv):
         x = torch.clamp(f2i(pre.u + du), 0, r - 1)
@@ -338,8 +332,18 @@ def pcss_plain(shadow_maps: torch.Tensor, pre: ShadowPrepass,
             tap_index.append(idx)
         return flat[idx]
 
-    blk, pcf = pcss_offsets(cfg)
-    zero = torch.zeros((), device=flat.device)
+    return sample_depth
+
+
+def pcf_radius(shadow_maps: torch.Tensor, pre: ShadowPrepass,
+               cfg: ShadowConfig, tap_index: Optional[list] = None
+               ) -> torch.Tensor:
+    """pcss_plain's blocker search and penumbra -> (H,W) PCF radius in
+    texels, in [1, PCF_RADIUS_MAX] (NaN stays NaN)."""
+    sample_depth = _tap_sampler(shadow_maps, pre, tap_index)
+    ca, sa = pre.ca, pre.sa
+    blk, _ = pcss_offsets(cfg)
+    zero = torch.zeros((), device=shadow_maps.device)
     blocker_sum = torch.zeros_like(pre.u)
     blocker_cnt = torch.zeros_like(pre.u)
     for o in blk:
@@ -349,14 +353,27 @@ def pcss_plain(shadow_maps: torch.Tensor, pre: ShadowPrepass,
         blocker_cnt = blocker_cnt + is_blocker.float()
     avg_blocker = blocker_sum / torch.clamp_min(blocker_cnt, 1.0)
 
-    cl = c.long()
+    cl = torch.clamp_min(pre.cascade, 0).long()
     delta_world = (torch.clamp_min(avg_blocker - pre.z_recv, 0.0) *
                    pre.depth_range[cl])
     penumbra = (delta_world * cfg.light_size_world /
                 torch.clamp_min(pre.texel[cl], 1e-6))
     penumbra = torch.where(blocker_cnt > 0.0, penumbra, zero)
-    pcf_r = torch.clamp(cfg.pcf_radius_px + penumbra, 1.0, PCF_RADIUS_MAX)
+    return torch.clamp(cfg.pcf_radius_px + penumbra, 1.0, PCF_RADIUS_MAX)
 
+
+def pcss_plain(shadow_maps: torch.Tensor, pre: ShadowPrepass,
+               cfg: ShadowConfig, tap_index: Optional[list] = None
+               ) -> torch.Tensor:
+    """Plain version of kernel K6 -> (H,W) sun visibility in [0,1]: Poisson
+    blocker search, similar-triangles penumbra (in world units through the
+    cascade's depth span and texel size), variable-radius PCF; 1.0 outside
+    every cascade. `tap_index`, when given, receives each tap's (H,W) flat
+    index into the stack (what the taps read)."""
+    pcf_r = pcf_radius(shadow_maps, pre, cfg, tap_index)
+    sample_depth = _tap_sampler(shadow_maps, pre, tap_index)
+    ca, sa = pre.ca, pre.sa
+    _, pcf = pcss_offsets(cfg)
     lit = torch.zeros_like(pre.u)
     for o in pcf:
         zs = sample_depth((o[0] * ca - o[1] * sa) * pcf_r,

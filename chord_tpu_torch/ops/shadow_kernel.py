@@ -15,6 +15,7 @@ version, so kernel and plain version see identical tensors.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -35,7 +36,10 @@ class _PcssParams(ctypes.Structure):
                 ("light_size", ctypes.c_float)]
 
 
+@functools.lru_cache(maxsize=64)
 def _params(cfg: ShadowConfig) -> _PcssParams:
+    """The kernel's offsets and scalars for `cfg`, built once per config
+    (ctypes passes the struct by value, a copy per call)."""
     blk, pcf = pcss_offsets(cfg)
     if not (1 <= len(blk) <= MAX_TAPS and 1 <= len(pcf) <= MAX_TAPS):
         raise ValueError(f"PCSS sample counts ({len(blk)}, {len(pcf)}) must "

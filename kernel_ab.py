@@ -8,10 +8,11 @@
 Each DIR holds a `csrc/` directory of kernel sources; "." stands for this
 checkout (chord_tpu_torch/csrc). The script builds one library per design
 (nvcc's -Xptxas -v lines printed under the design's name), captures the
-kernel calls of one frame of each frame path (chip_smoke.capture_frame) or
-of the repro tool's `tm_pallas` first call (path `repro_eval`), with this
-checkout's kernels, and then, for each captured call of each kernel in
---kernels (default: every kernel of the paths), for each design whose
+kernel calls of one frame of each frame path (chip_smoke.capture_frame),
+of the repro tool's `tm_pallas` first call (path `repro_eval`) or of the
+proto tool's first call in main() (path `proto_paged_tex`, K10), with
+this checkout's kernels, and then, for each captured call of each kernel
+in --kernels (default: every kernel of the paths), for each design whose
 library exports the kernel's entry point: runs it against the plain
 version (tolerance 0; a mismatch fails the run) and times it. The designs
 run in turns, `--rounds` rounds of `--reps` calls each, the order
@@ -88,12 +89,15 @@ def sass_counts(lib_path: Path, stem: str) -> dict:
 
 def capture(path, dev, scenes):
     from chord_tpu_torch.ops import kernels
-    from chord_tpu_torch.tools import repro_eval_kernel as tool
+    from chord_tpu_torch.tools import proto_paged_tex, repro_eval_kernel
 
-    if path != "repro_eval":
+    if path not in ("repro_eval", "proto_paged_tex"):
         return chip_smoke.capture_frame(path, scenes[path])[0]
     with kernels.capture_inputs() as captured:
-        tool.run_variant("tm_pallas", dev, 0)
+        if path == "repro_eval":
+            repro_eval_kernel.run_variant("tm_pallas", dev, 0)
+        else:
+            proto_paged_tex.main(device=dev)
     return {k: calls[:1] for k, calls in captured.items()}
 
 

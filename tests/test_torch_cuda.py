@@ -35,6 +35,7 @@ from chord_tpu_torch.rhi.meshlet_scene import build_meshlet_pools
 from chord_tpu_torch.tools import proto_paged_tex, repro_eval_kernel
 from chord_tpu_torch.utils.camera import Camera
 from chord_tpu_torch.utils.cvar import cvars
+from proto_palette_cases import sampler_inputs, tile_cases
 from test_torch_raster_bands import CASES as BAND_CASES
 from test_torch_paged_footprint import footprint_inputs
 from test_torch_raster_bands import band_inputs
@@ -339,6 +340,74 @@ def test_pcss_random_inputs(dev):
             cfg._replace(eval_kernel=False))
 
 
+def _pcss_exact(maps, pre, cfg):
+    """K6 against its plain version on the card and on the CPU, bit for
+    bit -> the kernel's output."""
+    got = shadow_kernel.pcss(maps, pre, cfg)
+    torch.cuda.synchronize()
+    cpu = shadow.pcss_plain(maps.cpu(), shadow.ShadowPrepass(
+        *[x.cpu() for x in pre]), cfg)
+    for ref in (shadow.pcss_plain(maps, pre, cfg), cpu):
+        assert kernels.max_abs_err([got.cpu()], [ref.cpu()]) == 0.0
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("counts", [(5, 6), (1, 1), (16, 16), (3, 7)])
+def test_pcss_tap_counts(dev, counts):
+    """K6's bench instance (5 blocker, 6 PCF taps: counts fixed at compile
+    time) and the generic one (every other count in [1, 16])."""
+    maps, pre = _pcss_inputs(dev)
+    cfg = shadow.ShadowConfig(pcss_blocker_samples=counts[0],
+                              pcss_pcf_samples=counts[1])
+    got = _pcss_exact(maps, pre, cfg)
+    assert 0.0 < float((got < 1.0).float().mean()) < 1.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["odd_size", "all_outside", "past_edges",
+                                  "radius_at_1", "radius_at_max"])
+def test_pcss_edge_cases(dev, case):
+    """K6 on an eval grid that is no multiple of a block (7x13), with every
+    pixel outside the cascades, with taps past every edge of the map, and
+    with every PCF radius clamped at 1 or at PCF_RADIUS_MAX; the bench's
+    tap counts and a generic count."""
+    h, w = (7, 13) if case == "odd_size" else (90, 160)
+    maps, pre = _pcss_inputs(dev, h=h, w=w)
+    cfg = shadow.ShadowConfig()
+    r = maps.shape[-1]
+    if case == "all_outside":
+        pre = pre._replace(cascade=torch.full_like(pre.cascade, -1))
+    if case == "past_edges":
+        # each pixel beyond one edge, or two (a corner), by up to 200
+        # texels: every tap clamps to the map's border
+        g = torch.Generator(device="cpu").manual_seed(3)
+        su = torch.randint(0, 3, (h, w), generator=g)    # 2: inside
+        sv = torch.where(su == 2, torch.randint(0, 2, (h, w), generator=g),
+                         torch.randint(0, 3, (h, w), generator=g))
+        off = torch.rand((2, h, w), generator=g).to(dev) * 200 + 40
+        u, v = (torch.where(sd == 0, -off[i], torch.where(
+            sd == 1, r + off[i], p)) for i, (sd, p) in
+            enumerate(zip((su.to(dev), sv.to(dev)), (pre.u, pre.v))))
+        pre = pre._replace(u=u, v=v)
+    if case == "radius_at_1":
+        cfg = cfg._replace(pcf_radius_px=0.25, light_size_world=0.0)
+    if case == "radius_at_max":
+        cfg = cfg._replace(light_size_world=1e4)
+    for c in (cfg, cfg._replace(pcss_blocker_samples=4, pcss_pcf_samples=9)):
+        got = _pcss_exact(maps, pre, c)
+        inside = pre.cascade >= 0
+        rad = shadow.pcf_radius(maps, pre, c)[inside]
+        if case == "all_outside":
+            assert bool((got == 1.0).all())
+        if case == "radius_at_1":
+            assert bool((rad == 1.0).all())
+        if case == "radius_at_max":
+            assert float((rad == shadow.PCF_RADIUS_MAX).float().mean()) > 0.5
+        if case == "past_edges":
+            assert bool(((u < 0) | (u >= r) | (v < 0) | (v >= r)).all())
+
+
 @pytest.mark.cuda
 def test_wrappers_reject_bad_inputs(dev):
     table = torch.zeros((16, 8), dtype=torch.float32, device=dev)
@@ -638,6 +707,61 @@ def test_proto_sampler_random_inputs(dev):
     assert 0.0 < float(served) < 1.0
     res = proto_paged_tex.main(device=dev)
     assert res["match"] == 1.0 and res["untextured_ok"]
+
+
+def _proto_exact(args):
+    """K10 against its plain version on the card and on the CPU, bit for
+    bit -> the kernel's (out, cov)."""
+    got = proto_sampler.paged_sample(*args)
+    torch.cuda.synchronize()
+    for ref in (proto_sampler.paged_sample_plain(*args),
+                proto_sampler.paged_sample_plain(*[a.cpu() for a in args])):
+        assert torch.equal(got[0].cpu(), ref[0].cpu())
+        assert torch.equal(got[1].cpu(), ref[1].cpu())
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(tile_cases(np.random.default_rng(0))))
+def test_proto_sampler_palette_cases(dev, case):
+    """K10 on the palette rule's cases (tests/proto_palette_cases.py):
+    blocks asking for 1, 6, 7 and over 100 distinct tiles, duplicates
+    across warps, untextured blocks, ids that clamp or reach BIG."""
+    tiles = tile_cases(np.random.default_rng(0))[case]
+    args = [torch.from_numpy(a).to(dev) for a in
+            sampler_inputs(tiles, np.random.default_rng(1))]
+    _, cov = _proto_exact(args)
+    lm = args[4]
+    assert bool((cov[lm < 0] == 1).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["nan_huge_uv", "one_tile_pool",
+                                  "offset_views"])
+def test_proto_sampler_edge_inputs(dev, case):
+    """K10 with NaN, infinite and huge u, v; with a pool of one tile (every
+    page clamps to it); and with inputs at an offset of one element (not
+    16-B aligned: the kernel's 4-B path)."""
+    pool, meta, u, v, lm = _proto_inputs(dev, 64, 256)
+    if case == "nan_huge_uv":
+        g = torch.Generator(device="cpu").manual_seed(5)
+        special = torch.tensor([float("nan"), float("inf"), -float("inf"),
+                                1e30, -1e30, 2.0**24, -2.0**24 - 3, 1e-8,
+                                -1e-8, -0.0])
+        for x in (u, v):
+            pick = torch.rand(x.shape, generator=g) < 0.3
+            idx = torch.randint(0, len(special), x.shape, generator=g)
+            x[pick.to(dev)] = special[idx][pick].to(dev)
+    if case == "one_tile_pool":
+        pool = pool[:8].clone()
+    if case == "offset_views":
+        def offset(x):
+            buf = torch.zeros(x.numel() + 1, dtype=x.dtype, device=dev)
+            buf[1:] = x.reshape(-1)
+            return buf[1:].view(x.shape)
+        u, v, lm = offset(u), offset(v), offset(lm)
+        assert u.data_ptr() % 16 != 0
+    _proto_exact((pool, meta, u, v, lm))
 
 
 @pytest.mark.cuda

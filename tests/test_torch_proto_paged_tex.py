@@ -16,12 +16,15 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings
+from hypothesis import strategies as st
 from jax.experimental import pallas as pl
 
 import tools.proto_paged_tex as jtool
 
 from chord_tpu_torch.ops import proto_paged_tex as sampler
 from chord_tpu_torch.tools import proto_paged_tex as tool
+from proto_palette_cases import BIG, sampler_inputs, tile_cases
 
 
 class _InterpretPallas:
@@ -176,3 +179,91 @@ def test_tool_main_on_the_cpu(capsys):
     assert 0.0 < res["covered"] <= 1.0
     assert res["untextured_ok"]
     assert "exact-match among covered: 100.000%" in capsys.readouterr().out
+
+
+# --- the kernel's two-level palette (sampler.palette) ----------------------
+
+def _amin_rounds(tile):
+    """The plain version's K rounds over whole (BH, BW) blocks of an (H, W)
+    tile field (paged_sample_plain) -> (blocks, K): each round's id."""
+    tile_b = sampler._blocks(torch.as_tensor(tile, dtype=torch.int64))
+    remaining, out = tile_b, []
+    for _ in range(sampler.K):
+        cur = remaining.amin(1, keepdim=True)
+        out.append(cur)
+        remaining = torch.where(tile_b == cur, BIG, remaining)
+    return torch.cat(out, 1)
+
+
+def _check_palette(tile):
+    """The two-level palette serves, block by block, the ids below BIG
+    that the plain rounds serve: in ascending order, each once, then BIG."""
+    pal = sampler.palette(torch.as_tensor(tile, dtype=torch.int64))
+    rounds = _amin_rounds(tile)
+    assert pal.shape == rounds.shape
+    for p, r in zip(pal.tolist(), rounds.tolist()):
+        served = [t for t in r if t < BIG]
+        assert [t for t in p if t < BIG] == served
+        assert p == served + [BIG] * (sampler.K - len(served))
+        assert served == sorted(set(served))
+    return pal
+
+
+@pytest.mark.parametrize("case", sorted(tile_cases(np.random.default_rng(0))))
+def test_palette_rule_matches_plain_rounds(case):
+    """Blocks asking for 1, 6, 7 and over 100 distinct tiles, duplicates
+    across warps, each warp one tile, untextured blocks, ids that clamp
+    (negative, past the pool) or reach BIG."""
+    tiles = tile_cases(np.random.default_rng(0))[case]
+    pal = _check_palette(tiles)
+    n = [len({t for t in blk if t < BIG}) for blk in
+         sampler._blocks(torch.as_tensor(tiles)).tolist()]
+    want = {"one_tile": 1, "six_tiles": 6, "seven_tiles": 7,
+            "untextured": 0}.get(case)
+    if want is not None:
+        assert n == [want] * len(n)
+    if case == "many_tiles":
+        assert min(n) > 100
+    if case == "clamped_ids":
+        assert pal[0, :3].lt(0).all() and pal[0, 3:].ge(1000).all()
+        assert pal[1].ge(1000).all() and pal[2].ge(BIG - 50).all()
+        assert pal[3].tolist() == [3, 250] + [BIG] * 4
+    if case == "one_per_warp":       # each warp holds one palette id
+        assert all(v == 16 for v in n)
+
+
+@settings(max_examples=60, deadline=None)
+@given(seed=st.integers(0, 2**32 - 1), alphabet=st.integers(1, 300),
+       untextured=st.floats(0.0, 1.0), lo=st.integers(-500, 2000))
+def test_palette_rule_random_fields(seed, alphabet, untextured, lo):
+    """Random 64x256 fields of `alphabet` ids from `lo` (ids may be
+    negative), a share of them BIG, some at or above BIG."""
+    rng = np.random.default_rng(seed)
+    tiles = rng.integers(lo, lo + alphabet, (64, 256))
+    tiles[rng.uniform(size=tiles.shape) < untextured] = BIG
+    tiles[rng.uniform(size=tiles.shape) < 0.01] = BIG + 7
+    _check_palette(tiles)
+
+
+@pytest.mark.parametrize("case", sorted(tile_cases(np.random.default_rng(0))))
+def test_palette_is_what_the_plain_sampler_serves(case):
+    """Through the sampler's inputs: tile_slot gives back the case's ids,
+    and paged_sample_plain serves exactly the textured pixels whose tile
+    is in their block's two-level palette, each with its page clamped to
+    the pool."""
+    rng = np.random.default_rng(1)
+    tiles = tile_cases(np.random.default_rng(0))[case]
+    args = [torch.from_numpy(a) for a in sampler_inputs(tiles, rng)]
+    pool, meta, u, v, lm = args
+    tile, slot, _ = sampler.tile_slot(meta, u, v, lm)
+    assert torch.equal(tile.long(), torch.from_numpy(tiles))
+    out, cov = sampler.paged_sample_plain(*args)
+    pal = sampler.palette(tile)                       # (blocks, K)
+    h, w = tile.shape
+    in_pal = (sampler._blocks(tile)[:, :, None] == pal[:, None, :]).any(2)
+    served = sampler._unblocks(in_pal, h, w) & (tile < BIG)
+    assert torch.equal(cov.bool(), served | (lm < 0))
+    page = torch.clamp(tile, 0, pool.shape[0] // 8 - 1).long()
+    texel = pool.reshape(-1)[page * 1024 + slot]
+    assert torch.equal(out[served], texel[served])
+    assert torch.equal(out[lm < 0], torch.full_like(out[lm < 0], -1))

@@ -397,3 +397,21 @@ def test_shadow_raster_on_the_reference_setup(cascades):
     got = raster.raster_queue(raster.bin_windows(setup, rc), setup, rc)[0]
     assert (ref > 0).mean() > 0.05
     np.testing.assert_allclose(got.numpy(), ref, rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("counts", [(5, 6), (1, 1), (16, 16), (3, 7)])
+def test_pcss_params_cache_equals_fresh(counts):
+    """K6's wrapper builds its offsets struct once per ShadowConfig: the
+    cached struct is the one a fresh build gives, byte for byte, and a
+    changed config gets its own."""
+    from chord_tpu_torch.ops import shadow_kernel
+
+    cfg = shadow.ShadowConfig(pcss_blocker_samples=counts[0],
+                              pcss_pcf_samples=counts[1])
+    cached = shadow_kernel._params(cfg)
+    assert shadow_kernel._params(cfg) is cached
+    assert bytes(cached) == bytes(shadow_kernel._params.__wrapped__(cfg))
+    wider = shadow_kernel._params(cfg._replace(pcf_radius_px=3.0))
+    assert bytes(wider) != bytes(cached) and wider.pcf_radius == 3.0
+    assert (cached.n_blk, cached.n_pcf) == counts
+
