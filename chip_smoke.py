@@ -4,7 +4,7 @@
     python3 chip_smoke.py              # the default run
     python3 chip_smoke.py --profile    # + a torch.profiler breakdown per path
 
-Seven paths: five frame paths and two tool paths. Three are the bench's
+Eight paths: six frame paths and two tool paths. Three are the bench's
 `off`, `geo_tex` and `geo_shadow_atmo` rungs (bench.py:35-54): the
 1280x720 render of the 2.6M-triangle procedural bistro (Nanite LOD cut),
 upscaled to 1920x1080 by tile-mode TSR, bloom and the ACES tonemap;
@@ -18,7 +18,13 @@ sun tint, ambient and aerial perspective, with the atmosphere LUTs built
 once (bench.py:236-256). `geo_tex_bricks` is `geo_tex` with the
 r.raster.bricks cvar set for the whole path: the brick raster (K7)
 replaces K1 in both occlusion phases and the masked and blend buckets.
-`flat` is the flat DeferredRenderer frame (BASELINE config #1: object
+`all_no_rt` is the bench's `all` rung (bench.py:35-36, 204-219) with only
+gi_rt=False changed: `geo_shadow_atmo`'s scene, views and LUTs plus
+screen-probe GI (ScreenProbeConfig(rays=16, steps=6, history_mode="tile"),
+GIConfig()), SSAO, the specular chain with SSR, trilinear mip dither and
+the env-BRDF LUT built once (bench.py:248); it runs K4 twice a frame (the
+TSR history and the half-res GI history). `flat` is the flat
+DeferredRenderer frame (BASELINE config #1: object
 frustum cull, every triangle of the visible objects, deferred PBR) of
 build_sponza_like(detail=4) (367,104 padded triangles) at 1920x1080 along
 bench.py's Sponza camera path (bench.py:127-129), with
@@ -48,10 +54,11 @@ Phases (any failure raises and the script exits non-zero):
    then records every kernel call's inputs through the next frame, and
    runs each kernel and its plain PyTorch version on those calls (K1
    raster on the three bench rungs; K2 mesh shader, K3 row gather, K4 tile
-   reproject on every meshlet path; K5 paged texture sampler on the
-   textured paths, with the masked shadow casters on `geo_shadow_atmo`;
-   K6 PCSS on `geo_shadow_atmo`; K7 brick raster on `geo_tex_bricks`; K8
-   sub-tile raster on `flat`).
+   reproject on every meshlet path, both of its calls on `all_no_rt`; K5
+   paged texture sampler on the textured paths, with the masked shadow
+   casters on the shadow paths; K6 PCSS on `geo_shadow_atmo` and
+   `all_no_rt`; K7 brick raster on `geo_tex_bricks`; K8 sub-tile raster
+   on `flat`).
    Tolerance 0: the kernels are built with -fmad=false and round every
    operation as the plain versions do. Times each call (CUDA events,
    inputs L2-warm, queued behind a device-side sleep so the events see the
@@ -67,7 +74,8 @@ Phases (any failure raises and the script exits non-zero):
    and, for K3 and K9, times one PyTorch call of the same function
    (torch.index_select of the same rows, x.clone()) as a library
    yardstick, kernel and library in turn over 5 rounds of 200 calls
-   (medians, with the rounds' spread). For each K1, K7 and K8 call it
+   (medians, with the rounds' spread); K4's two calls of an `all_no_rt`
+   frame are timed in turn the same way. For each K1, K7 and K8 call it
    prints a `work` line, off the timed window: per tile the pairs (K1, K7)
    or rounds (K8) and the row visits, per block of the kernels'
    decomposition (32 columns a warp x raster.K1_BAND / K7_BAND / K8_BAND
@@ -79,18 +87,25 @@ Phases (any failure raises and the script exits non-zero):
    on `flat`, DeferredRenderer.render frame by frame), with every launch
    count set to 0 just before and read just after: worst-frame overflows
    0, drawn triangles > 0, a finite non-constant image, every kernel of
-   the path launched and no other (K5 32 times on `geo_tex` and
-   `geo_tex_bricks`, 40 on `geo_shadow_atmo`: 32 plus the masked casters
+   the path launched and no other (kernels.EXPECTED_LAUNCHES: K4 16
+   times, 32 on `all_no_rt`; K5 32 times on `geo_tex` and
+   `geo_tex_bricks`, 40 on the shadow paths: 32 plus the masked casters
    of the 8 frames that refresh cascade 0 or 1; K6 16 times; K7 64 times;
    K8 16 times), masked draws on some frame of the textured paths, a
-   finite cascade cache and shadow mask, and per cascade the shadow draws
+   finite cascade cache and shadow mask, on `all_no_rt` the GI history
+   (chord_tpu's shapes, probes with samples, a world cache that took
+   probes, non-negative non-zero diffuse and specular histories) and,
+   from a second run, whether images and world cache repeat bit for bit;
+   and per cascade the shadow draws
    (read from the K2 calls) beside what the cull asked for and the pairs
    the bins dropped (none allowed); then the sequence three more times for
    ms/frame (median and spread). At bench.py's shadow_draw_capacity=2048
    the far cascade asks for more draws than that and drops the rest, as
    chord_tpu does at this config: printed, not failed. The shadow path
    then runs once more at 4096, where every cascade must stay below its
-   capacity, and is timed there too.
+   capacity, and is timed there too. With --profile, each path's device
+   busy share and ops per frame, and on `all_no_rt` each GI stage's
+   device and host ms (its record_function span).
 6. `repro_eval`: every variant through the tool's run_variant (one call
    at frame 1, three steady), launch counts set to 0 before each variant
    and read after it (K9 1 + 3 times on `tm_pallas`, no kernel on any
@@ -106,8 +121,9 @@ Phases (any failure raises and the script exits non-zero):
    pixel at the f32 rate).
 8. A small-input cross-check per frame path (tiny atrium, its flat pools on
    `flat`; small textured bistro, with 2 cascades of 256² on the shadow
-   path): kernels on the GPU vs plain versions on the CPU (the path the
-   tests hold against chord_tpu), stats exact, images within 2 u8 levels.
+   paths, and GI on `all_no_rt`): kernels on the GPU vs plain versions on
+   the CPU (the path the tests hold against chord_tpu), stats exact,
+   images within 2 u8 levels.
 
 Phases 4-5 run per frame path, then 6, 7 and 8. The line before the last
 is the nvidia-smi name/power-limit line, the one before that the
@@ -144,7 +160,16 @@ FULL_SHADOW_DRAWS = 4096
 FLAT_W, FLAT_H = 1920, 1080
 FLAT_DETAIL = 4
 FLAT_PAIRS = 16384
-TEXTURED_PATHS = ("geo_tex", "geo_shadow_atmo", "geo_tex_bricks")
+TEXTURED_PATHS = ("geo_tex", "geo_shadow_atmo", "geo_tex_bricks",
+                  "all_no_rt")
+SHADOW_PATHS = ("geo_shadow_atmo", "all_no_rt")
+# the GI stages' torch.profiler spans (renderer/meshlet_frame.py), named as
+# chord_tpu's named_scopes
+GI_SPANS = ("gi.ao", "gi.probe.spawn", "gi.probe.sh_reproject",
+            "gi.probe.taps", "gi.probe.project_sh", "gi.probe.world_inject",
+            "gi.probe.interpolate", "gi.probe.history_reproject",
+            "gi.probe.spatial_filter", "gi.probe.upsample", "gi.specular",
+            "gi.specular.filter")
 RASTERS = ("raster", "raster_bricks", "raster_subtile")   # K1, K7, K8
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory
 F32_OPS_PER_S = 67e12         # H100 SXM f32 outside the tensor cores
@@ -184,6 +209,13 @@ def bench_scenes(dev, paths):
         t0 = time.time()
         if path == "flat":
             scenes[path] = flat_scene(dev)
+            continue
+        if path == "all_no_rt":   # geo_shadow_atmo's scene (PATHS order)
+            pools, inst, views, blend_tex = scenes["geo_shadow_atmo"]
+            scenes[path] = (pools, inst,
+                            views.replace(brdf_lut=brdf_lut(dev)), blend_tex)
+            log(f"scene {path}: the geo_shadow_atmo scene and views, with "
+                f"the env-BRDF LUT in {time.time() - t0:.2f} s")
             continue
         if path == "geo_tex_bricks":   # geo_tex's scene (PATHS order)
             scenes[path] = scenes["geo_tex"]
@@ -266,6 +298,14 @@ def flat_scene(dev, detail: int = FLAT_DETAIL, w: int = FLAT_W,
     return pools, insts, uniforms, None
 
 
+def brdf_lut(dev):
+    """The env-BRDF LUT, built once as bench.py does (bench.py:248:
+    64 samples, a 32x32 LUT)."""
+    from chord_tpu_torch.ops.brdf_lut import build_env_brdf_lut
+
+    return build_env_brdf_lut(64, device=dev)
+
+
 def with_luts(views, dev):
     """The views with the atmosphere LUTs, built once for the path's static
     sun (bench.py:239-256)."""
@@ -284,6 +324,7 @@ def configs(path: str, blend_textured: bool = False, shadow_cfg=None,
     """The path's RendererConfig and MeshletFrameConfig: bench.py's for a
     rung (bench.py:171-219 at render scale 0.6667); on `flat` the flat
     frame's config and no MeshletFrameConfig."""
+    from chord_tpu_torch.ops.screen_probe import ScreenProbeConfig
     from chord_tpu_torch.ops.shadow import ShadowConfig
     from chord_tpu_torch.renderer import MeshletFrameConfig, RendererConfig
 
@@ -297,19 +338,24 @@ def configs(path: str, blend_textured: bool = False, shadow_cfg=None,
                             enable_bloom=True, enable_tsr=True,
                             tsr_mode="tile")
     tex = path != "off"
-    shadows = path == "geo_shadow_atmo"
+    shadows = path in SHADOW_PATHS
+    gi = path == "all_no_rt"     # bench.py's `all` rung, gi_rt=False
     return config, MeshletFrameConfig(
         draw_capacity=2048, masked_draw_capacity=256, occlusion=True,
         object_precull=True, textured=tex, normal_mapped=tex,
         pbr_textures=tex, alpha_masked=tex, alpha_blend=tex,
         blend_textured=blend_textured, shadows=shadows, atmosphere=shadows,
         shadow_masked=True, shadow_draw_capacity=shadow_draws,
-        shadow_cfg=shadow_cfg or ShadowConfig())
+        shadow_cfg=shadow_cfg or ShadowConfig(), gi=gi, gi_mode="probe",
+        ssr=gi, trilinear=gi,
+        probe_cfg=ScreenProbeConfig(rays=16, steps=6, history_mode="tile")
+        if gi else None)
 
 
 def history(config, mcfg, dev):
     """A fresh history for the path (with the cascade cache on the shadow
-    path, bench.py:259-269)."""
+    paths and the GI state with GI on, bench.py:259-269)."""
+    from chord_tpu_torch.ops.gi import GIConfig
     from chord_tpu_torch.rhi.framebuffer import FrameHistory
 
     h, w = config.height, config.width
@@ -322,7 +368,9 @@ def history(config, mcfg, dev):
     return FrameHistory.empty(h, w, ph, pw, shadow_div=s.eval_res_div,
                               shadow_cascades=s.cascade_count,
                               shadow_res=s.resolution,
-                              shadow_phase=s.temporal_phase, device=dev)
+                              shadow_phase=s.temporal_phase,
+                              gi_cfg=GIConfig() if mcfg.gi else None,
+                              probe_tile=8 if mcfg.gi else 0, device=dev)
 
 
 def run_path(path, scene, config, mcfg, hist, lo: int = 0,
@@ -667,6 +715,10 @@ def paged_inputs(args, kwargs) -> str:
 
 
 def describe(name: str, args, kwargs) -> str:
+    if name == "tile_reproject":
+        planes, _, hp, wp = args
+        return (f"out ({planes.shape[0]},{hp},{wp}) from padded planes "
+                f"{'x'.join(map(str, planes.shape))}")
     if name == "pcss":
         maps, pre, _ = args
         return (f"stack {'x'.join(map(str, maps.shape))} eval "
@@ -776,6 +828,17 @@ def compare_kernels(path, captured, what: str):
                 per_call[-1]["work"] = work
                 log(f"work {k.name} on {path} {per_call[-1]['call']}: "
                     f"{json.dumps(work)}")
+        if k.name == "tile_reproject" and len(calls) > 1:
+            # K4's calls of a frame (TSR's and the GI history's) in turns
+            runs = alternate([lambda a=a, kw=kw: k.fn()(*a, **kw)
+                              for a, kw in calls])
+            for c, r in zip(per_call, runs):
+                c.update(ms=statistics.median(r), ms_rounds=r)
+            log(f"kernel {k.name} on {path}, its calls in turns: " +
+                "; ".join(f"[{c['call']}] {spread(r)}"
+                          for c, r in zip(per_call, runs)) +
+                f", medians of {len(runs[0])} alternating rounds of 200 "
+                "calls")
         tot = lambda key: sum(c[key] for c in per_call)
         by = max(per_call, key=lambda c: c["bound_ms"])["bound_by"]
         rows[k.name] = dict(
@@ -845,6 +908,45 @@ def check_shadow_draws(k2_calls, stats, mcfg, fail_at_capacity: bool):
             "at this config: " + ", ".join(full))
 
 
+def check_gi_history(path, hist, config, mcfg) -> None:
+    """The GI state after a run: chord_tpu's shapes, probes on geometry
+    that gathered samples, a world cache that took probes (a cascade takes
+    them only where its clipmap holds converged probes), non-negative
+    diffuse and specular histories that are not all zero."""
+    from chord_tpu_torch.ops.gi import GIConfig, sh_size
+
+    gcfg = mcfg.gi_cfg or GIConfig()
+    h, w = config.height, config.width
+    want = {"gi_cache": sh_size(gcfg), "probe_sh": (h // 8, w // 8, 28),
+            "probe_depth": (h // 8, w // 8), "gi_diffuse": (h // 2, w // 2, 3),
+            "gi_specular": (-(-h // gcfg.sample_res_div),
+                            -(-w // gcfg.sample_res_div), 3)}
+    for name, shape in want.items():
+        if tuple(getattr(hist, name).shape) != shape:
+            raise AssertionError(f"{path}: history {name} is "
+                                 f"{tuple(getattr(hist, name).shape)}, not "
+                                 f"{shape}")
+    n = hist.probe_sh[..., 27]
+    lit = (hist.gi_cache[..., 27] > 0).float().mean(dim=1)
+    log(f"{path}: probes with samples {float((n > 0).float().mean()):.4f} "
+        f"(median count {float(n.median()):.2f}), lit cache probes per "
+        f"cascade {[round(float(x), 5) for x in lit]}, gi_diffuse in "
+        f"[{float(hist.gi_diffuse.min()):.4f}, "
+        f"{float(hist.gi_diffuse.max()):.4f}], gi_specular in "
+        f"[{float(hist.gi_specular.min()):.4f}, "
+        f"{float(hist.gi_specular.max()):.4f}]")
+    on_geometry = hist.probe_depth > 0
+    if not float((n[on_geometry] > 8).float().mean()) > 0.5:
+        raise AssertionError(f"{path}: most probes on geometry hold <= 8 "
+                             "samples")
+    if not bool((lit > 0).any()):
+        raise AssertionError(f"{path}: the world cache took no probe")
+    for name in ("gi_diffuse", "gi_specular"):
+        x = getattr(hist, name)
+        if float(x.min()) < 0.0 or not float(x.max()) > 0.0:
+            raise AssertionError(f"{path}: history {name} is negative or 0")
+
+
 def main_path(path, scene, card: str,
               shadow_draws: int = BENCH_SHADOW_DRAWS):
     """Phase 5 for one path: the 16-frame sequence, counted, checked and
@@ -888,7 +990,8 @@ def main_path(path, scene, card: str,
     if float(last.std()) < 1.0:
         raise AssertionError(f"{path}: the final image is constant")
     for name in ("depth", "tsr_color", "exposure", "hzb_flat",
-                 "shadow_mask", "shadow_maps", "depth_range"):
+                 "shadow_mask", "shadow_maps", "depth_range", "gi_cache",
+                 "probe_sh", "probe_depth", "gi_diffuse", "gi_specular"):
         if not bool(torch.isfinite(getattr(hist, name)).all()):
             raise AssertionError(f"{path}: history {name} is not finite")
     for k in kernels.KERNELS:
@@ -898,13 +1001,7 @@ def main_path(path, scene, card: str,
                                  f"{path} path")
         if path not in k.paths and n != 0:
             raise AssertionError(f"kernel {k.name} ran on the {path} path")
-    expect = {"geo_tex": {"paged_texture": 2 * FRAMES},
-              "geo_shadow_atmo": {"paged_texture": 2 * FRAMES + FRAMES // 2,
-                                  "pcss": FRAMES},
-              "geo_tex_bricks": {"paged_texture": 2 * FRAMES,
-                                 "raster_bricks": 4 * FRAMES},
-              "flat": {"raster_subtile": FRAMES}}.get(path, {})
-    for name, n in expect.items():
+    for name, n in kernels.EXPECTED_LAUNCHES[path].items():
         if launches[name] != n:
             raise AssertionError(f"{name} launched {launches[name]} times "
                                  f"on {path}, expected {n}")
@@ -912,6 +1009,8 @@ def main_path(path, scene, card: str,
         raise AssertionError("no masked draws on any frame")
     k2_calls = captured["mesh_shader"]
     del captured
+    if mcfg is not None and mcfg.gi:
+        check_gi_history(path, hist, config, mcfg)
     if mcfg is not None and mcfg.shadows:
         check_shadow_draws(k2_calls, stats, mcfg, fail_at_capacity=not bench)
         m = hist.shadow_mask
@@ -926,12 +1025,22 @@ def main_path(path, scene, card: str,
                                  "and shadowed")
 
     times = []
-    for _ in range(3):
+    for i in range(3):
         torch.cuda.synchronize()
         t0 = time.time()
-        run_path(path, scene, config, mcfg, hist0)
+        again = run_path(path, scene, config, mcfg, hist0)
         torch.cuda.synchronize()
         times.append((time.time() - t0) / FRAMES * 1000.0)
+        if i == 0 and mcfg is not None and mcfg.gi:
+            # the world cache sums probes by scatter-add: same inputs, same
+            # cache, run after run?
+            diff = {f: float((getattr(again[1], f) - getattr(hist, f))
+                             .abs().max()) for f in ("gi_cache", "probe_sh")}
+            log(f"{path} run to run: images equal "
+                f"{bool(torch.equal(again[0], imgs))}, max |gi_cache "
+                f"difference| {diff['gi_cache']}, probe_sh "
+                f"{diff['probe_sh']}")
+        del again
     ms = statistics.median(times)
     log(f"{label} path: {ms:.3f} ms/frame median of 3 runs "
         f"({', '.join(f'{t:.3f}' for t in times)}; spread "
@@ -964,7 +1073,10 @@ def profile(path, scene, n: int = 4) -> None:
         torch.cuda.synchronize()
         wall = time.time() - t0
     events = prof.key_averages()
-    on_device = [e for e in events if e.device_type == DeviceType.CUDA]
+    # a record_function span may also appear as a device-side annotation:
+    # it is not device work of its own
+    on_device = [e for e in events if e.device_type == DeviceType.CUDA
+                 and e.key not in GI_SPANS]
     dev_us = sum(e.self_device_time_total for e in on_device)
     n_launch = sum(e.count for e in on_device)
     log(events.table(sort_by="self_device_time_total", row_limit=25))
@@ -972,6 +1084,14 @@ def profile(path, scene, n: int = 4) -> None:
         f"{wall * 1000 / n:.3f} ms/frame (profiler on), device busy "
         f"{dev_us / 1000 / n:.3f} ms/frame = {dev_us / 1e6 / wall:.4f} "
         f"of wall, {n_launch / n:.1f} device ops/frame")
+    spans = {e.key: e for e in events
+             if e.key in GI_SPANS and e.device_type == DeviceType.CPU}
+    if spans:
+        # device: the kernels launched inside the span; host: its wall
+        log(f"profile {path} GI stages per frame (device ms / host ms): " +
+            ", ".join(f"{name} {spans[name].device_time_total / 1000 / n:.4f}"
+                      f" / {spans[name].cpu_time_total / 1000 / n:.3f}"
+                      for name in GI_SPANS if name in spans))
 
 
 def _agree(got, ref, variant: str):
@@ -1094,7 +1214,7 @@ def small_cross_check(path, dev):
     from chord_tpu_torch.utils.camera import Camera
 
     tex = path in TEXTURED_PATHS
-    shadows = path == "geo_shadow_atmo"
+    shadows = path in SHADOW_PATHS
     mcfg = None
     if path == "flat":
         cfg = RendererConfig(width=128, height=64, pair_capacity=4096,
@@ -1129,6 +1249,9 @@ def small_cross_check(path, dev):
                     shadow_cfg=mcfg.shadow_cfg if shadows else None))
             if shadows:
                 vs = with_luts(vs, d)
+            if mcfg.gi:
+                lut = brdf_lut(d)
+                vs = [v.replace(brdf_lut=lut) for v in vs]
             scene = (build_meshlet_pools(
                 b, device=d, texture_pool=getattr(b, "texture_pool", None)),
                 b.frame_instances(cam, device=d), DeviceView.stack(vs), None)

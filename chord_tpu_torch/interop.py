@@ -55,8 +55,9 @@ def instances_from_numpy(arrays, device=None) -> FrameInstances:
 
 def view_from_numpy(arrays, device=None) -> DeviceView:
     """A single or a stacked (leading (N,) axis) view, with the shadow,
-    camera and atmosphere-LUT fields where present. A LUT stacked per frame
-    (chord_tpu stacks every view leaf) is carried once: a path shares it."""
+    camera, atmosphere-LUT and env-BRDF-LUT fields where present. A LUT
+    stacked per frame (chord_tpu stacks every view leaf) is carried once:
+    a path shares it."""
     arrays = dict(arrays)
     for name in SHARED_FIELDS:
         if arrays.get(name) is not None and np.ndim(arrays[name]) == 4:
@@ -65,5 +66,8 @@ def view_from_numpy(arrays, device=None) -> DeviceView:
 
 
 def history_from_numpy(arrays, device=None) -> FrameHistory:
-    """With the shadow fields (mask, cached maps and their matrices)."""
+    """With the shadow fields (mask, cached maps and their matrices) and
+    the GI fields (world cache, probe SH and depth, diffuse and specular
+    histories). chord_tpu's `ddgi` leaf (a DDGIState pytree) is not
+    carried: the port has no DDGI path to read it."""
     return _build(FrameHistory, arrays, device)

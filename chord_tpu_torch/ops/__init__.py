@@ -11,6 +11,11 @@ paged_texture   paged, block-compressed texture sampler   (kernel K5)
 shadow          cascade fits, PCSS prepass + plain PCSS
 shadow_kernel   PCSS taps over the cascade stack           (kernel K6)
 atmosphere      sky LUTs, sun disk, ambient, aerial perspective
+sh              SH3 basis, projection, evaluation, packing
+brdf_lut        split-sum env BRDF LUT + its analytic fit
+gi              world SH cache (inject, propagate, sample), SSAO
+screen_probe    screen-probe GI stage + the specular filter chain
+ssr             screen-space reflection march
 tile_reproject  per-tile history reprojection             (kernel K4)
 post            auto-exposure, bloom, tile-mode TSR upscale
 colorspace      ACEScg pipeline + ACES tonemap

@@ -31,15 +31,16 @@ from ..utils.cvar import cvars
 from ..utils.device import resolve
 
 
-# the atmosphere LUTs: one set for a whole camera path, never stacked
-SHARED_FIELDS = ("atmo_t_lut", "atmo_ms_lut", "atmo_sky_lut")
+# the atmosphere LUTs and the env-BRDF LUT: one set for a whole camera
+# path, never stacked (each is 3-d; stacked it would be 4-d)
+SHARED_FIELDS = ("atmo_t_lut", "atmo_ms_lut", "atmo_sky_lut", "brdf_lut")
 
 
 @dataclass
 class DeviceView:
     """Device-side per-frame camera view (f32 tensors, camera at the
     translated-world origin). The optional fields are None unless their
-    feature is on; chord_tpu's BRDF LUT joins with the GI slice."""
+    feature is on."""
 
     tw_to_clip: torch.Tensor          # (4,4) jittered
     tw_to_clip_nj: torch.Tensor       # (4,4) no jitter
@@ -57,6 +58,8 @@ class DeviceView:
     atmo_t_lut: Optional[torch.Tensor] = None    # (64,256,3)
     atmo_ms_lut: Optional[torch.Tensor] = None   # (32,32,3)
     atmo_sky_lut: Optional[torch.Tensor] = None  # (104,200,3)
+    # split-sum env BRDF LUT (ops/brdf_lut.py), built once with GI on
+    brdf_lut: Optional[torch.Tensor] = None      # (32,32,2)
     # shadow cascades (from_uniform(shadow_cfg=...)): the host
     # frustum-only fit, the fallback of the device depth-range fit
     shadow_tw_to_light: Optional[torch.Tensor] = None     # (N,4,4)

@@ -1,8 +1,10 @@
 """The GPU-driven meshlet frame (port of chord_tpu/renderer/meshlet_frame.py:
 the bench's `off` feature set, geometry + post; its `geo_tex` set, which
-adds material maps and the alpha-masked and blend buckets; and its
+adds material maps and the alpha-masked and blend buckets; its
 `geo_shadow_atmo` set, which adds cascaded shadow maps with PCSS and the
-temporal shadow mask, the physically based sky and aerial perspective).
+temporal shadow mask, the physically based sky and aerial perspective; and
+its `all` set without the BVH rays (gi_rt=False): screen-probe GI or the
+world-cache GI, SSAO, the specular chain and SSR).
 
 Pass order (chord_tpu meshlet_frame.py:470-1166; reference
 renderer.cpp:316-343 and mesh_raster.cpp:269-330):
@@ -13,10 +15,17 @@ raster.phase1 (seeded with phase 0) -> hzb.final [+ hzb.depth_range] ->
 (textured or not) -> tsr.prepare + disocclusion_mask -> [atmosphere.sky]
 -> [shadow.cascade_fit -> shadow.render (one cascade, round robin, scrolled
 cache, alpha-tested masked casters) -> shadow.evaluate (PCSS, kernel K6)
--> shadow.temporal -> shadow.upsample] -> lighting -> [blend.cull ->
-blend.raster -> blend.shade] -> [atmosphere.aerial] -> auto_exposure ->
-tsr (render -> post upscale, tile reprojection) -> bloom -> tonemap. With
-alpha_masked the occlusion phases take the opaque bucket only.
+-> shadow.temporal -> shadow.upsample] -> [gi.ao -> gi.probe.spawn ->
+gi.probe.sh_reproject -> gi.probe.taps -> gi.probe.project_sh ->
+gi.probe.world_inject -> gi.probe.interpolate ->
+gi.probe.history_reproject (K4) -> gi.probe.spatial_filter ->
+gi.probe.upsample (or gi.sample in cache mode) -> gi.specular (SSR) ->
+gi.specular.filter] -> lighting -> [blend.cull -> blend.raster ->
+blend.shade] -> [atmosphere.aerial] -> [gi.inject, cache mode] ->
+auto_exposure -> tsr (render -> post upscale, tile reprojection) -> bloom
+-> tonemap. With alpha_masked the occlusion phases take the opaque bucket
+only. The GI stages run inside torch.profiler.record_function spans named
+as chord_tpu's named_scopes.
 
 Every flag outside those sets raises NotImplementedError naming the flag.
 RendererConfig.subtiles is read only by the flat frame's rasterize() and is
@@ -24,11 +33,13 @@ ignored here, as in chord_tpu. The r.raster.bricks cvar switches every
 main-view raster (both phases, the masked and blend buckets) from K1 to
 K7; the shadow cascades build their own config and keep K1. A frame is
 plain eager PyTorch around the kernels (K1 or K7 raster, K2 mesh shader,
-K3 row gather, K4 tile reproject, K5 paged texture sampler, K6 PCSS). Counts and overflows stay on the device until the caller reads
-them. The shadow pass needs the frame counter on the host (which cascade
-refreshes, which PCSS phase runs): render_frame_meshlet takes it as
-`frame_index`, which the sequence runner reads once per call and
-MeshletRenderer once per render() (one synchronisation each).
+K3 row gather, K4 tile reproject (TSR, and the GI diffuse history), K5
+paged texture sampler, K6 PCSS). Counts and overflows stay on the device
+until the caller reads them. The shadow pass and the GI world-cache inject
+need the frame counter on the host (which cascade refreshes, which PCSS
+phase runs, which cache cascade takes the probes): render_frame_meshlet
+takes it as `frame_index`, which the sequence runner reads once per call
+and MeshletRenderer once per render() (one synchronisation each).
 """
 
 from __future__ import annotations
@@ -37,9 +48,14 @@ from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from ..ops import atmosphere as atm
+from ..ops import brdf_lut as brdf
 from ..ops import colorspace, post, shading
+from ..ops import gi as gi_ops
+from ..ops import screen_probe as sp
+from ..ops import ssr as ssr_ops
 from ..ops._util import const, f2i
 from ..ops.bluenoise import interleaved_gradient_noise
 from ..ops.cull import build_active_pairs, cull_pairs
@@ -54,10 +70,12 @@ from .deferred import DeviceView, RendererConfig
 
 
 class MeshletFrameConfig(NamedTuple):
-    """chord_tpu MeshletFrameConfig's fields. The port runs occlusion +
-    object_precull with material maps, trilinear mip dither, the masked
-    (one layer) and blend buckets, shadows and atmosphere; GI and SSR are
-    not ported yet."""
+    """chord_tpu MeshletFrameConfig's fields, with its defaults. The port
+    runs occlusion + object_precull with material maps, trilinear mip
+    dither, the masked (one layer) and blend buckets, shadows, atmosphere,
+    GI in "probe" and "cache" modes with SSAO and SSR; not the BVH rays
+    (gi_rt, gi_mode="ddgi", GIConfig.ao_mode="rtao") nor the probe march
+    (ScreenProbeConfig.trace_mode="march")."""
 
     draw_capacity: int = 4096
     occlusion: bool = True
@@ -70,12 +88,21 @@ class MeshletFrameConfig(NamedTuple):
     # shadow maps take a coarser Nanite cut than the main view
     shadow_lod_scale: float = 4.0
     atmosphere: bool = False        # physically based sky / sun / ambient
-    gi: bool = False
+    gi: bool = False                # diffuse GI + SSAO + specular GI
+    # "probe" = the screen-probe stage; "cache" = the world SH cache only;
+    # "ddgi" = probe volumes over the BVH (not ported)
+    gi_mode: str = "probe"
+    probe_cfg: Optional[sp.ScreenProbeConfig] = None   # None = defaults
+    gi_cfg: Optional[gi_ops.GIConfig] = None           # None = defaults
+    ddgi_cfg: object = None
+    # software-BVH rays for the probes and specular misses (not ported)
+    gi_rt: bool = False
+    rt_rays: int = 4
     # the frame is declared dynamic: scrolled cascade strips assume static
     # casters between refreshes, so scroll is turned off
     rt_dynamic: bool = False
-    gi_rt: bool = False
-    ssr: bool = False
+    rt_granularity: str = "meshlet"
+    ssr: bool = False               # screen-space reflections (with gi)
     textured: bool = False
     normal_mapped: bool = False
     pbr_textures: bool = False
@@ -100,15 +127,29 @@ class MeshletFrameConfig(NamedTuple):
     debug_mode: str = "none"
 
 
-_UNPORTED_FLAGS = ("gi", "gi_rt", "ssr")
+_UNPORTED_FLAGS = ("gi_rt",)
 
 
 def check_slice(config: RendererConfig, mcfg: MeshletFrameConfig) -> None:
-    """Raise NotImplementedError for any flag outside the ported slice."""
+    """Raise NotImplementedError for any flag outside the ported slice.
+    ssr=True without gi is a no-op, as in chord_tpu."""
     for name in _UNPORTED_FLAGS:
         if getattr(mcfg, name):
             raise NotImplementedError(
                 f"MeshletFrameConfig.{name}=True is not ported yet")
+    if mcfg.gi:
+        if mcfg.gi_mode == "ddgi":
+            raise NotImplementedError(
+                "MeshletFrameConfig.gi_mode='ddgi' (probe volumes over the "
+                "scene BVH) is not ported yet")
+        if (mcfg.gi_cfg or gi_ops.GIConfig()).ao_mode == "rtao":
+            raise NotImplementedError(
+                "GIConfig.ao_mode='rtao' (ray-traced AO) is not ported yet")
+        spcfg = mcfg.probe_cfg or sp.ScreenProbeConfig()
+        if mcfg.gi_mode == "probe" and spcfg.trace_mode != "taps":
+            raise NotImplementedError(
+                "ScreenProbeConfig.trace_mode='march' (trace_probes) is not "
+                "ported yet")
     if mcfg.shadows and mcfg.shadow_cfg.pipelined:
         raise NotImplementedError(
             "ShadowConfig.pipelined=True (chord_tpu's split shadow dispatch) "
@@ -462,6 +503,157 @@ def _aerial(hdr, gbuf, sky_along_view, view: DeviceView):
     return torch.where(gbuf.valid[..., None], hdr * t_ap + in_scatter, hdr)
 
 
+class GIOut(NamedTuple):
+    """What the GI block hands the rest of the frame."""
+
+    ambient: torch.Tensor       # (H,W,3) AO'd ambient + indirect diffuse
+    specular: torch.Tensor      # (H,W,3) specular GI, added after lighting
+    gi_cache: torch.Tensor      # the new history fields, named as in
+    probe_sh: torch.Tensor      # FrameHistory
+    probe_depth: torch.Tensor
+    gi_diffuse: torch.Tensor
+    gi_specular: torch.Tensor
+
+
+def _probe_diffuse(view: DeviceView, history: FrameHistory, gbuf, depth,
+                   motion_dilated, disocc, sky_amb, frame_index: int,
+                   mcfg: MeshletFrameConfig, gcfg: gi_ops.GIConfig):
+    """The screen-probe stage (chord_tpu meshlet_frame.py:849-949 without
+    the BVH rays) -> (indirect (H,W,3), new gi_cache, probe_sh,
+    probe_depth, gi_diffuse)."""
+    spcfg = mcfg.probe_cfg or sp.ScreenProbeConfig()
+    with record_function("gi.probe.spawn"):
+        probes = sp.spawn_probes(gbuf, depth, history.frame_count, spcfg)
+    with record_function("gi.probe.sh_reproject"):
+        sh_hist, n_hist = sp.reproject_probe_sh(
+            probes, history.probe_sh, history.probe_depth,
+            view.prev_tw_to_clip_nj, history.valid, spcfg)
+    with record_function("gi.probe.taps"):
+        # last frame's lit colour at (about) the probe pixels
+        ph_n, pw_n = probes.depth.shape
+        tc = history.tsr_color
+        sy = max(tc.shape[0] // ph_n, 1)
+        sx = max(tc.shape[1] // pw_n, 1)
+        scene_rad = post.decimate(tc, (sy, sx))[:ph_n, :pw_n]
+        rad, ray_dirs, sample_w = sp.gather_probe_taps(probes, scene_rad,
+                                                       sky_amb, spcfg)
+    with record_function("gi.probe.project_sh"):
+        probe_sh = sp.project_and_merge(rad, ray_dirs, probes, sh_hist,
+                                        n_hist, spcfg, weights=sample_w)
+    with record_function("gi.probe.world_inject"):
+        gi_cache = sp.inject_world_cache(history.gi_cache, probe_sh, probes,
+                                         gcfg, frame_index=frame_index)
+    depth_half = post.decimate(depth, 2)
+    normal_half = post.decimate(gbuf.normal, 2)
+    with record_function("gi.probe.interpolate"):
+        diff_half = sp.interpolate_half(probe_sh, probes, normal_half,
+                                        post.decimate(gbuf.valid, 2), spcfg)
+    with record_function("gi.probe.history_reproject"):
+        diff_half = sp.history_reproject_half(
+            diff_half, post.decimate(motion_dilated, 2), history.gi_diffuse,
+            history.valid, spcfg, disocclusion=post.decimate(disocc, 2))
+    with record_function("gi.probe.spatial_filter"):
+        diff_half = sp.spatial_filter_half(diff_half, depth_half,
+                                           normal_half, spcfg)
+    with record_function("gi.probe.upsample"):
+        indirect = sp.bilateral_upsample(diff_half, depth_half, normal_half,
+                                         depth, gbuf.normal)
+        indirect = torch.where(gbuf.valid[..., None], indirect,
+                               torch.zeros((), device=depth.device))
+    return indirect, gi_cache, probe_sh, probes.depth, diff_half
+
+
+def _specular_gi(view: DeviceView, history: FrameHistory, gbuf, depth,
+                 motion_dilated, disocc, ao, mcfg: MeshletFrameConfig,
+                 gcfg: gi_ops.GIConfig):
+    """Specular GI (chord_tpu meshlet_frame.py:963-1044 without the BVH
+    rays): a GGX-sampled reflection direction per 1/sample_res_div pixel,
+    the world cache's radiance along it, SSR hits over it, the filter
+    chain -> (specular (H,W,3) times the analytic split-sum env term and
+    AO, new gi_specular)."""
+    dev = depth.device
+    with record_function("gi.specular"):
+        k = gcfg.sample_res_div
+        pos_q = post.decimate(gbuf.position_tw, k)
+        nrm_q = post.decimate(gbuf.normal, k)
+        v_q = -pos_q / torch.clamp_min(torch.linalg.vector_norm(
+            pos_q, dim=-1, keepdim=True), 1e-6)
+        rough_q = post.decimate(gbuf.roughness, k)
+        hq, wq = rough_q.shape
+        u1 = interleaved_gradient_noise(hq, wq, history.frame_count)
+        u2 = interleaved_gradient_noise(hq, wq, history.frame_count + 31)
+        h_ggx = sp.ggx_sample_normal(nrm_q, v_q, rough_q, u1, u2)
+        refl_q = 2.0 * (v_q * h_ggx).sum(-1, keepdim=True) * h_ggx - v_q
+        anchor = torch.zeros(3, device=dev)
+        spec_q, conf_q = gi_ops.sample_radiance(history.gi_cache, pos_q,
+                                                refl_q, anchor, gcfg)
+        spec_q = spec_q * conf_q[..., None]
+        if mcfg.ssr:
+            # h_ggx as the march's virtual normal: SSR follows the same
+            # GGX-sampled direction; its hits override the cache
+            ssr_col, ssr_conf = ssr_ops.trace(
+                post.decimate(depth, k), history.tsr_color, pos_q, h_ggx,
+                view.tw_to_clip_nj, ssr_ops.SSRConfig(res_div=k))
+            ssr_conf = ssr_conf * history.valid
+            spec_q = (spec_q * (1 - ssr_conf[..., None]) +
+                      ssr_col * ssr_conf[..., None])
+    with record_function("gi.specular.filter"):
+        spec_q = sp.specular_firefly_clamp(spec_q, pos_q, nrm_q, rough_q)
+        spec_q = sp.spatial_filter_specular(spec_q, pos_q, nrm_q, rough_q)
+        spec_q = sp.temporal_specular(
+            spec_q, post.decimate(motion_dilated, k), history.gi_specular,
+            history.valid, rough_q, disocclusion=post.decimate(disocc, k))
+    hh, ww = gbuf.valid.shape
+    spec = post.upsample_nearest(spec_q, k, hh, ww)
+    nov = torch.clamp((-gbuf.position_tw / torch.clamp_min(
+        torch.linalg.vector_norm(gbuf.position_tw, dim=-1, keepdim=True),
+        1e-6) * gbuf.normal).sum(-1), 1e-3, 1.0)
+    f0 = (0.04 * (1.0 - gbuf.metallic[..., None]) +
+          gbuf.base_color * gbuf.metallic[..., None])
+    env = brdf.env_specular_analytic(f0, gbuf.roughness, nov)
+    return spec * env * ao[..., None], spec_q
+
+
+def _render_gi(view: DeviceView, history: FrameHistory, gbuf, depth,
+               motion_dilated, disocc, ambient, frame_index: int,
+               mcfg: MeshletFrameConfig, h: int, w: int) -> GIOut:
+    """The GI block (chord_tpu meshlet_frame.py:825-1046 without the
+    gi_rt / ddgi branches): AO, the diffuse indirect (probe or cache mode)
+    and the specular GI; `ambient` is the atmosphere's (None without)."""
+    gcfg = mcfg.gi_cfg or gi_ops.GIConfig()
+    with record_function("gi.ao"):
+        kd = gcfg.ao_res_div
+        ao_h = gi_ops.ssao(post.decimate(depth, kd),
+                           post.decimate(gbuf.position_tw, kd),
+                           post.decimate(gbuf.normal, kd), gcfg)
+        ao = post.upsample_nearest(ao_h, kd, h, w)
+    sky_amb = (ambient.reshape(3) if ambient is not None
+               else view.sky_ambient)
+    if mcfg.gi_mode == "probe":
+        indirect, gi_cache, probe_sh, probe_depth, gi_diffuse = \
+            _probe_diffuse(view, history, gbuf, depth, motion_dilated,
+                           disocc, sky_amb, frame_index, mcfg, gcfg)
+    else:
+        with record_function("gi.sample"):
+            indirect = gi_ops.diffuse_gi(history.gi_cache, gbuf,
+                                         torch.zeros(3, device=depth.device),
+                                         gcfg)
+        # cache mode injects after lighting (the frame calls update_cache)
+        gi_cache, probe_sh, probe_depth, gi_diffuse = (
+            history.gi_cache, history.probe_sh, history.probe_depth,
+            history.gi_diffuse)
+    specular, gi_specular = _specular_gi(view, history, gbuf, depth,
+                                         motion_dilated, disocc, ao, mcfg,
+                                         gcfg)
+    if ambient is None:
+        ambient = view.sky_ambient[None, None, :] * torch.clamp(
+            gbuf.normal[..., 1:2] * 0.5 + 0.5, 0.0, 1.0)
+    return GIOut(ambient=(ambient * 0.35 + indirect) * ao[..., None],
+                 specular=specular, gi_cache=gi_cache, probe_sh=probe_sh,
+                 probe_depth=probe_depth, gi_diffuse=gi_diffuse,
+                 gi_specular=gi_specular)
+
+
 def render_frame_meshlet(pools, instances, view: DeviceView,
                          history: FrameHistory, config: RendererConfig,
                          mcfg: MeshletFrameConfig,
@@ -469,11 +661,11 @@ def render_frame_meshlet(pools, instances, view: DeviceView,
                          ) -> Tuple[torch.Tensor, FrameHistory, dict]:
     """One GPU-driven frame -> (image (Hp,Wp,3) u8, new history, stats).
     `frame_index` is the host's copy of history.frame_count; the shadow
-    pass needs it."""
+    pass and GI need it."""
     check_slice(config, mcfg)
-    if mcfg.shadows and frame_index is None:
-        raise ValueError("shadows=True needs frame_index, the host's copy of "
-                         "history.frame_count")
+    if (mcfg.shadows or mcfg.gi) and frame_index is None:
+        raise ValueError("shadows=True or gi=True needs frame_index, the "
+                         "host's copy of history.frame_count")
     if mcfg.rt_dynamic and mcfg.shadow_cfg.scroll:
         mcfg = mcfg._replace(
             shadow_cfg=mcfg.shadow_cfg._replace(scroll=False))
@@ -593,11 +785,20 @@ def render_frame_meshlet(pools, instances, view: DeviceView,
             pools, instances, view, history, rc, mcfg, gbuf, disocc,
             frame_index, h, w, stats)
 
+    gi = None
+    if mcfg.gi:
+        gi = _render_gi(view, history, gbuf, depth, motion_dilated, disocc,
+                        ambient, frame_index, mcfg, h, w)
+        ambient = gi.ambient
+
     sun = shading.SunLight(direction=view.sun_direction,
                            radiance=sun_radiance,
                            sky_ambient=view.sky_ambient)
     hdr = shading.shade_pixels(gbuf, sun, sun_shadow=sun_shadow,
                                ambient=ambient, sky_radiance=sky_radiance)
+    if gi is not None:
+        hdr = hdr + torch.where(gbuf.valid[..., None], gi.specular,
+                                torch.zeros((), device=hdr.device))
 
     if mcfg.alpha_blend:
         # one depth-peeled translucent layer, forward-shaded and
@@ -624,6 +825,16 @@ def render_frame_meshlet(pools, instances, view: DeviceView,
     if mcfg.atmosphere:
         hdr = _aerial(hdr, gbuf, sky_along_view, view)
 
+    if gi is not None and mcfg.gi_mode != "probe":
+        # cache mode: inject this frame's lit surfels (probe mode injected
+        # the screen probes above)
+        with record_function("gi.inject"):
+            gi = gi._replace(gi_cache=gi_ops.update_cache(
+                history.gi_cache, gbuf, hdr,
+                torch.zeros(3, device=hdr.device),
+                mcfg.gi_cfg or gi_ops.GIConfig(),
+                frame_count=history.frame_count, frame_index=frame_index))
+
     ecfg = post.ExposureConfig(fix_exposure=float(cvars.get("r.exposure.fix")))
     exposure = post.adapt_exposure(post.luminance_histogram(hdr, ecfg),
                                    history.exposure, 1.0 / 60.0, ecfg)
@@ -649,7 +860,10 @@ def render_frame_meshlet(pools, instances, view: DeviceView,
         depth_range=new_depth_range,
         shadow_mask=new_shadow[0],
         shadow_maps=new_shadow[1],
-        shadow_mats=new_shadow[2])
+        shadow_mats=new_shadow[2],
+        # GIOut names the GI fields as the history does
+        **{f: getattr(history if gi is None else gi, f)
+           for f in GIOut._fields[2:]})
     return image, new_history, stats
 
 
@@ -667,10 +881,10 @@ def render_sequence_meshlet(pools, instances, views_stacked: DeviceView,
     frame by frame -> (images (N,Hp,Wp,3) u8, history[, stats]) where stats
     maps each per-frame stat to an (N,) tensor (worst-frame audits read
     its max: in-sequence overflow is invisible to a single fresh frame).
-    With shadows the frame counter is read once, here, and counted on the
-    host."""
+    With shadows or GI the frame counter is read once, here, and counted
+    on the host."""
     images, per_frame = [], []
-    fc0 = int(history.frame_count) if mcfg.shadows else None
+    fc0 = int(history.frame_count) if mcfg.shadows or mcfg.gi else None
     for i in range(views_stacked.num_frames):
         image, history, stats = render_frame_meshlet(
             pools, instances, views_stacked.frame(i), history, config, mcfg,
@@ -687,9 +901,10 @@ def render_sequence_meshlet(pools, instances, views_stacked: DeviceView,
 
 class MeshletRenderer:
     """Host-side runner for the meshlet frame (chord_tpu MeshletRenderer
-    without the GI branches and the split shadow dispatch). History and
-    views go to the device the pools live on; the atmosphere LUTs are built
-    once (the sky view once per sun direction)."""
+    without the BVH build and the split shadow dispatch). History and
+    views go to the device the pools live on; the atmosphere LUTs and, with
+    GI, the env-BRDF LUT are built once (the sky view once per sun
+    direction)."""
 
     def __init__(self, config: RendererConfig,
                  mcfg: MeshletFrameConfig = MeshletFrameConfig()):
@@ -699,6 +914,7 @@ class MeshletRenderer:
         self.history: Optional[FrameHistory] = None
         self._atmo_cache = None
         self._sky_cache = (None, None)
+        self._brdf_cache = None
 
     def reset_history(self) -> None:
         self.history = None
@@ -718,6 +934,11 @@ class MeshletRenderer:
             self._sky_cache = (key, atm.build_sky_view_lut(p_atm, t, ms, d))
         return t, ms, self._sky_cache[1]
 
+    def _brdf_lut(self, device):
+        if self._brdf_cache is None:
+            self._brdf_cache = brdf.build_env_brdf_lut(64, device=device)
+        return self._brdf_cache
+
     def _frame(self, pools, instances, view, frame_index):
         image, self.history, stats = render_frame_meshlet(
             pools, instances, view, self.history, self.config, self.mcfg,
@@ -733,12 +954,17 @@ class MeshletRenderer:
         fresh = self.history is None
         if fresh:
             scfg = m.shadow_cfg
+            probe = m.gi and m.gi_mode == "probe"
             self.history = FrameHistory.empty(
                 c.height, c.width, post_h=c.post_height or None,
-                post_w=c.post_width or None, shadow_div=scfg.eval_res_div,
+                post_w=c.post_width or None,
+                gi_cfg=(m.gi_cfg or gi_ops.GIConfig()) if m.gi else None,
+                shadow_div=scfg.eval_res_div,
                 shadow_cascades=scfg.cascade_count if m.shadows else 0,
                 shadow_res=scfg.resolution if m.shadows else 1,
                 shadow_phase=scfg.temporal_phase if scfg.temporal else 1,
+                probe_tile=((m.probe_cfg.tile if m.probe_cfg else 8)
+                            if probe else 0),
                 device=dev)
         view = DeviceView.from_uniform(
             view_uniform, device=dev,
@@ -748,7 +974,10 @@ class MeshletRenderer:
                 light_kwargs.get("sun_direction", (0.3, 0.8, 0.5)), dev)
             view = view.replace(atmo_t_lut=t, atmo_ms_lut=ms,
                                 atmo_sky_lut=sky)
-        fc = int(self.history.frame_count) if m.shadows else None
+        if m.gi:
+            view = view.replace(brdf_lut=self._brdf_lut(dev))
+        fc = (int(self.history.frame_count) if m.shadows or m.gi
+              else None)
         if fresh and m.shadows:
             for _ in range(m.shadow_cfg.cascade_count - 1):
                 self._frame(pools, instances, view, fc)

@@ -46,7 +46,7 @@ def vis_to_uint32(vis: torch.Tensor):
 class FrameHistory:
     """State carried frame -> frame. `valid` gates all history reads; a
     camera cut sets valid=0 (reference clearHistory). chord_tpu's history
-    also carries GI and DDGI state; those fields join with their slice."""
+    also carries DDGI state, which is not ported."""
 
     valid: torch.Tensor         # () f32 0/1
     frame_count: torch.Tensor   # () i32
@@ -61,17 +61,30 @@ class FrameHistory:
     # the fit matrix it was rendered with
     shadow_maps: torch.Tensor   # (N,R,R) f32 reverse-Z ((1,1,1) when off)
     shadow_mats: torch.Tensor   # (N,4,4) f32 tw -> light of each cached map
+    # GI (reference GIContext): the world SH cache, the screen probes' packed
+    # SH3 + numSample and depth, the half-res diffuse history and the
+    # reduced-res specular history; (1,1,*) placeholders where off
+    gi_cache: torch.Tensor      # (C,D^3,28) f32
+    probe_sh: torch.Tensor      # (Ph,Pw,28) f32
+    probe_depth: torch.Tensor   # (Ph,Pw) f32 probe ndc depth (reverse-Z)
+    gi_diffuse: torch.Tensor    # (Hh,Wh,3) f32
+    gi_specular: torch.Tensor   # (Hq,Wq,3) f32, Hq = H / sample_res_div
 
     @classmethod
     def empty(cls, h: int, w: int, post_h: Optional[int] = None,
-              post_w: Optional[int] = None, shadow_div: int = 2,
-              shadow_cascades: int = 0, shadow_res: int = 1,
-              shadow_phase: int = 1, device=None) -> "FrameHistory":
-        """Invalid (valid=0) history on `device` (None = the card).
-        `shadow_div` is the PCSS eval divisor (ShadowConfig.eval_res_div),
-        `shadow_cascades` / `shadow_res` size the cascade cache (0 = off).
-        `shadow_phase` is accepted as chord_tpu's signature has it; the
-        phase-decimated eval does not ride in the history."""
+              post_w: Optional[int] = None, gi_cfg=None,
+              shadow_div: int = 2, shadow_cascades: int = 0,
+              shadow_res: int = 1, shadow_phase: int = 1,
+              probe_tile: int = 0, device=None) -> "FrameHistory":
+        """Invalid (valid=0) history on `device` (None = the card), with
+        chord_tpu's shapes. `gi_cfg` (a GIConfig; None = GI off) sizes the
+        world cache and the specular history, `probe_tile` (0 = off) the
+        screen probes and the half-res diffuse history. `shadow_div` is
+        the PCSS eval divisor (ShadowConfig.eval_res_div), `shadow_cascades`
+        / `shadow_res` size the cascade cache (0 = off). `shadow_phase` is
+        accepted as chord_tpu's signature has it; the phase-decimated eval
+        does not ride in the history."""
+        from ..ops.gi import GIConfig, sh_size
         from ..ops.hzb import hzb_layout
         from ..utils.device import resolve
 
@@ -82,6 +95,16 @@ class FrameHistory:
         total = offs[-1] + ws[-1] * hs[-1]
         n = max(shadow_cascades, 1)
         f32 = dict(dtype=torch.float32, device=device)
+        gi_shape = sh_size(gi_cfg or GIConfig(cascades=1, probe_dim=2))
+        pr_h = pr_w = gh = gw = 1
+        if probe_tile:
+            pr_h, pr_w = -(-h // probe_tile), -(-w // probe_tile)
+            gh, gw = -(-h // 2), -(-w // 2)
+        # the specular history is written by every GI mode
+        sh_ = sw_ = 1
+        if gi_cfg is not None:
+            sh_, sw_ = (-(-h // gi_cfg.sample_res_div),
+                        -(-w // gi_cfg.sample_res_div))
         return cls(
             valid=torch.zeros((), **f32),
             frame_count=torch.zeros((), dtype=torch.int32, device=device),
@@ -94,4 +117,9 @@ class FrameHistory:
                                    **f32),
             shadow_maps=torch.zeros((n, shadow_res, shadow_res), **f32),
             shadow_mats=torch.zeros((n, 4, 4), **f32),
+            gi_cache=torch.zeros(gi_shape, **f32),
+            probe_sh=torch.zeros((pr_h, pr_w, 28), **f32),
+            probe_depth=torch.zeros((pr_h, pr_w), **f32),
+            gi_diffuse=torch.zeros((gh, gw, 3), **f32),
+            gi_specular=torch.zeros((sh_, sw_, 3), **f32),
         )

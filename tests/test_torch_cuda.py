@@ -25,6 +25,9 @@ from chord_tpu_torch.ops import (_cuda, fusion_barrier, kernels,
                                  row_gather, shadow, shadow_kernel,
                                  tile_reproject)
 from chord_tpu_torch.ops import atmosphere as atm
+from chord_tpu_torch.ops import brdf_lut, gi
+from chord_tpu_torch.ops.gi import GIConfig
+from chord_tpu_torch.ops.screen_probe import ScreenProbeConfig
 from chord_tpu_torch.ops import proto_paged_tex as proto_sampler
 from chord_tpu_torch.renderer import (DeferredRenderer, DeviceView,
                                       MeshletFrameConfig, RendererConfig,
@@ -53,6 +56,11 @@ TEX_MCFG = MeshletFrameConfig(draw_capacity=1024, masked_draw_capacity=256,
 SHADOW_CFG = shadow.ShadowConfig(cascade_count=2, resolution=256)
 SHADOW_MCFG = TEX_MCFG._replace(shadows=True, atmosphere=True,
                                 shadow_cfg=SHADOW_CFG)
+# the all rung without BVH rays: geo_shadow_atmo + screen-probe GI + SSR
+GI_CFG = GIConfig(cascades=2, probe_dim=8)
+GI_MCFG = SHADOW_MCFG._replace(
+    gi=True, gi_mode="probe", ssr=True, trilinear=True, gi_cfg=GI_CFG,
+    probe_cfg=ScreenProbeConfig(rays=16, steps=6, history_mode="tile"))
 
 
 @pytest.fixture
@@ -62,10 +70,11 @@ def dev():
     return torch.device("cuda", 0)
 
 
-def _tex_sequence(d, frames=3, shadows=False):
+def _tex_sequence(d, frames=3, shadows=False, gi=False):
     """The small textured bistro along bench.py's camera path, jittered;
     with shadows, the views carry the cascade fit and the atmosphere LUTs
-    and the history the cascade cache."""
+    and the history the cascade cache; with gi, the views also carry the
+    env-BRDF LUT and the history the GI state."""
     b = build_bistro_like(detail=1, textures=True)
     cam = Camera(width=W, height=H)
     vs = []
@@ -86,7 +95,11 @@ def _tex_sequence(d, frames=3, shadows=False):
               for v in vs]
         hist = FrameHistory.empty(H, W, PH, PW, shadow_div=4,
                                   shadow_cascades=2, shadow_res=256,
-                                  device=d)
+                                  gi_cfg=GI_CFG if gi else None,
+                                  probe_tile=8 if gi else 0, device=d)
+    if gi:
+        lut = brdf_lut.build_env_brdf_lut(64, device=d)
+        vs = [v.replace(brdf_lut=lut) for v in vs]
     return (build_meshlet_pools(b, texture_pool=b.texture_pool, device=d),
             b.frame_instances(cam, device=d), DeviceView.stack(vs), hist)
 
@@ -97,6 +110,8 @@ def _path_run(path, d):
         return _sequence(d), MCFG
     if path in ("geo_tex", "geo_tex_bricks"):
         return _tex_sequence(d), TEX_MCFG
+    if path == "all_no_rt":
+        return _tex_sequence(d, shadows=True, gi=True), GI_MCFG
     return _tex_sequence(d, shadows=True), SHADOW_MCFG
 
 
@@ -490,7 +505,7 @@ def test_wrappers_reject_bad_inputs(dev):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("path", ["off", "geo_tex", "geo_shadow_atmo",
-                                  "geo_tex_bricks", "flat"])
+                                  "geo_tex_bricks", "flat", "all_no_rt"])
 def test_gpu_frames_match_cpu_plain(dev, path):
     """The tiny sequence of each path through the kernels on the GPU equals
     the plain versions on the CPU (the path the CPU tests hold against
@@ -505,6 +520,29 @@ def test_gpu_frames_match_cpu_plain(dev, path):
         assert max(out["cuda"][1]["draws_masked"]) > 0
     diff = np.abs(out["cuda"][0] - out["cpu"][0])
     assert (diff <= 2).mean() >= 0.999, diff.max()
+
+
+@pytest.mark.cuda
+def test_gi_cache_scatter_is_deterministic(dev):
+    """The world-cache splat (index_put_ with accumulate, which PyTorch
+    sorts on CUDA) gives the same cache bit for bit on every run, and the
+    CPU's within 1e-6 relative, with thousands of surfels per probe."""
+    rng = np.random.default_rng(11)
+    cfg = GIConfig(cascades=2, probe_dim=8)
+    n = 1 << 16
+    pos = rng.uniform(-2, 2, (n, 3)).astype(np.float32)
+    flat = rng.normal(size=(n, gi.NFL)).astype(np.float32)
+    ok = rng.uniform(size=n) < 0.9
+    cache = rng.normal(size=gi.sh_size(cfg)).astype(np.float32)
+    outs = {}
+    for d in (dev, dev, torch.device("cpu")):
+        t = lambda a: torch.from_numpy(a).to(d)
+        out = gi.splat_cascade(t(cache), 1, t(pos), t(flat), t(ok), cfg,
+                               0.12, torch.zeros(3, device=d))
+        outs.setdefault(d.type, []).append(out.cpu().numpy())
+    np.testing.assert_array_equal(outs["cuda"][0], outs["cuda"][1])
+    np.testing.assert_allclose(outs["cuda"][0], outs["cpu"][0], rtol=1e-6,
+                               atol=1e-6)
 
 
 def _rand_setup(rng, d, n_win, w, h, attrs):

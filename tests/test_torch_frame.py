@@ -30,6 +30,8 @@ from chord_tpu.rhi.meshlet_scene import build_meshlet_pools as jax_pools
 from chord_tpu.utils.camera import Camera as JCamera
 
 from chord_tpu_torch.asset.procedural import build_sponza_like
+from chord_tpu_torch.ops.gi import GIConfig
+from chord_tpu_torch.ops.screen_probe import ScreenProbeConfig
 from chord_tpu_torch.ops.shadow import ShadowConfig
 from chord_tpu_torch.renderer import (DeviceView, MeshletFrameConfig,
                                       MeshletRenderer, RendererConfig,
@@ -137,8 +139,13 @@ def test_flags_outside_the_slice_raise(runs):
             (MeshletFrameConfig(shadows=True, shadow_cfg=ShadowConfig(
                 pipelined=True)), RendererConfig(**CFG)),
             (MeshletFrameConfig(masked_layers=2), RendererConfig(**CFG)),
-            (MeshletFrameConfig(gi=True), RendererConfig(**CFG)),
-            (MeshletFrameConfig(ssr=True), RendererConfig(**CFG)),
+            (MeshletFrameConfig(gi=True, gi_rt=True), RendererConfig(**CFG)),
+            (MeshletFrameConfig(gi=True, gi_mode="ddgi"),
+             RendererConfig(**CFG)),
+            (MeshletFrameConfig(gi=True, gi_cfg=GIConfig(ao_mode="rtao")),
+             RendererConfig(**CFG)),
+            (MeshletFrameConfig(gi=True, probe_cfg=ScreenProbeConfig(
+                trace_mode="march")), RendererConfig(**CFG)),
             (MeshletFrameConfig(occlusion=False), RendererConfig(**CFG)),
             (MeshletFrameConfig(), RendererConfig(**{**CFG,
                                                      "tsr_mode": "gather"})),

@@ -258,7 +258,8 @@ def test_evaluate_shadow_auto_is_the_plain_version_on_the_cpu():
             noise=t_(noise))
         assert torch.equal(got, ref)
     k6 = {k.name: k for k in kernels.KERNELS}["pcss"]
-    assert k6.plain is shadow.pcss_plain and k6.paths == ("geo_shadow_atmo",)
+    assert k6.plain is shadow.pcss_plain and k6.paths == ("geo_shadow_atmo",
+                                                          "all_no_rt")
 
 
 # --- render_shadow_cascade ----------------------------------------------------
