@@ -4,7 +4,7 @@
     python3 chip_smoke.py              # the default run
     python3 chip_smoke.py --profile    # + a torch.profiler breakdown per path
 
-Eight paths: six frame paths and two tool paths. Three are the bench's
+Nine paths: seven frame paths and two tool paths. Three are the bench's
 `off`, `geo_tex` and `geo_shadow_atmo` rungs (bench.py:35-54): the
 1280x720 render of the 2.6M-triangle procedural bistro (Nanite LOD cut),
 upscaled to 1920x1080 by tile-mode TSR, bloom and the ACES tonemap;
@@ -23,7 +23,14 @@ gi_rt=False changed: `geo_shadow_atmo`'s scene, views and LUTs plus
 screen-probe GI (ScreenProbeConfig(rays=16, steps=6, history_mode="tile"),
 GIConfig()), SSAO, the specular chain with SSR, trilinear mip dither and
 the env-BRDF LUT built once (bench.py:248); it runs K4 twice a frame (the
-TSR history and the half-res GI history). `flat` is the flat
+TSR history and the half-res GI history). `all` is the bench's `all` rung
+itself: `all_no_rt` with gi_rt=True, rt_rays=2 and the scene BVH built
+once on the host over the instances' bounding spheres
+(build_scene_bvh(pools, b.frame_instances(cam), granularity="object") with
+the camera where bench.py:221-233 builds it, before the camera path), so
+2 rays a screen probe join its taps and SSR's misses trace the BVH (the
+dense route: every ray against every object sphere, in 512-sphere chunks;
+no kernel of its own). `flat` is the flat
 DeferredRenderer frame (BASELINE config #1: object
 frustum cull, every triangle of the visible objects, deferred PBR) of
 build_sponza_like(detail=4) (367,104 padded triangles) at 1920x1080 along
@@ -54,11 +61,11 @@ Phases (any failure raises and the script exits non-zero):
    then records every kernel call's inputs through the next frame, and
    runs each kernel and its plain PyTorch version on those calls (K1
    raster on the three bench rungs; K2 mesh shader, K3 row gather, K4 tile
-   reproject on every meshlet path, both of its calls on `all_no_rt`; K5
-   paged texture sampler on the textured paths, with the masked shadow
-   casters on the shadow paths; K6 PCSS on `geo_shadow_atmo` and
-   `all_no_rt`; K7 brick raster on `geo_tex_bricks`; K8 sub-tile raster
-   on `flat`).
+   reproject on every meshlet path, both of its calls on the GI paths
+   `all_no_rt` and `all`; K5 paged texture sampler on the textured
+   paths, with the masked shadow casters on the shadow paths; K6 PCSS on
+   `geo_shadow_atmo` and the GI paths; K7 brick raster on
+   `geo_tex_bricks`; K8 sub-tile raster on `flat`).
    Tolerance 0: the kernels are built with -fmad=false and round every
    operation as the plain versions do. Times each call (CUDA events,
    inputs L2-warm, queued behind a device-side sleep so the events see the
@@ -66,16 +73,18 @@ Phases (any failure raises and the script exits non-zero):
    kept beside it), computes its bound (the larger of the bytes it must
    move over 3.35 TB/s and the f32 operations this run's data needs over
    67 TFLOP/s; the bytes are its inputs and outputs, except that K6 counts
-   the 32-B sectors of the stack its taps touch, not the whole stack; K1,
+   the 32-B sectors of the stack its taps touch, not the whole stack, and
+   K4 the history pixels its tiles' taps touch, not the whole history; K1,
    K7 and K8's operations are the pixel tests their exact per-warp corner
    cull leaves on this run's queue x 21 flops plus 12 per cull evaluation
    (raster.cull_tests, K7's in its own association), with the bound of
    every test of the visit list kept beside it as `bound_all_tests_ms`)
-   and, for K3 and K9, times one PyTorch call of the same function
-   (torch.index_select of the same rows, x.clone()) as a library
-   yardstick, kernel and library in turn over 5 rounds of 200 calls
-   (medians, with the rounds' spread); K4's two calls of an `all_no_rt`
-   frame are timed in turn the same way. For each K1, K7 and K8 call it
+   and, for K3, K4 and K9, times one PyTorch call of the same function
+   (torch.index_select of the same rows, a border-clamped bilinear
+   F.grid_sample on a grid built from K4's tile table, x.clone()) as a
+   library yardstick, kernel and library in turn over 5 rounds of 200
+   calls (medians, with the rounds' spread); K4's two calls of a GI frame
+   are timed in turn the same way. For each K1, K7 and K8 call it
    prints a `work` line, off the timed window: per tile the pairs (K1, K7)
    or rounds (K8) and the row visits, per block of the kernels'
    decomposition (32 columns a warp x raster.K1_BAND / K7_BAND / K8_BAND
@@ -88,14 +97,19 @@ Phases (any failure raises and the script exits non-zero):
    count set to 0 just before and read just after: worst-frame overflows
    0, drawn triangles > 0, a finite non-constant image, every kernel of
    the path launched and no other (kernels.EXPECTED_LAUNCHES: K4 16
-   times, 32 on `all_no_rt`; K5 32 times on `geo_tex` and
+   times, 32 on the GI paths; K5 32 times on `geo_tex` and
    `geo_tex_bricks`, 40 on the shadow paths: 32 plus the masked casters
    of the 8 frames that refresh cascade 0 or 1; K6 16 times; K7 64 times;
    K8 16 times), masked draws on some frame of the textured paths, a
-   finite cascade cache and shadow mask, on `all_no_rt` the GI history
+   finite cascade cache and shadow mask, on the GI paths the GI history
    (chord_tpu's shapes, probes with samples, a world cache that took
    probes, non-negative non-zero diffuse and specular histories) and,
-   from a second run, whether images and world cache repeat bit for bit;
+   from a second run, that images and world cache repeat bit for bit
+   (a failure otherwise); on
+   `all` the BVH (its builder, which must be the native one, its leaves
+   and nodes, the trace route), rt.trace's calls (2 a frame: the probe
+   rays and SSR's misses, 32 in all, every one on the dense route) and the
+   rays a frame;
    and per cascade the shadow draws
    (read from the K2 calls) beside what the cull asked for and the pairs
    the bins dropped (none allowed); then the sequence three more times for
@@ -104,8 +118,9 @@ Phases (any failure raises and the script exits non-zero):
    chord_tpu does at this config: printed, not failed. The shadow path
    then runs once more at 4096, where every cascade must stay below its
    capacity, and is timed there too. With --profile, each path's device
-   busy share and ops per frame, and on `all_no_rt` each GI stage's
-   device and host ms (its record_function span).
+   busy share and ops per frame, and on the GI paths each GI stage's
+   device and host ms (its record_function span; on `all` with the two
+   ray spans gi.probe.rt_trace and gi.specular.rt).
 6. `repro_eval`: every variant through the tool's run_variant (one call
    at frame 1, three steady), launch counts set to 0 before each variant
    and read after it (K9 1 + 3 times on `tm_pallas`, no kernel on any
@@ -121,7 +136,8 @@ Phases (any failure raises and the script exits non-zero):
    pixel at the f32 rate).
 8. A small-input cross-check per frame path (tiny atrium, its flat pools on
    `flat`; small textured bistro, with 2 cascades of 256² on the shadow
-   paths, and GI on `all_no_rt`): kernels on the GPU vs plain versions on
+   paths, and GI on the GI paths, with a BVH of the small scene's
+   instances on `all`): kernels on the GPU vs plain versions on
    the CPU (the path the tests hold against chord_tpu), stats exact,
    images within 2 u8 levels.
 
@@ -161,15 +177,18 @@ FLAT_W, FLAT_H = 1920, 1080
 FLAT_DETAIL = 4
 FLAT_PAIRS = 16384
 TEXTURED_PATHS = ("geo_tex", "geo_shadow_atmo", "geo_tex_bricks",
-                  "all_no_rt")
-SHADOW_PATHS = ("geo_shadow_atmo", "all_no_rt")
+                  "all_no_rt", "all")
+SHADOW_PATHS = ("geo_shadow_atmo", "all_no_rt", "all")
+# the scene a path's scene is made from (PATHS order builds it first)
+SCENE_FROM = {"geo_shadow_atmo": "geo_tex", "geo_tex_bricks": "geo_tex",
+              "all_no_rt": "geo_shadow_atmo", "all": "all_no_rt"}
 # the GI stages' torch.profiler spans (renderer/meshlet_frame.py), named as
 # chord_tpu's named_scopes
 GI_SPANS = ("gi.ao", "gi.probe.spawn", "gi.probe.sh_reproject",
             "gi.probe.taps", "gi.probe.project_sh", "gi.probe.world_inject",
             "gi.probe.interpolate", "gi.probe.history_reproject",
             "gi.probe.spatial_filter", "gi.probe.upsample", "gi.specular",
-            "gi.specular.filter")
+            "gi.specular.filter", "gi.probe.rt_trace", "gi.specular.rt")
 RASTERS = ("raster", "raster_bricks", "raster_subtile")   # K1, K7, K8
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory
 F32_OPS_PER_S = 67e12         # H100 SXM f32 outside the tensor cores
@@ -187,12 +206,28 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def scene_paths(paths):
+    """The paths whose scenes `paths` need, in PATHS order (a path's scene
+    is made from SCENE_FROM's)."""
+    from chord_tpu_torch.ops.kernels import PATHS
+
+    need = set()
+    for p in paths:
+        while p is not None:
+            need.add(p)
+            p = SCENE_FROM.get(p)
+    return [p for p in PATHS if p in need]
+
+
 def bench_scenes(dev, paths):
-    """The scene of each path: the bench bistro (bench.py:88-100; textures
-    off for `off`, on for the others) and the bench camera path
-    (bench.py:112-131); `geo_shadow_atmo` and `geo_tex_bricks` reuse the
-    textured build, the former with views carrying the host cascade fit
-    and the LUTs (bench.py:236-256); `flat` is flat_scene()."""
+    """The scene of each path, (pools, instances, views, blend_textured,
+    bvh): the bench bistro (bench.py:88-100; textures off for `off`, on
+    for the others) and the bench camera path (bench.py:112-131);
+    `geo_shadow_atmo` and `geo_tex_bricks` reuse the textured build, the
+    former with views carrying the host cascade fit and the LUTs
+    (bench.py:236-256), `all_no_rt` those views with the env-BRDF LUT, and
+    `all` adds the scene BVH (scene_bvh); `flat` is flat_scene(). `paths`
+    in PATHS order, each after the path its scene comes from."""
     import numpy as np
 
     from chord_tpu_torch.asset.procedural import build_bistro_like
@@ -204,27 +239,33 @@ def bench_scenes(dev, paths):
     if not available():
         raise RuntimeError("the native Nanite builder did not load")
     cache = {}     # the two builds share their meshes' Nanite DAGs
-    scenes = {}
+    scenes, textured_bistro = {}, None
     for path in paths:
         t0 = time.time()
         if path == "flat":
             scenes[path] = flat_scene(dev)
             continue
-        if path == "all_no_rt":   # geo_shadow_atmo's scene (PATHS order)
-            pools, inst, views, blend_tex = scenes["geo_shadow_atmo"]
+        if path == "all":
+            pools, inst, views, blend_tex, _ = scenes[SCENE_FROM[path]]
+            scenes[path] = (pools, inst, views, blend_tex,
+                            scene_bvh(textured_bistro, pools, dev))
+            continue
+        if path == "all_no_rt":
+            pools, inst, views, blend_tex, _ = scenes[SCENE_FROM[path]]
             scenes[path] = (pools, inst,
-                            views.replace(brdf_lut=brdf_lut(dev)), blend_tex)
+                            views.replace(brdf_lut=brdf_lut(dev)), blend_tex,
+                            None)
             log(f"scene {path}: the geo_shadow_atmo scene and views, with "
                 f"the env-BRDF LUT in {time.time() - t0:.2f} s")
             continue
-        if path == "geo_tex_bricks":   # geo_tex's scene (PATHS order)
-            scenes[path] = scenes["geo_tex"]
+        if path == "geo_tex_bricks":
+            scenes[path] = scenes[SCENE_FROM[path]]
             log(f"scene {path}: the geo_tex scene")
             continue
         textured = path != "off"
         shadows = path == "geo_shadow_atmo"
-        if shadows:     # the textured bistro of geo_tex (PATHS order)
-            pools, inst, _, blend_tex = scenes["geo_tex"]
+        if shadows:     # the textured bistro of geo_tex
+            pools, inst, _, blend_tex, _ = scenes[SCENE_FROM[path]]
         else:
             b = build_bistro_like(detail=3, target_tris=2_600_000,
                                   textures=textured)
@@ -234,6 +275,8 @@ def bench_scenes(dev, paths):
             n_src = sum(b.meshes[m].num_triangles for m, _, _ in b.instances)
             blend_tex = any(m.alpha_mode == "blend" and
                             m.base_color_texture >= 0 for m in b.materials)
+            if textured:
+                textured_bistro = b
         mcfg = configs(path)[1]
         cam = Camera(width=W, height=H)
         views = []
@@ -259,8 +302,37 @@ def bench_scenes(dev, paths):
                 f"({pools.tex_pages.numel() * 4} B, "
                 f"{'compressed' if rows == 2 else 'raw'}), built in "
                 f"{time.time() - t0:.2f} s (nanite on)")
-        scenes[path] = (pools, inst, DeviceView.stack(views), blend_tex)
+        scenes[path] = (pools, inst, DeviceView.stack(views), blend_tex,
+                        None)
     return scenes
+
+
+def scene_bvh(b, pools, dev):
+    """The `all` rung's BVH as bench.py:221-233 builds it: once, on the
+    host, one sphere per valid instance (granularity "object") of
+    b.frame_instances(cam) with the camera where bench.py builds it, before
+    the camera path moves it (at the origin: translated world is then
+    world), by the native builder (fails otherwise); prints the builder,
+    leaves, nodes and the route rt.trace takes over them."""
+    from chord_tpu_torch.ops import rt
+    from chord_tpu_torch.utils.camera import Camera
+
+    t0 = time.time()
+    bvh = rt.build_scene_bvh(pools, b.frame_instances(Camera(width=W,
+                                                             height=H),
+                                                      device=dev),
+                             granularity="object")
+    leaves = bvh.leaf_sphere.shape[0]
+    route = "dense" if leaves <= rt.DENSE_LEAF_LIMIT else "BVH scan"
+    log(f"scene all: the all_no_rt scene and views, with the object BVH "
+        f"built by the {rt.build_scene_bvh.builder} builder in "
+        f"{time.time() - t0:.2f} s: {leaves} leaves, "
+        f"{bvh.node_sphere.shape[0]} nodes, rt.trace route {route} "
+        f"(dense up to {rt.DENSE_LEAF_LIMIT} leaves)")
+    if rt.build_scene_bvh.builder != "native":
+        raise RuntimeError("the scene BVH was not built by the native "
+                           "builder")
+    return bvh
 
 
 def flat_scene(dev, detail: int = FLAT_DETAIL, w: int = FLAT_W,
@@ -295,7 +367,7 @@ def flat_scene(dev, detail: int = FLAT_DETAIL, w: int = FLAT_W,
             f"({pools.num_triangles} padded), {pools.num_vertices} "
             f"vertices, {len(b.materials)} materials, {pool_bytes} B of "
             f"pools, built in {time.time() - t0:.2f} s")
-    return pools, insts, uniforms, None
+    return pools, insts, uniforms, None, None
 
 
 def brdf_lut(dev):
@@ -324,6 +396,7 @@ def configs(path: str, blend_textured: bool = False, shadow_cfg=None,
     """The path's RendererConfig and MeshletFrameConfig: bench.py's for a
     rung (bench.py:171-219 at render scale 0.6667); on `flat` the flat
     frame's config and no MeshletFrameConfig."""
+    from chord_tpu_torch.ops.kernels import GI_PATHS
     from chord_tpu_torch.ops.screen_probe import ScreenProbeConfig
     from chord_tpu_torch.ops.shadow import ShadowConfig
     from chord_tpu_torch.renderer import MeshletFrameConfig, RendererConfig
@@ -339,7 +412,7 @@ def configs(path: str, blend_textured: bool = False, shadow_cfg=None,
                             tsr_mode="tile")
     tex = path != "off"
     shadows = path in SHADOW_PATHS
-    gi = path == "all_no_rt"     # bench.py's `all` rung, gi_rt=False
+    gi = path in GI_PATHS     # bench.py's `all` rung (all_no_rt: no rays)
     return config, MeshletFrameConfig(
         draw_capacity=2048, masked_draw_capacity=256, occlusion=True,
         object_precull=True, textured=tex, normal_mapped=tex,
@@ -347,7 +420,7 @@ def configs(path: str, blend_textured: bool = False, shadow_cfg=None,
         blend_textured=blend_textured, shadows=shadows, atmosphere=shadows,
         shadow_masked=True, shadow_draw_capacity=shadow_draws,
         shadow_cfg=shadow_cfg or ShadowConfig(), gi=gi, gi_mode="probe",
-        ssr=gi, trilinear=gi,
+        gi_rt=path == "all", rt_rays=2, ssr=gi, trilinear=gi,
         probe_cfg=ScreenProbeConfig(rays=16, steps=6, history_mode="tile")
         if gi else None)
 
@@ -377,22 +450,23 @@ def run_path(path, scene, config, mcfg, hist, lo: int = 0,
              hi: Optional[int] = None):
     """Frames lo..hi-1 (default: all) of a path -> (images, history,
     per-frame stats), through the entry points a user calls:
-    render_sequence_meshlet, or DeferredRenderer.render frame by frame on
-    `flat`. The r.raster.bricks cvar holds for the run on `geo_tex_bricks`
-    and is off otherwise."""
+    render_sequence_meshlet (with the scene's BVH on `all`), or
+    DeferredRenderer.render frame by frame on `flat`. The r.raster.bricks
+    cvar holds for the run on `geo_tex_bricks` and is off otherwise."""
     import torch
 
     from chord_tpu_torch.renderer import (DeferredRenderer,
                                           render_sequence_meshlet)
     from chord_tpu_torch.utils.cvar import cvars
 
-    pools, inst, views, _ = scene
+    pools, inst, views, _, bvh = scene
     hi = FRAMES if hi is None else hi
     with cvars.override("r.raster.bricks", path == "geo_tex_bricks"):
         if path != "flat":
             return render_sequence_meshlet(pools, inst,
                                            frames(views, lo, hi), hist,
-                                           config, mcfg, with_stats=True)
+                                           config, mcfg, bvh=bvh,
+                                           with_stats=True)
         r = DeferredRenderer(config)
         r.history = hist
         imgs, per = [], []
@@ -490,6 +564,9 @@ def _ops(name: str, args, kwargs, cull: bool = True) -> float:
         tests, culls = raster.cull_tests(coefT, tri0, n_tri, py0, cols, r0,
                                          nrows, xoff)
         return tests * 21.0 + culls * 12.0
+    if name == "tile_reproject":
+        # per output value the three lerps: 6 products and 3 sums
+        return float(args[0].numel()) * 9
     if name == "mesh_shader":
         # per drawn triangle: 3 vertex transforms (28), 3 normal
         # transforms (15) and edge / plane setup (~100)
@@ -561,10 +638,37 @@ def _proto_bytes(args, out) -> int:
     return sectors * 32 + _nbytes([meta, u, v, lm]) + _nbytes(out)
 
 
+def _reproject_bytes(args, out) -> int:
+    """What K4 must move on this call's data: the history pixels (all C
+    channels) that its tiles' taps touch, each once, the tile table and
+    the output. A tile's output rows read tap rows y0 .. y0 + rows and its
+    columns tap columns x0 .. x0 + cols, clamped to the history (the edge
+    rule), so each tile touches one rectangle; the union over tiles."""
+    import numpy as np
+
+    from chord_tpu_torch.ops.tile_reproject import MARGIN, TILE_H, TILE_W
+
+    img, tab = args
+    h, w, c = img.shape
+    wt = -(-w // TILE_W)
+    touched = np.zeros((h, w), bool)
+    for t, (y0p, x0p, _, _) in enumerate(tab.cpu().numpy().tolist()):
+        ty, tx = divmod(t, wt)
+        rows, cols = min(TILE_H, h - ty * TILE_H), min(TILE_W, w - tx * TILE_W)
+        if rows <= 0 or cols <= 0:
+            continue
+        r0, r1 = np.clip([y0p - MARGIN, y0p - MARGIN + rows], 0, h - 1)
+        c0, c1 = np.clip([x0p - MARGIN, x0p - MARGIN + cols], 0, w - 1)
+        touched[r0:r1 + 1, c0:c1 + 1] = True
+    return int(touched.sum()) * c * 4 + _nbytes(tab) + _nbytes(out)
+
+
 def bound(name: str, args, kwargs, out, cull: bool = True) -> tuple:
     """-> (bound ms, "bytes" | "operations"); `cull` as in _ops."""
     if name == "pcss":
         n_bytes = _pcss_bytes(args, out)
+    elif name == "tile_reproject":
+        n_bytes = _reproject_bytes(args, out)
     elif name == "proto_paged_sample":
         n_bytes = _proto_bytes(args, out)
     else:
@@ -578,12 +682,38 @@ def bound(name: str, args, kwargs, out, cull: bool = True) -> tuple:
 
 def library_call(name: str, args):
     """One PyTorch call computing the same function, where one exists: K3's
-    rows are an index_select of the table along the flattened slot; K9 is
-    a clone."""
+    rows are an index_select of the table along the flattened slot; K4 is
+    a bilinear grid_sample of the (C,h,w) view of the history with the
+    coordinate clamped to the border, which is K4's taps clamped to the
+    history (the same values up to the grid's rounding; it writes (1,C,h,w),
+    not (h,w,C)); K9 is a clone. Indices and grids are built here, outside
+    the timed call."""
     import torch
 
     if name == "fusion_barrier":
         return lambda: args[0].clone()
+    if name == "tile_reproject":
+        import torch.nn.functional as F
+
+        from chord_tpu_torch.ops.tile_reproject import (FRAC_Q, MARGIN,
+                                                        TILE_H, TILE_W)
+
+        img, tab = args
+        h, w, _ = img.shape
+        y = torch.arange(h, device=img.device)
+        x = torch.arange(w, device=img.device)
+        t = (y // TILE_H)[:, None] * -(-w // TILE_W) + (x // TILE_W)[None]
+        tb = tab.long()[t]                                     # (h,w,4)
+        ys = (tb[..., 0] - MARGIN + (y % TILE_H)[:, None]).float() + (
+            tb[..., 2].float() / FRAC_Q)
+        xs = (tb[..., 1] - MARGIN + (x % TILE_W)[None]).float() + (
+            tb[..., 3].float() / FRAC_Q)
+        grid = torch.stack([xs * (2.0 / max(w - 1, 1)) - 1.0,
+                            ys * (2.0 / max(h - 1, 1)) - 1.0], -1)[None]
+        src = img.permute(2, 0, 1)[None]
+        return lambda: F.grid_sample(src, grid, mode="bilinear",
+                                     padding_mode="border",
+                                     align_corners=True)
     if name != "row_gather":
         return None
     table, slot = args
@@ -716,9 +846,9 @@ def paged_inputs(args, kwargs) -> str:
 
 def describe(name: str, args, kwargs) -> str:
     if name == "tile_reproject":
-        planes, _, hp, wp = args
-        return (f"out ({planes.shape[0]},{hp},{wp}) from padded planes "
-                f"{'x'.join(map(str, planes.shape))}")
+        img, tab = args
+        return (f"out {'x'.join(map(str, img.shape))} from the history "
+                f"{'x'.join(map(str, img.shape))}, {tab.shape[0]} tiles")
     if name == "pcss":
         maps, pre, _ = args
         return (f"stack {'x'.join(map(str, maps.shape))} eval "
@@ -947,6 +1077,22 @@ def check_gi_history(path, hist, config, mcfg) -> None:
             raise AssertionError(f"{path}: history {name} is negative or 0")
 
 
+def check_rays(path, mcfg) -> None:
+    """The BVH rays of a run (rt.trace's counters): with gi_rt, rt.trace
+    called twice a frame (the probe rays and SSR's misses), every call on
+    the dense route (the object BVH has far fewer leaves than
+    DENSE_LEAF_LIMIT); without, never."""
+    from chord_tpu_torch.ops import rt
+
+    want = 2 * FRAMES if mcfg is not None and mcfg.gi_rt else 0
+    calls, dense = rt.trace.calls, rt.trace.dense
+    log(f"{path}: rt.trace called {calls} times, dense route {dense}, BVH "
+        f"scan {calls - dense}; {rt.trace.rays / FRAMES:.0f} rays a frame")
+    if calls != want or dense != want:
+        raise AssertionError(f"{path}: rt.trace ran {calls} times ({dense} "
+                             f"dense), expected {want}, all dense")
+
+
 def main_path(path, scene, card: str,
               shadow_draws: int = BENCH_SHADOW_DRAWS):
     """Phase 5 for one path: the 16-frame sequence, counted, checked and
@@ -954,7 +1100,7 @@ def main_path(path, scene, card: str,
     given (and then no cascade may reach it)."""
     import torch
 
-    from chord_tpu_torch.ops import kernels
+    from chord_tpu_torch.ops import kernels, rt
 
     config, mcfg = configs(path, scene[3], shadow_draws=shadow_draws)
     bench = shadow_draws == BENCH_SHADOW_DRAWS
@@ -962,12 +1108,14 @@ def main_path(path, scene, card: str,
     hist0 = history(config, mcfg, scene[0].positions.device)
     torch.cuda.synchronize()
     kernels.reset_launch_counts()
+    rt.trace.calls = rt.trace.dense = rt.trace.rays = 0
     t0 = time.time()
     with kernels.capture_inputs() as captured:
         imgs, hist, stats = run_path(path, scene, config, mcfg, hist0)
     torch.cuda.synchronize()
     first_s = time.time() - t0
     launches = kernels.launch_counts()
+    check_rays(path, mcfg)
     worst = {k: int(v.max()) for k, v in stats.items()}
     log(f"{label} path: {FRAMES} frames in {first_s:.3f} s (first run), "
         f"worst-frame stats {worst}, launches {launches}")
@@ -1036,10 +1184,13 @@ def main_path(path, scene, card: str,
             # cache, run after run?
             diff = {f: float((getattr(again[1], f) - getattr(hist, f))
                              .abs().max()) for f in ("gi_cache", "probe_sh")}
-            log(f"{path} run to run: images equal "
-                f"{bool(torch.equal(again[0], imgs))}, max |gi_cache "
+            same = bool(torch.equal(again[0], imgs))
+            log(f"{path} run to run: images equal {same}, max |gi_cache "
                 f"difference| {diff['gi_cache']}, probe_sh "
                 f"{diff['probe_sh']}")
+            if not same or diff["gi_cache"] != 0.0:
+                raise AssertionError(f"{path}: a second run changed the "
+                                     "images or the world cache")
         del again
     ms = statistics.median(times)
     log(f"{label} path: {ms:.3f} ms/frame median of 3 runs "
@@ -1208,6 +1359,7 @@ def small_cross_check(path, dev):
 
     from chord_tpu_torch.asset.procedural import (build_bistro_like,
                                                   build_sponza_like)
+    from chord_tpu_torch.ops import rt
     from chord_tpu_torch.ops.shadow import ShadowConfig
     from chord_tpu_torch.renderer import DeviceView, RendererConfig
     from chord_tpu_torch.rhi.meshlet_scene import build_meshlet_pools
@@ -1252,9 +1404,12 @@ def small_cross_check(path, dev):
             if mcfg.gi:
                 lut = brdf_lut(d)
                 vs = [v.replace(brdf_lut=lut) for v in vs]
-            scene = (build_meshlet_pools(
-                b, device=d, texture_pool=getattr(b, "texture_pool", None)),
-                b.frame_instances(cam, device=d), DeviceView.stack(vs), None)
+            pools = build_meshlet_pools(
+                b, device=d, texture_pool=getattr(b, "texture_pool", None))
+            inst = b.frame_instances(cam, device=d)
+            bvh = (rt.build_scene_bvh(pools, inst, granularity="object")
+                   if mcfg.gi_rt else None)
+            scene = (pools, inst, DeviceView.stack(vs), None, bvh)
         imgs, _, st = run_path(path, scene, cfg, mcfg,
                                history(cfg, mcfg, d), 0, 3)
         out[d.type] = (imgs.cpu().numpy().astype(np.int32),

@@ -5,14 +5,16 @@ here carries the name of its counterpart there, and the tests hold the two
 against each other on the same inputs. This package imports torch and
 never jax.
 
-What is ported so far is the GPU-driven meshlet frame of three benchmark
-rungs: `off` (object pre-cull, two-phase HZB occlusion culling with the
-Nanite LOD cut, the mesh-shader setup, the tiled visibility raster, the
-g-buffer resolve, sun + ambient lighting, auto exposure, tile-mode TSR
-upscale, bloom and the ACES tonemap), `geo_tex` (material maps from the
-paged texture pool, the alpha-masked and blend buckets) and
-`geo_shadow_atmo` (cascaded shadow maps with PCSS and a temporal mask, the
-physically based sky and aerial perspective).
+What is ported so far is the GPU-driven meshlet frame of the four
+benchmark rungs: `off` (object pre-cull, two-phase HZB occlusion culling
+with the Nanite LOD cut, the mesh-shader setup, the tiled visibility
+raster, the g-buffer resolve, sun + ambient lighting, auto exposure,
+tile-mode TSR upscale, bloom and the ACES tonemap), `geo_tex` (material
+maps from the paged texture pool, the alpha-masked and blend buckets),
+`geo_shadow_atmo` (cascaded shadow maps with PCSS and a temporal mask,
+the physically based sky and aerial perspective) and `all` (screen-probe
+GI with BVH rays over bounding-sphere proxies, SSAO, SSR and the specular
+chain); the flat DeferredRenderer frame; two of chord_tpu's tools.
 
 Every Pallas kernel on those paths is a hand-written CUDA kernel for sm_90a
 (`csrc/`, built with nvcc at first use into `build/` and loaded with
@@ -27,7 +29,7 @@ Layout (mirrors chord_tpu):
     rhi/       scene builder, meshlet pools, frame history
     asset/     procedural benchmark scenes, texture pool
     ops/       cull, hzb, mesh shader, raster, row gather, textures,
-               shading, shadows + PCSS, atmosphere, post
+               shading, shadows + PCSS, atmosphere, GI, BVH rays, post
     renderer/  the meshlet frame, the flat frame, the sequence runner,
                MeshletRenderer
     tools/     the paged-texture prototype (kernel K10) and the shadow

@@ -3,8 +3,9 @@
 chord_tpu's objects go in as mappings of numpy arrays, e.g.
 `{k: np.asarray(v) for k, v in vars(pools).items() if v is not None}` for
 its ScenePools / MeshletScenePools / FrameInstances / DeviceView /
-FrameHistory; each function keeps the fields the port's counterpart has
-and moves them to `device` (None = the card, as everywhere in the port).
+FrameHistory (`bvh._asdict()` for its SceneBVH); each function keeps the
+fields the port's counterpart has and moves them to `device` (None = the
+card, as everywhere in the port).
 Nothing here imports chord_tpu or jax: the tests use it to feed both
 packages identical state.
 """
@@ -17,6 +18,7 @@ from typing import Mapping
 import numpy as np
 import torch
 
+from .ops.rt import SceneBVH
 from .renderer.deferred import SHARED_FIELDS, DeviceView
 from .rhi.framebuffer import FrameHistory
 from .rhi.meshlet_scene import MeshletScenePools
@@ -71,3 +73,13 @@ def history_from_numpy(arrays, device=None) -> FrameHistory:
     histories). chord_tpu's `ddgi` leaf (a DDGIState pytree) is not
     carried: the port has no DDGI path to read it."""
     return _build(FrameHistory, arrays, device)
+
+
+def bvh_from_numpy(arrays, device=None) -> SceneBVH:
+    """chord_tpu's SceneBVH (node spheres, skip counts, leaf ids, the leaf
+    shading table, the raw leaf spheres; its triangle-exact fields where
+    present), so both packages trace the same BVH."""
+    device = resolve(device)
+    conv = lambda a: (None if a is None else
+                      torch.from_numpy(np.array(a)).to(device))
+    return SceneBVH(**{f: conv(arrays.get(f)) for f in SceneBVH._fields})

@@ -1,7 +1,8 @@
 """ctypes binding to the shared native C++ library (native/ at the repo
 root: nanite.cpp + jobsys.cpp), the same library chord_tpu binds
 (chord_tpu/native/__init__.py). Only the entry points the host scene path
-needs are bound: the Nanite cluster-LOD build and vertex normals.
+needs are bound: the Nanite cluster-LOD build, vertex normals and the BVH
+build over leaf spheres (ops/rt.py).
 
 The tracked `native/libchordnative.so` is loaded in place. If it does not
 load on this machine, `native/*.cpp` are compiled with g++ into the
@@ -46,6 +47,7 @@ def load() -> ctypes.CDLL:
     lib.chord_nanite_build.restype = ctypes.c_int
     lib.chord_nanite_build_batch.restype = ctypes.c_int
     lib.chord_vertex_normals.restype = None
+    lib.chord_bvh_build.restype = ctypes.c_int
     _lib = lib
     return lib
 
@@ -169,3 +171,33 @@ def vertex_normals(positions: np.ndarray, indices: np.ndarray) -> np.ndarray:
         _ptr(indices, ctypes.c_int), len(indices.reshape(-1, 3)),
         _ptr(out, ctypes.c_float))
     return out
+
+
+def bvh_build(spheres: np.ndarray) -> dict:
+    """C++ 8-wide BVH over leaf bounding spheres, flattened in DFS
+    pre-order so `count` is a skip pointer (a missed node skips
+    count[i] nodes; ops/rt.py's stackless scan).
+
+    spheres: (N,4) f32 xyzr -> dict {sphere (M,4), children (M,8),
+    count (M,), leaf (M,)}.
+    """
+    lib = load()
+    spheres = np.ascontiguousarray(spheres, np.float32).reshape(-1, 4)
+    n = len(spheres)
+    cap = max(4 * n, 16)
+    out_sphere = np.zeros((cap, 4), np.float32)
+    out_children = np.zeros((cap, 8), np.int32)
+    out_count = np.zeros(cap, np.int32)
+    out_leaf = np.zeros(cap, np.int32)
+    n_nodes = ctypes.c_int(0)
+    f, i = ctypes.c_float, ctypes.c_int
+    rc = lib.chord_bvh_build(
+        _ptr(spheres, f), n, _ptr(out_sphere, f), _ptr(out_children, i),
+        _ptr(out_count, i), _ptr(out_leaf, i), cap, ctypes.byref(n_nodes))
+    if rc != 0:
+        raise RuntimeError("chord_bvh_build: capacity exceeded")
+    m = n_nodes.value
+    return {"sphere": out_sphere[:m].copy(),
+            "children": out_children[:m].copy(),
+            "count": out_count[:m].copy(),
+            "leaf": out_leaf[:m].copy()}

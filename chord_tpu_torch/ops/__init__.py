@@ -16,6 +16,7 @@ brdf_lut        split-sum env BRDF LUT + its analytic fit
 gi              world SH cache (inject, propagate, sample), SSAO
 screen_probe    screen-probe GI stage + the specular filter chain
 ssr             screen-space reflection march
+rt              scene BVH build (host) + closest-hit rays and hit shading
 tile_reproject  per-tile history reprojection             (kernel K4)
 post            auto-exposure, bloom, tile-mode TSR upscale
 colorspace      ACEScg pipeline + ACES tonemap

@@ -26,11 +26,13 @@ from . import (fusion_barrier, mesh_shader, paged_texture, proto_paged_tex,
 # r.raster.bricks cvar set, and the flat DeferredRenderer frame with
 # RendererConfig(subtiles=True)
 PATHS = ("off", "geo_tex", "geo_shadow_atmo", "geo_tex_bricks", "flat",
-         "all_no_rt")
+         "all_no_rt", "all")
 MESHLET = ("off", "geo_tex", "geo_shadow_atmo", "geo_tex_bricks",
-           "all_no_rt")
+           "all_no_rt", "all")
+GI_PATHS = ("all_no_rt", "all")
 # launches of a kernel on a path's 16-frame run that the path fixes (K4:
-# TSR's history and, on `all_no_rt`, the GI diffuse history every frame)
+# TSR's history and, with GI, the GI diffuse history every frame; the BVH
+# rays of `all` launch no kernel of their own)
 EXPECTED_LAUNCHES = {
     "off": {"tile_reproject": 16},
     "geo_tex": {"tile_reproject": 16, "paged_texture": 32},
@@ -40,6 +42,7 @@ EXPECTED_LAUNCHES = {
                        "raster_bricks": 64},
     "flat": {"raster_subtile": 16},
     "all_no_rt": {"tile_reproject": 32, "paged_texture": 40, "pcss": 16},
+    "all": {"tile_reproject": 32, "paged_texture": 40, "pcss": 16},
 }
 # the port's tools: every variant of tools/repro_eval_kernel.py, and
 # tools/proto_paged_tex.py's main at its own size
@@ -63,7 +66,7 @@ class Kernel:
 KERNELS: List[Kernel] = [
     Kernel("raster", raster, "raster_tiles", raster.raster_tiles_plain,
            "chord_tpu_torch/csrc/raster.cu", "chord_tpu/ops/raster.py:488",
-           paths=("off", "geo_tex", "geo_shadow_atmo", "all_no_rt")),
+           paths=("off", "geo_tex", "geo_shadow_atmo") + GI_PATHS),
     Kernel("mesh_shader", mesh_shader, "mesh_shader",
            mesh_shader.mesh_shader_plain,
            "chord_tpu_torch/csrc/mesh_shader.cu",
@@ -80,12 +83,12 @@ KERNELS: List[Kernel] = [
            paged_texture.paged_sample_plain,
            "chord_tpu_torch/csrc/paged_texture.cu",
            "chord_tpu/ops/paged_texture.py:251",
-           paths=("geo_tex", "geo_shadow_atmo", "geo_tex_bricks",
-                  "all_no_rt")),
+           paths=("geo_tex", "geo_shadow_atmo", "geo_tex_bricks") +
+           GI_PATHS),
     Kernel("pcss", shadow_kernel, "pcss", shadow.pcss_plain,
            "chord_tpu_torch/csrc/pcss.cu",
            "chord_tpu/ops/shadow_kernel.py:145",
-           paths=("geo_shadow_atmo", "all_no_rt")),
+           paths=("geo_shadow_atmo",) + GI_PATHS),
     Kernel("raster_bricks", raster, "raster_bricks",
            raster.raster_bricks_plain,
            "chord_tpu_torch/csrc/raster_bricks.cu",

@@ -1,0 +1,336 @@
+"""Closest-hit rays over the scene's bounding-sphere BVH (port of
+chord_tpu/ops/rt.py).
+
+The BVH is built on the host over world-space (translated-world) coarse
+proxies: one sphere per instance (granularity "object", what bench.py's
+`all` rung builds) or per LOD-root meshlet (granularity "meshlet",
+MeshletRenderer's default), by the shared native builder
+(native/nanite.cpp chord_bvh_build; `build_bvh_numpy` is the numpy
+oracle), flattened in DFS pre-order so a node's subtree count is a skip
+pointer. Rays hit the leaf spheres themselves; hits shade from a per-leaf
+mean albedo with the sun and an ambient term (`shade_hits`), enough for
+the GI probe rays and the specular fallback after SSR to see geometry the
+screen does not hold.
+
+`trace` dispatches like chord_tpu: up to DENSE_LEAF_LIMIT leaves, every
+ray against every leaf in 512-leaf chunks (`trace_dense`: two (R,3) @
+(3,512) products a chunk, plain matrix products, TF32 off as this package
+sets it); above it, the lock-step skip-pointer scan (`trace_bvh`). Neither
+has a Pallas kernel in chord_tpu, and neither has a kernel here. The
+triangle-exact mode (granularity "triangle", chord_tpu's tri_planes) is
+not ported: ROADMAP §1 item 3.
+
+Hit distances are float32; a miss has leaf -1 and t = t_max.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional, Tuple
+
+import numpy as np
+import torch
+
+from . import colorspace
+
+
+class SceneBVH(NamedTuple):
+    """Flattened BVH + leaf shading table (tensors on one device)."""
+
+    node_sphere: torch.Tensor    # (M,4) xyzr
+    node_count: torch.Tensor     # (M,) i32 subtree size (skip pointer)
+    node_leaf: torch.Tensor      # (M,) i32 leaf element id or -1
+    leaf_albedo: torch.Tensor    # (N,3) AP1 mean albedo per leaf
+    leaf_emissive: torch.Tensor  # (N,3) AP1
+    leaf_sphere: Optional[torch.Tensor] = None   # (N,4) the dense path's
+    # chord_tpu's triangle-exact fields (granularity "triangle"): kept so
+    # a BVH carries the same fields; no path of the port fills them
+    tri_planes: Optional[torch.Tensor] = None    # (N,12) f32
+    leaf_normal: Optional[torch.Tensor] = None   # (N,3) f32
+
+
+def build_bvh_numpy(spheres: np.ndarray) -> dict:
+    """numpy version of the native chord_bvh_build (the same DFS
+    pre-order flatten and skip counts: median splits on x, then y, then
+    z, so up to 8 children a node) -> {sphere (M,4), count (M,), leaf
+    (M,)}; the test oracle of the native builder."""
+    spheres = np.asarray(spheres, np.float32).reshape(-1, 4)
+    out_sphere, out_count, out_leaf = [], [], []
+
+    def bound(ids):
+        c = spheres[ids, :3].mean(0)
+        r = (np.linalg.norm(spheres[ids, :3] - c, axis=1) +
+             spheres[ids, 3]).max()
+        return np.array([c[0], c[1], c[2], r], np.float32)
+
+    def split(a, axis):
+        o = a[np.argsort(spheres[a, axis], kind="stable")]
+        m = len(o) // 2
+        return o[:m], o[m:]
+
+    def rec(ids):
+        idx = len(out_sphere)
+        out_sphere.append(bound(ids))
+        out_count.append(1)
+        out_leaf.append(int(ids[0]) if len(ids) == 1 else -1)
+        if len(ids) == 1:
+            return 1
+        total = 1
+        for hx in split(np.asarray(ids), 0):
+            if len(hx) == 0:
+                continue
+            for q in split(hx, 1):
+                if len(q) == 0:
+                    continue
+                for o in split(q, 2):
+                    if len(o) == 0:
+                        continue
+                    total += rec(list(o))
+        out_count[idx] = total
+        return total
+
+    rec(list(range(len(spheres))))
+    return {"sphere": np.stack(out_sphere),
+            "count": np.asarray(out_count, np.int32),
+            "leaf": np.asarray(out_leaf, np.int32)}
+
+
+def _host(t: torch.Tensor) -> np.ndarray:
+    return t.detach().cpu().numpy()
+
+
+def build_scene_bvh(pools, instances, coarse_only: bool = True,
+                    granularity: str = "meshlet") -> SceneBVH:
+    """BVH over coarse proxy bounding spheres in translated world, built on
+    the host, on the pools' device.
+
+    granularity="object": one sphere per valid instance (its
+    object_sphere_tw). granularity="meshlet": the LOD-root meshlets'
+    spheres of every valid pair (parent error +inf; every valid pair
+    without `coarse_only`), moved to world by the instance's
+    object-to-translated-world matrix and scaled by its largest axis.
+    Leaf albedo is the material's base colour in AP1, leaf emission its
+    emissive colour. The native builder runs when the shared library
+    loads, else build_bvh_numpy (as chord_tpu); `build_scene_bvh.builder`
+    names the one the last call used."""
+    if granularity == "triangle":
+        raise NotImplementedError(
+            "build_scene_bvh(granularity='triangle'), chord_tpu's "
+            "triangle-exact leaves, is not ported yet (ROADMAP §1 item 3)")
+    if granularity not in ("object", "meshlet"):
+        raise ValueError(f"unknown BVH granularity {granularity!r}")
+    dev = pools.positions.device
+    if granularity == "object":
+        ids = np.nonzero(_host(instances.object_valid))[0]
+        world = _host(instances.object_sphere_tw)[ids].astype(np.float32)
+        obj = ids
+    else:
+        pair_m = _host(pools.pair_meshlet)
+        valid = _host(pools.pair_valid)
+        perr = _host(pools.meshlet_parent_error)[pair_m]
+        keep = valid & (perr > 1e30) if coarse_only else valid
+        ids = np.nonzero(keep)[0]
+        if len(ids) == 0:
+            ids = np.nonzero(valid)[0]
+        m = pair_m[ids]
+        obj = _host(pools.pair_object)[ids]
+        sph = _host(pools.meshlet_sphere)[m]                     # (N,4)
+        o2w = _host(instances.object_to_tw)[obj]                 # (N,4,4)
+        c = np.concatenate([sph[:, :3], np.ones((len(ids), 1))], 1)
+        cw = np.einsum("nj,njk->nk", c, o2w)[:, :3]
+        scale = np.linalg.norm(o2w[:, :3, :3], axis=2).max(1)
+        world = np.concatenate([cw, (sph[:, 3] * scale)[:, None]],
+                               1).astype(np.float32)
+
+    from ..native import available, bvh_build
+    if available():
+        bvh = bvh_build(world)
+        build_scene_bvh.builder = "native"
+    else:
+        bvh = build_bvh_numpy(world)
+        build_scene_bvh.builder = "numpy"
+    mat = _host(instances.object_material)[obj]
+    albedo = colorspace.srgb_to_acescg(
+        pools.mat_base_color.detach().cpu()[torch.from_numpy(mat).long(),
+                                            :3])
+    emissive = _host(pools.mat_emissive)[mat][:, :3]
+    as_dev = lambda a: torch.as_tensor(np.asarray(a)).to(dev)
+    return SceneBVH(node_sphere=as_dev(bvh["sphere"]),
+                    node_count=as_dev(bvh["count"]),
+                    node_leaf=as_dev(bvh["leaf"]),
+                    leaf_albedo=albedo.to(dev), leaf_emissive=as_dev(emissive),
+                    leaf_sphere=as_dev(world))
+
+
+build_scene_bvh.builder = None
+
+
+def _ray_sphere(o: torch.Tensor, d: torch.Tensor, sph: torch.Tensor):
+    """Entry distance of ray o + t*d into sphere (...,4) -> (hit, t_entry);
+    an origin inside gives t_entry = 0."""
+    oc = o - sph[..., :3]
+    b = (oc * d).sum(-1)
+    c2 = (oc * oc).sum(-1) - sph[..., 3] * sph[..., 3]
+    disc = b * b - c2
+    sq = torch.sqrt(torch.clamp_min(disc, 0.0))
+    t_entry = torch.where(c2 < 0.0, torch.zeros((), device=o.device),
+                          -b - sq)
+    return (disc >= 0.0) & ((-b + sq) > 0.0), t_entry
+
+
+# chord_tpu's crossover of its dense and scan paths; the object and
+# meshlet proxy sets of the bench scenes stay far below it
+DENSE_LEAF_LIMIT = 16384
+# trace_bvh reads its loop condition (a host synchronisation) every this
+# many steps; steps after every ray has finished change nothing
+_SCAN_CHECK = 8
+
+
+def trace(origins: torch.Tensor, dirs: torch.Tensor, bvh: SceneBVH,
+          t_max: float = 1e9, max_steps: Optional[int] = None
+          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Closest hit. origins/dirs (...,3) -> (t (...,), leaf (...,) i32,
+    -1 = miss). The dense path for up to DENSE_LEAF_LIMIT leaf spheres
+    (and no step budget), else the BVH scan. `trace.calls` counts the
+    calls, `trace.dense` those of them on the dense path, `trace.rays`
+    the rays traced."""
+    trace.calls += 1
+    trace.rays += origins.numel() // 3
+    if bvh.tri_planes is not None:
+        raise NotImplementedError(
+            "tracing a triangle-exact BVH is not ported yet (ROADMAP §1 "
+            "item 3)")
+    if (bvh.leaf_sphere is not None and
+            bvh.leaf_sphere.shape[0] <= DENSE_LEAF_LIMIT and
+            max_steps is None):
+        trace.dense += 1
+        return trace_dense(origins, dirs, bvh.leaf_sphere, t_max)
+    return trace_bvh(origins, dirs, bvh, t_max, max_steps)
+
+
+trace.calls = trace.dense = trace.rays = 0
+
+
+def trace_dense(origins: torch.Tensor, dirs: torch.Tensor,
+                spheres: torch.Tensor, t_max: float = 1e9,
+                chunk: int = 512) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Every ray against every leaf sphere, `chunk` spheres at a time
+    (the (R, chunk) planes stay bounded), keeping the running closest
+    hit. (o-c)·d and |o-c|^2 expand into per-ray terms and the d @ c^T,
+    o @ c^T products. Padding spheres have radius -1 and never hit."""
+    shape = origins.shape[:-1]
+    o = origins.reshape(-1, 3)
+    d = dirs.reshape(-1, 3)
+    dev = o.device
+    pad = (-spheres.shape[0]) % chunk
+    if pad:
+        poison = torch.zeros((pad, 4), dtype=spheres.dtype, device=dev)
+        poison[:, 3] = -1.0
+        spheres = torch.cat([spheres, poison])
+    od = (o * d).sum(1, keepdim=True)                     # (R,1)
+    oo = (o * o).sum(1, keepdim=True)                     # (R,1)
+    zero = torch.zeros((), device=dev)
+    inf = torch.full((), float("inf"), device=dev)
+    t_best = torch.full((o.shape[0],), t_max, dtype=torch.float32, device=dev)
+    leaf_best = torch.full((o.shape[0],), -1, dtype=torch.int32, device=dev)
+    for base in range(0, spheres.shape[0], chunk):
+        sc = spheres[base:base + chunk]
+        c, rad = sc[:, :3], sc[:, 3]
+        b = od - d @ c.T                                  # (o-c)·d
+        c2 = (oo - 2.0 * (o @ c.T) + (c * c).sum(1)[None, :] -
+              (rad * rad)[None, :])
+        disc = b * b - c2
+        sq = torch.sqrt(torch.clamp_min(disc, 0.0))
+        t_entry = torch.where(c2 < 0.0, zero, -b - sq)
+        hit = ((disc >= 0.0) & ((-b + sq) > 0.0) & (t_entry > 1e-4) &
+               (rad[None, :] > 0.0))
+        t_hit = torch.where(hit, t_entry, inf)
+        j = torch.argmin(t_hit, dim=1)
+        t_c = torch.gather(t_hit, 1, j[:, None])[:, 0]
+        take = t_c < t_best
+        t_best = torch.where(take, t_c, t_best)
+        leaf_best = torch.where(take, (j + base).to(torch.int32), leaf_best)
+    return t_best.reshape(shape), leaf_best.reshape(shape)
+
+
+def trace_bvh(origins: torch.Tensor, dirs: torch.Tensor, bvh: SceneBVH,
+              t_max: float = 1e9, max_steps: Optional[int] = None
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Stackless skip-pointer scan, lock-step over rays: each ray keeps a
+    cursor i; a missed node, or one no nearer than the ray's best hit,
+    skips its subtree (i += count[i]), a hit internal node descends
+    (i += 1), a hit leaf updates the closest hit. At most `max_steps`
+    steps (default min(nodes, 384)): a ray still scanning then keeps what
+    it found, so an unfinished ray may miss, as in chord_tpu."""
+    shape = origins.shape[:-1]
+    o = origins.reshape(-1, 3)
+    d = dirs.reshape(-1, 3)
+    dev = o.device
+    m = int(bvh.node_sphere.shape[0])
+    if max_steps is None:
+        max_steps = min(m, 384)
+    i = torch.zeros(o.shape[0], dtype=torch.int32, device=dev)
+    t_best = torch.full((o.shape[0],), t_max, dtype=torch.float32, device=dev)
+    leaf_best = torch.full((o.shape[0],), -1, dtype=torch.int32, device=dev)
+    one = torch.ones((), dtype=torch.int32, device=dev)
+    for step in range(max_steps):
+        if step % _SCAN_CHECK == 0 and not bool((i < m).any()):
+            break
+        ii = torch.clamp_max(i, m - 1).long()
+        cnt = bvh.node_count[ii]
+        lf = bvh.node_leaf[ii]
+        active = i < m
+        hit, t_in = _ray_sphere(o, d, bvh.node_sphere[ii])
+        useful = hit & (t_in < t_best) & active
+        is_leaf = lf >= 0
+        take = useful & is_leaf & (t_in > 1e-4)
+        t_best = torch.where(take, t_in, t_best)
+        leaf_best = torch.where(take, lf, leaf_best)
+        step_i = torch.where(useful & ~is_leaf, one, cnt)
+        i = torch.where(active, i + step_i, i)
+    return t_best.reshape(shape), leaf_best.reshape(shape)
+
+
+def trace_brute_numpy(origins: np.ndarray, dirs: np.ndarray,
+                      spheres: np.ndarray):
+    """O(R*N) closest-hit oracle over the raw leaf spheres -> (t, leaf);
+    a miss has t = 1e9 and leaf -1. Computes in the inputs' precision."""
+    o = origins.reshape(-1, 1, 3)
+    d = dirs.reshape(-1, 1, 3)
+    s = spheres.reshape(1, -1, 4)
+    oc = o - s[..., :3]
+    b = (oc * d).sum(-1)
+    c2 = (oc * oc).sum(-1) - s[..., 3] ** 2
+    disc = b * b - c2
+    sq = np.sqrt(np.maximum(disc, 0.0))
+    t0 = -b - sq
+    t1 = -b + sq
+    t_entry = np.where(c2 < 0.0, 0.0, t0)
+    hit = (disc >= 0.0) & (t1 > 0.0) & (t_entry > 1e-4)
+    t = np.where(hit, t_entry, 1e9)
+    best = t.argmin(1)
+    tb = t[np.arange(len(best)), best]
+    leaf = np.where(tb < 1e9, best, -1)
+    return tb, leaf.astype(np.int32)
+
+
+def shade_hits(t: torch.Tensor, leaf: torch.Tensor, origins: torch.Tensor,
+               dirs: torch.Tensor, bvh: SceneBVH,
+               sun_direction: torch.Tensor, sun_radiance: torch.Tensor,
+               ambient: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Approximate hit radiance: the leaf's mean albedo x (sun N.L / pi +
+    ambient) + its emission, with the normal facing the ray (-dir; a
+    triangle-exact BVH's geometric normal, flipped toward the origin) ->
+    (radiance (...,3), confidence (...,): 1 on a hit, 0 on a miss)."""
+    ok = leaf >= 0
+    lf = torch.clamp_min(leaf, 0).long()
+    alb = bvh.leaf_albedo[lf]
+    emis = bvh.leaf_emissive[lf]
+    if bvh.leaf_normal is not None:
+        gn = bvh.leaf_normal[lf]
+        n = gn * -torch.sign((gn * dirs).sum(-1, keepdim=True) + 1e-12)
+    else:
+        n = -dirs
+    ndl = torch.clamp((n * sun_direction).sum(-1), 0.0, 1.0)
+    rad = alb * (sun_radiance * ndl[..., None] / np.pi + ambient) + emis
+    return (torch.where(ok[..., None], rad, torch.zeros((), device=t.device)),
+            ok.to(torch.float32))

@@ -2,7 +2,7 @@
 chord_tpu/ops/tile_reproject.py).
 
 Each 32x128 output tile reprojects the history by ITS OWN mean motion:
-bilinear at one shift per tile, from edge-padded history planes, with the
+bilinear at one shift per tile, from the edge-extended history, with the
 fractions quantised to 1/FRAC_Q and the sample start clamped to
 [-MARGIN, wp-1]. Kernel K4 does the resample:
 
@@ -11,10 +11,12 @@ fractions quantised to 1/FRAC_Q and the sample start clamped to
 
 Replaces chord_tpu/ops/tile_reproject.py::_reproject_kernel (:55), whose
 (32,48)@(48,256) and (32,256)@(256,128) one-hot matmuls fold the two
-lerps; here one thread per output pixel reads its 4 taps. The per-tile
-mean motion and the table of per-tile offsets/fractions are plain torch,
-as in chord_tpu. The kernel is bound by reading the 4 taps and writing the
-pixel (~4 B x C per tap, cached) at 1080p.
+lerps over margin-padded planes. The kernel reads the (H,W,C) history at
+clamped coordinates, which is the same data as chord_tpu's edge padding,
+and writes the (H,W,C) output: no padded copy of the history is made on
+the card. The plain version keeps the padded planes, an independent
+formulation of the edge rule. The per-tile mean motion and the table of
+per-tile offsets/fractions are plain torch, as in chord_tpu.
 """
 
 from __future__ import annotations
@@ -63,13 +65,23 @@ def _tile_table(motion_px: torch.Tensor, hp: int, wp: int):
     return tm, tab.contiguous()
 
 
-def reproject_tiles_plain(planes: torch.Tensor, tab: torch.Tensor, hp: int,
-                          wp: int) -> torch.Tensor:
-    """Plain PyTorch version of kernel K4: margin-padded planes
-    (C, MARGIN+hp+WIN_H, MARGIN+wp+WIN_W) x tab (nt,4) -> (C, hp, wp)."""
-    c = planes.shape[0]
+def _tiles(h: int, w: int) -> Tuple[int, int]:
+    """(hp, wp): the history size rounded up to whole 32x128 tiles."""
+    return -(-h // TILE_H) * TILE_H, -(-w // TILE_W) * TILE_W
+
+
+def reproject_tiles_plain(img: torch.Tensor, tab: torch.Tensor
+                          ) -> torch.Tensor:
+    """Plain PyTorch version of kernel K4: history (h,w,C) x tab (nt,4) ->
+    (h,w,C). Builds chord_tpu's margin-padded planes (C, MARGIN+hp+WIN_H,
+    MARGIN+wp+WIN_W) by edge replication and reads the taps there."""
+    h, w, c = img.shape
+    hp, wp = _tiles(h, w)
     ht, wt = hp // TILE_H, wp // TILE_W
-    dev = planes.device
+    planes = F.pad(img.permute(2, 0, 1)[None],
+                   (MARGIN, wp - w + WIN_W, MARGIN, hp - h + WIN_H),
+                   mode="replicate")[0]
+    dev = img.device
     t = tab.long()
     fy = (tab[:, 2].to(torch.float32) * (1.0 / FRAC_Q))[:, None, None]
     fx = (tab[:, 3].to(torch.float32) * (1.0 / FRAC_Q))[:, None, None]
@@ -86,27 +98,28 @@ def reproject_tiles_plain(planes: torch.Tensor, tab: torch.Tensor, hp: int,
     bot = (1.0 - fy) * tap(0, 1) + fy * tap(1, 1)
     out = (1.0 - fx) * top + fx * bot                       # (C,nt,TH,TW)
     return out.reshape(c, ht, wt, TILE_H, TILE_W).permute(
-        0, 1, 3, 2, 4).reshape(c, hp, wp)
+        1, 3, 2, 4, 0).reshape(hp, wp, c)[:h, :w]
 
 
-def reproject_tiles(planes: torch.Tensor, tab: torch.Tensor, hp: int,
-                    wp: int) -> torch.Tensor:
-    """Kernel K4 -> (C, hp, wp) reprojected planes. CPU tensors ->
+def reproject_tiles(img: torch.Tensor, tab: torch.Tensor) -> torch.Tensor:
+    """Kernel K4 -> (h,w,C) reprojected history. CPU tensors ->
     reproject_tiles_plain; CUDA tensors -> csrc/tile_reproject.cu."""
-    if not planes.is_cuda:
-        return reproject_tiles_plain(planes, tab, hp, wp)
-    c, ph, pw = planes.shape
-    nt = (hp // TILE_H) * (wp // TILE_W)
-    if (ph, pw) != (MARGIN + hp + WIN_H, MARGIN + wp + WIN_W):
-        raise ValueError(f"planes {tuple(planes.shape)} do not match the "
-                         f"padded ({hp}, {wp}) layout")
-    _cuda.check(planes, "planes", torch.float32)
-    _cuda.check(tab, "tab", torch.int32, (nt, 4))
-    out = torch.empty((c, hp, wp), dtype=torch.float32, device=planes.device)
+    if not img.is_cuda:
+        return reproject_tiles_plain(img, tab)
+    if img.dim() != 3 or not 1 <= img.shape[2] <= 8:
+        raise ValueError(f"img must be (h, w, C) with 1 <= C <= 8 (got "
+                         f"{tuple(img.shape)})")
+    if img.numel() >= 2 ** 31:
+        raise ValueError("img must hold fewer than 2**31 values")
+    h, w, c = img.shape
+    hp, wp = _tiles(h, w)
+    _cuda.check(img, "img", torch.float32)
+    _cuda.check(tab, "tab", torch.int32,
+                ((hp // TILE_H) * (wp // TILE_W), 4))
+    out = torch.empty_like(img)
     ci = _cuda.cint
-    _cuda.launch("chord_tile_reproject", _cuda.ptr(planes), _cuda.ptr(tab),
-                 ci(c), ci(hp), ci(wp), ci(pw), ci(ph),
-                 _cuda.ptr(out), _cuda.stream())
+    _cuda.launch("chord_tile_reproject_hwc", _cuda.ptr(img), _cuda.ptr(tab),
+                 ci(c), ci(h), ci(w), _cuda.ptr(out), _cuda.stream())
     reproject_tiles.launches += 1
     return out
 
@@ -123,20 +136,21 @@ def tile_reproject(img: torch.Tensor, motion_px: torch.Tensor
     if squeeze:
         img = img[..., None]
     h, w, _c = img.shape
-    hp = -(-h // TILE_H) * TILE_H
-    wp = -(-w // TILE_W) * TILE_W
-    # edge padding: to (hp, wp), then MARGIN rows/cols on top/left
-    # (negative sample starts) and window extents on bottom/right
-    planes = F.pad(img.permute(2, 0, 1)[None],
-                   (MARGIN, wp - w + WIN_W, MARGIN, hp - h + WIN_H),
-                   mode="replicate")[0].contiguous()
+    hp, wp = _tiles(h, w)
     tm, tab = _tile_table(motion_px, hp, wp)
-    out = reproject_tiles(planes, tab, hp, wp).permute(1, 2, 0)[:h, :w]
-    ht, wt = hp // TILE_H, wp // TILE_W
-    tile_m = tm[:, None, :, None, :].expand(ht, TILE_H, wt, TILE_W, 2
-                                            ).reshape(hp, wp, 2)[:h, :w]
-    r = motion_px - tile_m
-    resid = torch.sqrt(r[..., 0] * r[..., 0] + r[..., 1] * r[..., 1])
+    out = reproject_tiles(img.contiguous(), tab)
     if squeeze:
         out = out[..., 0]
-    return out, resid
+    return out, residual(motion_px, tm)
+
+
+def residual(motion_px: torch.Tensor, tm: torch.Tensor) -> torch.Tensor:
+    """Per-pixel |motion - its tile's mean motion| (H,W), from the tile
+    means tm (ht,wt,2) of _tile_table."""
+    h, w = motion_px.shape[:2]
+    ht, wt = tm.shape[:2]
+    tile_m = tm[:, None, :, None, :].expand(ht, TILE_H, wt, TILE_W, 2
+                                            ).reshape(ht * TILE_H,
+                                                      wt * TILE_W, 2)[:h, :w]
+    r = motion_px - tile_m
+    return torch.sqrt(r[..., 0] * r[..., 0] + r[..., 1] * r[..., 1])

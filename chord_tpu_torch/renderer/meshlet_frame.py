@@ -3,8 +3,10 @@ the bench's `off` feature set, geometry + post; its `geo_tex` set, which
 adds material maps and the alpha-masked and blend buckets; its
 `geo_shadow_atmo` set, which adds cascaded shadow maps with PCSS and the
 temporal shadow mask, the physically based sky and aerial perspective; and
-its `all` set without the BVH rays (gi_rt=False): screen-probe GI or the
-world-cache GI, SSAO, the specular chain and SSR).
+its `all` set: screen-probe GI or the world-cache GI, SSAO, the specular
+chain and SSR, and with gi_rt the BVH rays (probe rays beside the screen
+taps, and SSR's misses), traced over a SceneBVH of bounding-sphere
+proxies that the caller passes as `bvh`, as chord_tpu's frame takes it).
 
 Pass order (chord_tpu meshlet_frame.py:470-1166; reference
 renderer.cpp:316-343 and mesh_raster.cpp:269-330):
@@ -16,14 +18,14 @@ raster.phase1 (seeded with phase 0) -> hzb.final [+ hzb.depth_range] ->
 -> [shadow.cascade_fit -> shadow.render (one cascade, round robin, scrolled
 cache, alpha-tested masked casters) -> shadow.evaluate (PCSS, kernel K6)
 -> shadow.temporal -> shadow.upsample] -> [gi.ao -> gi.probe.spawn ->
-gi.probe.sh_reproject -> gi.probe.taps -> gi.probe.project_sh ->
-gi.probe.world_inject -> gi.probe.interpolate ->
+gi.probe.sh_reproject -> [gi.probe.rt_trace] -> gi.probe.taps ->
+gi.probe.project_sh -> gi.probe.world_inject -> gi.probe.interpolate ->
 gi.probe.history_reproject (K4) -> gi.probe.spatial_filter ->
-gi.probe.upsample (or gi.sample in cache mode) -> gi.specular (SSR) ->
-gi.specular.filter] -> lighting -> [blend.cull -> blend.raster ->
-blend.shade] -> [atmosphere.aerial] -> [gi.inject, cache mode] ->
-auto_exposure -> tsr (render -> post upscale, tile reprojection) -> bloom
--> tonemap. With alpha_masked the occlusion phases take the opaque bucket
+gi.probe.upsample (or gi.sample in cache mode) -> gi.specular (SSR
+[-> gi.specular.rt]) -> gi.specular.filter] -> lighting -> [blend.cull
+-> blend.raster -> blend.shade] -> [atmosphere.aerial] -> [gi.inject,
+cache mode] -> auto_exposure -> tsr (render -> post upscale, tile
+reprojection) -> bloom -> tonemap. With alpha_masked the occlusion phases take the opaque bucket
 only. The GI stages run inside torch.profiler.record_function spans named
 as chord_tpu's named_scopes.
 
@@ -34,7 +36,8 @@ main-view raster (both phases, the masked and blend buckets) from K1 to
 K7; the shadow cascades build their own config and keep K1. A frame is
 plain eager PyTorch around the kernels (K1 or K7 raster, K2 mesh shader,
 K3 row gather, K4 tile reproject (TSR, and the GI diffuse history), K5
-paged texture sampler, K6 PCSS). Counts and overflows stay on the device
+paged texture sampler, K6 PCSS); the BVH rays are plain tensor code
+(ops/rt.py), as in chord_tpu. Counts and overflows stay on the device
 until the caller reads them. The shadow pass and the GI world-cache inject
 need the frame counter on the host (which cascade refreshes, which PCSS
 phase runs, which cache cascade takes the probes): render_frame_meshlet
@@ -54,6 +57,7 @@ from ..ops import atmosphere as atm
 from ..ops import brdf_lut as brdf
 from ..ops import colorspace, post, shading
 from ..ops import gi as gi_ops
+from ..ops import rt
 from ..ops import screen_probe as sp
 from ..ops import ssr as ssr_ops
 from ..ops._util import const, f2i
@@ -73,8 +77,10 @@ class MeshletFrameConfig(NamedTuple):
     """chord_tpu MeshletFrameConfig's fields, with its defaults. The port
     runs occlusion + object_precull with material maps, trilinear mip
     dither, the masked (one layer) and blend buckets, shadows, atmosphere,
-    GI in "probe" and "cache" modes with SSAO and SSR; not the BVH rays
-    (gi_rt, gi_mode="ddgi", GIConfig.ao_mode="rtao") nor the probe march
+    GI in "probe" and "cache" modes with SSAO, SSR and the BVH rays
+    (gi_rt, over "object" or "meshlet" proxies); not gi_mode="ddgi",
+    GIConfig.ao_mode="rtao", the triangle-exact BVH
+    (rt_granularity="triangle") nor the probe march
     (ScreenProbeConfig.trace_mode="march")."""
 
     draw_capacity: int = 4096
@@ -95,7 +101,7 @@ class MeshletFrameConfig(NamedTuple):
     probe_cfg: Optional[sp.ScreenProbeConfig] = None   # None = defaults
     gi_cfg: Optional[gi_ops.GIConfig] = None           # None = defaults
     ddgi_cfg: object = None
-    # software-BVH rays for the probes and specular misses (not ported)
+    # software-BVH rays for the probes and specular misses
     gi_rt: bool = False
     rt_rays: int = 4
     # the frame is declared dynamic: scrolled cascade strips assume static
@@ -127,17 +133,14 @@ class MeshletFrameConfig(NamedTuple):
     debug_mode: str = "none"
 
 
-_UNPORTED_FLAGS = ("gi_rt",)
-
-
 def check_slice(config: RendererConfig, mcfg: MeshletFrameConfig) -> None:
     """Raise NotImplementedError for any flag outside the ported slice.
-    ssr=True without gi is a no-op, as in chord_tpu."""
-    for name in _UNPORTED_FLAGS:
-        if getattr(mcfg, name):
-            raise NotImplementedError(
-                f"MeshletFrameConfig.{name}=True is not ported yet")
+    ssr=True without gi is a no-op, as in chord_tpu, and so is gi_rt."""
     if mcfg.gi:
+        if mcfg.gi_rt and mcfg.rt_granularity == "triangle":
+            raise NotImplementedError(
+                "MeshletFrameConfig.rt_granularity='triangle' (triangle-exact "
+                "BVH leaves) is not ported yet")
         if mcfg.gi_mode == "ddgi":
             raise NotImplementedError(
                 "MeshletFrameConfig.gi_mode='ddgi' (probe volumes over the "
@@ -516,11 +519,12 @@ class GIOut(NamedTuple):
 
 
 def _probe_diffuse(view: DeviceView, history: FrameHistory, gbuf, depth,
-                   motion_dilated, disocc, sky_amb, frame_index: int,
-                   mcfg: MeshletFrameConfig, gcfg: gi_ops.GIConfig):
-    """The screen-probe stage (chord_tpu meshlet_frame.py:849-949 without
-    the BVH rays) -> (indirect (H,W,3), new gi_cache, probe_sh,
-    probe_depth, gi_diffuse)."""
+                   motion_dilated, disocc, sky_amb, sun_radiance,
+                   frame_index: int, mcfg: MeshletFrameConfig,
+                   gcfg: gi_ops.GIConfig, bvh: Optional[rt.SceneBVH]):
+    """The screen-probe stage (chord_tpu meshlet_frame.py:849-949) ->
+    (indirect (H,W,3), new gi_cache, probe_sh, probe_depth, gi_diffuse).
+    With gi_rt and a BVH, rt_rays rays a probe join the taps."""
     spcfg = mcfg.probe_cfg or sp.ScreenProbeConfig()
     with record_function("gi.probe.spawn"):
         probes = sp.spawn_probes(gbuf, depth, history.frame_count, spcfg)
@@ -528,6 +532,22 @@ def _probe_diffuse(view: DeviceView, history: FrameHistory, gbuf, depth,
         sh_hist, n_hist = sp.reproject_probe_sh(
             probes, history.probe_sh, history.probe_depth,
             view.prev_tw_to_clip_nj, history.valid, spcfg)
+    rt_parts = None
+    if mcfg.gi_rt and bvh is not None:
+        # rays that see geometry off the screen: the first rt_rays of the
+        # frame's 4-ray (at least) set, from 0.05 above the probe
+        k = mcfg.rt_rays
+        with record_function("gi.probe.rt_trace"):
+            rt_dirs = sp.probe_ray_dirs(probes, history.frame_count,
+                                        spcfg._replace(rays=max(k, 4))
+                                        )[..., :k, :]
+            org = (probes.pos_tw[..., None, :] +
+                   probes.normal[..., None, :] * 0.05).expand(rt_dirs.shape)
+            t_rt, leaf_rt = rt.trace(org, rt_dirs, bvh)
+            rt_rad, rt_conf = rt.shade_hits(t_rt, leaf_rt, org, rt_dirs, bvh,
+                                            view.sun_direction, sun_radiance,
+                                            sky_amb * 0.5)
+            rt_parts = (rt_rad, rt_dirs, rt_conf)
     with record_function("gi.probe.taps"):
         # last frame's lit colour at (about) the probe pixels
         ph_n, pw_n = probes.depth.shape
@@ -537,6 +557,9 @@ def _probe_diffuse(view: DeviceView, history: FrameHistory, gbuf, depth,
         scene_rad = post.decimate(tc, (sy, sx))[:ph_n, :pw_n]
         rad, ray_dirs, sample_w = sp.gather_probe_taps(probes, scene_rad,
                                                        sky_amb, spcfg)
+    if rt_parts is not None:
+        rad, ray_dirs, sample_w = (torch.cat([a, b], dim=2) for a, b in
+                                   zip((rad, ray_dirs, sample_w), rt_parts))
     with record_function("gi.probe.project_sh"):
         probe_sh = sp.project_and_merge(rad, ray_dirs, probes, sh_hist,
                                         n_hist, spcfg, weights=sample_w)
@@ -564,13 +587,14 @@ def _probe_diffuse(view: DeviceView, history: FrameHistory, gbuf, depth,
 
 
 def _specular_gi(view: DeviceView, history: FrameHistory, gbuf, depth,
-                 motion_dilated, disocc, ao, mcfg: MeshletFrameConfig,
-                 gcfg: gi_ops.GIConfig):
-    """Specular GI (chord_tpu meshlet_frame.py:963-1044 without the BVH
-    rays): a GGX-sampled reflection direction per 1/sample_res_div pixel,
-    the world cache's radiance along it, SSR hits over it, the filter
-    chain -> (specular (H,W,3) times the analytic split-sum env term and
-    AO, new gi_specular)."""
+                 motion_dilated, disocc, ao, sun_radiance,
+                 mcfg: MeshletFrameConfig, gcfg: gi_ops.GIConfig,
+                 bvh: Optional[rt.SceneBVH]):
+    """Specular GI (chord_tpu meshlet_frame.py:963-1044): a GGX-sampled
+    reflection direction per 1/sample_res_div pixel, the world cache's
+    radiance along it, SSR hits over it (and, with gi_rt and a BVH, BVH
+    hits where SSR missed), the filter chain -> (specular (H,W,3) times the
+    analytic split-sum env term and AO, new gi_specular)."""
     dev = depth.device
     with record_function("gi.specular"):
         k = gcfg.sample_res_div
@@ -597,6 +621,17 @@ def _specular_gi(view: DeviceView, history: FrameHistory, gbuf, depth,
             ssr_conf = ssr_conf * history.valid
             spec_q = (spec_q * (1 - ssr_conf[..., None]) +
                       ssr_col * ssr_conf[..., None])
+            if mcfg.gi_rt and bvh is not None:
+                # SSR's misses fall back to BVH hits before the cache
+                with record_function("gi.specular.rt"):
+                    t_rt, leaf_rt = rt.trace(pos_q + nrm_q * 0.05, refl_q,
+                                             bvh)
+                    rt_col, rt_conf = rt.shade_hits(
+                        t_rt, leaf_rt, pos_q, refl_q, bvh,
+                        view.sun_direction, sun_radiance,
+                        view.sky_ambient * 0.5)
+                    take = ((1.0 - ssr_conf) * rt_conf)[..., None]
+                    spec_q = spec_q * (1 - take) + rt_col * take
     with record_function("gi.specular.filter"):
         spec_q = sp.specular_firefly_clamp(spec_q, pos_q, nrm_q, rough_q)
         spec_q = sp.spatial_filter_specular(spec_q, pos_q, nrm_q, rough_q)
@@ -615,11 +650,13 @@ def _specular_gi(view: DeviceView, history: FrameHistory, gbuf, depth,
 
 
 def _render_gi(view: DeviceView, history: FrameHistory, gbuf, depth,
-               motion_dilated, disocc, ambient, frame_index: int,
-               mcfg: MeshletFrameConfig, h: int, w: int) -> GIOut:
-    """The GI block (chord_tpu meshlet_frame.py:825-1046 without the
-    gi_rt / ddgi branches): AO, the diffuse indirect (probe or cache mode)
-    and the specular GI; `ambient` is the atmosphere's (None without)."""
+               motion_dilated, disocc, ambient, sun_radiance,
+               frame_index: int, mcfg: MeshletFrameConfig, h: int, w: int,
+               bvh: Optional[rt.SceneBVH]) -> GIOut:
+    """The GI block (chord_tpu meshlet_frame.py:825-1046 without the ddgi
+    and rtao branches): AO, the diffuse indirect (probe or cache mode) and
+    the specular GI; `ambient` is the atmosphere's (None without); `bvh`
+    the scene BVH the gi_rt rays trace (None: no rays, as in chord_tpu)."""
     gcfg = mcfg.gi_cfg or gi_ops.GIConfig()
     with record_function("gi.ao"):
         kd = gcfg.ao_res_div
@@ -632,7 +669,8 @@ def _render_gi(view: DeviceView, history: FrameHistory, gbuf, depth,
     if mcfg.gi_mode == "probe":
         indirect, gi_cache, probe_sh, probe_depth, gi_diffuse = \
             _probe_diffuse(view, history, gbuf, depth, motion_dilated,
-                           disocc, sky_amb, frame_index, mcfg, gcfg)
+                           disocc, sky_amb, sun_radiance, frame_index, mcfg,
+                           gcfg, bvh)
     else:
         with record_function("gi.sample"):
             indirect = gi_ops.diffuse_gi(history.gi_cache, gbuf,
@@ -643,8 +681,8 @@ def _render_gi(view: DeviceView, history: FrameHistory, gbuf, depth,
             history.gi_cache, history.probe_sh, history.probe_depth,
             history.gi_diffuse)
     specular, gi_specular = _specular_gi(view, history, gbuf, depth,
-                                         motion_dilated, disocc, ao, mcfg,
-                                         gcfg)
+                                         motion_dilated, disocc, ao,
+                                         sun_radiance, mcfg, gcfg, bvh)
     if ambient is None:
         ambient = view.sky_ambient[None, None, :] * torch.clamp(
             gbuf.normal[..., 1:2] * 0.5 + 0.5, 0.0, 1.0)
@@ -657,11 +695,13 @@ def _render_gi(view: DeviceView, history: FrameHistory, gbuf, depth,
 def render_frame_meshlet(pools, instances, view: DeviceView,
                          history: FrameHistory, config: RendererConfig,
                          mcfg: MeshletFrameConfig,
-                         frame_index: Optional[int] = None
+                         frame_index: Optional[int] = None,
+                         bvh: Optional[rt.SceneBVH] = None
                          ) -> Tuple[torch.Tensor, FrameHistory, dict]:
     """One GPU-driven frame -> (image (Hp,Wp,3) u8, new history, stats).
     `frame_index` is the host's copy of history.frame_count; the shadow
-    pass and GI need it."""
+    pass and GI need it. `bvh` (ops/rt.SceneBVH) is what the gi_rt rays
+    trace; without it they are skipped, as in chord_tpu."""
     check_slice(config, mcfg)
     if (mcfg.shadows or mcfg.gi) and frame_index is None:
         raise ValueError("shadows=True or gi=True needs frame_index, the "
@@ -788,7 +828,7 @@ def render_frame_meshlet(pools, instances, view: DeviceView,
     gi = None
     if mcfg.gi:
         gi = _render_gi(view, history, gbuf, depth, motion_dilated, disocc,
-                        ambient, frame_index, mcfg, h, w)
+                        ambient, sun_radiance, frame_index, mcfg, h, w, bvh)
         ambient = gi.ambient
 
     sun = shading.SunLight(direction=view.sun_direction,
@@ -876,19 +916,20 @@ SEQUENCE_STATS = ("drawn_tris", "bin_overflow", "draw_overflow",
 def render_sequence_meshlet(pools, instances, views_stacked: DeviceView,
                             history: FrameHistory, config: RendererConfig,
                             mcfg: MeshletFrameConfig,
+                            bvh: Optional[rt.SceneBVH] = None,
                             with_stats: bool = False):
     """Render a camera path (DeviceView stacked along a leading (N,) axis)
     frame by frame -> (images (N,Hp,Wp,3) u8, history[, stats]) where stats
     maps each per-frame stat to an (N,) tensor (worst-frame audits read
     its max: in-sequence overflow is invisible to a single fresh frame).
     With shadows or GI the frame counter is read once, here, and counted
-    on the host."""
+    on the host. `bvh` goes to every frame."""
     images, per_frame = [], []
     fc0 = int(history.frame_count) if mcfg.shadows or mcfg.gi else None
     for i in range(views_stacked.num_frames):
         image, history, stats = render_frame_meshlet(
             pools, instances, views_stacked.frame(i), history, config, mcfg,
-            frame_index=None if fc0 is None else fc0 + i)
+            frame_index=None if fc0 is None else fc0 + i, bvh=bvh)
         images.append(image)
         per_frame.append(stats)
     images = torch.stack(images)
@@ -901,10 +942,11 @@ def render_sequence_meshlet(pools, instances, views_stacked: DeviceView,
 
 class MeshletRenderer:
     """Host-side runner for the meshlet frame (chord_tpu MeshletRenderer
-    without the BVH build and the split shadow dispatch). History and
-    views go to the device the pools live on; the atmosphere LUTs and, with
-    GI, the env-BRDF LUT are built once (the sky view once per sun
-    direction)."""
+    without the split shadow dispatch). History and views go to the device
+    the pools live on; the atmosphere LUTs and, with GI, the env-BRDF LUT
+    are built once (the sky view once per sun direction); with gi_rt the
+    scene BVH is built on the host at mcfg.rt_granularity at the first
+    render, and at every render under rt_dynamic."""
 
     def __init__(self, config: RendererConfig,
                  mcfg: MeshletFrameConfig = MeshletFrameConfig()):
@@ -915,6 +957,7 @@ class MeshletRenderer:
         self._atmo_cache = None
         self._sky_cache = (None, None)
         self._brdf_cache = None
+        self._bvh: Optional[rt.SceneBVH] = None
 
     def reset_history(self) -> None:
         self.history = None
@@ -942,7 +985,7 @@ class MeshletRenderer:
     def _frame(self, pools, instances, view, frame_index):
         image, self.history, stats = render_frame_meshlet(
             pools, instances, view, self.history, self.config, self.mcfg,
-            frame_index=frame_index)
+            frame_index=frame_index, bvh=self._bvh)
         return image, stats
 
     def render(self, pools, instances, view_uniform, **light_kwargs):
@@ -976,6 +1019,11 @@ class MeshletRenderer:
                                 atmo_sky_lut=sky)
         if m.gi:
             view = view.replace(brdf_lut=self._brdf_lut(dev))
+        if m.gi and m.gi_rt and (self._bvh is None or m.rt_dynamic):
+            # rt_dynamic rebuilds it every render, so the rays follow
+            # moving instances
+            self._bvh = rt.build_scene_bvh(pools, instances,
+                                           granularity=m.rt_granularity)
         fc = (int(self.history.frame_count) if m.shadows or m.gi
               else None)
         if fresh and m.shadows:

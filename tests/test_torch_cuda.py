@@ -25,8 +25,9 @@ from chord_tpu_torch.ops import (_cuda, fusion_barrier, kernels,
                                  row_gather, shadow, shadow_kernel,
                                  tile_reproject)
 from chord_tpu_torch.ops import atmosphere as atm
-from chord_tpu_torch.ops import brdf_lut, gi
+from chord_tpu_torch.ops import brdf_lut, gi, rt
 from chord_tpu_torch.ops.gi import GIConfig
+from chord_tpu_torch.native import bvh_build
 from chord_tpu_torch.ops.screen_probe import ScreenProbeConfig
 from chord_tpu_torch.ops import proto_paged_tex as proto_sampler
 from chord_tpu_torch.renderer import (DeferredRenderer, DeviceView,
@@ -38,6 +39,7 @@ from chord_tpu_torch.rhi.meshlet_scene import build_meshlet_pools
 from chord_tpu_torch.tools import proto_paged_tex, repro_eval_kernel
 from chord_tpu_torch.utils.camera import Camera
 from chord_tpu_torch.utils.cvar import cvars
+import rt_cases
 from proto_palette_cases import sampler_inputs, tile_cases
 from test_torch_raster_bands import CASES as BAND_CASES
 from test_torch_paged_footprint import footprint_inputs
@@ -61,6 +63,8 @@ GI_CFG = GIConfig(cascades=2, probe_dim=8)
 GI_MCFG = SHADOW_MCFG._replace(
     gi=True, gi_mode="probe", ssr=True, trilinear=True, gi_cfg=GI_CFG,
     probe_cfg=ScreenProbeConfig(rays=16, steps=6, history_mode="tile"))
+# the all rung: with the BVH rays over the scene's object spheres
+RT_MCFG = GI_MCFG._replace(gi_rt=True, rt_rays=2)
 
 
 @pytest.fixture
@@ -112,6 +116,8 @@ def _path_run(path, d):
         return _tex_sequence(d), TEX_MCFG
     if path == "all_no_rt":
         return _tex_sequence(d, shadows=True, gi=True), GI_MCFG
+    if path == "all":
+        return _tex_sequence(d, shadows=True, gi=True), RT_MCFG
     return _tex_sequence(d, shadows=True), SHADOW_MCFG
 
 
@@ -140,8 +146,10 @@ def _render_path(path, d):
         return torch.stack(imgs), {k: [int(s[k]) for s in stats]
                                    for k in stats[0]}
     inputs, mcfg = _path_run(path, d)
+    bvh = (rt.build_scene_bvh(inputs[0], inputs[1], granularity="object")
+           if mcfg.gi_rt else None)
     with cvars.override("r.raster.bricks", path == "geo_tex_bricks"):
-        imgs, _, st = render_sequence_meshlet(*inputs, CFG, mcfg,
+        imgs, _, st = render_sequence_meshlet(*inputs, CFG, mcfg, bvh=bvh,
                                               with_stats=True)
     return imgs, {k: v.cpu().tolist() for k, v in st.items()}
 
@@ -310,6 +318,67 @@ def test_gather_and_reproject_random_inputs(dev):
     _exact(kernels.KERNELS[3], args, kwargs)
 
 
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,w,c,scale", [
+    (1080, 1920, 3, 20.0),    # the TSR history at post res
+    (360, 640, 3, 8.0),       # the half-res GI diffuse history
+    (90, 330, 3, 400.0),      # no multiple of 32x128; starts past -MARGIN
+    (64, 200, 1, 150.0),      # one channel, past the right edge too
+])
+def test_tile_reproject_kernel_route_equals_plain_route(dev, h, w, c, scale):
+    """The public tile_reproject with CUDA tensors (K4) equals the same
+    call routed through reproject_tiles_plain on the card, bit for bit:
+    the kernel's clamped coordinates against the plain version's padded
+    planes, at the bench's two shapes and at ragged, clamping ones."""
+    rng = np.random.default_rng(h + w)
+    img = torch.from_numpy(rng.uniform(0, 2, (h, w, c)).astype(
+        np.float32)).to(dev)
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+    mot = np.stack([np.sin(xx / 37.0) * scale + 0.3 * scale,
+                    np.cos(yy / 23.0) * scale - 0.2 * scale], -1)
+    mot = torch.from_numpy((mot + rng.normal(0, 0.3, (h, w, 2))).astype(
+        np.float32)).to(dev)
+    if c == 1:
+        img = img[..., 0]
+    n = tile_reproject.reproject_tiles.launches
+    got = tile_reproject.tile_reproject(img, mot)
+    assert tile_reproject.reproject_tiles.launches == n + 1
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(tile_reproject, "reproject_tiles",
+                   tile_reproject.reproject_tiles_plain)
+        ref = tile_reproject.tile_reproject(img, mot)
+    torch.cuda.synchronize()
+    for a, b in zip(got, ref):
+        assert a.shape == b.shape
+        assert kernels.max_abs_err([a], [b.contiguous()]) == 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [200, 875, rt.DENSE_LEAF_LIMIT + 1])
+def test_rt_trace_matches_cpu(dev, n):
+    """rt.trace on the card (dense up to DENSE_LEAF_LIMIT leaves, the
+    BVH scan above) against the CPU on the same BVH: leaf ids equal on the
+    rays no rounding can flip (rt_cases.decided's margins), t within
+    1e-3 relative + 1e-3 absolute: cuBLAS sums the 3-term dots in its own
+    order, and the dense path's |o|^2 - 2 o.c + |c|^2 cancels at scene
+    coordinates near 25 (tests/test_torch_rt.py holds the dense path to
+    its oracle at the same bound; measured 2.9e-4 relative on the H100)."""
+    sph = rt_cases.spheres(n, seed=n)
+    o, d = rt_cases.rays(4096 if n < 1000 else 1024, seed=n + 1)
+    keep = rt_cases.decided(o, d, sph)
+    bvh = rt_cases.port_bvh(bvh_build(sph), sph)
+    cpu = rt.trace(torch.from_numpy(o), torch.from_numpy(d), bvh)
+    gpu = rt.trace(torch.from_numpy(o).to(dev), torch.from_numpy(d).to(dev),
+                   rt.SceneBVH(*(None if x is None else x.to(dev)
+                                 for x in bvh)))
+    t, leaf = (x.cpu().numpy() for x in gpu)
+    np.testing.assert_array_equal(leaf[keep], cpu[1].numpy()[keep])
+    hit = keep & (leaf >= 0)
+    assert hit.sum() > 50
+    np.testing.assert_allclose(t[hit], cpu[0].numpy()[hit], rtol=1e-3,
+                               atol=1e-3)
+
 def _pcss_inputs(d, n=4, r=1024, h=90, w=160, seed=7):
     """K6 at its bench shapes: a random stack (zeros = empty texels) and a
     random prepass, edge and out-of-map taps included."""
@@ -429,10 +498,14 @@ def test_wrappers_reject_bad_inputs(dev):
     slot = torch.zeros((4, 4), dtype=torch.int32, device=dev)
     with pytest.raises(ValueError):
         row_gather.gather_rows(table, slot)
-    with pytest.raises(ValueError):
-        tile_reproject.reproject_tiles(
-            torch.zeros((3, 10, 10), device=dev),
-            torch.zeros((1, 4), dtype=torch.int32, device=dev), 32, 128)
+    tab = torch.zeros((1, 4), dtype=torch.int32, device=dev)
+    img = torch.zeros((10, 10, 3), device=dev)
+    for bad_img, bad_tab in ((img, tab[:0]), (img.double(), tab),
+                             (img.transpose(0, 1), tab),
+                             (torch.zeros((10, 10, 9), device=dev), tab),
+                             (img[..., 0], tab), (img, tab.float())):
+        with pytest.raises(ValueError):
+            tile_reproject.reproject_tiles(bad_img, bad_tab)
     pages = torch.zeros((16, 128), dtype=torch.int32, device=dev)
     meta = torch.zeros((3, 128), dtype=torch.int32, device=dev)
     layers = torch.zeros((2, 4, 4), dtype=torch.int32, device=dev)
@@ -505,7 +578,8 @@ def test_wrappers_reject_bad_inputs(dev):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("path", ["off", "geo_tex", "geo_shadow_atmo",
-                                  "geo_tex_bricks", "flat", "all_no_rt"])
+                                  "geo_tex_bricks", "flat", "all_no_rt",
+                                  "all"])
 def test_gpu_frames_match_cpu_plain(dev, path):
     """The tiny sequence of each path through the kernels on the GPU equals
     the plain versions on the CPU (the path the CPU tests hold against

@@ -139,7 +139,9 @@ def test_flags_outside_the_slice_raise(runs):
             (MeshletFrameConfig(shadows=True, shadow_cfg=ShadowConfig(
                 pipelined=True)), RendererConfig(**CFG)),
             (MeshletFrameConfig(masked_layers=2), RendererConfig(**CFG)),
-            (MeshletFrameConfig(gi=True, gi_rt=True), RendererConfig(**CFG)),
+            (MeshletFrameConfig(gi=True, gi_rt=True,
+                                rt_granularity="triangle"),
+             RendererConfig(**CFG)),
             (MeshletFrameConfig(gi=True, gi_mode="ddgi"),
              RendererConfig(**CFG)),
             (MeshletFrameConfig(gi=True, gi_cfg=GIConfig(ao_mode="rtao")),

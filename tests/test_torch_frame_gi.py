@@ -179,14 +179,13 @@ def test_gi_frame_history_matches(runs):
 
 
 def test_gi_frame_runs_k4_twice_a_frame(runs):
-    """TSR's history (3 planes at post res) and the GI diffuse history (3
-    planes at half res, padded to K4's 32x128 tiles plus its margins) go
-    through K4's wrapper every frame."""
+    """TSR's history (post res, 3 channels) and the GI diffuse history
+    (half res, 3 channels) go through K4's wrapper every frame, each in
+    its own (H, W, C) layout (the kernel pads nothing)."""
     shapes = runs["k4_shapes"]
     assert len(shapes) == 2 * N_FRAMES
-    margin = (128 + 48, 128 + 256)
-    tsr = (3, 96 + margin[0], 256 + margin[1])
-    gi = (3, 32 + margin[0], 128 + margin[1])
+    tsr = (PH, PW, 3)
+    gi = (H // 2, W // 2, 3)
     assert sorted(set(shapes)) == sorted({tsr, gi}), shapes
 
 
@@ -208,8 +207,10 @@ def test_gi_renderer_matches_sequence(runs):
 
 
 def test_check_slice_accepts_all_no_rt():
-    """bench.py's `all` rung (bench.py:204-219) with gi_rt=False passes the
-    slice check; with gi_rt=True it raises."""
+    """bench.py's `all` rung (bench.py:204-219) passes the slice check with
+    gi_rt=False and, since the BVH rays are ported, with gi_rt=True,
+    rt_rays=2; DDGI, RTAO, the probe march and triangle-exact BVH leaves
+    still raise."""
     rcfg = RendererConfig(width=1280, height=720, post_width=1920,
                           post_height=1080, tsr_mode="tile")
     all_no_rt = MeshletFrameConfig(
@@ -219,8 +220,13 @@ def test_check_slice_accepts_all_no_rt():
         pbr_textures=True, shadow_masked=True, trilinear=True,
         probe_cfg=ScreenProbeConfig(rays=16, steps=6, history_mode="tile"))
     mf.check_slice(rcfg, all_no_rt)
-    with pytest.raises(NotImplementedError):
-        mf.check_slice(rcfg, all_no_rt._replace(gi_rt=True, rt_rays=2))
+    all_rt = all_no_rt._replace(gi_rt=True, rt_rays=2)
+    mf.check_slice(rcfg, all_rt)
+    for bad in (dict(gi_mode="ddgi"), dict(gi_cfg=GIConfig(ao_mode="rtao")),
+                dict(probe_cfg=ScreenProbeConfig(trace_mode="march")),
+                dict(rt_granularity="triangle")):
+        with pytest.raises(NotImplementedError):
+            mf.check_slice(rcfg, all_rt._replace(**bad))
 
 
 def test_gi_history_and_brdf_lut_cross_interop():

@@ -65,6 +65,74 @@ def test_tile_reproject_matches(h, w, c, scale):
     assert d.max() <= 1e-6 * (1.0 + np.abs(mot).max()), d.max()
 
 
+def test_tile_reproject_clamps_like_chord_tpu():
+    """A history whose size is no multiple of the 32x128 tile, under
+    motion of up to ~520 px: sample starts clamp at -MARGIN in both axes
+    and at the far edge, where the wrapper's table and the edge rule (the
+    kernel's clamped coordinates, the plain version's padded planes) meet
+    chord_tpu's padding. History within 1e-5 as above; the residual within
+    1e-5 x (1 + max |motion|): the 4096-term tile mean of motion this
+    large rounds differently in XLA's and torch's summation orders
+    (measured 2.0e-3 at 521 px)."""
+    h, w, c, scale = 90, 330, 3, 400.0
+    rng = np.random.default_rng(h * w)
+    img = rng.uniform(0, 2, (h, w, c)).astype(np.float32)
+    mot = _field(rng, h, w, scale)
+    m = tile_reproject.MARGIN
+    hp, wp = tile_reproject._tiles(h, w)
+    tab = tile_reproject._tile_table(_t(mot), hp, wp)[1]
+    assert bool((tab[:, 0] == 0).any() and (tab[:, 1] == 0).any())
+    assert bool((tab[:, 0] == m + hp - 1).any())
+    ref_h, ref_r = jtr.tile_reproject(jnp.asarray(img), jnp.asarray(mot),
+                                      interpret=True)
+    got_h, got_r = tile_reproject.tile_reproject(_t(img), _t(mot))
+    assert got_h.shape == (h, w, c)
+    _close(got_h.numpy(), ref_h, 1e-5)
+    # the CUDA kernel's index rule (history rows and columns clamped, no
+    # padded copy), in numpy, equals the plain version bit for bit
+    tb = tab.numpy()
+    fy = tb[:, 2].astype(np.float32) * np.float32(1.0 / 1024)
+    fx = tb[:, 3].astype(np.float32) * np.float32(1.0 / 1024)
+    wt = wp // 128
+    want = np.zeros((hp, wp, c), np.float32)
+    for t in range(len(tb)):
+        ys = np.clip(tb[t, 0] - m + np.arange(33), 0, h - 1)
+        xs = np.clip(tb[t, 1] - m + np.arange(129), 0, w - 1)
+        win = img[ys][:, xs]                            # (33, 129, c)
+        gy, gx = np.float32(1.0) - fy[t], np.float32(1.0) - fx[t]
+        top = gy * win[:-1, :-1] + fy[t] * win[1:, :-1]
+        bot = gy * win[:-1, 1:] + fy[t] * win[1:, 1:]
+        ty, tx = divmod(t, wt)
+        want[ty * 32:ty * 32 + 32, tx * 128:tx * 128 + 128] = (
+            gx * top + fx[t] * bot)
+    np.testing.assert_array_equal(
+        tile_reproject.reproject_tiles_plain(_t(img), tab).numpy(),
+        want[:h, :w])
+    d = np.abs(got_r.numpy() - np.asarray(ref_r))
+    assert d.max() <= 1e-5 * (1.0 + np.abs(mot).max()), d.max()
+
+@pytest.mark.parametrize("h,w,c,scale", [(70, 200, 3, 3.0),
+                                         (90, 330, 3, 400.0)])
+def test_tile_reproject_library_yardstick(h, w, c, scale):
+    """chip_smoke's library yardstick for K4 (a border-clamped bilinear
+    grid_sample on a grid built from the tile table) computes K4's
+    function: the plain version within 1e-6 x max(h, w), the rounding of
+    the grid's normalised coordinates (~2^-23 of the extent, a few times)
+    times the history's slope (values in [0, 2])."""
+    import chip_smoke
+
+    rng = np.random.default_rng(h * w)
+    img = _t(rng.uniform(0, 2, (h, w, c)).astype(np.float32))
+    mot = _t(_field(rng, h, w, scale))
+    hp, wp = tile_reproject._tiles(h, w)
+    tab = tile_reproject._tile_table(mot, hp, wp)[1]
+    got = chip_smoke.library_call("tile_reproject", (img, tab))()
+    assert got.shape == (1, c, h, w)
+    ref = tile_reproject.reproject_tiles_plain(img, tab)
+    d = (got[0].permute(1, 2, 0) - ref).abs().max().item()
+    assert d <= 1e-6 * max(h, w), d
+
+
 def test_temporal_upscale_tile_matches():
     rng = np.random.default_rng(7)
     h, w, ph, pw = 64, 128, 96, 192
