@@ -4,7 +4,7 @@
     python3 chip_smoke.py              # the default run
     python3 chip_smoke.py --profile    # + a torch.profiler breakdown per path
 
-Nine paths: seven frame paths and two tool paths. Three are the bench's
+Eleven paths: nine frame paths and two tool paths. Three are the bench's
 `off`, `geo_tex` and `geo_shadow_atmo` rungs (bench.py:35-54): the
 1280x720 render of the 2.6M-triangle procedural bistro (Nanite LOD cut),
 upscaled to 1920x1080 by tile-mode TSR, bloom and the ACES tonemap;
@@ -37,7 +37,16 @@ build_sponza_like(detail=4) (367,104 padded triangles) at 1920x1080 along
 bench.py's Sponza camera path (bench.py:127-129), with
 RendererConfig(subtiles=True): the sub-tile raster (K8) at pair capacity
 16384 (the class default 8192 drops pairs on this scene), big capacity
-128, bloom and gather-mode TSR. The tool paths are the port's
+128, bloom and gather-mode TSR. Two paths run the meshlet frame's other
+branches: `geo_tex_native` is `geo_tex`'s scene, camera path and textures
+rendered natively at 1920x1080 (render size = post size) with gather-mode
+TSR (TSR without upscale) and masked_layers=2 (the masked depth peel: K1
+with a z-clip plane and attributes, a second alpha test), at bench.py's
+pair capacity of 8192 (its worst queue holds 2,320 pairs at 1080p;
+phase 5 prints each path's worst queue); `off_no_occlusion`
+is `off` with occlusion=False (one cull, no HZB, one raster),
+object_precull=False, global-mode TSR upscale and the HDR10 output. The
+tool paths are the port's
 chord_tpu_torch/tools: `repro_eval` runs all 22 variants of the
 shadow-evaluate fault bisection at its bench shapes (`tm_pallas` puts the
 fusion barrier K9 between the evaluate and the temporal blend), and
@@ -105,12 +114,16 @@ Phases (any failure raises and the script exits non-zero):
    (chord_tpu's shapes, probes with samples, a world cache that took
    probes, non-negative non-zero diffuse and specular histories) and,
    from a second run, that images and world cache repeat bit for bit
-   (a failure otherwise); on
-   `all` the BVH (its builder, which must be the native one, its leaves
-   and nodes, the trace route), rt.trace's calls (2 a frame: the probe
-   rays and SSR's misses, 32 in all, every one on the dense route) and the
-   rays a frame;
-   and per cascade the shadow draws
+   (a failure otherwise); the stats the config makes and no other (no
+   draws_phase1 without occlusion, no active_* without the pre-cull), the
+   worst frame's binned pairs beside the pair capacity (K1 / K7's
+   queues), and K1 80 times on `geo_tex_native` (two phases, the masked
+   layer, its peel and the blend bucket a frame) with K5 48 times (the
+   resolve and each masked layer's alpha test), K1 16 times on
+   `off_no_occlusion`; on `all` the BVH (its builder, which must be the
+   native one, its leaves and nodes, the trace route), rt.trace's calls
+   (2 a frame: the probe rays and SSR's misses, 32 in all, every one on
+   the dense route) and the rays a frame; and per cascade the shadow draws
    (read from the K2 calls) beside what the cull asked for and the pairs
    the bins dropped (none allowed); then the sequence three more times for
    ms/frame (median and spread). At bench.py's shadow_draw_capacity=2048
@@ -139,9 +152,28 @@ Phases (any failure raises and the script exits non-zero):
    paths, and GI on the GI paths, with a BVH of the small scene's
    instances on `all`): kernels on the GPU vs plain versions on
    the CPU (the path the tests hold against chord_tpu), stats exact,
-   images within 2 u8 levels.
+   images within 2 u8 levels; then the same on the tiny `off` scene with
+   TSR in each of the tile, gather and global modes, with and without the
+   upscale, and with enable_tsr=False and the upscale.
+9. Goldens: the three configs of chord_tpu's golden test
+   (tests/test_golden.py:60-87: build_sponza_like(detail=1) at 160x96,
+   pair capacity 4096, big capacity 128, draw_capacity=512, no TSR; `basic`
+   and `normal` without occlusion, `normal` as the normal debug view,
+   `full` with occlusion, ShadowConfig()'s four 1024² cascades and bloom)
+   rendered on the card through MeshletRenderer.render, each kernel call
+   of the renders held to its plain version (tolerance 0), and each image
+   held to tests/goldens/sponza_*_160x96.png with chord_tpu's gates: SSIM
+   >= 0.99, mean absolute error < 2 levels, worst 16x16 window SSIM >=
+   0.95 (the three numbers printed per image).
+10. Debug views: after `all`'s runs, one frame with real history (four
+   frames before it, so every cascade holds depth) per debug_mode
+   (meshlet, lod, normal, depth, disocclusion, motion, gi, specular,
+   shadow) at full size: each image differs from the debug_mode="none"
+   frame and its TSR history is finite. Then `meshlet` and `lod` on phase
+   8's small `all` scene: the view debug_visualize returns on the third
+   frame on the card equals the CPU's bit for bit.
 
-Phases 4-5 run per frame path, then 6, 7 and 8. The line before the last
+Phases 4-5 run per frame path, then 6 to 10. The line before the last
 is the nvidia-smi name/power-limit line, the one before that the
 per-kernel JSON (one entry per kernel and path: launches, max_abs_err,
 per-frame ms / plain_ms / bound_ms / library_ms summed over the kernel's
@@ -177,11 +209,12 @@ FLAT_W, FLAT_H = 1920, 1080
 FLAT_DETAIL = 4
 FLAT_PAIRS = 16384
 TEXTURED_PATHS = ("geo_tex", "geo_shadow_atmo", "geo_tex_bricks",
-                  "all_no_rt", "all")
+                  "all_no_rt", "all", "geo_tex_native")
 SHADOW_PATHS = ("geo_shadow_atmo", "all_no_rt", "all")
 # the scene a path's scene is made from (PATHS order builds it first)
 SCENE_FROM = {"geo_shadow_atmo": "geo_tex", "geo_tex_bricks": "geo_tex",
-              "all_no_rt": "geo_shadow_atmo", "all": "all_no_rt"}
+              "all_no_rt": "geo_shadow_atmo", "all": "all_no_rt",
+              "geo_tex_native": "geo_tex", "off_no_occlusion": "off"}
 # the GI stages' torch.profiler spans (renderer/meshlet_frame.py), named as
 # chord_tpu's named_scopes
 GI_SPANS = ("gi.ao", "gi.probe.spawn", "gi.probe.sh_reproject",
@@ -258,9 +291,16 @@ def bench_scenes(dev, paths):
             log(f"scene {path}: the geo_shadow_atmo scene and views, with "
                 f"the env-BRDF LUT in {time.time() - t0:.2f} s")
             continue
-        if path == "geo_tex_bricks":
+        if path in ("geo_tex_bricks", "off_no_occlusion"):
             scenes[path] = scenes[SCENE_FROM[path]]
-            log(f"scene {path}: the geo_tex scene")
+            log(f"scene {path}: the {SCENE_FROM[path]} scene")
+            continue
+        if path == "geo_tex_native":
+            pools, inst, _, blend_tex, _ = scenes[SCENE_FROM[path]]
+            scenes[path] = (pools, inst,
+                            DeviceView.stack(camera_views(PW, PH, dev)),
+                            blend_tex, None)
+            log(f"scene {path}: the geo_tex scene, views at {PW}x{PH}")
             continue
         textured = path != "off"
         shadows = path == "geo_shadow_atmo"
@@ -279,14 +319,8 @@ def bench_scenes(dev, paths):
                 textured_bistro = b
         mcfg = configs(path)[1]
         cam = Camera(width=W, height=H)
-        views = []
-        for i in range(FRAMES):
-            t = i / (FRAMES - 1)
-            cam.position = np.array([-45.0 + 70.0 * t, 5.0, 4.0])
-            cam.look_at(np.array([55.0, 3.0, -4.0]))
-            views.append(DeviceView.from_uniform(
-                cam.view_uniform(i), device=dev,
-                shadow_cfg=mcfg.shadow_cfg if shadows else None))
+        views = camera_views(W, H, dev, mcfg.shadow_cfg if shadows else None,
+                             cam)
         if shadows:
             views = with_luts(views, dev)
             log(f"scene {path}: the geo_tex scene, views with the host "
@@ -305,6 +339,26 @@ def bench_scenes(dev, paths):
         scenes[path] = (pools, inst, DeviceView.stack(views), blend_tex,
                         None)
     return scenes
+
+
+def camera_views(w: int, h: int, dev, shadow_cfg=None, cam=None):
+    """bench.py's camera path (bench.py:112-131) at w x h -> [DeviceView]
+    (with the host cascade fit when `shadow_cfg`); `cam` ends at the
+    path's last position."""
+    import numpy as np
+
+    from chord_tpu_torch.renderer import DeviceView
+    from chord_tpu_torch.utils.camera import Camera
+
+    cam = cam or Camera(width=w, height=h)
+    views = []
+    for i in range(FRAMES):
+        t = i / (FRAMES - 1)
+        cam.position = np.array([-45.0 + 70.0 * t, 5.0, 4.0])
+        cam.look_at(np.array([55.0, 3.0, -4.0]))
+        views.append(DeviceView.from_uniform(cam.view_uniform(i), device=dev,
+                                             shadow_cfg=shadow_cfg))
+    return views
 
 
 def scene_bvh(b, pools, dev):
@@ -395,7 +449,10 @@ def configs(path: str, blend_textured: bool = False, shadow_cfg=None,
             shadow_draws: int = BENCH_SHADOW_DRAWS):
     """The path's RendererConfig and MeshletFrameConfig: bench.py's for a
     rung (bench.py:171-219 at render scale 0.6667); on `flat` the flat
-    frame's config and no MeshletFrameConfig."""
+    frame's config and no MeshletFrameConfig; `geo_tex_native` renders
+    geo_tex at PWxPH with gather TSR (no upscale) and masked_layers=2,
+    `off_no_occlusion` is off without occlusion or pre-cull, with global
+    TSR and HDR10."""
     from chord_tpu_torch.ops.kernels import GI_PATHS
     from chord_tpu_torch.ops.screen_probe import ScreenProbeConfig
     from chord_tpu_torch.ops.shadow import ShadowConfig
@@ -410,19 +467,26 @@ def configs(path: str, blend_textured: bool = False, shadow_cfg=None,
                             pair_capacity=8192, big_capacity=64,
                             enable_bloom=True, enable_tsr=True,
                             tsr_mode="tile")
-    tex = path != "off"
+    if path == "geo_tex_native":
+        config = config._replace(width=PW, height=PH, post_width=0,
+                                 post_height=0, tsr_mode="gather")
+    if path == "off_no_occlusion":
+        config = config._replace(tsr_mode="global", output="hdr10")
+    tex = path in TEXTURED_PATHS
+    occlusion = path != "off_no_occlusion"
     shadows = path in SHADOW_PATHS
     gi = path in GI_PATHS     # bench.py's `all` rung (all_no_rt: no rays)
     return config, MeshletFrameConfig(
-        draw_capacity=2048, masked_draw_capacity=256, occlusion=True,
-        object_precull=True, textured=tex, normal_mapped=tex,
+        draw_capacity=2048, masked_draw_capacity=256, occlusion=occlusion,
+        object_precull=occlusion, textured=tex, normal_mapped=tex,
         pbr_textures=tex, alpha_masked=tex, alpha_blend=tex,
         blend_textured=blend_textured, shadows=shadows, atmosphere=shadows,
         shadow_masked=True, shadow_draw_capacity=shadow_draws,
         shadow_cfg=shadow_cfg or ShadowConfig(), gi=gi, gi_mode="probe",
         gi_rt=path == "all", rt_rays=2, ssr=gi, trilinear=gi,
         probe_cfg=ScreenProbeConfig(rays=16, steps=6, history_mode="tile")
-        if gi else None)
+        if gi else None,
+        masked_layers=2 if path == "geo_tex_native" else 1)
 
 
 def history(config, mcfg, dev):
@@ -1129,6 +1193,17 @@ def main_path(path, scene, card: str,
             raise AssertionError(f"{path}: worst-frame {k} = {worst[k]}")
     if int(stats["drawn_tris"].min()) <= 0:
         raise AssertionError(f"{path}: a frame drew no triangles")
+    if mcfg is not None:
+        # the audit reads the stats this config makes, and no other
+        for k, made in (("draws_phase1", mcfg.occlusion),
+                        ("active_overflow", mcfg.object_precull)):
+            if (k in stats) != made:
+                raise AssertionError(f"{path}: stat {k} "
+                                     f"{'missing' if made else 'made'}")
+        pairs = [int(args[2].sum()) for name in ("raster", "raster_bricks")
+                 for args, _ in captured[name]]
+        log(f"{label}: worst binned pairs of a queue {max(pairs)}, pair "
+            f"capacity {config.pair_capacity} ({len(pairs)} queues)")
     out_hw = ((config.post_height or config.height,
                config.post_width or config.width) if mcfg
               else (config.height, config.width))
@@ -1351,72 +1426,94 @@ def proto_paged_tex_path(card):
                                       "ms")}
 
 
-def small_cross_check(path, dev):
-    """Phase 8 for one path: tiny inputs, kernels on the GPU vs plain
-    versions on the CPU."""
+def small_config(path, tsr: Optional[dict] = None):
+    """Phase 8's tiny config of a path -> (RendererConfig, frame config):
+    render 128x64 (post 192x96 where the path upscales), pair capacity
+    4096, big capacity 128, draw capacity 1024, 2 cascades of 256²; `tsr`
+    changes the RendererConfig (the TSR variants)."""
+    from chord_tpu_torch.ops.shadow import ShadowConfig
+    from chord_tpu_torch.renderer import RendererConfig
+
+    if path == "flat":
+        return RendererConfig(width=128, height=64, pair_capacity=4096,
+                              big_capacity=128, subtiles=True), None
+    config, mcfg = configs(path, shadow_cfg=ShadowConfig(cascade_count=2,
+                                                         resolution=256))
+    up = (192, 96) if config.post_width else (0, 0)
+    cfg = config._replace(width=128, height=64, post_width=up[0],
+                          post_height=up[1], pair_capacity=4096,
+                          big_capacity=128)._replace(**(tsr or {}))
+    return cfg, mcfg._replace(draw_capacity=1024)
+
+
+# phase 8's TSR variants on the tiny `off` scene
+TSR_VARIANTS = [dict(tsr_mode=m, post_width=pw, post_height=ph)
+                for m in ("tile", "gather", "global")
+                for pw, ph in ((192, 96), (0, 0))] + [dict(enable_tsr=False)]
+
+
+def small_scene(path, d, mcfg, frames: int = 3):
+    """Phase 8's tiny scene of a path on `d`: the tiny atrium (its flat
+    pools on `flat`) or the small textured bistro, 3 jittered frames, with
+    a BVH of its instances when the config traces rays."""
     import numpy as np
-    import torch
 
     from chord_tpu_torch.asset.procedural import (build_bistro_like,
                                                   build_sponza_like)
     from chord_tpu_torch.ops import rt
-    from chord_tpu_torch.ops.shadow import ShadowConfig
-    from chord_tpu_torch.renderer import DeviceView, RendererConfig
+    from chord_tpu_torch.renderer import DeviceView
     from chord_tpu_torch.rhi.meshlet_scene import build_meshlet_pools
     from chord_tpu_torch.utils.camera import Camera
 
-    tex = path in TEXTURED_PATHS
-    shadows = path in SHADOW_PATHS
-    mcfg = None
     if path == "flat":
-        cfg = RendererConfig(width=128, height=64, pair_capacity=4096,
-                             big_capacity=128, subtiles=True)
-    else:
-        cfg = RendererConfig(width=128, height=64, post_width=192,
-                             post_height=96, pair_capacity=4096,
-                             big_capacity=128, tsr_mode="tile")
-        _, mcfg = configs(path, shadow_cfg=ShadowConfig(cascade_count=2,
-                                                        resolution=256))
-        mcfg = mcfg._replace(draw_capacity=1024)
+        return flat_scene(d, detail=1, w=128, h=64, frames=frames,
+                          jitter=True)
+    tex = path in TEXTURED_PATHS
+    b = (build_bistro_like(detail=1, textures=True) if tex
+         else build_sponza_like(detail=1))
+    cam = Camera(width=128, height=64)
+    vs = []
+    for i in range(frames):
+        if tex:
+            cam.position = np.array([-45.0 + 70.0 * i / 15, 5.0, 4.0])
+            cam.look_at(np.array([55.0, 3.0, -4.0]))
+        else:
+            cam.position = np.array([-15.0 + 0.5 * i, 4.0, 0.3 * i])
+            cam.look_at(np.array([10.0, 2.0, 0.0]))
+        vs.append(DeviceView.from_uniform(
+            cam.view_uniform(i, jitter=True), device=d,
+            shadow_cfg=mcfg.shadow_cfg if mcfg.shadows else None))
+    if mcfg.shadows:
+        vs = with_luts(vs, d)
+    if mcfg.gi:
+        lut = brdf_lut(d)
+        vs = [v.replace(brdf_lut=lut) for v in vs]
+    pools = build_meshlet_pools(
+        b, device=d, texture_pool=getattr(b, "texture_pool", None))
+    inst = b.frame_instances(cam, device=d)
+    bvh = (rt.build_scene_bvh(pools, inst, granularity="object")
+           if mcfg.gi_rt else None)
+    return pools, inst, DeviceView.stack(vs), None, bvh
+
+
+def small_cross_check(path, dev, tsr: Optional[dict] = None):
+    """Phase 8 for one path (with `tsr`, one TSR variant of it): tiny
+    inputs, kernels on the GPU vs plain versions on the CPU."""
+    import numpy as np
+    import torch
+
+    cfg, mcfg = small_config(path, tsr)
     out = {}
     for d in (dev, torch.device("cpu")):
-        if path == "flat":
-            scene = flat_scene(d, detail=1, w=128, h=64, frames=3,
-                               jitter=True)
-        else:
-            b = (build_bistro_like(detail=1, textures=True) if tex
-                 else build_sponza_like(detail=1))
-            cam = Camera(width=128, height=64)
-            vs = []
-            for i in range(3):
-                if tex:
-                    cam.position = np.array([-45.0 + 70.0 * i / 15, 5.0,
-                                             4.0])
-                    cam.look_at(np.array([55.0, 3.0, -4.0]))
-                else:
-                    cam.position = np.array([-15.0 + 0.5 * i, 4.0, 0.3 * i])
-                    cam.look_at(np.array([10.0, 2.0, 0.0]))
-                vs.append(DeviceView.from_uniform(
-                    cam.view_uniform(i, jitter=True), device=d,
-                    shadow_cfg=mcfg.shadow_cfg if shadows else None))
-            if shadows:
-                vs = with_luts(vs, d)
-            if mcfg.gi:
-                lut = brdf_lut(d)
-                vs = [v.replace(brdf_lut=lut) for v in vs]
-            pools = build_meshlet_pools(
-                b, device=d, texture_pool=getattr(b, "texture_pool", None))
-            inst = b.frame_instances(cam, device=d)
-            bvh = (rt.build_scene_bvh(pools, inst, granularity="object")
-                   if mcfg.gi_rt else None)
-            scene = (pools, inst, DeviceView.stack(vs), None, bvh)
+        scene = small_scene(path, d, mcfg)
         imgs, _, st = run_path(path, scene, cfg, mcfg,
                                history(cfg, mcfg, d), 0, 3)
         out[d.type] = (imgs.cpu().numpy().astype(np.int32),
                        {k: v.cpu().tolist() for k, v in st.items()})
     diff = np.abs(out["cuda"][0] - out["cpu"][0])
     frac = float((diff <= 2).mean())
-    log(f"small cross-check {path} (GPU kernels vs CPU plain): stats equal "
+    label = path + (f" {tsr}" if tsr else "")
+    log(f"small cross-check {label} (GPU kernels vs CPU plain): stats equal "
         f"{out['cuda'][1] == out['cpu'][1]} {out['cuda'][1]}, max u8 diff "
         f"{int(diff.max())}, within 2 levels {frac}")
     if out["cuda"][1] != out["cpu"][1]:
@@ -1424,8 +1521,242 @@ def small_cross_check(path, dev):
                              f"{out['cpu'][1]}")
     if frac < 0.999:
         raise AssertionError(f"only {frac} of u8 values within 2 levels")
-    if tex and max(out["cuda"][1]["draws_masked"]) <= 0:
+    if path in TEXTURED_PATHS and max(out["cuda"][1]["draws_masked"]) <= 0:
         raise AssertionError("the small textured scene drew no masked draws")
+
+
+# --- goldens and debug views -------------------------------------------------
+
+GOLDEN_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                          "goldens")
+DEBUG_MODES = ("meshlet", "lod", "normal", "depth", "disocclusion", "motion",
+               "gi", "specular", "shadow")
+
+
+def read_png(path: str):
+    """An 8-bit RGB, non-interlaced PNG -> (H,W,3) uint8 numpy array: PIL
+    where the machine has it, else zlib and the five row filters here."""
+    import struct
+    import zlib
+
+    import numpy as np
+
+    try:
+        from PIL import Image
+    except ImportError:
+        Image = None
+    if Image is not None:
+        return np.asarray(Image.open(path).convert("RGB"))
+    with open(path, "rb") as f:
+        data = f.read()
+    if data[:8] != b"\x89PNG\r\n\x1a\n":
+        raise ValueError(f"{path} is not a PNG")
+    pos, idat, head = 8, [], None
+    while pos < len(data):
+        n, kind = struct.unpack(">I4s", data[pos:pos + 8])
+        body = data[pos + 8:pos + 8 + n]
+        if kind == b"IHDR":
+            head = struct.unpack(">IIBBBBB", body)
+        elif kind == b"IDAT":
+            idat.append(body)
+        pos += 12 + n
+    w, h, depth, color, _, _, interlace = head
+    if (depth, color, interlace) != (8, 2, 0):
+        raise ValueError(f"{path}: only 8-bit RGB without interlace")
+    raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
+    raw = raw.reshape(h, 1 + 3 * w)
+    out = np.zeros((h, 3 * w), np.int32)
+    for y in range(h):
+        f, row = raw[y, 0], raw[y, 1:].astype(np.int32)
+        up = out[y - 1] if y else np.zeros(3 * w, np.int32)
+        if f in (0, 2):
+            out[y] = (row + (up if f == 2 else 0)) & 255
+            continue
+        for x in range(3 * w):     # left-dependent filters, byte by byte
+            a = out[y, x - 3] if x >= 3 else 0
+            c = up[x - 3] if x >= 3 else 0
+            b = up[x]
+            if f == 1:
+                pred = a
+            elif f == 3:
+                pred = (a + b) // 2
+            else:                  # Paeth
+                p = a + b - c
+                pa, pb, pc = abs(p - a), abs(p - b), abs(p - c)
+                pred = a if pa <= pb and pa <= pc else (b if pb <= pc else c)
+            out[y, x] = (row[x] + pred) & 255
+    return out.reshape(h, w, 3).astype(np.uint8)
+
+
+def ssim(a, b) -> float:
+    """Global SSIM of two u8 RGB images on their grey means (chord_tpu's
+    tests/test_golden.py:22-33)."""
+    import numpy as np
+
+    a = a.astype(np.float64).mean(-1) / 255.0
+    b = b.astype(np.float64).mean(-1) / 255.0
+    mu_a, mu_b = a.mean(), b.mean()
+    cov = ((a - mu_a) * (b - mu_b)).mean()
+    c1, c2 = 0.01 ** 2, 0.03 ** 2
+    return float(((2 * mu_a * mu_b + c1) * (2 * cov + c2)) /
+                 ((mu_a ** 2 + mu_b ** 2 + c1) * (a.var() + b.var() + c2)))
+
+
+def windowed_ssim(a, b, win: int = 16) -> float:
+    """The least SSIM over a grid of win x win windows (chord_tpu's
+    tests/test_golden.py:36-56)."""
+    import numpy as np
+
+    ga = a.astype(np.float64).mean(-1) / 255.0
+    gb = b.astype(np.float64).mean(-1) / 255.0
+    h, w = ga.shape
+    c1, c2 = 0.01 ** 2, 0.03 ** 2
+    worst = 1.0
+    for y in range(0, h - win + 1, win):
+        for x in range(0, w - win + 1, win):
+            wa, wb = ga[y:y + win, x:x + win], gb[y:y + win, x:x + win]
+            mu_a, mu_b = wa.mean(), wb.mean()
+            cov = ((wa - mu_a) * (wb - mu_b)).mean()
+            s = (((2 * mu_a * mu_b + c1) * (2 * cov + c2)) /
+                 ((mu_a ** 2 + mu_b ** 2 + c1) * (wa.var() + wb.var() + c2)))
+            worst = min(worst, float(s))
+    return worst
+
+
+def golden_render(mode: str, dev):
+    """chord_tpu's golden config `mode` (tests/test_golden.py:60-87) through
+    MeshletRenderer.render on `dev` -> (96,160,3) u8 numpy array."""
+    import numpy as np
+
+    from chord_tpu_torch.asset.procedural import build_sponza_like
+    from chord_tpu_torch.renderer import (MeshletFrameConfig,
+                                          MeshletRenderer, RendererConfig)
+    from chord_tpu_torch.rhi.meshlet_scene import build_meshlet_pools
+    from chord_tpu_torch.utils.camera import Camera
+
+    b = build_sponza_like(detail=1)
+    pools = build_meshlet_pools(b, device=dev)
+    cam = Camera(width=160, height=96)
+    cam.position = np.array([-15.0, 4.0, 3.0])
+    cam.look_at(np.array([10.0, 2.0, -2.0]))
+    r = MeshletRenderer(
+        RendererConfig(width=160, height=96, pair_capacity=4096,
+                       big_capacity=128, enable_bloom=mode == "full",
+                       enable_tsr=False),
+        MeshletFrameConfig(draw_capacity=512, occlusion=mode == "full",
+                           shadows=mode == "full",
+                           debug_mode="normal" if mode == "normal" else
+                           "none"))
+    img, stats = r.render(pools, b.frame_instances(cam, device=dev),
+                          cam.view_uniform(0))
+    if int(stats["bin_overflow"]) != 0:
+        raise AssertionError(f"golden {mode}: the bins dropped pairs")
+    return img.cpu().numpy()
+
+
+def goldens(dev, card: str) -> dict:
+    """Phase 9: the three golden configs on the card, every kernel call of
+    the renders against its plain version (tolerance 0), each image held
+    to its PNG with chord_tpu's gates -> {mode: numbers}."""
+    import numpy as np
+    import torch
+
+    from chord_tpu_torch.ops import kernels
+
+    out = {}
+    for mode in ("basic", "normal", "full"):
+        with kernels.capture_inputs() as captured:
+            img = golden_render(mode, dev)
+        torch.cuda.synchronize()
+        n_calls = 0
+        for k in kernels.KERNELS:
+            for args, kwargs in captured[k.name]:
+                e = kernels.max_abs_err(
+                    kernels.outputs_list(k.fn()(*args, **kwargs)),
+                    kernels.outputs_list(k.plain(*args, **kwargs)))
+                if e != 0.0:
+                    raise AssertionError(f"golden {mode}: kernel {k.name} "
+                                         f"disagrees with its plain version"
+                                         f": {e}")
+                n_calls += 1
+        golden = read_png(os.path.join(GOLDEN_DIR,
+                                       f"sponza_{mode}_160x96.png"))
+        if img.shape != golden.shape:
+            raise AssertionError(f"golden {mode}: image {img.shape}, PNG "
+                                 f"{golden.shape}")
+        s, ws = ssim(img, golden), windowed_ssim(img, golden)
+        mae = float(np.abs(img.astype(int) - golden.astype(int)).mean())
+        calls = {k: len(v) for k, v in captured.items() if v}
+        log(f"golden {mode} on {card}: SSIM {s:.6f} (>= 0.99), MAE "
+            f"{mae:.4f} (< 2), worst 16x16 window SSIM {ws:.6f} (>= 0.95); "
+            f"kernel calls {calls}, all {n_calls} equal to their plain "
+            "versions")
+        if not (s >= 0.99 and mae < 2.0 and ws >= 0.95):
+            raise AssertionError(f"golden {mode} fails its gates")
+        out[mode] = dict(ssim=s, mae=mae, worst_window_ssim=ws)
+    return out
+
+
+def _caught_views(path, scene, config, mcfg, hist, lo: int, hi: int):
+    """Frames lo..hi-1 of a path with debug_visualize's outputs caught ->
+    (images, history, [the views])."""
+    from chord_tpu_torch.renderer import meshlet_frame as mf
+
+    caught, orig = [], mf.debug_visualize
+
+    def catch(*args, **kwargs):
+        caught.append(orig(*args, **kwargs))
+        return caught[-1]
+
+    mf.debug_visualize = catch
+    try:
+        imgs, hist, _ = run_path(path, scene, config, mcfg, hist, lo, hi)
+    finally:
+        mf.debug_visualize = orig
+    return imgs, hist, caught
+
+
+def debug_views(scene, dev, card: str) -> None:
+    """Phase 10: on `all`'s scene at full size, after four frames with
+    real history, the fifth frame once per debug_mode: the image must
+    differ from the debug_mode="none" frame and its TSR history be finite;
+    then `meshlet` and `lod` on phase 8's small `all` scene, the third
+    frame's view on the card bit-equal to the CPU's."""
+    import torch
+
+    path = "all"
+    config, mcfg = configs(path, scene[3])
+    hist = run_path(path, scene, config, mcfg,
+                    history(config, mcfg, dev), 0, 4)[1]
+    none = run_path(path, scene, config, mcfg, hist, 4, 5)[0]
+    for mode in DEBUG_MODES:
+        img, h2, views = _caught_views(path, scene, config,
+                                       mcfg._replace(debug_mode=mode), hist,
+                                       4, 5)
+        differ = float((img != none).float().mean())
+        finite = bool(torch.isfinite(h2.tsr_color).all())
+        v = views[0]
+        log(f"debug view {mode} on {card}: view {tuple(v.shape)} in "
+            f"[{float(v.min()):.4f}, {float(v.max()):.4f}], image values "
+            f"differing from the none frame {differ:.4f}, TSR history "
+            f"finite {finite}")
+        if not differ > 0.0 or not finite or not bool(
+                torch.isfinite(v).all()):
+            raise AssertionError(f"debug view {mode}: not finite or equal "
+                                 "to the none frame")
+    cfg, small = small_config(path)
+    for mode in ("meshlet", "lod"):
+        m = small._replace(debug_mode=mode)
+        card_v, cpu_v = (_caught_views(path, small_scene(path, d, m), cfg, m,
+                                       history(cfg, m, d), 0, 3)[2][-1].cpu()
+                         for d in (dev, torch.device("cpu")))
+        same = bool(torch.equal(card_v, cpu_v))
+        log(f"debug view {mode}, small {path} scene, third frame: card "
+            f"equals CPU bit for bit {same} (values differing "
+            f"{float((card_v != cpu_v).float().mean()):.6f})")
+        if not same:
+            raise AssertionError(f"debug view {mode}: the card and the CPU "
+                                 "differ")
 
 
 def ptxas_lines(sources=("pcss.cu", "proto_paged_tex.cu")) -> None:
@@ -1523,8 +1854,12 @@ def main() -> int:
         rows += list(krows.values())
     for p in PATHS:
         small_cross_check(p, dev)
+    for tsr in TSR_VARIANTS:
+        small_cross_check("off", dev, tsr)
+    golden = goldens(dev, smi)
+    debug_views(scenes["all"], dev, smi)
     log(f"chip_smoke: all phases passed in {time.time() - t_start:.1f} s")
-    print(json.dumps({"tools": tools}))
+    print(json.dumps({"tools": tools, "goldens": golden}))
 
     order = ("name", "path", "route", "source", "replaces", "launches",
              "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",

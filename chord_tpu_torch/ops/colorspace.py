@@ -25,6 +25,13 @@ AP1_TO_SRGB = np.array([
 
 AP1_LUMA = np.array([0.2722287168, 0.6740817658, 0.0536895174], np.float32)
 
+# AP1 -> Rec.2020 (D65), the HDR10 output path (reference colorspace.h:90-112)
+AP1_TO_REC2020 = np.array([
+    [1.02582475, -0.00223437, -0.00501335],
+    [-0.02005319, 1.00458650, -0.02529023],
+    [-0.00577156, -0.00235213, 1.03030358],
+], dtype=np.float32)
+
 _RRT_SAT = 0.96
 
 
@@ -55,6 +62,22 @@ def srgb_eotf_inv(c: torch.Tensor) -> torch.Tensor:
     return torch.where(c <= 0.0031308, lo, hi)
 
 
+def srgb_eotf(c: torch.Tensor) -> torch.Tensor:
+    """sRGB-encoded -> linear."""
+    lo = c / 12.92
+    hi = torch.pow((c + 0.055) / 1.055, 2.4)
+    return torch.where(c <= 0.04045, lo, hi)
+
+
+def pq_oetf(c_nits: torch.Tensor) -> torch.Tensor:
+    """ST.2084 PQ encode of absolute nits (the HDR10 swapchain signal)."""
+    m1, m2 = 0.1593017578125, 78.84375
+    c1, c2, c3 = 0.8359375, 18.8515625, 18.6875
+    y = torch.clamp(c_nits / 10000.0, 0.0, 1.0)
+    yp = torch.pow(y, m1)
+    return torch.pow((c1 + c2 * yp) / (1.0 + c3 * yp), m2)
+
+
 def aces_film_ap1(c: torch.Tensor) -> torch.Tensor:
     """AP1 linear HDR -> AP1 [0,1] display-linear via the fitted RRT+ODT
     rational curve, with the RRT global desaturation."""
@@ -67,12 +90,16 @@ def aces_film_ap1(c: torch.Tensor) -> torch.Tensor:
 
 def tonemap_display(hdr_ap1: torch.Tensor, exposure: torch.Tensor,
                     output: str = "srgb8") -> torch.Tensor:
-    """exposure -> film curve (AP1) -> sRGB-encoded floats in [0,1]."""
-    if output != "srgb8":
-        raise NotImplementedError(
-            f"RendererConfig.output={output!r}: only 'srgb8' is ported")
+    """exposure -> film curve (AP1) -> display: "srgb8" gives sRGB-encoded
+    floats in [0,1] (quantize with `to_u8`), "hdr10" the PQ-encoded Rec.2020
+    signal at a 1000-nit peak."""
     filmic = aces_film_ap1(hdr_ap1 * exposure)
-    return srgb_eotf_inv(torch.clamp(acescg_to_srgb(filmic), 0.0, 1.0))
+    if output == "srgb8":
+        return srgb_eotf_inv(torch.clamp(acescg_to_srgb(filmic), 0.0, 1.0))
+    if output == "hdr10":
+        rec2020 = torch.clamp(_mat3(filmic, AP1_TO_REC2020), 0.0, 1.0)
+        return pq_oetf(rec2020 * 1000.0)
+    raise ValueError(f"unknown output transform {output!r}")
 
 
 def to_u8(encoded: torch.Tensor) -> torch.Tensor:

@@ -23,16 +23,24 @@ from . import (fusion_barrier, mesh_shader, paged_texture, proto_paged_tex,
 
 # the paths the port renders: the bench rungs (bench.py FEATURE_LEVELS;
 # `all_no_rt` is the `all` rung with gi_rt=False), `geo_tex` with the
-# r.raster.bricks cvar set, and the flat DeferredRenderer frame with
-# RendererConfig(subtiles=True)
+# r.raster.bricks cvar set, the flat DeferredRenderer frame with
+# RendererConfig(subtiles=True), `geo_tex` rendered natively at the post
+# size with gather TSR and the masked depth peel (`geo_tex_native`), and
+# `off` without occlusion or pre-cull, with global TSR and the HDR10
+# output (`off_no_occlusion`)
 PATHS = ("off", "geo_tex", "geo_shadow_atmo", "geo_tex_bricks", "flat",
-         "all_no_rt", "all")
+         "all_no_rt", "all", "geo_tex_native", "off_no_occlusion")
 MESHLET = ("off", "geo_tex", "geo_shadow_atmo", "geo_tex_bricks",
-           "all_no_rt", "all")
+           "all_no_rt", "all", "geo_tex_native", "off_no_occlusion")
 GI_PATHS = ("all_no_rt", "all")
+# the meshlet paths whose TSR runs in tile mode (K4)
+TILE_TSR = ("off", "geo_tex", "geo_shadow_atmo", "geo_tex_bricks",
+            "all_no_rt", "all")
 # launches of a kernel on a path's 16-frame run that the path fixes (K4:
-# TSR's history and, with GI, the GI diffuse history every frame; the BVH
-# rays of `all` launch no kernel of their own)
+# TSR's history and, with GI, the GI diffuse history every frame; K5 the
+# resolve and each masked layer's alpha test; K1 on geo_tex_native the
+# two occlusion phases, the masked layer, its peel and the blend bucket;
+# the BVH rays of `all` launch no kernel of their own)
 EXPECTED_LAUNCHES = {
     "off": {"tile_reproject": 16},
     "geo_tex": {"tile_reproject": 16, "paged_texture": 32},
@@ -43,6 +51,8 @@ EXPECTED_LAUNCHES = {
     "flat": {"raster_subtile": 16},
     "all_no_rt": {"tile_reproject": 32, "paged_texture": 40, "pcss": 16},
     "all": {"tile_reproject": 32, "paged_texture": 40, "pcss": 16},
+    "geo_tex_native": {"raster": 80, "paged_texture": 48},
+    "off_no_occlusion": {"raster": 16},
 }
 # the port's tools: every variant of tools/repro_eval_kernel.py, and
 # tools/proto_paged_tex.py's main at its own size
@@ -66,7 +76,8 @@ class Kernel:
 KERNELS: List[Kernel] = [
     Kernel("raster", raster, "raster_tiles", raster.raster_tiles_plain,
            "chord_tpu_torch/csrc/raster.cu", "chord_tpu/ops/raster.py:488",
-           paths=("off", "geo_tex", "geo_shadow_atmo") + GI_PATHS),
+           paths=("off", "geo_tex", "geo_shadow_atmo") + GI_PATHS +
+           ("geo_tex_native", "off_no_occlusion")),
     Kernel("mesh_shader", mesh_shader, "mesh_shader",
            mesh_shader.mesh_shader_plain,
            "chord_tpu_torch/csrc/mesh_shader.cu",
@@ -78,13 +89,13 @@ KERNELS: List[Kernel] = [
     Kernel("tile_reproject", tile_reproject, "reproject_tiles",
            tile_reproject.reproject_tiles_plain,
            "chord_tpu_torch/csrc/tile_reproject.cu",
-           "chord_tpu/ops/tile_reproject.py:55"),
+           "chord_tpu/ops/tile_reproject.py:55", paths=TILE_TSR),
     Kernel("paged_texture", paged_texture, "paged_sample",
            paged_texture.paged_sample_plain,
            "chord_tpu_torch/csrc/paged_texture.cu",
            "chord_tpu/ops/paged_texture.py:251",
            paths=("geo_tex", "geo_shadow_atmo", "geo_tex_bricks") +
-           GI_PATHS),
+           GI_PATHS + ("geo_tex_native",)),
     Kernel("pcss", shadow_kernel, "pcss", shadow.pcss_plain,
            "chord_tpu_torch/csrc/pcss.cu",
            "chord_tpu/ops/shadow_kernel.py:145",

@@ -2,11 +2,12 @@
 chord_tpu/ops/post.py; reference histogram.hlsl, auto_exposure.hlsl,
 bloom.cpp, tsr_*.hlsl).
 
-TSR: the `tile` mode with the render->post upscale (the bench's mode;
-history reprojects per 32x128 tile through kernel K4,
-ops/tile_reproject.py), and `temporal_resolve` at render size in `gather`
-mode (per-pixel bilinear history fetch, the flat frame's TSR). The
-`global` mode is not ported.
+TSR in chord_tpu's three modes, at render size (`temporal_resolve`) or
+with the render->post upscale (`temporal_upscale`): `gather` fetches each
+pixel's history bilinearly from a bf16 copy at its previous position;
+`global` shifts the whole history by the mean screen motion and blends on
+the per-pixel residual; `tile` reprojects the history per 32x128 tile
+through kernel K4 (ops/tile_reproject.py), the bench's mode.
 """
 
 from __future__ import annotations
@@ -251,7 +252,8 @@ def disocclusion_mask(pos_tw: torch.Tensor, valid: torch.Tensor,
 
 class TSRConfig(NamedTuple):
     """reference: tsr.cpp:17-28. `mode`: "gather" (per-pixel history
-    resample, chord_tpu's default) or "tile" (per-tile reprojection, K4)."""
+    resample, chord_tpu's default), "global" (one screen-wide shift by the
+    mean motion) or "tile" (per-tile reprojection, K4)."""
 
     blend: float = 0.1
     sharpness: float = 0.25
@@ -304,6 +306,41 @@ def _resolve_with_hist(color, hist, resid, history_valid, cfg: TSRConfig):
     return torch.clamp_min(out + (out - blur) * cfg.sharpness, 0.0)
 
 
+def _wrap_index(n: int, shift: torch.Tensor) -> torch.Tensor:
+    """(arange(n) + shift) mod n, the index of torch.roll(x, -shift) along
+    an axis of n; `shift` is a device int32 scalar, so the roll stays on the
+    device (no host read of the shift)."""
+    i = torch.arange(n, dtype=torch.int32, device=shift.device)
+    return torch.remainder(i + shift, n).long()
+
+
+def temporal_resolve_global(color, motion_ndc, history, history_valid,
+                            cfg: TSRConfig) -> torch.Tensor:
+    """Gather-free TAA: the history shifted by the mean screen motion (its
+    floor as four wrap-around rolls, the fraction as a bilinear blend of
+    them), blended with an alpha that rises with each pixel's residual to
+    that mean (chord_tpu post.py:411-445)."""
+    h, w = color.shape[:2]
+    mx = torch.mean(motion_ndc[..., 0]) * (w * 0.5)     # pixels right
+    my = -torch.mean(motion_ndc[..., 1]) * (h * 0.5)    # pixels down
+    ix = f2i(torch.floor(mx))
+    iy = f2i(torch.floor(my))
+    fx = mx - ix.to(torch.float32)
+    fy = my - iy.to(torch.float32)
+    # roll(history, (-iy, -ix)) and its +1 neighbours, as index gathers
+    r0, r1 = _wrap_index(h, iy), _wrap_index(h, iy + 1)
+    c0, c1 = _wrap_index(w, ix), _wrap_index(w, ix + 1)
+    rows0, rows1 = history.index_select(0, r0), history.index_select(0, r1)
+    h00, h01 = rows0.index_select(1, c0), rows0.index_select(1, c1)
+    h10, h11 = rows1.index_select(1, c0), rows1.index_select(1, c1)
+    hist = (h00 * (1 - fx) * (1 - fy) + h01 * fx * (1 - fy) +
+            h10 * (1 - fx) * fy + h11 * fx * fy)
+    rx = motion_ndc[..., 0] * (w * 0.5) - mx
+    ry = -motion_ndc[..., 1] * (h * 0.5) - my
+    resid = torch.sqrt(rx * rx + ry * ry)
+    return _resolve_with_hist(color, hist, resid, history_valid, cfg)
+
+
 def temporal_resolve_tile(color, motion_ndc, history, history_valid,
                           cfg: TSRConfig) -> torch.Tensor:
     """Tile-local TAA: per-tile mean-motion history reprojection (K4)."""
@@ -321,16 +358,21 @@ def temporal_resolve(color: torch.Tensor, motion_ndc: torch.Tensor,
                      cfg: TSRConfig,
                      disocclusion: Optional[torch.Tensor] = None
                      ) -> torch.Tensor:
-    """TAA-style accumulation at render size, `gather` mode (chord_tpu
-    post.py:502-548): each pixel fetches its history at its previous
-    position (bilinear from a bf16 copy of the history, or nearest),
-    clamps it into the current frame's cross neighbourhood, blends
-    (off-screen and invalid history restart) and sharpens against the
-    wrap-around 4-neighbour mean. `disocclusion` (H,W), 1 = history
-    unusable, restarts those pixels."""
-    if cfg.mode != "gather":
-        raise NotImplementedError(f"TSRConfig.mode={cfg.mode!r}: "
-                                  "temporal_resolve ports the 'gather' mode")
+    """TAA-style accumulation at render size (chord_tpu post.py:502-548).
+    `global` and `tile` reproject the history as their resolves do and
+    restart disoccluded pixels from the current colour. `gather`: each
+    pixel fetches its history at its previous position (bilinear from a
+    bf16 copy of the history, or nearest), clamps it into the current
+    frame's cross neighbourhood, blends (off-screen and invalid history
+    restart) and sharpens against the wrap-around 4-neighbour mean.
+    `disocclusion` (H,W), 1 = history unusable, restarts those pixels."""
+    if cfg.mode in ("global", "tile"):
+        f = (temporal_resolve_tile if cfg.mode == "tile"
+             else temporal_resolve_global)
+        out = f(color, motion_ndc, history, history_valid, cfg)
+        if disocclusion is not None:
+            out = color + (out - color) * (1.0 - disocclusion[..., None])
+        return out
     h, w = color.shape[:2]
     dev = color.device
     ys = torch.arange(h, dtype=torch.float32, device=dev)[:, None] + 0.5
@@ -392,7 +434,8 @@ def temporal_upscale_global(color, motion_ndc, history, history_valid,
                             jitter_px, cfg: TSRConfig, post_h: int,
                             post_w: int) -> torch.Tensor:
     """Jitter-compensated linear render->post resample of colour, linear
-    resize of motion, then the tile-mode resolve at post res."""
+    resize of motion, then the tile-mode (K4) or global-mode resolve at
+    post res, as cfg.mode says."""
     h, w = color.shape[:2]
     dev = color.device
     sy = torch.tensor(post_h / h, dtype=torch.float32, device=dev)
@@ -408,23 +451,58 @@ def temporal_upscale_global(color, motion_ndc, history, history_valid,
                         post_h / h, device=dev), zero, dev),
                     _linear_weights(w, post_w, torch.tensor(
                         post_w / w, device=dev), zero, dev))
-    return temporal_resolve_tile(cur, mot, history, history_valid, cfg)
+    f = (temporal_resolve_tile if cfg.mode == "tile"
+         else temporal_resolve_global)
+    return f(cur, mot, history, history_valid, cfg)
 
 
 def temporal_upscale(color, motion_ndc, history, history_valid, jitter_px,
                      cfg: TSRConfig, post_h: int, post_w: int,
                      disocclusion: Optional[torch.Tensor] = None
                      ) -> torch.Tensor:
-    """TSR with render->post upscale, `tile` mode; disoccluded pixels
-    restart from the nearest-upsampled current frame."""
-    if cfg.mode != "tile":
-        raise NotImplementedError(f"RendererConfig.tsr_mode={cfg.mode!r}: "
-                                  "only 'tile' is ported")
-    out = temporal_upscale_global(color, motion_ndc, history, history_valid,
-                                  jitter_px, cfg, post_h, post_w)
+    """TSR with render->post upscale (chord_tpu post.py:551-622). `tile`
+    and `global` resample, resolve at post res (temporal_upscale_global)
+    and restart disoccluded pixels from the nearest-upsampled current
+    frame. `gather` samples colour and motion bilinearly at each post
+    pixel's jittered render position, fetches the history bilinearly from
+    a bf16 copy at the previous position, clamps, blends (off-screen,
+    invalid and, bilinearly sampled, disoccluded pixels restart) and
+    sharpens."""
+    if cfg.mode in ("global", "tile"):
+        out = temporal_upscale_global(color, motion_ndc, history,
+                                      history_valid, jitter_px, cfg, post_h,
+                                      post_w)
+        if disocclusion is not None:
+            k = (-(-post_h // color.shape[0]), -(-post_w // color.shape[1]))
+            cur0 = upsample_nearest(color, k, post_h, post_w)
+            dis0 = upsample_nearest(disocclusion, k, post_h, post_w)
+            out = cur0 + (out - cur0) * (1.0 - dis0[..., None])
+        return out
+    h, w = color.shape[:2]
+    dev = color.device
+    # post-pixel centres in render-pixel coordinates, shifted by the jitter
+    ys = ((torch.arange(post_h, dtype=torch.float32, device=dev)[:, None] +
+           0.5) * (h / post_h)).expand(post_h, post_w) - jitter_px[1]
+    xs = ((torch.arange(post_w, dtype=torch.float32, device=dev)[None, :] +
+           0.5) * (w / post_w)).expand(post_h, post_w) - jitter_px[0]
+    cur = _sample_bilinear(color, xs, ys)
+    mot = _sample_bilinear(motion_ndc, xs, ys)
+    pxs = torch.arange(post_w, dtype=torch.float32, device=dev)[None, :] + 0.5
+    pys = torch.arange(post_h, dtype=torch.float32, device=dev)[:, None] + 0.5
+    px_prev = pxs - mot[..., 0] * (post_w * 0.5)
+    py_prev = pys + mot[..., 1] * (post_h * 0.5)
+    hist = _sample_bilinear(history.to(torch.bfloat16), px_prev,
+                            py_prev).float()
+    lo, hi = _neighborhood_minmax(cur, cross_only=True)
+    hist = torch.minimum(torch.maximum(hist, lo), hi)
+    offscreen = ((px_prev < 0) | (px_prev > post_w) | (py_prev < 0) |
+                 (py_prev > post_h)).to(torch.float32)[..., None]
+    alpha = torch.clamp_min(torch.maximum(1.0 - history_valid, offscreen),
+                            cfg.blend)
     if disocclusion is not None:
-        k = (-(-post_h // color.shape[0]), -(-post_w // color.shape[1]))
-        cur0 = upsample_nearest(color, k, post_h, post_w)
-        dis0 = upsample_nearest(disocclusion, k, post_h, post_w)
-        out = cur0 + (out - cur0) * (1.0 - dis0[..., None])
-    return out
+        alpha = torch.maximum(alpha, _sample_bilinear(disocclusion[..., None],
+                                                      xs, ys))
+    out = cur * alpha + hist * (1.0 - alpha)
+    blur = (_roll(out, 1, 0) + _roll(out, -1, 0) + _roll(out, 0, 1) +
+            _roll(out, 0, -1)) * 0.25
+    return torch.clamp_min(out + (out - blur) * cfg.sharpness, 0.0)

@@ -1,19 +1,25 @@
 """The GPU-driven meshlet frame (port of chord_tpu/renderer/meshlet_frame.py:
-the bench's `off` feature set, geometry + post; its `geo_tex` set, which
-adds material maps and the alpha-masked and blend buckets; its
-`geo_shadow_atmo` set, which adds cascaded shadow maps with PCSS and the
-temporal shadow mask, the physically based sky and aerial perspective; and
-its `all` set: screen-probe GI or the world-cache GI, SSAO, the specular
+every branch of chord_tpu's frame but the GI paths ddgi, rtao, the probe
+march and triangle-exact BVH leaves, and the pipelined shadow split.
+That is geometry with or without two-phase HZB occlusion and the object
+pre-cull; material maps, the alpha-masked bucket (one layer, or two with
+the masked depth peel) and the blend bucket; cascaded shadow maps with
+PCSS and the temporal shadow mask, the physically based sky and aerial
+perspective; screen-probe GI or the world-cache GI, SSAO, the specular
 chain and SSR, and with gi_rt the BVH rays (probe rays beside the screen
 taps, and SSR's misses), traced over a SceneBVH of bounding-sphere
-proxies that the caller passes as `bvh`, as chord_tpu's frame takes it).
+proxies that the caller passes as `bvh`, as chord_tpu's frame takes it;
+the debug views; TSR in the gather, global and tile modes, with or without
+the render->post upscale, or a nearest upsample without TSR; the sRGB and
+HDR10 outputs).
 
 Pass order (chord_tpu meshlet_frame.py:470-1166; reference
 renderer.cpp:316-343 and mesh_raster.cpp:269-330):
-cull.object_precull -> cull.phase0 (vs last frame's HZB) -> raster.phase0
--> hzb.mid -> cull.phase1 (the occluded remainder vs the fresh HZB) ->
-raster.phase1 (seeded with phase 0) -> hzb.final [+ hzb.depth_range] ->
-[masked.cull -> masked.raster -> masked.accept] -> gbuffer_resolve
+[cull.object_precull] -> cull.phase0 (vs last frame's HZB) ->
+raster.phase0 -> hzb.mid -> cull.phase1 (the occluded remainder vs the
+fresh HZB) -> raster.phase1 (seeded with phase 0) (without occlusion: one
+cull and one raster) -> hzb.final [+ hzb.depth_range] -> [masked.cull ->
+masked.raster -> masked.accept [-> masked.peel]] -> gbuffer_resolve
 (textured or not) -> tsr.prepare + disocclusion_mask -> [atmosphere.sky]
 -> [shadow.cascade_fit -> shadow.render (one cascade, round robin, scrolled
 cache, alpha-tested masked casters) -> shadow.evaluate (PCSS, kernel K6)
@@ -24,25 +30,28 @@ gi.probe.history_reproject (K4) -> gi.probe.spatial_filter ->
 gi.probe.upsample (or gi.sample in cache mode) -> gi.specular (SSR
 [-> gi.specular.rt]) -> gi.specular.filter] -> lighting -> [blend.cull
 -> blend.raster -> blend.shade] -> [atmosphere.aerial] -> [gi.inject,
-cache mode] -> auto_exposure -> tsr (render -> post upscale, tile
-reprojection) -> bloom -> tonemap. With alpha_masked the occlusion phases take the opaque bucket
-only. The GI stages run inside torch.profiler.record_function spans named
-as chord_tpu's named_scopes.
+cache mode] -> auto_exposure -> [debug_visualize] -> tsr (temporal_upscale
+when the post size differs from the render size, temporal_resolve when
+equal; tile mode reprojects through K4) -> bloom -> tonemap. With
+alpha_masked the occlusion phases take the opaque bucket only. The GI
+stages run inside torch.profiler.record_function spans named as
+chord_tpu's named_scopes.
 
-Every flag outside those sets raises NotImplementedError naming the flag.
-RendererConfig.subtiles is read only by the flat frame's rasterize() and is
-ignored here, as in chord_tpu. The r.raster.bricks cvar switches every
-main-view raster (both phases, the masked and blend buckets) from K1 to
-K7; the shadow cascades build their own config and keep K1. A frame is
-plain eager PyTorch around the kernels (K1 or K7 raster, K2 mesh shader,
-K3 row gather, K4 tile reproject (TSR, and the GI diffuse history), K5
-paged texture sampler, K6 PCSS); the BVH rays are plain tensor code
-(ops/rt.py), as in chord_tpu. Counts and overflows stay on the device
-until the caller reads them. The shadow pass and the GI world-cache inject
-need the frame counter on the host (which cascade refreshes, which PCSS
-phase runs, which cache cascade takes the probes): render_frame_meshlet
-takes it as `frame_index`, which the sequence runner reads once per call
-and MeshletRenderer once per render() (one synchronisation each).
+The flags outside the port raise NotImplementedError naming the flag
+(check_slice). RendererConfig.subtiles is read only by the flat frame's
+rasterize() and is ignored here, as in chord_tpu. The r.raster.bricks cvar
+switches every main-view raster (both phases, the masked bucket and its
+peel, the blend bucket) from K1 to K7; the shadow cascades build their
+own config and keep K1. A frame is plain eager PyTorch around the kernels
+(K1 or K7 raster, K2 mesh shader, K3 row gather, K4 tile reproject (tile
+TSR, and the GI diffuse history), K5 paged texture sampler, K6 PCSS); the
+BVH rays are plain tensor code (ops/rt.py), as in chord_tpu. Counts and
+overflows stay on the device until the caller reads them. The shadow pass
+and the GI world-cache inject need the frame counter on the host (which
+cascade refreshes, which PCSS phase runs, which cache cascade takes the
+probes): render_frame_meshlet takes it as `frame_index`, which the
+sequence runner reads once per call and MeshletRenderer once per render()
+(one synchronisation each).
 """
 
 from __future__ import annotations
@@ -68,20 +77,17 @@ from ..ops.mesh_shader import mesh_shader_setup
 from ..ops.raster import RasterConfig, bin_windows, raster_queue
 from ..ops.shadow import (ShadowConfig, evaluate_shadow_auto,
                           fit_cascades_device)
-from ..rhi.framebuffer import FrameHistory
+from ..rhi.framebuffer import FrameHistory, unpack_visibility
 from ..utils.cvar import cvars
 from .deferred import DeviceView, RendererConfig
 
 
 class MeshletFrameConfig(NamedTuple):
     """chord_tpu MeshletFrameConfig's fields, with its defaults. The port
-    runs occlusion + object_precull with material maps, trilinear mip
-    dither, the masked (one layer) and blend buckets, shadows, atmosphere,
-    GI in "probe" and "cache" modes with SSAO, SSR and the BVH rays
-    (gi_rt, over "object" or "meshlet" proxies); not gi_mode="ddgi",
-    GIConfig.ao_mode="rtao", the triangle-exact BVH
-    (rt_granularity="triangle") nor the probe march
-    (ScreenProbeConfig.trace_mode="march")."""
+    runs every flag but gi_mode="ddgi", GIConfig.ao_mode="rtao", the
+    triangle-exact BVH (rt_granularity="triangle"), the probe march
+    (ScreenProbeConfig.trace_mode="march") and
+    ShadowConfig(pipelined=True)."""
 
     draw_capacity: int = 4096
     occlusion: bool = True
@@ -134,8 +140,10 @@ class MeshletFrameConfig(NamedTuple):
 
 
 def check_slice(config: RendererConfig, mcfg: MeshletFrameConfig) -> None:
-    """Raise NotImplementedError for any flag outside the ported slice.
-    ssr=True without gi is a no-op, as in chord_tpu, and so is gi_rt."""
+    """Raise NotImplementedError for a flag outside the ported slice: the
+    GI branches ddgi, rtao, the probe march and triangle-exact BVH leaves,
+    and the pipelined shadow split. ssr=True without gi is a no-op, as in
+    chord_tpu, and so is gi_rt."""
     if mcfg.gi:
         if mcfg.gi_rt and mcfg.rt_granularity == "triangle":
             raise NotImplementedError(
@@ -157,36 +165,6 @@ def check_slice(config: RendererConfig, mcfg: MeshletFrameConfig) -> None:
         raise NotImplementedError(
             "ShadowConfig.pipelined=True (chord_tpu's split shadow dispatch) "
             "is not ported; None or False run the shadows inline")
-    if mcfg.masked_layers != 1:
-        raise NotImplementedError(
-            f"MeshletFrameConfig.masked_layers={mcfg.masked_layers}: only "
-            "one masked layer is ported")
-    if mcfg.debug_mode != "none":
-        raise NotImplementedError(
-            f"MeshletFrameConfig.debug_mode={mcfg.debug_mode!r} is not "
-            "ported yet")
-    if not mcfg.occlusion:
-        raise NotImplementedError(
-            "MeshletFrameConfig.occlusion=False is not ported yet")
-    if not mcfg.object_precull:
-        raise NotImplementedError(
-            "MeshletFrameConfig.object_precull=False is not ported yet")
-    if not config.enable_tsr:
-        raise NotImplementedError(
-            "RendererConfig.enable_tsr=False is not ported yet")
-    if config.tsr_mode != "tile":
-        raise NotImplementedError(
-            f"RendererConfig.tsr_mode={config.tsr_mode!r}: only 'tile' is "
-            "ported")
-    if (config.post_width or config.width,
-            config.post_height or config.height) == (config.width,
-                                                     config.height):
-        raise NotImplementedError(
-            "RendererConfig.post_width/post_height equal to the render "
-            "size (TSR without upscale) is not ported yet")
-    if config.output != "srgb8":
-        raise NotImplementedError(
-            f"RendererConfig.output={config.output!r} is not ported yet")
 
 
 def pixel_view_dirs(h: int, w: int, clip_to_tw: torch.Tensor) -> torch.Tensor:
@@ -511,6 +489,7 @@ class GIOut(NamedTuple):
 
     ambient: torch.Tensor       # (H,W,3) AO'd ambient + indirect diffuse
     specular: torch.Tensor      # (H,W,3) specular GI, added after lighting
+    indirect: torch.Tensor      # (H,W,3) indirect diffuse (the `gi` view)
     gi_cache: torch.Tensor      # the new history fields, named as in
     probe_sh: torch.Tensor      # FrameHistory
     probe_depth: torch.Tensor
@@ -687,9 +666,60 @@ def _render_gi(view: DeviceView, history: FrameHistory, gbuf, depth,
         ambient = view.sky_ambient[None, None, :] * torch.clamp(
             gbuf.normal[..., 1:2] * 0.5 + 0.5, 0.0, 1.0)
     return GIOut(ambient=(ambient * 0.35 + indirect) * ao[..., None],
-                 specular=specular, gi_cache=gi_cache, probe_sh=probe_sh,
+                 specular=specular, indirect=indirect, gi_cache=gi_cache,
+                 probe_sh=probe_sh,
                  probe_depth=probe_depth, gi_diffuse=gi_diffuse,
                  gi_specular=gi_specular)
+
+
+# lod level -> colour (chord_tpu meshlet_frame.py:412-415)
+_LOD_PALETTE = ((1.0, 1.0, 1.0), (0.0, 1.0, 0.0), (1.0, 1.0, 0.0),
+                (1.0, 0.5, 0.0), (1.0, 0.0, 0.0), (1.0, 0.0, 1.0),
+                (0.0, 0.0, 1.0), (0.0, 1.0, 1.0))
+
+
+def _wrap_i32(x: torch.Tensor) -> torch.Tensor:
+    """int64 -> its int32 wrap-around, still int64 (two's complement)."""
+    return torch.remainder(x + 2 ** 31, 2 ** 32) - 2 ** 31
+
+
+def debug_visualize(mode: str, hdr, vis, depth, gbuf, draw_meshlet, pools,
+                    extras=None) -> torch.Tensor:
+    """The debug views (chord_tpu meshlet_frame.py:388-422; reference
+    nanite_visualize.cpp): `meshlet` hashes each pixel's meshlet id to a
+    colour, `lod` colours its LOD level, `normal` and `depth` show the
+    gbuffer; a mode in `extras` shows that plane (clamped to [0,1], a 2-D
+    plane as grey); any other mode returns `hdr`."""
+    extras = extras or {}
+    if mode in extras:
+        v = extras[mode]
+        if v.dim() == 2:
+            v = v[..., None].expand(*v.shape, 3)
+        return torch.clamp(v, 0.0, 1.0)
+    slot, _tri = unpack_visibility(vis)
+    valid = (slot >= 0)[..., None]
+    zero = torch.zeros((), device=depth.device)
+    if mode in ("meshlet", "lod"):
+        mid = draw_meshlet.long()[torch.clamp_min(slot, 0).long()]
+    if mode == "meshlet":
+        # chord_tpu's int32 hash: products wrap, the shift is arithmetic
+        h1 = (_wrap_i32(mid * 40503) ^ (_wrap_i32(mid * 1231) >> 3)) & 0xFFFF
+        # a divide by a device constant: CUDA's `t / 255.0` multiplies by
+        # the reciprocal
+        k = const(255.0, depth.device)
+        col = torch.stack([(h1 * 7) % 255 / k, (h1 * 13) % 255 / k,
+                           (h1 * 29) % 255 / k], -1)
+        return torch.where(valid, col, zero)
+    if mode == "lod":
+        lvl = pools.meshlet_lod.long()[mid]
+        col = const(_LOD_PALETTE, depth.device)[torch.clamp(lvl, 0, 7)]
+        return torch.where(valid, col, zero)
+    if mode == "normal":
+        return torch.where(valid, gbuf.normal * 0.5 + 0.5, zero)
+    if mode == "depth":
+        d = torch.clamp(depth * 50.0, 0.0, 1.0)[..., None]
+        return d.expand(*d.shape[:2], 3)
+    return hdr
 
 
 def render_frame_meshlet(pools, instances, view: DeviceView,
@@ -716,49 +746,77 @@ def render_frame_meshlet(pools, instances, view: DeviceView,
     proj_scale = 0.5 * h * view.tw_to_clip_nj[1, 1]
     ws, hs, offs = hzb_layout(w, h)
     stats = {}
-    # phase-1 capacity; also the phase-1 payload base offset
-    cap1 = max(256, -(-cap // 4 // 128) * 128)
+    # phase-1 capacity; also the masked bucket's payload base is cap + cap1
+    # (the draw_object concat below), so 0 without occlusion
+    cap1 = max(256, -(-cap // 4 // 128) * 128) if mcfg.occlusion else 0
 
-    # cull.object_precull: the active table holds every frustum-visible
-    # pair, sized by the scene's visible set (not the draw capacity)
-    acap = mcfg.active_pair_capacity or min(pools.num_pairs,
-                                            max(16384, 4 * cap))
-    active = build_active_pairs(pools, instances, view.frustum_planes, acap)
-    stats["active_pairs"] = active.count
-    stats["active_overflow"] = active.overflow
+    active = None
+    if mcfg.object_precull:
+        # cull.object_precull: the active table holds every frustum-visible
+        # pair, sized by the scene's visible set (not the draw capacity)
+        acap = mcfg.active_pair_capacity or min(pools.num_pairs,
+                                                max(16384, 4 * cap))
+        active = build_active_pairs(pools, instances, view.frustum_planes,
+                                    acap)
+        stats["active_pairs"] = active.count
+        stats["active_overflow"] = active.overflow
 
-    # cull.phase0 vs last frame's HZB (invalid history -> all zeros -> all
-    # pass), raster.phase0; with a masked bucket both phases are opaque-only
-    prev_hzb = HZBPyramid(flat=history.hzb_flat, widths=ws, heights=hs,
-                          offsets=offs, mip0_w=w, mip0_h=h)
-    opq = False if mcfg.alpha_masked else None
-    res0 = cull_pairs(pools, instances, view.frustum_planes, proj_scale, cap,
-                      hzb=prev_hzb, hzb_tw_to_clip=view.prev_tw_to_clip_nj,
-                      lod_threshold=mcfg.lod_threshold_px, masked=opq,
-                      active=active)
-    setup0 = mesh_shader_setup(res0.draws, pools, instances, view.tw_to_clip,
-                               cap, w, h, sub_s=rc_a.sub_s)
-    queue0 = bin_windows(setup0, rc_a)
-    rt0 = raster_queue(queue0, setup0, rc_a)
-    # hzb.mid -> cull.phase1 (the occluded remainder) -> raster.phase1
-    hzb_now = build_hzb(rt0[0])
-    res1 = cull_pairs(pools, instances, view.frustum_planes, proj_scale, cap1,
-                      hzb=hzb_now, hzb_tw_to_clip=view.tw_to_clip_nj,
-                      lod_threshold=mcfg.lod_threshold_px,
-                      extra_mask=res0.occluded_mask, masked=opq,
-                      active=active)
-    setup1 = mesh_shader_setup(res1.draws, pools, instances, view.tw_to_clip,
-                               cap1, w, h, payload_base=cap,
-                               sub_s=rc_a.sub_s)
-    queue1 = bin_windows(setup1, rc_a)
-    rt = raster_queue(queue1, setup1, rc_a, seeds=rt0)
-    draw_object = torch.cat([res0.draws.object_id, res1.draws.object_id])
     count_i = lambda s: s.valid.to(torch.int32).sum().to(torch.int32)
-    stats["drawn_tris"] = count_i(setup0) + count_i(setup1)
-    stats["bin_overflow"] = queue0.overflow + queue1.overflow
-    stats["draws_phase0"] = res0.draws.count
-    stats["draws_phase1"] = res1.draws.count
-    stats["draw_overflow"] = res0.draws.overflow + res1.draws.overflow
+    # with a masked bucket the opaque phases are opaque-only
+    opq = False if mcfg.alpha_masked else None
+    if mcfg.occlusion:
+        # cull.phase0 vs last frame's HZB (invalid history -> all zeros ->
+        # all pass), raster.phase0
+        prev_hzb = HZBPyramid(flat=history.hzb_flat, widths=ws, heights=hs,
+                              offsets=offs, mip0_w=w, mip0_h=h)
+        res0 = cull_pairs(pools, instances, view.frustum_planes, proj_scale,
+                          cap, hzb=prev_hzb,
+                          hzb_tw_to_clip=view.prev_tw_to_clip_nj,
+                          lod_threshold=mcfg.lod_threshold_px, masked=opq,
+                          active=active)
+        setup0 = mesh_shader_setup(res0.draws, pools, instances,
+                                   view.tw_to_clip, cap, w, h,
+                                   sub_s=rc_a.sub_s)
+        queue0 = bin_windows(setup0, rc_a)
+        rt0 = raster_queue(queue0, setup0, rc_a)
+        # hzb.mid -> cull.phase1 (the occluded remainder) -> raster.phase1
+        hzb_now = build_hzb(rt0[0])
+        res1 = cull_pairs(pools, instances, view.frustum_planes, proj_scale,
+                          cap1, hzb=hzb_now,
+                          hzb_tw_to_clip=view.tw_to_clip_nj,
+                          lod_threshold=mcfg.lod_threshold_px,
+                          extra_mask=res0.occluded_mask, masked=opq,
+                          active=active)
+        setup1 = mesh_shader_setup(res1.draws, pools, instances,
+                                   view.tw_to_clip, cap1, w, h,
+                                   payload_base=cap, sub_s=rc_a.sub_s)
+        queue1 = bin_windows(setup1, rc_a)
+        rt = raster_queue(queue1, setup1, rc_a, seeds=rt0)
+        draw_object = torch.cat([res0.draws.object_id,
+                                 res1.draws.object_id])
+        draw_meshlet = torch.cat([res0.draws.meshlet_id,
+                                  res1.draws.meshlet_id])
+        stats["drawn_tris"] = count_i(setup0) + count_i(setup1)
+        stats["bin_overflow"] = queue0.overflow + queue1.overflow
+        stats["draws_phase0"] = res0.draws.count
+        stats["draws_phase1"] = res1.draws.count
+        stats["draw_overflow"] = res0.draws.overflow + res1.draws.overflow
+    else:
+        # one cull with no HZB, one raster
+        res0 = cull_pairs(pools, instances, view.frustum_planes, proj_scale,
+                          cap, lod_threshold=mcfg.lod_threshold_px,
+                          masked=opq, active=active)
+        setup0 = mesh_shader_setup(res0.draws, pools, instances,
+                                   view.tw_to_clip, cap, w, h,
+                                   sub_s=rc_a.sub_s)
+        queue0 = bin_windows(setup0, rc_a)
+        rt = raster_queue(queue0, setup0, rc_a)
+        draw_object = res0.draws.object_id
+        draw_meshlet = res0.draws.meshlet_id
+        stats["drawn_tris"] = count_i(setup0)
+        stats["bin_overflow"] = queue0.overflow
+        stats["draws_phase0"] = res0.draws.count
+        stats["draw_overflow"] = res0.draws.overflow
 
     depth, vis = rt[0], rt[1]
     # next frame's phase-0 occluders: opaque only (a masked surface full
@@ -784,13 +842,28 @@ def render_frame_meshlet(pools, instances, view: DeviceView,
         setup_m = mesh_shader_setup(res_m.draws, pools, instances,
                                     view.tw_to_clip, cap_m, w, h,
                                     payload_base=base_m, sub_s=rc_a.sub_s)
-        rt_m = raster_queue(bin_windows(setup_m, rc_a), setup_m, rc_a)
+        q_m = bin_windows(setup_m, rc_a)
+        rt_m = raster_queue(q_m, setup_m, rc_a)
+        depth_opaque = depth
         accept = shading.alpha_mask_accept(
             rt_m[1], rt_m[0], depth, rt_m[5], rt_m[6], res_m.draws.object_id,
             base_m, pools, instances)
         rt = [torch.where(accept, m_, o_) for m_, o_ in zip(rt_m, rt)]
         depth, vis = rt[0], rt[1]
+        if mcfg.masked_layers >= 2:
+            # masked.peel: re-raster the same masked queue behind layer 0's
+            # depth (z-clip), so each pixel gets its next-nearest masked
+            # fragment; it takes the pixel only where layer 0 failed its
+            # alpha test
+            rt_p = raster_queue(q_m, setup_m, rc_a._replace(z_clip=True),
+                                zclip=rt_m[0])
+            accept_p = shading.alpha_mask_accept(
+                rt_p[1], rt_p[0], depth_opaque, rt_p[5], rt_p[6],
+                res_m.draws.object_id, base_m, pools, instances) & ~accept
+            rt = [torch.where(accept_p, p_, o_) for p_, o_ in zip(rt_p, rt)]
+            depth, vis = rt[0], rt[1]
         draw_object = torch.cat([draw_object, res_m.draws.object_id])
+        draw_meshlet = torch.cat([draw_meshlet, res_m.draws.meshlet_id])
         stats["draws_masked"] = res_m.draws.count
         stats["draw_overflow"] = stats["draw_overflow"] + res_m.draws.overflow
 
@@ -879,12 +952,35 @@ def render_frame_meshlet(pools, instances, view: DeviceView,
     exposure = post.adapt_exposure(post.luminance_histogram(hdr, ecfg),
                                    history.exposure, 1.0 / 60.0, ecfg)
 
+    if mcfg.debug_mode != "none":
+        extras = {"disocclusion": disocc,
+                  "motion": torch.cat([torch.abs(motion_dilated) * 20.0,
+                                       torch.zeros_like(depth)[..., None]],
+                                      -1)}
+        if gi is not None:
+            extras["gi"] = gi.indirect * 2.0
+            extras["specular"] = gi.specular * 4.0
+        if sun_shadow is not None:
+            extras["shadow"] = sun_shadow      # the PCSS sun visibility
+        hdr = debug_visualize(mcfg.debug_mode, hdr, vis, depth, gbuf,
+                              draw_meshlet, pools, extras=extras)
+
     post_w = config.post_width or w
     post_h = config.post_height or h
-    hdr = post.temporal_upscale(
-        hdr, motion_dilated, history.tsr_color, history.valid,
-        view.jitter_px, post.TSRConfig(mode=config.tsr_mode), post_h, post_w,
-        disocclusion=disocc)
+    if config.enable_tsr:
+        tsr_cfg = post.TSRConfig(mode=config.tsr_mode)
+        if (post_w, post_h) != (w, h):
+            hdr = post.temporal_upscale(
+                hdr, motion_dilated, history.tsr_color, history.valid,
+                view.jitter_px, tsr_cfg, post_h, post_w,
+                disocclusion=disocc)
+        else:
+            hdr = post.temporal_resolve(hdr, motion_dilated,
+                                        history.tsr_color, history.valid,
+                                        tsr_cfg, disocclusion=disocc)
+    elif (post_w, post_h) != (w, h):
+        hdr = post.upsample_nearest(hdr, (-(-post_h // h), -(-post_w // w)),
+                                    post_h, post_w)
     tsr_color = hdr
     if config.enable_bloom:
         hdr = hdr + post.compute_bloom(hdr, post.BloomConfig())
@@ -903,7 +999,7 @@ def render_frame_meshlet(pools, instances, view: DeviceView,
         shadow_mats=new_shadow[2],
         # GIOut names the GI fields as the history does
         **{f: getattr(history if gi is None else gi, f)
-           for f in GIOut._fields[2:]})
+           for f in GIOut._fields[3:]})
     return image, new_history, stats
 
 
@@ -942,7 +1038,9 @@ def render_sequence_meshlet(pools, instances, views_stacked: DeviceView,
 
 class MeshletRenderer:
     """Host-side runner for the meshlet frame (chord_tpu MeshletRenderer
-    without the split shadow dispatch). History and views go to the device
+    without the split shadow dispatch), for every config check_slice
+    accepts (the repo's golden images render through it). History and
+    views go to the device
     the pools live on; the atmosphere LUTs and, with GI, the env-BRDF LUT
     are built once (the sky view once per sun direction); with gi_rt the
     scene BVH is built on the host at mcfg.rt_granularity at the first

@@ -42,6 +42,34 @@ def vis_to_uint32(vis: torch.Tensor):
     return vis.detach().cpu().numpy().view("uint32")
 
 
+@dataclass(frozen=True)
+class RenderTargets:
+    """The thin gbuffer written by raster + lighting (reference
+    render_textures.h:10-62), visibility as int32 bits."""
+
+    visibility: torch.Tensor      # (H,W) i32 packed
+    depth: torch.Tensor           # (H,W) f32 reverse-Z (0 = far/empty)
+    color: torch.Tensor           # (H,W,3) f32 HDR ACEScg
+    normal: torch.Tensor          # (H,W,3) f32 pixel normal (translated world)
+    motion: torch.Tensor          # (H,W,2) f32 NDC motion vector
+    ao_rough_metal: torch.Tensor  # (H,W,3) f32
+
+    @classmethod
+    def empty(cls, h: int, w: int, device=None) -> "RenderTargets":
+        """Zeroed targets on `device` (None = the card)."""
+        from ..utils.device import resolve
+
+        device = resolve(device)
+        f32 = dict(dtype=torch.float32, device=device)
+        return cls(
+            visibility=torch.zeros((h, w), dtype=torch.int32, device=device),
+            depth=torch.zeros((h, w), **f32),
+            color=torch.zeros((h, w, 3), **f32),
+            normal=torch.zeros((h, w, 3), **f32),
+            motion=torch.zeros((h, w, 2), **f32),
+            ao_rough_metal=torch.zeros((h, w, 3), **f32))
+
+
 @dataclass
 class FrameHistory:
     """State carried frame -> frame. `valid` gates all history reads; a

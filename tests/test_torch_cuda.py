@@ -65,6 +65,13 @@ GI_MCFG = SHADOW_MCFG._replace(
     probe_cfg=ScreenProbeConfig(rays=16, steps=6, history_mode="tile"))
 # the all rung: with the BVH rays over the scene's object spheres
 RT_MCFG = GI_MCFG._replace(gi_rt=True, rt_rays=2)
+# geo_tex_native: geo_tex at render size with gather TSR and the masked
+# depth peel; off_no_occlusion: off without occlusion or pre-cull, global
+# TSR upscale, HDR10
+NATIVE_CFG = CFG._replace(post_width=0, post_height=0, tsr_mode="gather")
+NATIVE_MCFG = TEX_MCFG._replace(masked_layers=2)
+NO_OCC_CFG = CFG._replace(tsr_mode="global", output="hdr10")
+NO_OCC_MCFG = MCFG._replace(occlusion=False, object_precull=False)
 
 
 @pytest.fixture
@@ -74,11 +81,12 @@ def dev():
     return torch.device("cuda", 0)
 
 
-def _tex_sequence(d, frames=3, shadows=False, gi=False):
+def _tex_sequence(d, frames=3, shadows=False, gi=False, native=False):
     """The small textured bistro along bench.py's camera path, jittered;
     with shadows, the views carry the cascade fit and the atmosphere LUTs
     and the history the cascade cache; with gi, the views also carry the
-    env-BRDF LUT and the history the GI state."""
+    env-BRDF LUT and the history the GI state; `native`: the history at
+    render size (no upscale)."""
     b = build_bistro_like(detail=1, textures=True)
     cam = Camera(width=W, height=H)
     vs = []
@@ -89,7 +97,8 @@ def _tex_sequence(d, frames=3, shadows=False, gi=False):
         vs.append(DeviceView.from_uniform(
             cam.view_uniform(i, jitter=True), device=d,
             shadow_cfg=SHADOW_CFG if shadows else None))
-    hist = FrameHistory.empty(H, W, PH, PW, device=d)
+    hist = (FrameHistory.empty(H, W, device=d) if native else
+            FrameHistory.empty(H, W, PH, PW, device=d))
     if shadows:
         p = atm.AtmosphereParams()
         t_lut = atm.build_transmittance_lut(p, 40, device=d)
@@ -112,6 +121,10 @@ def _path_run(path, d):
     """-> (sequence inputs on `d`, frame config) of a meshlet path."""
     if path == "off":
         return _sequence(d), MCFG
+    if path == "off_no_occlusion":
+        return _sequence(d), NO_OCC_MCFG
+    if path == "geo_tex_native":
+        return _tex_sequence(d, native=True), NATIVE_MCFG
     if path in ("geo_tex", "geo_tex_bricks"):
         return _tex_sequence(d), TEX_MCFG
     if path == "all_no_rt":
@@ -148,8 +161,10 @@ def _render_path(path, d):
     inputs, mcfg = _path_run(path, d)
     bvh = (rt.build_scene_bvh(inputs[0], inputs[1], granularity="object")
            if mcfg.gi_rt else None)
+    cfg = {"geo_tex_native": NATIVE_CFG,
+           "off_no_occlusion": NO_OCC_CFG}.get(path, CFG)
     with cvars.override("r.raster.bricks", path == "geo_tex_bricks"):
-        imgs, _, st = render_sequence_meshlet(*inputs, CFG, mcfg, bvh=bvh,
+        imgs, _, st = render_sequence_meshlet(*inputs, cfg, mcfg, bvh=bvh,
                                               with_stats=True)
     return imgs, {k: v.cpu().tolist() for k, v in st.items()}
 
@@ -295,6 +310,27 @@ def test_raster_variants_match_plain(dev):
                c._replace(z_clip=True)), {})
     _exact(k, (pair_win, starts, counts, sb, coefT, seeds[:2], None,
                c._replace(with_attrs=False)), {})
+
+
+@pytest.mark.cuda
+def test_peel_raster_matches_plain(dev):
+    """K1 as the masked depth peel calls it (z-clip plane and attributes)
+    on a frame's real masked queue: the small textured bistro at render
+    size with masked_layers=2; the peel's call is the one with a z-clip
+    plane, padded to the tile grid with 3e38."""
+    pools, inst, views, hist = _tex_sequence(dev, frames=2, native=True)
+    with kernels.capture_inputs() as captured:
+        render_sequence_meshlet(pools, inst, views, hist, NATIVE_CFG,
+                                NATIVE_MCFG)
+    k = kernels.KERNELS[0]
+    peel = [(a, kw) for a, kw in captured["raster"] if a[6] is not None]
+    assert len(peel) == 2
+    for args, kwargs in peel:
+        c, zq = args[7], args[6]
+        assert c.z_clip and c.with_attrs
+        assert zq.shape == (c.tiles_y * c.tile_h, c.tiles_x * c.tile_w)
+        assert bool((zq[H:] == 3e38).all()) and bool((zq[:, W:] == 3e38).all())
+        _exact(k, args, kwargs)
 
 
 @pytest.mark.cuda
@@ -579,7 +615,8 @@ def test_wrappers_reject_bad_inputs(dev):
 @pytest.mark.cuda
 @pytest.mark.parametrize("path", ["off", "geo_tex", "geo_shadow_atmo",
                                   "geo_tex_bricks", "flat", "all_no_rt",
-                                  "all"])
+                                  "all", "geo_tex_native",
+                                  "off_no_occlusion"])
 def test_gpu_frames_match_cpu_plain(dev, path):
     """The tiny sequence of each path through the kernels on the GPU equals
     the plain versions on the CPU (the path the CPU tests hold against
@@ -590,7 +627,7 @@ def test_gpu_frames_match_cpu_plain(dev, path):
         imgs, st = _render_path(path, d)
         out[d.type] = (imgs.cpu().numpy().astype(np.int32), st)
     assert out["cuda"][1] == out["cpu"][1]
-    if path not in ("off", "flat"):
+    if path not in ("off", "flat", "off_no_occlusion"):
         assert max(out["cuda"][1]["draws_masked"]) > 0
     diff = np.abs(out["cuda"][0] - out["cpu"][0])
     assert (diff <= 2).mean() >= 0.999, diff.max()

@@ -138,7 +138,6 @@ def test_flags_outside_the_slice_raise(runs):
     for mcfg, cfg in [
             (MeshletFrameConfig(shadows=True, shadow_cfg=ShadowConfig(
                 pipelined=True)), RendererConfig(**CFG)),
-            (MeshletFrameConfig(masked_layers=2), RendererConfig(**CFG)),
             (MeshletFrameConfig(gi=True, gi_rt=True,
                                 rt_granularity="triangle"),
              RendererConfig(**CFG)),
@@ -147,11 +146,6 @@ def test_flags_outside_the_slice_raise(runs):
             (MeshletFrameConfig(gi=True, gi_cfg=GIConfig(ao_mode="rtao")),
              RendererConfig(**CFG)),
             (MeshletFrameConfig(gi=True, probe_cfg=ScreenProbeConfig(
-                trace_mode="march")), RendererConfig(**CFG)),
-            (MeshletFrameConfig(occlusion=False), RendererConfig(**CFG)),
-            (MeshletFrameConfig(), RendererConfig(**{**CFG,
-                                                     "tsr_mode": "gather"})),
-            (MeshletFrameConfig(), RendererConfig(**{**CFG,
-                                                     "output": "hdr10"}))]:
+                trace_mode="march")), RendererConfig(**CFG))]:
         with pytest.raises(NotImplementedError):
             render_sequence_meshlet(pools, inst, views, hist, cfg, mcfg)

@@ -258,3 +258,87 @@ def test_temporal_resolve_gather_matches(bilinear):
         assert bad.mean() <= 1e-3, (valid, np.abs(got - ref).max())
     assert post.TSRConfig().mode == jpost.TSRConfig().mode == "gather"
 
+
+
+@pytest.mark.parametrize("mode", ["global", "tile"])
+def test_temporal_resolve_reprojecting_modes_match(mode):
+    """TSR at render size in the two reprojecting modes (global: the
+    history shifted by the mean motion, rolled by device-side indices;
+    tile: K4), with a disocclusion mask and with invalid history.
+    Tolerance 1e-4 relative to max(|ref|, 1), as the tile upscale: the
+    mean motion is an 8192-term f32 sum in another order, which moves the
+    bilinear fraction by ulps. The motion's mean (about 2.60 px right and
+    0.18 px up) lies far from a whole pixel, so those ulps cannot move its
+    floor, which would shift the whole history by a pixel."""
+    rng = np.random.default_rng(17)
+    h, w = 64, 128
+    color = rng.uniform(0, 3, (h, w, 3)).astype(np.float32)
+    hist = rng.uniform(0, 3, (h, w, 3)).astype(np.float32)
+    mot = (_field(rng, h, w, 3.0) / np.array([w * 0.5, -h * 0.5],
+                                              np.float32)).astype(np.float32)
+    dis = (rng.uniform(size=(h, w)) < 0.15).astype(np.float32)
+    for valid, d in ((1.0, None), (1.0, dis), (0.0, dis)):
+        args = (color, mot, hist, np.float32(valid))
+        ref = jpost.temporal_resolve(
+            *map(jnp.asarray, args), jpost.TSRConfig(mode=mode),
+            disocclusion=None if d is None else jnp.asarray(d))
+        got = post.temporal_resolve(
+            *map(_t, args), post.TSRConfig(mode=mode),
+            disocclusion=None if d is None else _t(d))
+        _close(got.numpy(), ref, 1e-4)
+
+
+@pytest.mark.parametrize("mode", ["gather", "global"])
+def test_temporal_upscale_gather_and_global_match(mode):
+    """The render->post TSR in gather mode (colour, motion and the
+    disocclusion mask sampled bilinearly at each post pixel's jittered
+    render position, the history from its bf16 copy) and global mode (the
+    linear resample, the global resolve at post res, the nearest-upsampled
+    restart of disoccluded pixels), with valid and invalid history.
+    Tolerance 1e-4 relative to max(|ref|, 1): resample contractions and
+    the blend in another rounding (bf16 texels convert exactly)."""
+    rng = np.random.default_rng(19)
+    h, w, ph, pw = 64, 128, 96, 192
+    color = rng.uniform(0, 3, (h, w, 3)).astype(np.float32)
+    mot = (rng.normal(0.01, 0.01, (h, w, 2))).astype(np.float32)
+    hist = rng.uniform(0, 3, (ph, pw, 3)).astype(np.float32)
+    dis = (rng.uniform(0, 1, (h, w)) > 0.8).astype(np.float32)
+    jitter = np.array([0.25, -0.375], np.float32)
+    for valid in (0.0, 1.0):
+        ref = jpost.temporal_upscale(
+            jnp.asarray(color), jnp.asarray(mot), jnp.asarray(hist),
+            jnp.float32(valid), jnp.asarray(jitter),
+            jpost.TSRConfig(mode=mode), ph, pw,
+            disocclusion=jnp.asarray(dis))
+        got = post.temporal_upscale(
+            _t(color), _t(mot), _t(hist), torch.tensor(valid), _t(jitter),
+            post.TSRConfig(mode=mode), ph, pw, disocclusion=_t(dis))
+        _close(got.numpy(), ref, 1e-4)
+
+
+def test_hdr10_output_and_transfer_functions_match():
+    """tonemap_display's HDR10 branch (the film curve, AP1 -> Rec.2020,
+    the PQ encode of a 1000-nit peak), pq_oetf over 0..12000 nits (past
+    the 10000-nit clamp) and srgb_eotf: pow in another rounding, within
+    2e-5 absolute on [0, 1] signals; the u8 HDR10 image within 1 level.
+    An unknown output raises ValueError, as in chord_tpu."""
+    rng = np.random.default_rng(23)
+    x = rng.uniform(0, 5, (37, 53, 3)).astype(np.float32)
+    ref = jcs.tonemap_display(jnp.asarray(x), jnp.float32(0.6), "hdr10")
+    got = colorspace.tonemap_display(_t(x), torch.tensor(0.6), "hdr10")
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=2e-5)
+    d = np.abs(colorspace.to_u8(got).numpy().astype(int) -
+               np.asarray(jcs.to_u8(ref)).astype(int))
+    assert d.max() <= 1
+    nits = rng.uniform(0, 12000, 4096).astype(np.float32)
+    np.testing.assert_allclose(colorspace.pq_oetf(_t(nits)).numpy(),
+                               np.asarray(jcs.pq_oetf(jnp.asarray(nits))),
+                               atol=2e-5)
+    enc = rng.uniform(0, 1, 4096).astype(np.float32)
+    np.testing.assert_allclose(colorspace.srgb_eotf(_t(enc)).numpy(),
+                               np.asarray(jcs.srgb_eotf(jnp.asarray(enc))),
+                               atol=2e-5)
+    np.testing.assert_array_equal(colorspace.AP1_TO_REC2020,
+                                  jcs.AP1_TO_REC2020)
+    with pytest.raises(ValueError):
+        colorspace.tonemap_display(_t(x), torch.tensor(0.6), "srgb16")
