@@ -4,7 +4,7 @@
     python3 chip_smoke.py              # the default run
     python3 chip_smoke.py --profile    # + a torch.profiler breakdown per path
 
-Eleven paths: nine frame paths and two tool paths. Three are the bench's
+Thirteen paths: eleven frame paths and two tool paths. Three are the bench's
 `off`, `geo_tex` and `geo_shadow_atmo` rungs (bench.py:35-54): the
 1280x720 render of the 2.6M-triangle procedural bistro (Nanite LOD cut),
 upscaled to 1920x1080 by tile-mode TSR, bloom and the ACES tonemap;
@@ -30,7 +30,20 @@ once on the host over the instances' bounding spheres
 the camera where bench.py:221-233 builds it, before the camera path), so
 2 rays a screen probe join its taps and SSR's misses trace the BVH (the
 dense route: every ray against every object sphere, in 512-sphere chunks;
-no kernel of its own). `flat` is the flat
+no kernel of its own). Two paths run chord_tpu's other GI modes on
+`all`'s scene, views and LUTs, each with a BVH built as
+MeshletRenderer.render builds it (from the path's own instance table, at
+its granularity, once): `all_ddgi` is `all` with gi_mode="ddgi" and
+DDGIConfig() (4 cascades of 16x8x16 probes, 32 rays, one (cascade,
+phase) slice of 512 probes updated a frame) over a meshlet BVH, the
+viewer's `--gi --gi-mode ddgi --gi-rt` (no screen probes: K4 runs only
+for TSR); `all_exact` is `all` over a triangle BVH of the root cut
+(rt_granularity="triangle", the viewer's `--rt-exact`), with RTAO
+(GIConfig(ao_mode="rtao"): 4 rays a pixel at 640x360) and the probe march
+(ScreenProbeConfig(trace_mode="march", rays=16, steps=6)): its 6 traces
+a frame take the lock-step BVH scan (the root cut is far above
+DENSE_TRI_LIMIT triangles), so its sequence is 4 frames long, not 16
+(kernels.RUN_FRAMES), and timed once, not three times. `flat` is the flat
 DeferredRenderer frame (BASELINE config #1: object
 frustum cull, every triangle of the visible objects, deferred PBR) of
 build_sponza_like(detail=4) (367,104 padded triangles) at 1920x1080 along
@@ -70,10 +83,10 @@ Phases (any failure raises and the script exits non-zero):
    then records every kernel call's inputs through the next frame, and
    runs each kernel and its plain PyTorch version on those calls (K1
    raster on the three bench rungs; K2 mesh shader, K3 row gather, K4 tile
-   reproject on every meshlet path, both of its calls on the GI paths
-   `all_no_rt` and `all`; K5 paged texture sampler on the textured
-   paths, with the masked shadow casters on the shadow paths; K6 PCSS on
-   `geo_shadow_atmo` and the GI paths; K7 brick raster on
+   reproject on every meshlet path, both of its calls on the screen-probe
+   paths `all_no_rt`, `all` and `all_exact`; K5 paged texture sampler on
+   the textured paths, with the masked shadow casters on the shadow
+   paths; K6 PCSS on `geo_shadow_atmo` and the GI paths; K7 brick raster on
    `geo_tex_bricks`; K8 sub-tile raster on `flat`).
    Tolerance 0: the kernels are built with -fmad=false and round every
    operation as the plain versions do. Times each call (CUDA events,
@@ -101,20 +114,22 @@ Phases (any failure raises and the script exits non-zero):
    K6 the in-map pixels, the PCF radius's distribution and the stack
    sectors the taps touch; for K10 the distinct tiles a pixel block asks
    for and the share of textured pixels the palette serves.
-5. Each path's 16-frame sequence (render_sequence_meshlet(with_stats=True);
+5. Each path's 16-frame sequence (4 frames on `all_exact`;
+   render_sequence_meshlet(with_stats=True);
    on `flat`, DeferredRenderer.render frame by frame), with every launch
    count set to 0 just before and read just after: worst-frame overflows
    0, drawn triangles > 0, a finite non-constant image, every kernel of
    the path launched and no other (kernels.EXPECTED_LAUNCHES: K4 16
-   times, 32 on the GI paths; K5 32 times on `geo_tex` and
+   times, 32 on the screen-probe paths; K5 32 times on `geo_tex` and
    `geo_tex_bricks`, 40 on the shadow paths: 32 plus the masked casters
    of the 8 frames that refresh cascade 0 or 1; K6 16 times; K7 64 times;
    K8 16 times), masked draws on some frame of the textured paths, a
    finite cascade cache and shadow mask, on the GI paths the GI history
-   (chord_tpu's shapes, probes with samples, a world cache that took
-   probes, non-negative non-zero diffuse and specular histories) and,
-   from a second run, that images and world cache repeat bit for bit
-   (a failure otherwise); the stats the config makes and no other (no
+   (chord_tpu's shapes, probes with samples or every DDGI probe traced, a
+   world cache that took probes or surfels, non-negative non-zero diffuse
+   and specular histories) and, from a second run, that images and every
+   GI history leaf (the DDGI state's too) repeat bit for bit (a failure
+   otherwise); the stats the config makes and no other (no
    draws_phase1 without occlusion, no active_* without the pre-cull), the
    worst frame's binned pairs beside the pair capacity (K1 / K7's
    queues), and K1 80 times on `geo_tex_native` (two phases, the masked
@@ -123,11 +138,19 @@ Phases (any failure raises and the script exits non-zero):
    `off_no_occlusion`; on `all` the BVH (its builder, which must be the
    native one, its leaves and nodes, the trace route), rt.trace's calls
    (2 a frame: the probe rays and SSR's misses, 32 in all, every one on
-   the dense route) and the rays a frame; and per cascade the shadow draws
+   the dense route) and the rays a frame; on `all_ddgi` (2 calls a frame:
+   DDGI's update and SSR's misses, dense over the meshlet BVH) and
+   `all_exact` (6: RTAO's 4, the probe rays, SSR's misses, all on the
+   scan) the same, then one more frame with each rt.trace call timed
+   alone (rays, route, scan steps, hit share, ms; RTAO's rays must hit
+   somewhere), and on `all_ddgi` every one of the 8,192 probes traced
+   after the 16 frames; the second run's DDGI state bit-equal to the
+   first's; and per cascade the shadow draws
    (read from the K2 calls) beside what the cull asked for and the pairs
-   the bins dropped (none allowed); then the sequence three more times for
-   ms/frame (median and spread). At bench.py's shadow_draw_capacity=2048
-   the far cascade asks for more draws than that and drops the rest, as
+   the bins dropped (none allowed); then the sequence three more times
+   (once on `all_exact`) for ms/frame (median and spread). At bench.py's
+   shadow_draw_capacity=2048 the far cascade asks for more draws than
+   that and drops the rest, as
    chord_tpu does at this config: printed, not failed. The shadow path
    then runs once more at 4096, where every cascade must stay below its
    capacity, and is timed there too. With --profile, each path's device
@@ -150,7 +173,8 @@ Phases (any failure raises and the script exits non-zero):
 8. A small-input cross-check per frame path (tiny atrium, its flat pools on
    `flat`; small textured bistro, with 2 cascades of 256² on the shadow
    paths, and GI on the GI paths, with a BVH of the small scene's
-   instances on `all`): kernels on the GPU vs plain versions on
+   instances on the ray paths, at each one's granularity): kernels on
+   the GPU vs plain versions on
    the CPU (the path the tests hold against chord_tpu), stats exact,
    images within 2 u8 levels; then the same on the tiny `off` scene with
    TSR in each of the tile, gather and global modes, with and without the
@@ -202,6 +226,10 @@ FRAMES = 16
 # a capacity that holds every cascade
 BENCH_SHADOW_DRAWS = 2048
 FULL_SHADOW_DRAWS = 4096
+# timed reruns of a path's sequence (median and spread); fewer where a
+# run takes long: every trace of `all_exact` is the lock-step BVH scan
+# (PERF.md §5)
+TIMED_RUNS = {"all_exact": 1}
 # the flat path: BASELINE config #1 at 1080p on a production-sized Sponza;
 # at RendererConfig's pair capacity of 8192 its sub-tile queue runs out of
 # rounds (r_cap = capacity // 4) and drops pairs on every frame
@@ -209,19 +237,31 @@ FLAT_W, FLAT_H = 1920, 1080
 FLAT_DETAIL = 4
 FLAT_PAIRS = 16384
 TEXTURED_PATHS = ("geo_tex", "geo_shadow_atmo", "geo_tex_bricks",
-                  "all_no_rt", "all", "geo_tex_native")
-SHADOW_PATHS = ("geo_shadow_atmo", "all_no_rt", "all")
+                  "all_no_rt", "all", "all_ddgi", "all_exact",
+                  "geo_tex_native")
+SHADOW_PATHS = ("geo_shadow_atmo", "all_no_rt", "all", "all_ddgi",
+                "all_exact")
+# the paths that trace BVH rays, and the granularity of each one's BVH
+# (`all` is bench.py's object BVH; the others are built as MeshletRenderer
+# builds them: from the path's own instance table, at its granularity)
+RAY_PATHS = {"all": "object", "all_ddgi": "meshlet", "all_exact": "triangle"}
+# rt.trace calls a frame: the probe rays and SSR's misses; DDGI's update
+# and SSR's misses; RTAO's 4 rays, the probe rays and SSR's misses
+TRACES_PER_FRAME = {"all": 2, "all_ddgi": 2, "all_exact": 6}
 # the scene a path's scene is made from (PATHS order builds it first)
 SCENE_FROM = {"geo_shadow_atmo": "geo_tex", "geo_tex_bricks": "geo_tex",
               "all_no_rt": "geo_shadow_atmo", "all": "all_no_rt",
+              "all_ddgi": "all_no_rt", "all_exact": "all_no_rt",
               "geo_tex_native": "geo_tex", "off_no_occlusion": "off"}
 # the GI stages' torch.profiler spans (renderer/meshlet_frame.py), named as
 # chord_tpu's named_scopes
 GI_SPANS = ("gi.ao", "gi.probe.spawn", "gi.probe.sh_reproject",
-            "gi.probe.taps", "gi.probe.project_sh", "gi.probe.world_inject",
-            "gi.probe.interpolate", "gi.probe.history_reproject",
-            "gi.probe.spatial_filter", "gi.probe.upsample", "gi.specular",
-            "gi.specular.filter", "gi.probe.rt_trace", "gi.specular.rt")
+            "gi.probe.taps", "gi.probe.trace", "gi.probe.project_sh",
+            "gi.probe.world_inject", "gi.probe.interpolate",
+            "gi.probe.history_reproject", "gi.probe.spatial_filter",
+            "gi.probe.upsample", "gi.ddgi.update", "gi.ddgi.sample",
+            "gi.inject", "gi.specular", "gi.specular.filter",
+            "gi.probe.rt_trace", "gi.specular.rt")
 RASTERS = ("raster", "raster_bricks", "raster_subtile")   # K1, K7, K8
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory
 F32_OPS_PER_S = 67e12         # H100 SXM f32 outside the tensor cores
@@ -282,6 +322,11 @@ def bench_scenes(dev, paths):
             pools, inst, views, blend_tex, _ = scenes[SCENE_FROM[path]]
             scenes[path] = (pools, inst, views, blend_tex,
                             scene_bvh(textured_bistro, pools, dev))
+            continue
+        if path in ("all_ddgi", "all_exact"):
+            pools, inst, views, blend_tex, _ = scenes[SCENE_FROM[path]]
+            scenes[path] = (pools, inst, views, blend_tex,
+                            path_bvh(path, pools, inst))
             continue
         if path == "all_no_rt":
             pools, inst, views, blend_tex, _ = scenes[SCENE_FROM[path]]
@@ -389,6 +434,31 @@ def scene_bvh(b, pools, dev):
     return bvh
 
 
+def path_bvh(path, pools, inst):
+    """The BVH of `all_ddgi` or `all_exact`, built as MeshletRenderer.render
+    builds it: on the host, from the path's own instance table (the camera
+    at the path's last position), at the path's granularity, by the native
+    builder (fails otherwise); prints the builder, leaves, nodes and the
+    route rt.trace takes over them."""
+    from chord_tpu_torch.ops import rt
+
+    t0 = time.time()
+    bvh = rt.build_scene_bvh(pools, inst, granularity=RAY_PATHS[path])
+    leaves = bvh.leaf_sphere.shape[0]
+    limit = (rt.DENSE_TRI_LIMIT if bvh.tri_planes is not None
+             else rt.DENSE_LEAF_LIMIT)
+    log(f"scene {path}: the all_no_rt scene and views, with the "
+        f"{RAY_PATHS[path]} BVH built by the {rt.build_scene_bvh.builder} "
+        f"builder in {time.time() - t0:.2f} s: {leaves} leaves, "
+        f"{bvh.node_sphere.shape[0]} nodes, rt.trace route "
+        f"{'dense' if leaves <= limit else 'BVH scan'} (dense up to "
+        f"{limit} leaves)")
+    if rt.build_scene_bvh.builder != "native":
+        raise RuntimeError("the scene BVH was not built by the native "
+                           "builder")
+    return bvh
+
+
 def flat_scene(dev, detail: int = FLAT_DETAIL, w: int = FLAT_W,
                h: int = FLAT_H, frames: int = FRAMES, jitter: bool = False):
     """The flat path's scene: build_sponza_like(detail)'s flat pools on
@@ -452,7 +522,11 @@ def configs(path: str, blend_textured: bool = False, shadow_cfg=None,
     frame's config and no MeshletFrameConfig; `geo_tex_native` renders
     geo_tex at PWxPH with gather TSR (no upscale) and masked_layers=2,
     `off_no_occlusion` is off without occlusion or pre-cull, with global
-    TSR and HDR10."""
+    TSR and HDR10; `all_ddgi` is `all` with gi_mode="ddgi" and
+    DDGIConfig() over a meshlet BVH, `all_exact` is `all` over a triangle
+    BVH with GIConfig(ao_mode="rtao") and the probe march."""
+    from chord_tpu_torch.ops.ddgi import DDGIConfig
+    from chord_tpu_torch.ops.gi import GIConfig
     from chord_tpu_torch.ops.kernels import GI_PATHS
     from chord_tpu_torch.ops.screen_probe import ScreenProbeConfig
     from chord_tpu_torch.ops.shadow import ShadowConfig
@@ -476,22 +550,30 @@ def configs(path: str, blend_textured: bool = False, shadow_cfg=None,
     occlusion = path != "off_no_occlusion"
     shadows = path in SHADOW_PATHS
     gi = path in GI_PATHS     # bench.py's `all` rung (all_no_rt: no rays)
+    exact = path == "all_exact"
     return config, MeshletFrameConfig(
         draw_capacity=2048, masked_draw_capacity=256, occlusion=occlusion,
         object_precull=occlusion, textured=tex, normal_mapped=tex,
         pbr_textures=tex, alpha_masked=tex, alpha_blend=tex,
         blend_textured=blend_textured, shadows=shadows, atmosphere=shadows,
         shadow_masked=True, shadow_draw_capacity=shadow_draws,
-        shadow_cfg=shadow_cfg or ShadowConfig(), gi=gi, gi_mode="probe",
-        gi_rt=path == "all", rt_rays=2, ssr=gi, trilinear=gi,
-        probe_cfg=ScreenProbeConfig(rays=16, steps=6, history_mode="tile")
-        if gi else None,
+        shadow_cfg=shadow_cfg or ShadowConfig(), gi=gi,
+        gi_mode="ddgi" if path == "all_ddgi" else "probe",
+        gi_rt=path in RAY_PATHS, rt_rays=2,
+        rt_granularity=RAY_PATHS.get(path, "meshlet"), ssr=gi,
+        trilinear=gi,
+        gi_cfg=GIConfig(ao_mode="rtao") if exact else None,
+        ddgi_cfg=DDGIConfig() if path == "all_ddgi" else None,
+        probe_cfg=ScreenProbeConfig(
+            rays=16, steps=6, history_mode="tile",
+            trace_mode="march" if exact else "taps") if gi else None,
         masked_layers=2 if path == "geo_tex_native" else 1)
 
 
 def history(config, mcfg, dev):
     """A fresh history for the path (with the cascade cache on the shadow
-    paths and the GI state with GI on, bench.py:259-269)."""
+    paths and the GI state with GI on: the screen probes', or DDGI's in
+    ddgi mode, bench.py:259-269)."""
     from chord_tpu_torch.ops.gi import GIConfig
     from chord_tpu_torch.rhi.framebuffer import FrameHistory
 
@@ -502,19 +584,22 @@ def history(config, mcfg, dev):
     s = mcfg.shadow_cfg
     if not mcfg.shadows:
         return FrameHistory.empty(h, w, ph, pw, device=dev)
+    probes = mcfg.gi and mcfg.gi_mode == "probe"
     return FrameHistory.empty(h, w, ph, pw, shadow_div=s.eval_res_div,
                               shadow_cascades=s.cascade_count,
                               shadow_res=s.resolution,
                               shadow_phase=s.temporal_phase,
-                              gi_cfg=GIConfig() if mcfg.gi else None,
-                              probe_tile=8 if mcfg.gi else 0, device=dev)
+                              gi_cfg=(mcfg.gi_cfg or GIConfig()) if mcfg.gi
+                              else None, probe_tile=8 if probes else 0,
+                              ddgi_cfg=mcfg.ddgi_cfg if mcfg.gi else None,
+                              device=dev)
 
 
 def run_path(path, scene, config, mcfg, hist, lo: int = 0,
              hi: Optional[int] = None):
     """Frames lo..hi-1 (default: all) of a path -> (images, history,
     per-frame stats), through the entry points a user calls:
-    render_sequence_meshlet (with the scene's BVH on `all`), or
+    render_sequence_meshlet (with the scene's BVH on the ray paths), or
     DeferredRenderer.render frame by frame on `flat`. The r.raster.bricks
     cvar holds for the run on `geo_tex_bricks` and is off otherwise."""
     import torch
@@ -523,8 +608,10 @@ def run_path(path, scene, config, mcfg, hist, lo: int = 0,
                                           render_sequence_meshlet)
     from chord_tpu_torch.utils.cvar import cvars
 
+    from chord_tpu_torch.ops.kernels import run_frames
+
     pools, inst, views, _, bvh = scene
-    hi = FRAMES if hi is None else hi
+    hi = run_frames(path) if hi is None else hi
     with cvars.override("r.raster.bricks", path == "geo_tex_bricks"):
         if path != "flat":
             return render_sequence_meshlet(pools, inst,
@@ -1059,6 +1146,17 @@ def compare_kernels(path, captured, what: str):
     return rows
 
 
+def history_leaves(hist) -> dict:
+    """The history's float tensors by name, the DDGI state's as
+    `ddgi.<field>`."""
+    out = {name: getattr(hist, name) for name in (
+        "depth", "tsr_color", "exposure", "hzb_flat", "shadow_mask",
+        "shadow_maps", "depth_range", "gi_cache", "probe_sh", "probe_depth",
+        "gi_diffuse", "gi_specular")}
+    out.update({f"ddgi.{f}": x for f, x in hist.ddgi._asdict().items()})
+    return out
+
+
 def check_shadow_draws(k2_calls, stats, mcfg, fail_at_capacity: bool):
     """Per cascade and bucket, the worst frame's shadow draws: drawn (the
     live count of the depth-pass K2 calls, in frame order: frame f
@@ -1072,7 +1170,7 @@ def check_shadow_draws(k2_calls, stats, mcfg, fail_at_capacity: bool):
     over = {kind: stats[f"shadow_{kind}"].tolist()
             for kind in ("draw_overflow", "masked_overflow")}
     worst, i = {}, 0
-    for f in range(FRAMES):
+    for f in range(len(stats["drawn_tris"])):
         k = f % s.cascade_count
         kinds = [("opaque", "draw_overflow")]
         if mcfg.alpha_masked and mcfg.shadow_masked and \
@@ -1103,65 +1201,159 @@ def check_shadow_draws(k2_calls, stats, mcfg, fail_at_capacity: bool):
 
 
 def check_gi_history(path, hist, config, mcfg) -> None:
-    """The GI state after a run: chord_tpu's shapes, probes on geometry
-    that gathered samples, a world cache that took probes (a cascade takes
-    them only where its clipmap holds converged probes), non-negative
-    diffuse and specular histories that are not all zero."""
+    """The GI state after a run: chord_tpu's shapes; with screen probes,
+    probes on geometry that gathered samples; with DDGI, every probe of
+    every cascade traced (16 frames update each (cascade, phase) slice
+    once) with finite non-negative irradiance that is not all zero; a
+    world cache that took probes or surfels (a cascade takes probes only
+    where its clipmap holds converged probes), non-negative diffuse and
+    specular histories that are not all zero."""
+    from chord_tpu_torch.ops.ddgi import probe_count
     from chord_tpu_torch.ops.gi import GIConfig, sh_size
 
     gcfg = mcfg.gi_cfg or GIConfig()
     h, w = config.height, config.width
-    want = {"gi_cache": sh_size(gcfg), "probe_sh": (h // 8, w // 8, 28),
-            "probe_depth": (h // 8, w // 8), "gi_diffuse": (h // 2, w // 2, 3),
+    probes = mcfg.gi_mode == "probe"
+    ph, pw, hh, hw = ((h // 8, w // 8, h // 2, w // 2) if probes
+                      else (1, 1, 1, 1))
+    want = {"gi_cache": sh_size(gcfg), "probe_sh": (ph, pw, 28),
+            "probe_depth": (ph, pw), "gi_diffuse": (hh, hw, 3),
             "gi_specular": (-(-h // gcfg.sample_res_div),
                             -(-w // gcfg.sample_res_div), 3)}
+    if mcfg.gi_mode == "ddgi":
+        d = mcfg.ddgi_cfg
+        want["ddgi.weight"] = (d.cascades, probe_count(d))
+        want["ddgi.irr"] = (d.cascades, probe_count(d), d.irr_side ** 2, 3)
     for name, shape in want.items():
-        if tuple(getattr(hist, name).shape) != shape:
+        x = (getattr(hist.ddgi, name[5:]) if name.startswith("ddgi.")
+             else getattr(hist, name))
+        if tuple(x.shape) != shape:
             raise AssertionError(f"{path}: history {name} is "
-                                 f"{tuple(getattr(hist, name).shape)}, not "
-                                 f"{shape}")
-    n = hist.probe_sh[..., 27]
+                                 f"{tuple(x.shape)}, not {shape}")
     lit = (hist.gi_cache[..., 27] > 0).float().mean(dim=1)
-    log(f"{path}: probes with samples {float((n > 0).float().mean()):.4f} "
-        f"(median count {float(n.median()):.2f}), lit cache probes per "
-        f"cascade {[round(float(x), 5) for x in lit]}, gi_diffuse in "
+    log(f"{path}: lit cache probes per cascade "
+        f"{[round(float(x), 5) for x in lit]}, gi_diffuse in "
         f"[{float(hist.gi_diffuse.min()):.4f}, "
         f"{float(hist.gi_diffuse.max()):.4f}], gi_specular in "
         f"[{float(hist.gi_specular.min()):.4f}, "
         f"{float(hist.gi_specular.max()):.4f}]")
-    on_geometry = hist.probe_depth > 0
-    if not float((n[on_geometry] > 8).float().mean()) > 0.5:
-        raise AssertionError(f"{path}: most probes on geometry hold <= 8 "
-                             "samples")
+    if probes:
+        n = hist.probe_sh[..., 27]
+        log(f"{path}: probes with samples {float((n > 0).float().mean()):.4f}"
+            f" (median count {float(n.median()):.2f})")
+        on_geometry = hist.probe_depth > 0
+        if not float((n[on_geometry] > 8).float().mean()) > 0.5:
+            raise AssertionError(f"{path}: most probes on geometry hold <= "
+                                 "8 samples")
+    else:
+        dd = hist.ddgi
+        traced = int((dd.weight > 0).sum())
+        moved = int((dd.offset.abs().amax(-1) > 0).sum())
+        log(f"{path}: DDGI probes traced {traced} of {dd.weight.numel()} "
+            f"(weights in [{float(dd.weight.min())}, "
+            f"{float(dd.weight.max())}]), relocated {moved}, irradiance in "
+            f"[{float(dd.irr.min()):.4f}, {float(dd.irr.max()):.4f}], "
+            f"mean distance in [{float(dd.dist[..., 0].min()):.4f}, "
+            f"{float(dd.dist[..., 0].max()):.4f}]")
+        if traced != dd.weight.numel():
+            raise AssertionError(f"{path}: {traced} DDGI probes traced, "
+                                 f"not all {dd.weight.numel()}")
+        if float(dd.irr.min()) < 0.0 or not float(dd.irr.max()) > 0.0:
+            raise AssertionError(f"{path}: DDGI irradiance negative or 0")
     if not bool((lit > 0).any()):
-        raise AssertionError(f"{path}: the world cache took no probe")
-    for name in ("gi_diffuse", "gi_specular"):
+        raise AssertionError(f"{path}: the world cache took nothing")
+    for name in ("gi_diffuse", "gi_specular") if probes else ("gi_specular",):
         x = getattr(hist, name)
         if float(x.min()) < 0.0 or not float(x.max()) > 0.0:
             raise AssertionError(f"{path}: history {name} is negative or 0")
 
 
-def check_rays(path, mcfg) -> None:
-    """The BVH rays of a run (rt.trace's counters): with gi_rt, rt.trace
-    called twice a frame (the probe rays and SSR's misses), every call on
-    the dense route (the object BVH has far fewer leaves than
-    DENSE_LEAF_LIMIT); without, never."""
+def check_rays(path, mcfg, bvh, frames: int) -> None:
+    """The BVH rays of a run (rt.trace's counters): TRACES_PER_FRAME calls a
+    frame on a ray path, every one on the dense route when the BVH's
+    leaves are within its dense limit (the object and meshlet BVHs) and on
+    the scan otherwise; on the other paths, none."""
     from chord_tpu_torch.ops import rt
 
-    want = 2 * FRAMES if mcfg is not None and mcfg.gi_rt else 0
+    want = TRACES_PER_FRAME.get(path, 0) * frames
+    want_dense = want
+    if bvh is not None:
+        limit = (rt.DENSE_TRI_LIMIT if bvh.tri_planes is not None
+                 else rt.DENSE_LEAF_LIMIT)
+        want_dense = want if bvh.leaf_sphere.shape[0] <= limit else 0
     calls, dense = rt.trace.calls, rt.trace.dense
     log(f"{path}: rt.trace called {calls} times, dense route {dense}, BVH "
-        f"scan {calls - dense}; {rt.trace.rays / FRAMES:.0f} rays a frame")
-    if calls != want or dense != want:
+        f"scan {calls - dense} ({rt.scan_steps} scan steps); "
+        f"{calls / frames:.1f} calls and {rt.trace.rays / frames:.0f} rays "
+        "a frame")
+    if calls != want or dense != want_dense:
         raise AssertionError(f"{path}: rt.trace ran {calls} times ({dense} "
-                             f"dense), expected {want}, all dense")
+                             f"dense), expected {want} ({want_dense} dense)")
+
+
+def ray_report(path, scene, hist, config, mcfg, card: str) -> None:
+    """One more frame of a ray path with each rt.trace call timed alone
+    (synchronised, CUDA events) and its rays' hit share counted: which
+    call (RTAO's by its t_max = ao_radius), rays, route, scan steps, ms.
+    On `all_exact` RTAO's rays must hit somewhere (share > 0)."""
+    import torch
+
+    from chord_tpu_torch.ops import kernels, rt
+    from chord_tpu_torch.ops.gi import GIConfig
+
+    orig = rt.trace
+    ao_radius = (mcfg.gi_cfg or GIConfig()).ao_radius
+    rows = []
+
+    def timed_trace(o, d, bvh, t_max=1e9, max_steps=None):
+        torch.cuda.synchronize()
+        steps, dense = rt.scan_steps, timed_trace.dense
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        t, leaf = orig(o, d, bvh, t_max, max_steps)
+        end.record()
+        torch.cuda.synchronize()
+        rows.append(dict(
+            call=("rtao" if t_max == ao_radius else f"t_max {t_max:g}"),
+            rays=leaf.numel(), route="dense" if timed_trace.dense > dense
+            else "scan", scan_steps=rt.scan_steps - steps,
+            hit_share=float((leaf >= 0).float().mean()),
+            ms=start.elapsed_time(end)))
+        return t, leaf
+
+    # rt.trace counts through its module global, i.e. on the wrapper
+    # while patched: carry the counts across
+    counters = ("calls", "dense", "rays")
+    for c in counters:
+        setattr(timed_trace, c, getattr(orig, c))
+    rt.trace = timed_trace
+    try:
+        n = kernels.run_frames(path)
+        run_path(path, scene, config, mcfg, hist, n - 1, n)
+    finally:
+        rt.trace = orig
+        for c in counters:
+            setattr(orig, c, getattr(timed_trace, c))
+    log(f"rt.trace calls of one {path} frame, each timed alone on {card}: "
+        + json.dumps(rows))
+    ao = [r for r in rows if r["call"] == "rtao"]
+    if mcfg.gi_cfg is not None and mcfg.gi_cfg.ao_mode == "rtao":
+        share = sum(r["hit_share"] * r["rays"] for r in ao) / max(
+            sum(r["rays"] for r in ao), 1)
+        log(f"{path}: RTAO rays that hit {share:.5f} "
+            f"({len(ao)} calls of {ao[0]['rays'] if ao else 0} rays)")
+        if len(ao) != (mcfg.gi_cfg.rtao_rays if mcfg.gi_cfg else 0) or \
+                not share > 0.0:
+            raise AssertionError(f"{path}: RTAO traced {len(ao)} calls, "
+                                 f"hit share {share}")
 
 
 def main_path(path, scene, card: str,
               shadow_draws: int = BENCH_SHADOW_DRAWS):
-    """Phase 5 for one path: the 16-frame sequence, counted, checked and
-    timed, at bench.py's shadow draw capacity unless `shadow_draws` is
-    given (and then no cascade may reach it)."""
+    """Phase 5 for one path: the 16-frame sequence (4 on `all_exact`),
+    counted, checked and timed, at bench.py's shadow draw capacity unless
+    `shadow_draws` is given (and then no cascade may reach it)."""
     import torch
 
     from chord_tpu_torch.ops import kernels, rt
@@ -1172,16 +1364,17 @@ def main_path(path, scene, card: str,
     hist0 = history(config, mcfg, scene[0].positions.device)
     torch.cuda.synchronize()
     kernels.reset_launch_counts()
-    rt.trace.calls = rt.trace.dense = rt.trace.rays = 0
+    rt.trace.calls = rt.trace.dense = rt.trace.rays = rt.scan_steps = 0
     t0 = time.time()
     with kernels.capture_inputs() as captured:
         imgs, hist, stats = run_path(path, scene, config, mcfg, hist0)
     torch.cuda.synchronize()
     first_s = time.time() - t0
     launches = kernels.launch_counts()
-    check_rays(path, mcfg)
+    n_frames = kernels.run_frames(path)
+    check_rays(path, mcfg, scene[4], n_frames)
     worst = {k: int(v.max()) for k, v in stats.items()}
-    log(f"{label} path: {FRAMES} frames in {first_s:.3f} s (first run), "
+    log(f"{label} path: {n_frames} frames in {first_s:.3f} s (first run), "
         f"worst-frame stats {worst}, launches {launches}")
     if path == "flat":
         log(f"flat path per frame: drawn_tris {stats['drawn_tris'].tolist()}"
@@ -1207,15 +1400,13 @@ def main_path(path, scene, card: str,
     out_hw = ((config.post_height or config.height,
                config.post_width or config.width) if mcfg
               else (config.height, config.width))
-    if tuple(imgs.shape) != (FRAMES, *out_hw, 3):
+    if tuple(imgs.shape) != (n_frames, *out_hw, 3):
         raise AssertionError(f"{path}: image shape {tuple(imgs.shape)}")
     last = imgs[-1].float()
     if float(last.std()) < 1.0:
         raise AssertionError(f"{path}: the final image is constant")
-    for name in ("depth", "tsr_color", "exposure", "hzb_flat",
-                 "shadow_mask", "shadow_maps", "depth_range", "gi_cache",
-                 "probe_sh", "probe_depth", "gi_diffuse", "gi_specular"):
-        if not bool(torch.isfinite(getattr(hist, name)).all()):
+    for name, x in history_leaves(hist).items():
+        if not bool(torch.isfinite(x).all()):
             raise AssertionError(f"{path}: history {name} is not finite")
     for k in kernels.KERNELS:
         n = launches[k.name]
@@ -1247,30 +1438,32 @@ def main_path(path, scene, card: str,
             raise AssertionError(f"{path}: the shadow mask is not both lit "
                                  "and shadowed")
 
+    if path in RAY_PATHS:
+        ray_report(path, scene, hist, config, mcfg, card)
     times = []
-    for i in range(3):
+    for i in range(TIMED_RUNS.get(path, 3)):
         torch.cuda.synchronize()
         t0 = time.time()
         again = run_path(path, scene, config, mcfg, hist0)
         torch.cuda.synchronize()
-        times.append((time.time() - t0) / FRAMES * 1000.0)
+        times.append((time.time() - t0) / n_frames * 1000.0)
         if i == 0 and mcfg is not None and mcfg.gi:
-            # the world cache sums probes by scatter-add: same inputs, same
-            # cache, run after run?
-            diff = {f: float((getattr(again[1], f) - getattr(hist, f))
-                             .abs().max()) for f in ("gi_cache", "probe_sh")}
+            # the world cache sums probes by scatter-add, DDGI relocates by
+            # argmin: same inputs, same state, run after run?
+            a, b = history_leaves(again[1]), history_leaves(hist)
+            diff = {f: float((a[f] - b[f]).abs().max()) for f in a
+                    if f.startswith(("gi_", "probe_", "ddgi."))}
             same = bool(torch.equal(again[0], imgs))
-            log(f"{path} run to run: images equal {same}, max |gi_cache "
-                f"difference| {diff['gi_cache']}, probe_sh "
-                f"{diff['probe_sh']}")
-            if not same or diff["gi_cache"] != 0.0:
+            log(f"{path} run to run: images equal {same}, max |difference| "
+                f"of the GI history {json.dumps(diff)}")
+            if not same or any(v != 0.0 for v in diff.values()):
                 raise AssertionError(f"{path}: a second run changed the "
-                                     "images or the world cache")
+                                     "images or the GI history")
         del again
     ms = statistics.median(times)
-    log(f"{label} path: {ms:.3f} ms/frame median of 3 runs "
+    log(f"{label} path: {ms:.3f} ms/frame median of {len(times)} runs "
         f"({', '.join(f'{t:.3f}' for t in times)}; spread "
-        f"{max(times) / min(times):.3f}x; {FRAMES} frames each, "
+        f"{max(times) / min(times):.3f}x; {n_frames} frames each, "
         f"synchronize-bounded host clock) on {card}; mean u8 of the last "
         f"frame {float(last.mean()):.3f}")
     return {k.name: launches[k.name] for k in kernels.KERNELS
@@ -1455,7 +1648,7 @@ TSR_VARIANTS = [dict(tsr_mode=m, post_width=pw, post_height=ph)
 def small_scene(path, d, mcfg, frames: int = 3):
     """Phase 8's tiny scene of a path on `d`: the tiny atrium (its flat
     pools on `flat`) or the small textured bistro, 3 jittered frames, with
-    a BVH of its instances when the config traces rays."""
+    a BVH of its instances at the path's granularity on a ray path."""
     import numpy as np
 
     from chord_tpu_torch.asset.procedural import (build_bistro_like,
@@ -1491,8 +1684,8 @@ def small_scene(path, d, mcfg, frames: int = 3):
     pools = build_meshlet_pools(
         b, device=d, texture_pool=getattr(b, "texture_pool", None))
     inst = b.frame_instances(cam, device=d)
-    bvh = (rt.build_scene_bvh(pools, inst, granularity="object")
-           if mcfg.gi_rt else None)
+    bvh = (rt.build_scene_bvh(pools, inst, granularity=RAY_PATHS[path])
+           if path in RAY_PATHS else None)
     return pools, inst, DeviceView.stack(vs), None, bvh
 
 

@@ -14,7 +14,9 @@ maps from the paged texture pool, the alpha-masked and blend buckets),
 `geo_shadow_atmo` (cascaded shadow maps with PCSS and a temporal mask,
 the physically based sky and aerial perspective) and `all` (screen-probe
 GI with BVH rays over bounding-sphere proxies, SSAO, SSR and the specular
-chain); the flat DeferredRenderer frame; two of chord_tpu's tools.
+chain), with every other branch of that frame but the pipelined shadow
+split (among them DDGI, triangle-exact BVH leaves, RTAO and the probe
+march); the flat DeferredRenderer frame; two of chord_tpu's tools.
 
 Every Pallas kernel on those paths is a hand-written CUDA kernel for sm_90a
 (`csrc/`, built with nvcc at first use into `build/` and loaded with

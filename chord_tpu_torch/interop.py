@@ -18,6 +18,7 @@ from typing import Mapping
 import numpy as np
 import torch
 
+from .ops.ddgi import DDGIState
 from .ops.rt import SceneBVH
 from .renderer.deferred import SHARED_FIELDS, DeviceView
 from .rhi.framebuffer import FrameHistory
@@ -26,11 +27,14 @@ from .rhi.scene_arrays import FrameInstances, ScenePools
 from .utils.device import resolve
 
 
-def _build(cls, arrays: Mapping[str, np.ndarray], device):
-    """Fields with a default (the optional ones) may be missing or None."""
+def _build(cls, arrays: Mapping[str, np.ndarray], device, keep=()):
+    """Fields with a default (the optional ones) may be missing or None;
+    those named in `keep` go in as they are."""
     device = resolve(device)
 
     def conv(f):
+        if f.name in keep:
+            return arrays[f.name]
         if arrays.get(f.name) is None and f.default is None:
             return None
         a = np.asarray(arrays[f.name])
@@ -68,11 +72,27 @@ def view_from_numpy(arrays, device=None) -> DeviceView:
 
 
 def history_from_numpy(arrays, device=None) -> FrameHistory:
-    """With the shadow fields (mask, cached maps and their matrices) and
-    the GI fields (world cache, probe SH and depth, diffuse and specular
-    histories). chord_tpu's `ddgi` leaf (a DDGIState pytree) is not
-    carried: the port has no DDGI path to read it."""
-    return _build(FrameHistory, arrays, device)
+    """With the shadow fields (mask, cached maps and their matrices), the
+    GI fields (world cache, probe SH and depth, diffuse and specular
+    histories) and chord_tpu's `ddgi` leaf (a DDGIState, or a mapping of
+    its fields) through ddgi_from_numpy; without a `ddgi` entry the
+    history carries chord_tpu's off-placeholder."""
+    hist = _build(FrameHistory, dict(arrays, ddgi=None), device,
+                  keep=("ddgi",))
+    ddgi = arrays.get("ddgi")
+    return dataclasses.replace(hist, ddgi=(
+        DDGIState.empty(device=resolve(device)) if ddgi is None
+        else ddgi_from_numpy(ddgi, device)))
+
+
+def ddgi_from_numpy(arrays, device=None) -> DDGIState:
+    """chord_tpu's DDGIState (irradiance and distance texels, SH, offsets,
+    weights), as a NamedTuple or a mapping of its fields."""
+    if hasattr(arrays, "_asdict"):
+        arrays = arrays._asdict()
+    device = resolve(device)
+    return DDGIState(**{f: torch.from_numpy(np.array(arrays[f])).to(device)
+                        for f in DDGIState._fields})
 
 
 def bvh_from_numpy(arrays, device=None) -> SceneBVH:

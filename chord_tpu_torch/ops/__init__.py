@@ -13,10 +13,13 @@ shadow_kernel   PCSS taps over the cascade stack           (kernel K6)
 atmosphere      sky LUTs, sun disk, ambient, aerial perspective
 sh              SH3 basis, projection, evaluation, packing
 brdf_lut        split-sum env BRDF LUT + its analytic fit
-gi              world SH cache (inject, propagate, sample), SSAO
-screen_probe    screen-probe GI stage + the specular filter chain
+gi              world SH cache (inject, propagate, sample), SSAO, RTAO
+screen_probe    screen-probe GI stage (taps or the march) + the specular
+                filter chain
+ddgi            DDGI probe volumes: update over the BVH, sampling
 ssr             screen-space reflection march
-rt              scene BVH build (host) + closest-hit rays and hit shading
+rt              scene BVH build (host; sphere or triangle leaves) +
+                closest-hit rays and hit shading
 tile_reproject  per-tile history reprojection             (kernel K4)
 post            auto-exposure, bloom, tile-mode TSR upscale
 colorspace      ACEScg pipeline + ACES tonemap

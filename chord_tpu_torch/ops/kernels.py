@@ -22,25 +22,41 @@ from . import (fusion_barrier, mesh_shader, paged_texture, proto_paged_tex,
                raster, row_gather, shadow, shadow_kernel, tile_reproject)
 
 # the paths the port renders: the bench rungs (bench.py FEATURE_LEVELS;
-# `all_no_rt` is the `all` rung with gi_rt=False), `geo_tex` with the
+# `all_no_rt` is the `all` rung with gi_rt=False), the `all` rung with
+# DDGI over a meshlet BVH (`all_ddgi`) and with the triangle-exact BVH,
+# RTAO and the probe march (`all_exact`), `geo_tex` with the
 # r.raster.bricks cvar set, the flat DeferredRenderer frame with
 # RendererConfig(subtiles=True), `geo_tex` rendered natively at the post
 # size with gather TSR and the masked depth peel (`geo_tex_native`), and
 # `off` without occlusion or pre-cull, with global TSR and the HDR10
 # output (`off_no_occlusion`)
 PATHS = ("off", "geo_tex", "geo_shadow_atmo", "geo_tex_bricks", "flat",
-         "all_no_rt", "all", "geo_tex_native", "off_no_occlusion")
+         "all_no_rt", "all", "all_ddgi", "all_exact", "geo_tex_native",
+         "off_no_occlusion")
 MESHLET = ("off", "geo_tex", "geo_shadow_atmo", "geo_tex_bricks",
-           "all_no_rt", "all", "geo_tex_native", "off_no_occlusion")
-GI_PATHS = ("all_no_rt", "all")
+           "all_no_rt", "all", "all_ddgi", "all_exact", "geo_tex_native",
+           "off_no_occlusion")
+GI_PATHS = ("all_no_rt", "all", "all_ddgi", "all_exact")
 # the meshlet paths whose TSR runs in tile mode (K4)
 TILE_TSR = ("off", "geo_tex", "geo_shadow_atmo", "geo_tex_bricks",
-            "all_no_rt", "all")
-# launches of a kernel on a path's 16-frame run that the path fixes (K4:
-# TSR's history and, with GI, the GI diffuse history every frame; K5 the
-# resolve and each masked layer's alpha test; K1 on geo_tex_native the
-# two occlusion phases, the masked layer, its peel and the blend bucket;
-# the BVH rays of `all` launch no kernel of their own)
+            "all_no_rt", "all", "all_ddgi", "all_exact")
+# frames in a path's run: 16, but 4 on `all_exact`, whose six traces a
+# frame take the lock-step BVH scan (seconds a frame on the card)
+RUN_FRAMES = {"all_exact": 4}
+
+
+def run_frames(path: str) -> int:
+    return RUN_FRAMES.get(path, 16)
+
+
+# launches of a kernel on a path's run that the path fixes (K4:
+# TSR's history and, with screen probes, the GI diffuse history every
+# frame (DDGI keeps no such history); K5 the resolve and each masked
+# layer's alpha test, and on the shadow paths the masked casters of the
+# frames that refresh cascade 0 or 1; K1 on geo_tex_native the two
+# occlusion phases, the
+# masked layer, its peel and the blend bucket; the BVH rays, RTAO, DDGI
+# and the probe march launch no kernel of their own)
 EXPECTED_LAUNCHES = {
     "off": {"tile_reproject": 16},
     "geo_tex": {"tile_reproject": 16, "paged_texture": 32},
@@ -51,6 +67,8 @@ EXPECTED_LAUNCHES = {
     "flat": {"raster_subtile": 16},
     "all_no_rt": {"tile_reproject": 32, "paged_texture": 40, "pcss": 16},
     "all": {"tile_reproject": 32, "paged_texture": 40, "pcss": 16},
+    "all_ddgi": {"tile_reproject": 16, "paged_texture": 40, "pcss": 16},
+    "all_exact": {"tile_reproject": 8, "paged_texture": 10, "pcss": 4},
     "geo_tex_native": {"raster": 80, "paged_texture": 48},
     "off_no_occlusion": {"raster": 16},
 }

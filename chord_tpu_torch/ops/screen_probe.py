@@ -1,12 +1,14 @@
 """Screen-probe GI: the Lumen-style two-level gather (port of
-chord_tpu/ops/screen_probe.py without `trace_probes`, the per-ray depth
-march of trace_mode="march"; reference renderer/gi/screen_probe_gather.cpp:
+chord_tpu/ops/screen_probe.py; reference renderer/gi/screen_probe_gather.cpp:
 164-182, shader/gi.h:21-29 and :381-406).
 
 Pass list: spawn (one probe per 8x8 tile at a per-frame-jittered pixel) ->
 SH reprojection of last frame's probes -> the probe radiance samples
-(`gather_probe_taps`: the neighbour probes' surfaces as emitters, from
-last frame's lit colour, plus fixed sky taps) -> SH projection merged with
+(trace_mode "taps", `gather_probe_taps`: the neighbour probes' surfaces as
+emitters, from last frame's lit colour, plus fixed sky taps; or "march",
+`trace_probes`: rays marched against the 1/depth_div depth, hits shaded
+from last frame's colour, misses from the world cache or the sky) -> SH
+projection merged with
 the history by sample count -> world-cache inject (one cascade a frame)
 -> interpolate to half res (a weight-aware resize of the SH planes, then
 cosine-lobe evaluation) -> history reprojection (`history_mode`: "tile"
@@ -38,7 +40,7 @@ class ScreenProbeConfig(NamedTuple):
     """chord_tpu ScreenProbeConfig."""
 
     tile: int = 8                # probe spacing in pixels
-    trace_mode: str = "taps"     # "taps" | "march" (not ported)
+    trace_mode: str = "taps"     # "taps" | "march" (trace_probes)
     rays: int = 16               # rays per probe per frame (march)
     steps: int = 8               # march steps per ray
     max_distance: float = 40.0
@@ -158,6 +160,78 @@ def reproject_probe_sh(probes: ProbeState, prev_probe_sh: torch.Tensor,
     zero = torch.zeros((), device=prev.device)
     return (torch.where(ok[..., None, None], sh_prev, zero),
             torch.where(ok, n_prev, zero))
+
+
+def _project(p3: torch.Tensor, m: torch.Tensor):
+    """Positions (...,3) through a view-projection -> (x, y in [0,1)
+    screen units, ndc z, clip w)."""
+    c = (p3[..., 0:1] * m[0] + p3[..., 1:2] * m[1] + p3[..., 2:3] * m[2] +
+         m[3])
+    wc = torch.clamp_min(c[..., 3], 1e-6)
+    return (c[..., 0] / wc * 0.5 + 0.5, 0.5 - c[..., 1] / wc * 0.5,
+            c[..., 2] / wc, c[..., 3])
+
+
+def trace_probes(probes: ProbeState, depth_lo: torch.Tensor,
+                 prev_color: torch.Tensor, tw_to_clip: torch.Tensor,
+                 frame_count: torch.Tensor, cfg: ScreenProbeConfig,
+                 world_cache: Optional[torch.Tensor] = None,
+                 gi_cfg: Optional[gi_ops.GIConfig] = None,
+                 sky_ambient: Optional[torch.Tensor] = None,
+                 traced_miss: Optional[Tuple[torch.Tensor,
+                                             torch.Tensor]] = None,
+                 dirs: Optional[torch.Tensor] = None
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The probe march (gi_screen_probe_trace.hlsl): R rays a probe from
+    0.02 above its surface march `steps` geometric steps out to
+    max_distance against `depth_lo` (the 1/depth_div reverse-Z depth); the
+    first step that lands behind the depth within `thickness` takes last
+    frame's colour (`prev_color`, post size) there. A miss falls back, in
+    order, to `traced_miss` ((Ph,Pw,R,3) radiance, (Ph,Pw,R) confidence),
+    the world cache's radiance along the ray, then the sky, weighted
+    toward the upper hemisphere. -> (radiance (Ph,Pw,R,3), ray dirs
+    (Ph,Pw,R,3)); `dirs` defaults to probe_ray_dirs."""
+    hq, wq = depth_lo.shape
+    fh, fw = prev_color.shape[:2]
+    dev = depth_lo.device
+    if dirs is None:
+        dirs = probe_ray_dirs(probes, frame_count, cfg)
+    org = probes.pos_tw[..., None, :] + probes.normal[..., None, :] * 0.02
+    rad = torch.zeros(dirs.shape, device=dev)
+    found = torch.zeros(dirs.shape[:-1], dtype=torch.bool, device=dev)
+    ts = np.cumsum(np.geomspace(0.06, 1.0, cfg.steps))
+    ts = ts / ts[-1] * cfg.max_distance
+    for t in ts:
+        x, y, z, cw = _project(org + dirs * float(np.float32(t)), tw_to_clip)
+        on = ((x >= 0) & (x < 1) & (y >= 0) & (y < 1) & (cw > 0) & (z > 0) &
+              (z <= 1.0))
+        xi = torch.clamp(f2i(x * wq), 0, wq - 1).long()
+        yi = torch.clamp(f2i(y * hq), 0, hq - 1).long()
+        scene_z = depth_lo[yi, xi]
+        hit = (on & (z < scene_z) & (z > scene_z - cfg.thickness) &
+               (scene_z > 0.0) & ~found)
+        fx = torch.clamp(f2i(x * fw), 0, fw - 1).long()
+        fy = torch.clamp(f2i(y * fh), 0, fh - 1).long()
+        rad = torch.where(hit[..., None], prev_color[fy, fx], rad)
+        found = found | hit
+    miss = ~found
+    if traced_miss is not None:
+        rt_rad, rt_conf = traced_miss
+        use = miss & (rt_conf > 0.5)
+        rad = torch.where(use[..., None], rt_rad, rad)
+        miss = miss & ~use
+    if world_cache is not None and gi_cfg is not None:
+        wc_rad, wc_conf = gi_ops.sample_radiance(
+            world_cache, org.expand(dirs.shape), dirs,
+            torch.zeros(3, device=dev), gi_cfg)
+        use = miss & (wc_conf > 0.5)
+        rad = torch.where(use[..., None], wc_rad, rad)
+        miss = miss & ~use
+    if sky_ambient is not None:
+        up = torch.clamp(dirs[..., 1], 0.0, 1.0) * 0.8 + 0.2
+        sky = sky_ambient * up[..., None] * cfg.sky_leak
+        rad = torch.where(miss[..., None], sky, rad)
+    return rad, dirs
 
 
 TAP_OFFSETS = [(-2, 0), (2, 0), (0, -2), (0, 2),

@@ -1,14 +1,15 @@
 """The GPU-driven meshlet frame (port of chord_tpu/renderer/meshlet_frame.py:
-every branch of chord_tpu's frame but the GI paths ddgi, rtao, the probe
-march and triangle-exact BVH leaves, and the pipelined shadow split.
+every branch of chord_tpu's frame but the pipelined shadow split).
 That is geometry with or without two-phase HZB occlusion and the object
 pre-cull; material maps, the alpha-masked bucket (one layer, or two with
 the masked depth peel) and the blend bucket; cascaded shadow maps with
 PCSS and the temporal shadow mask, the physically based sky and aerial
-perspective; screen-probe GI or the world-cache GI, SSAO, the specular
-chain and SSR, and with gi_rt the BVH rays (probe rays beside the screen
-taps, and SSR's misses), traced over a SceneBVH of bounding-sphere
-proxies that the caller passes as `bvh`, as chord_tpu's frame takes it;
+perspective; screen-probe GI (its samples from the neighbour taps or the
+probe march), DDGI probe volumes or the world-cache GI, SSAO or RTAO, the
+specular chain and SSR, and with gi_rt the BVH rays (probe rays beside
+the screen samples, and SSR's misses), traced over the SceneBVH (sphere
+proxies or triangle-exact leaves) that the caller passes as `bvh`, as
+chord_tpu's frame takes it (DDGI and RTAO trace it too);
 the debug views; TSR in the gather, global and tile modes, with or without
 the render->post upscale, or a nearest upsample without TSR; the sRGB and
 HDR10 outputs).
@@ -23,16 +24,18 @@ masked.raster -> masked.accept [-> masked.peel]] -> gbuffer_resolve
 (textured or not) -> tsr.prepare + disocclusion_mask -> [atmosphere.sky]
 -> [shadow.cascade_fit -> shadow.render (one cascade, round robin, scrolled
 cache, alpha-tested masked casters) -> shadow.evaluate (PCSS, kernel K6)
--> shadow.temporal -> shadow.upsample] -> [gi.ao -> gi.probe.spawn ->
-gi.probe.sh_reproject -> [gi.probe.rt_trace] -> gi.probe.taps ->
-gi.probe.project_sh -> gi.probe.world_inject -> gi.probe.interpolate ->
-gi.probe.history_reproject (K4) -> gi.probe.spatial_filter ->
-gi.probe.upsample (or gi.sample in cache mode) -> gi.specular (SSR
+-> shadow.temporal -> shadow.upsample] -> [gi.ao (SSAO, or RTAO with a
+BVH) -> gi.probe.spawn -> gi.probe.sh_reproject -> [gi.probe.rt_trace] ->
+gi.probe.taps (or gi.probe.trace, the march) -> gi.probe.project_sh ->
+gi.probe.world_inject -> gi.probe.interpolate -> gi.probe.history_reproject
+(K4) -> gi.probe.spatial_filter -> gi.probe.upsample (gi.ddgi.update ->
+gi.ddgi.sample in ddgi mode, gi.sample in cache mode) -> gi.specular (SSR
 [-> gi.specular.rt]) -> gi.specular.filter] -> lighting -> [blend.cull
 -> blend.raster -> blend.shade] -> [atmosphere.aerial] -> [gi.inject,
-cache mode] -> auto_exposure -> [debug_visualize] -> tsr (temporal_upscale
-when the post size differs from the render size, temporal_resolve when
-equal; tile mode reprojects through K4) -> bloom -> tonemap. With
+cache and ddgi modes] -> auto_exposure -> [debug_visualize] -> tsr
+(temporal_upscale when the post size differs from the render size,
+temporal_resolve when equal; tile mode reprojects through K4) -> bloom ->
+tonemap. With
 alpha_masked the occlusion phases take the opaque bucket only. The GI
 stages run inside torch.profiler.record_function spans named as
 chord_tpu's named_scopes.
@@ -47,9 +50,9 @@ own config and keep K1. A frame is plain eager PyTorch around the kernels
 TSR, and the GI diffuse history), K5 paged texture sampler, K6 PCSS); the
 BVH rays are plain tensor code (ops/rt.py), as in chord_tpu. Counts and
 overflows stay on the device until the caller reads them. The shadow pass
-and the GI world-cache inject need the frame counter on the host (which
-cascade refreshes, which PCSS phase runs, which cache cascade takes the
-probes): render_frame_meshlet takes it as `frame_index`, which the
+and GI need the frame counter on the host (which cascade refreshes, which
+PCSS phase runs, which cache cascade takes the probes, which DDGI probe
+slice updates): render_frame_meshlet takes it as `frame_index`, which the
 sequence runner reads once per call and MeshletRenderer once per render()
 (one synchronisation each).
 """
@@ -65,6 +68,7 @@ from torch.profiler import record_function
 from ..ops import atmosphere as atm
 from ..ops import brdf_lut as brdf
 from ..ops import colorspace, post, shading
+from ..ops import ddgi as ddgi_ops
 from ..ops import gi as gi_ops
 from ..ops import rt
 from ..ops import screen_probe as sp
@@ -84,10 +88,7 @@ from .deferred import DeviceView, RendererConfig
 
 class MeshletFrameConfig(NamedTuple):
     """chord_tpu MeshletFrameConfig's fields, with its defaults. The port
-    runs every flag but gi_mode="ddgi", GIConfig.ao_mode="rtao", the
-    triangle-exact BVH (rt_granularity="triangle"), the probe march
-    (ScreenProbeConfig.trace_mode="march") and
-    ShadowConfig(pipelined=True)."""
+    runs every flag but ShadowConfig(pipelined=True)."""
 
     draw_capacity: int = 4096
     occlusion: bool = True
@@ -102,11 +103,11 @@ class MeshletFrameConfig(NamedTuple):
     atmosphere: bool = False        # physically based sky / sun / ambient
     gi: bool = False                # diffuse GI + SSAO + specular GI
     # "probe" = the screen-probe stage; "cache" = the world SH cache only;
-    # "ddgi" = probe volumes over the BVH (not ported)
+    # "ddgi" = probe volumes over the BVH
     gi_mode: str = "probe"
     probe_cfg: Optional[sp.ScreenProbeConfig] = None   # None = defaults
     gi_cfg: Optional[gi_ops.GIConfig] = None           # None = defaults
-    ddgi_cfg: object = None
+    ddgi_cfg: Optional[ddgi_ops.DDGIConfig] = None     # None = defaults
     # software-BVH rays for the probes and specular misses
     gi_rt: bool = False
     rt_rays: int = 4
@@ -141,26 +142,8 @@ class MeshletFrameConfig(NamedTuple):
 
 def check_slice(config: RendererConfig, mcfg: MeshletFrameConfig) -> None:
     """Raise NotImplementedError for a flag outside the ported slice: the
-    GI branches ddgi, rtao, the probe march and triangle-exact BVH leaves,
-    and the pipelined shadow split. ssr=True without gi is a no-op, as in
+    pipelined shadow split. ssr=True without gi is a no-op, as in
     chord_tpu, and so is gi_rt."""
-    if mcfg.gi:
-        if mcfg.gi_rt and mcfg.rt_granularity == "triangle":
-            raise NotImplementedError(
-                "MeshletFrameConfig.rt_granularity='triangle' (triangle-exact "
-                "BVH leaves) is not ported yet")
-        if mcfg.gi_mode == "ddgi":
-            raise NotImplementedError(
-                "MeshletFrameConfig.gi_mode='ddgi' (probe volumes over the "
-                "scene BVH) is not ported yet")
-        if (mcfg.gi_cfg or gi_ops.GIConfig()).ao_mode == "rtao":
-            raise NotImplementedError(
-                "GIConfig.ao_mode='rtao' (ray-traced AO) is not ported yet")
-        spcfg = mcfg.probe_cfg or sp.ScreenProbeConfig()
-        if mcfg.gi_mode == "probe" and spcfg.trace_mode != "taps":
-            raise NotImplementedError(
-                "ScreenProbeConfig.trace_mode='march' (trace_probes) is not "
-                "ported yet")
     if mcfg.shadows and mcfg.shadow_cfg.pipelined:
         raise NotImplementedError(
             "ShadowConfig.pipelined=True (chord_tpu's split shadow dispatch) "
@@ -495,6 +478,7 @@ class GIOut(NamedTuple):
     probe_depth: torch.Tensor
     gi_diffuse: torch.Tensor
     gi_specular: torch.Tensor
+    ddgi: ddgi_ops.DDGIState
 
 
 def _probe_diffuse(view: DeviceView, history: FrameHistory, gbuf, depth,
@@ -503,7 +487,9 @@ def _probe_diffuse(view: DeviceView, history: FrameHistory, gbuf, depth,
                    gcfg: gi_ops.GIConfig, bvh: Optional[rt.SceneBVH]):
     """The screen-probe stage (chord_tpu meshlet_frame.py:849-949) ->
     (indirect (H,W,3), new gi_cache, probe_sh, probe_depth, gi_diffuse).
-    With gi_rt and a BVH, rt_rays rays a probe join the taps."""
+    The samples are the neighbour taps, or the march's rays (trace_mode
+    "march", each of weight 1); with gi_rt and a BVH, rt_rays rays a probe
+    join them."""
     spcfg = mcfg.probe_cfg or sp.ScreenProbeConfig()
     with record_function("gi.probe.spawn"):
         probes = sp.spawn_probes(gbuf, depth, history.frame_count, spcfg)
@@ -527,15 +513,25 @@ def _probe_diffuse(view: DeviceView, history: FrameHistory, gbuf, depth,
                                             view.sun_direction, sun_radiance,
                                             sky_amb * 0.5)
             rt_parts = (rt_rad, rt_dirs, rt_conf)
-    with record_function("gi.probe.taps"):
-        # last frame's lit colour at (about) the probe pixels
-        ph_n, pw_n = probes.depth.shape
-        tc = history.tsr_color
-        sy = max(tc.shape[0] // ph_n, 1)
-        sx = max(tc.shape[1] // pw_n, 1)
-        scene_rad = post.decimate(tc, (sy, sx))[:ph_n, :pw_n]
-        rad, ray_dirs, sample_w = sp.gather_probe_taps(probes, scene_rad,
-                                                       sky_amb, spcfg)
+    if spcfg.trace_mode == "taps":
+        with record_function("gi.probe.taps"):
+            # last frame's lit colour at (about) the probe pixels
+            ph_n, pw_n = probes.depth.shape
+            tc = history.tsr_color
+            sy = max(tc.shape[0] // ph_n, 1)
+            sx = max(tc.shape[1] // pw_n, 1)
+            scene_rad = post.decimate(tc, (sy, sx))[:ph_n, :pw_n]
+            rad, ray_dirs, sample_w = sp.gather_probe_taps(
+                probes, scene_rad, sky_amb, spcfg)
+    else:
+        ray_dirs = sp.probe_ray_dirs(probes, history.frame_count, spcfg)
+        with record_function("gi.probe.trace"):
+            rad, ray_dirs = sp.trace_probes(
+                probes, post.decimate(depth, spcfg.depth_div),
+                history.tsr_color, view.tw_to_clip_nj, history.frame_count,
+                spcfg, world_cache=history.gi_cache, gi_cfg=gcfg,
+                sky_ambient=sky_amb, dirs=ray_dirs)
+        sample_w = torch.ones(rad.shape[:-1], device=depth.device)
     if rt_parts is not None:
         rad, ray_dirs, sample_w = (torch.cat([a, b], dim=2) for a, b in
                                    zip((rad, ray_dirs, sample_w), rt_parts))
@@ -632,33 +628,47 @@ def _render_gi(view: DeviceView, history: FrameHistory, gbuf, depth,
                motion_dilated, disocc, ambient, sun_radiance,
                frame_index: int, mcfg: MeshletFrameConfig, h: int, w: int,
                bvh: Optional[rt.SceneBVH]) -> GIOut:
-    """The GI block (chord_tpu meshlet_frame.py:825-1046 without the ddgi
-    and rtao branches): AO, the diffuse indirect (probe or cache mode) and
-    the specular GI; `ambient` is the atmosphere's (None without); `bvh`
-    the scene BVH the gi_rt rays trace (None: no rays, as in chord_tpu)."""
+    """The GI block (chord_tpu meshlet_frame.py:825-1046): AO (RTAO with
+    ao_mode "rtao" and a BVH, else SSAO), the diffuse indirect (probe,
+    ddgi or cache mode) and the specular GI; `ambient` is the
+    atmosphere's (None without); `bvh` the scene BVH the gi_rt rays, RTAO
+    and DDGI trace (None: no rays, as in chord_tpu)."""
     gcfg = mcfg.gi_cfg or gi_ops.GIConfig()
+    dev = depth.device
     with record_function("gi.ao"):
         kd = gcfg.ao_res_div
-        ao_h = gi_ops.ssao(post.decimate(depth, kd),
-                           post.decimate(gbuf.position_tw, kd),
-                           post.decimate(gbuf.normal, kd), gcfg)
+        pos_a = post.decimate(gbuf.position_tw, kd)
+        nrm_a = post.decimate(gbuf.normal, kd)
+        if gcfg.ao_mode == "rtao" and bvh is not None:
+            ao_h = gi_ops.rtao(pos_a, nrm_a, bvh, gcfg,
+                               frame_index=history.frame_count)
+        else:
+            ao_h = gi_ops.ssao(post.decimate(depth, kd), pos_a, nrm_a, gcfg)
         ao = post.upsample_nearest(ao_h, kd, h, w)
     sky_amb = (ambient.reshape(3) if ambient is not None
                else view.sky_ambient)
+    # the fields a mode does not write carry over; cache and ddgi modes
+    # inject the world cache after lighting (the frame calls update_cache)
+    gi_cache, probe_sh, probe_depth, gi_diffuse, ddgi = (
+        history.gi_cache, history.probe_sh, history.probe_depth,
+        history.gi_diffuse, history.ddgi)
     if mcfg.gi_mode == "probe":
         indirect, gi_cache, probe_sh, probe_depth, gi_diffuse = \
             _probe_diffuse(view, history, gbuf, depth, motion_dilated,
                            disocc, sky_amb, sun_radiance, frame_index, mcfg,
                            gcfg, bvh)
+    elif mcfg.gi_mode == "ddgi":
+        dcfg = mcfg.ddgi_cfg or ddgi_ops.DDGIConfig()
+        with record_function("gi.ddgi.update"):
+            ddgi = ddgi_ops.ddgi_update(
+                history.ddgi, bvh, view.sun_direction, sun_radiance, sky_amb,
+                history.frame_count, dcfg, frame_index=frame_index)
+        with record_function("gi.ddgi.sample"):
+            indirect = ddgi_ops.diffuse_ddgi(ddgi, gbuf, dcfg)
     else:
         with record_function("gi.sample"):
             indirect = gi_ops.diffuse_gi(history.gi_cache, gbuf,
-                                         torch.zeros(3, device=depth.device),
-                                         gcfg)
-        # cache mode injects after lighting (the frame calls update_cache)
-        gi_cache, probe_sh, probe_depth, gi_diffuse = (
-            history.gi_cache, history.probe_sh, history.probe_depth,
-            history.gi_diffuse)
+                                         torch.zeros(3, device=dev), gcfg)
     specular, gi_specular = _specular_gi(view, history, gbuf, depth,
                                          motion_dilated, disocc, ao,
                                          sun_radiance, mcfg, gcfg, bvh)
@@ -667,9 +677,8 @@ def _render_gi(view: DeviceView, history: FrameHistory, gbuf, depth,
             gbuf.normal[..., 1:2] * 0.5 + 0.5, 0.0, 1.0)
     return GIOut(ambient=(ambient * 0.35 + indirect) * ao[..., None],
                  specular=specular, indirect=indirect, gi_cache=gi_cache,
-                 probe_sh=probe_sh,
-                 probe_depth=probe_depth, gi_diffuse=gi_diffuse,
-                 gi_specular=gi_specular)
+                 probe_sh=probe_sh, probe_depth=probe_depth,
+                 gi_diffuse=gi_diffuse, gi_specular=gi_specular, ddgi=ddgi)
 
 
 # lod level -> colour (chord_tpu meshlet_frame.py:412-415)
@@ -730,12 +739,17 @@ def render_frame_meshlet(pools, instances, view: DeviceView,
                          ) -> Tuple[torch.Tensor, FrameHistory, dict]:
     """One GPU-driven frame -> (image (Hp,Wp,3) u8, new history, stats).
     `frame_index` is the host's copy of history.frame_count; the shadow
-    pass and GI need it. `bvh` (ops/rt.SceneBVH) is what the gi_rt rays
-    trace; without it they are skipped, as in chord_tpu."""
+    pass and GI need it. `bvh` (ops/rt.SceneBVH) is what the gi_rt rays,
+    RTAO and DDGI trace; without it the rays are skipped and RTAO falls
+    back to SSAO, as in chord_tpu; DDGI needs it (AssertionError, as
+    chord_tpu's assert)."""
     check_slice(config, mcfg)
     if (mcfg.shadows or mcfg.gi) and frame_index is None:
         raise ValueError("shadows=True or gi=True needs frame_index, the "
                          "host's copy of history.frame_count")
+    if mcfg.gi and mcfg.gi_mode == "ddgi" and bvh is None:
+        raise AssertionError("gi_mode='ddgi' needs the scene BVH (enable "
+                             "gi_rt)")
     if mcfg.rt_dynamic and mcfg.shadow_cfg.scroll:
         mcfg = mcfg._replace(
             shadow_cfg=mcfg.shadow_cfg._replace(scroll=False))
@@ -1040,11 +1054,11 @@ class MeshletRenderer:
     """Host-side runner for the meshlet frame (chord_tpu MeshletRenderer
     without the split shadow dispatch), for every config check_slice
     accepts (the repo's golden images render through it). History and
-    views go to the device
-    the pools live on; the atmosphere LUTs and, with GI, the env-BRDF LUT
-    are built once (the sky view once per sun direction); with gi_rt the
-    scene BVH is built on the host at mcfg.rt_granularity at the first
-    render, and at every render under rt_dynamic."""
+    views go to the device the pools live on; the atmosphere LUTs and,
+    with GI, the env-BRDF LUT are built once (the sky view once per sun
+    direction); with gi_rt or DDGI the scene BVH is built on the host at
+    mcfg.rt_granularity from the render's instances at the first render,
+    and at every render under rt_dynamic."""
 
     def __init__(self, config: RendererConfig,
                  mcfg: MeshletFrameConfig = MeshletFrameConfig()):
@@ -1106,6 +1120,8 @@ class MeshletRenderer:
                 shadow_phase=scfg.temporal_phase if scfg.temporal else 1,
                 probe_tile=((m.probe_cfg.tile if m.probe_cfg else 8)
                             if probe else 0),
+                ddgi_cfg=((m.ddgi_cfg or ddgi_ops.DDGIConfig())
+                          if m.gi and m.gi_mode == "ddgi" else None),
                 device=dev)
         view = DeviceView.from_uniform(
             view_uniform, device=dev,
@@ -1117,7 +1133,8 @@ class MeshletRenderer:
                                 atmo_sky_lut=sky)
         if m.gi:
             view = view.replace(brdf_lut=self._brdf_lut(dev))
-        if m.gi and m.gi_rt and (self._bvh is None or m.rt_dynamic):
+        if m.gi and (m.gi_rt or m.gi_mode == "ddgi") and \
+                (self._bvh is None or m.rt_dynamic):
             # rt_dynamic rebuilds it every render, so the rays follow
             # moving instances
             self._bvh = rt.build_scene_bvh(pools, instances,

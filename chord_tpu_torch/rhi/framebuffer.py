@@ -73,8 +73,7 @@ class RenderTargets:
 @dataclass
 class FrameHistory:
     """State carried frame -> frame. `valid` gates all history reads; a
-    camera cut sets valid=0 (reference clearHistory). chord_tpu's history
-    also carries DDGI state, which is not ported."""
+    camera cut sets valid=0 (reference clearHistory)."""
 
     valid: torch.Tensor         # () f32 0/1
     frame_count: torch.Tensor   # () i32
@@ -97,21 +96,27 @@ class FrameHistory:
     probe_depth: torch.Tensor   # (Ph,Pw) f32 probe ndc depth (reverse-Z)
     gi_diffuse: torch.Tensor    # (Hh,Wh,3) f32
     gi_specular: torch.Tensor   # (Hq,Wq,3) f32, Hq = H / sample_res_div
+    # DDGI (reference DDGIContext, selected by r.gi.method): an
+    # ops.ddgi.DDGIState, chord_tpu's tiny placeholder when DDGI is off
+    ddgi: "object"
 
     @classmethod
     def empty(cls, h: int, w: int, post_h: Optional[int] = None,
               post_w: Optional[int] = None, gi_cfg=None,
               shadow_div: int = 2, shadow_cascades: int = 0,
               shadow_res: int = 1, shadow_phase: int = 1,
-              probe_tile: int = 0, device=None) -> "FrameHistory":
+              probe_tile: int = 0, ddgi_cfg=None,
+              device=None) -> "FrameHistory":
         """Invalid (valid=0) history on `device` (None = the card), with
         chord_tpu's shapes. `gi_cfg` (a GIConfig; None = GI off) sizes the
         world cache and the specular history, `probe_tile` (0 = off) the
-        screen probes and the half-res diffuse history. `shadow_div` is
+        screen probes and the half-res diffuse history, `ddgi_cfg` (a
+        DDGIConfig; None = off) the DDGI state. `shadow_div` is
         the PCSS eval divisor (ShadowConfig.eval_res_div), `shadow_cascades`
         / `shadow_res` size the cascade cache (0 = off). `shadow_phase` is
         accepted as chord_tpu's signature has it; the phase-decimated eval
         does not ride in the history."""
+        from ..ops.ddgi import DDGIState
         from ..ops.gi import GIConfig, sh_size
         from ..ops.hzb import hzb_layout
         from ..utils.device import resolve
@@ -150,4 +155,5 @@ class FrameHistory:
             probe_depth=torch.zeros((pr_h, pr_w), **f32),
             gi_diffuse=torch.zeros((gh, gw, 3), **f32),
             gi_specular=torch.zeros((sh_, sw_, 3), **f32),
+            ddgi=DDGIState.empty(ddgi_cfg, device=device),
         )

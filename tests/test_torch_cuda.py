@@ -26,6 +26,7 @@ from chord_tpu_torch.ops import (_cuda, fusion_barrier, kernels,
                                  tile_reproject)
 from chord_tpu_torch.ops import atmosphere as atm
 from chord_tpu_torch.ops import brdf_lut, gi, rt
+from chord_tpu_torch.ops.ddgi import DDGIConfig
 from chord_tpu_torch.ops.gi import GIConfig
 from chord_tpu_torch.native import bvh_build
 from chord_tpu_torch.ops.screen_probe import ScreenProbeConfig
@@ -65,6 +66,14 @@ GI_MCFG = SHADOW_MCFG._replace(
     probe_cfg=ScreenProbeConfig(rays=16, steps=6, history_mode="tile"))
 # the all rung: with the BVH rays over the scene's object spheres
 RT_MCFG = GI_MCFG._replace(gi_rt=True, rt_rays=2)
+# all_ddgi: DDGI probe volumes over a meshlet BVH; all_exact: the
+# triangle-exact BVH, RTAO and the probe march
+DDGI_MCFG = RT_MCFG._replace(gi_mode="ddgi", ddgi_cfg=DDGIConfig(),
+                             rt_granularity="meshlet")
+EXACT_MCFG = RT_MCFG._replace(
+    rt_granularity="triangle", gi_cfg=GI_CFG._replace(ao_mode="rtao"),
+    probe_cfg=ScreenProbeConfig(trace_mode="march", rays=16, steps=6,
+                                history_mode="tile"))
 # geo_tex_native: geo_tex at render size with gather TSR and the masked
 # depth peel; off_no_occlusion: off without occlusion or pre-cull, global
 # TSR upscale, HDR10
@@ -81,12 +90,14 @@ def dev():
     return torch.device("cuda", 0)
 
 
-def _tex_sequence(d, frames=3, shadows=False, gi=False, native=False):
+def _tex_sequence(d, frames=3, shadows=False, gi=False, native=False,
+                  ddgi=False):
     """The small textured bistro along bench.py's camera path, jittered;
     with shadows, the views carry the cascade fit and the atmosphere LUTs
     and the history the cascade cache; with gi, the views also carry the
-    env-BRDF LUT and the history the GI state; `native`: the history at
-    render size (no upscale)."""
+    env-BRDF LUT and the history the GI state (DDGI's in place of the
+    screen probes' with `ddgi`); `native`: the history at render size (no
+    upscale)."""
     b = build_bistro_like(detail=1, textures=True)
     cam = Camera(width=W, height=H)
     vs = []
@@ -109,7 +120,9 @@ def _tex_sequence(d, frames=3, shadows=False, gi=False, native=False):
         hist = FrameHistory.empty(H, W, PH, PW, shadow_div=4,
                                   shadow_cascades=2, shadow_res=256,
                                   gi_cfg=GI_CFG if gi else None,
-                                  probe_tile=8 if gi else 0, device=d)
+                                  probe_tile=8 if gi and not ddgi else 0,
+                                  ddgi_cfg=DDGIConfig() if ddgi else None,
+                                  device=d)
     if gi:
         lut = brdf_lut.build_env_brdf_lut(64, device=d)
         vs = [v.replace(brdf_lut=lut) for v in vs]
@@ -131,6 +144,10 @@ def _path_run(path, d):
         return _tex_sequence(d, shadows=True, gi=True), GI_MCFG
     if path == "all":
         return _tex_sequence(d, shadows=True, gi=True), RT_MCFG
+    if path == "all_ddgi":
+        return _tex_sequence(d, shadows=True, gi=True, ddgi=True), DDGI_MCFG
+    if path == "all_exact":
+        return _tex_sequence(d, shadows=True, gi=True), EXACT_MCFG
     return _tex_sequence(d, shadows=True), SHADOW_MCFG
 
 
@@ -159,8 +176,9 @@ def _render_path(path, d):
         return torch.stack(imgs), {k: [int(s[k]) for s in stats]
                                    for k in stats[0]}
     inputs, mcfg = _path_run(path, d)
-    bvh = (rt.build_scene_bvh(inputs[0], inputs[1], granularity="object")
-           if mcfg.gi_rt else None)
+    bvh = (rt.build_scene_bvh(inputs[0], inputs[1], granularity=(
+        "object" if path == "all" else mcfg.rt_granularity))
+        if mcfg.gi_rt else None)
     cfg = {"geo_tex_native": NATIVE_CFG,
            "off_no_occlusion": NO_OCC_CFG}.get(path, CFG)
     with cvars.override("r.raster.bricks", path == "geo_tex_bricks"):
@@ -415,6 +433,33 @@ def test_rt_trace_matches_cpu(dev, n):
     np.testing.assert_allclose(t[hit], cpu[0].numpy()[hit], rtol=1e-3,
                                atol=1e-3)
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [300, rt.DENSE_TRI_LIMIT + 1])
+def test_rt_trace_triangles_matches_cpu(dev, n):
+    """rt.trace on a triangle BVH on the card (trace_dense_tri up to
+    DENSE_TRI_LIMIT triangles, the scan with triangle leaves above)
+    against the CPU: leaf ids equal on the rays rt_cases.tri_decided
+    keeps, t within 1e-4 relative + 1e-4 absolute (cuBLAS orders the
+    3-term dots its own way)."""
+    v0, e1, e2 = rt_cases.triangles(n, seed=n)
+    o, d = rt_cases.tri_rays(v0, e1, e2, 2048 if n < 1000 else 512,
+                             seed=n + 1)
+    keep = rt_cases.tri_decided(o, d, v0, e1, e2)
+    bvh, _ = rt_cases.tri_bvh(v0, e1, e2)
+    calls = rt.trace.dense
+    cpu = rt.trace(torch.from_numpy(o), torch.from_numpy(d), bvh)
+    gpu = rt.trace(torch.from_numpy(o).to(dev), torch.from_numpy(d).to(dev),
+                   rt.SceneBVH(*(None if x is None else x.to(dev)
+                                 for x in bvh)))
+    assert rt.trace.dense - calls == (2 if n <= rt.DENSE_TRI_LIMIT else 0)
+    t, leaf = (x.cpu().numpy() for x in gpu)
+    np.testing.assert_array_equal(leaf[keep], cpu[1].numpy()[keep])
+    hit = keep & (leaf >= 0)
+    assert hit.sum() > 50
+    np.testing.assert_allclose(t[hit], cpu[0].numpy()[hit], rtol=1e-4,
+                               atol=1e-4)
+
+
 def _pcss_inputs(d, n=4, r=1024, h=90, w=160, seed=7):
     """K6 at its bench shapes: a random stack (zeros = empty texels) and a
     random prepass, edge and out-of-map taps included."""
@@ -615,8 +660,8 @@ def test_wrappers_reject_bad_inputs(dev):
 @pytest.mark.cuda
 @pytest.mark.parametrize("path", ["off", "geo_tex", "geo_shadow_atmo",
                                   "geo_tex_bricks", "flat", "all_no_rt",
-                                  "all", "geo_tex_native",
-                                  "off_no_occlusion"])
+                                  "all", "all_ddgi", "all_exact",
+                                  "geo_tex_native", "off_no_occlusion"])
 def test_gpu_frames_match_cpu_plain(dev, path):
     """The tiny sequence of each path through the kernels on the GPU equals
     the plain versions on the CPU (the path the CPU tests hold against

@@ -29,6 +29,7 @@ from chord_tpu.rhi.framebuffer import FrameHistory as JHistory
 from chord_tpu.rhi.meshlet_scene import build_meshlet_pools as jax_pools
 from chord_tpu.utils.camera import Camera as JCamera
 
+import chord_tpu_torch.renderer.meshlet_frame as mf
 from chord_tpu_torch.asset.procedural import build_sponza_like
 from chord_tpu_torch.ops.gi import GIConfig
 from chord_tpu_torch.ops.screen_probe import ScreenProbeConfig
@@ -133,19 +134,25 @@ def test_renderer_matches_sequence(runs):
 
 
 def test_flags_outside_the_slice_raise(runs):
+    """The pipelined shadow split is outside the slice and raises; the GI
+    branches (triangle-exact BVH leaves, DDGI, RTAO, the probe march) pass
+    the slice check; DDGI without the scene BVH raises chord_tpu's
+    AssertionError."""
     b, pools, inst, views = runs["scene"]
     hist = FrameHistory.empty(H, W, PH, PW, device="cpu")
-    for mcfg, cfg in [
-            (MeshletFrameConfig(shadows=True, shadow_cfg=ShadowConfig(
-                pipelined=True)), RendererConfig(**CFG)),
-            (MeshletFrameConfig(gi=True, gi_rt=True,
-                                rt_granularity="triangle"),
-             RendererConfig(**CFG)),
-            (MeshletFrameConfig(gi=True, gi_mode="ddgi"),
-             RendererConfig(**CFG)),
-            (MeshletFrameConfig(gi=True, gi_cfg=GIConfig(ao_mode="rtao")),
-             RendererConfig(**CFG)),
-            (MeshletFrameConfig(gi=True, probe_cfg=ScreenProbeConfig(
-                trace_mode="march")), RendererConfig(**CFG))]:
-        with pytest.raises(NotImplementedError):
-            render_sequence_meshlet(pools, inst, views, hist, cfg, mcfg)
+    with pytest.raises(NotImplementedError):
+        render_sequence_meshlet(
+            pools, inst, views, hist, RendererConfig(**CFG),
+            MeshletFrameConfig(shadows=True, shadow_cfg=ShadowConfig(
+                pipelined=True)))
+    for mcfg in [MeshletFrameConfig(gi=True, gi_rt=True,
+                                    rt_granularity="triangle"),
+                 MeshletFrameConfig(gi=True, gi_mode="ddgi"),
+                 MeshletFrameConfig(gi=True, gi_cfg=GIConfig(ao_mode="rtao")),
+                 MeshletFrameConfig(gi=True, probe_cfg=ScreenProbeConfig(
+                     trace_mode="march"))]:
+        mf.check_slice(RendererConfig(**CFG), mcfg)
+    with pytest.raises(AssertionError, match="BVH"):
+        render_sequence_meshlet(pools, inst, views, hist,
+                                RendererConfig(**CFG),
+                                MeshletFrameConfig(gi=True, gi_mode="ddgi"))

@@ -209,8 +209,9 @@ def test_gi_renderer_matches_sequence(runs):
 def test_check_slice_accepts_all_no_rt():
     """bench.py's `all` rung (bench.py:204-219) passes the slice check with
     gi_rt=False and, since the BVH rays are ported, with gi_rt=True,
-    rt_rays=2; DDGI, RTAO, the probe march and triangle-exact BVH leaves
-    still raise."""
+    rt_rays=2; and so does each of DDGI, RTAO, the probe march and
+    triangle-exact BVH leaves on it. Only the pipelined shadow split
+    still raises."""
     rcfg = RendererConfig(width=1280, height=720, post_width=1920,
                           post_height=1080, tsr_mode="tile")
     all_no_rt = MeshletFrameConfig(
@@ -222,17 +223,20 @@ def test_check_slice_accepts_all_no_rt():
     mf.check_slice(rcfg, all_no_rt)
     all_rt = all_no_rt._replace(gi_rt=True, rt_rays=2)
     mf.check_slice(rcfg, all_rt)
-    for bad in (dict(gi_mode="ddgi"), dict(gi_cfg=GIConfig(ao_mode="rtao")),
-                dict(probe_cfg=ScreenProbeConfig(trace_mode="march")),
-                dict(rt_granularity="triangle")):
-        with pytest.raises(NotImplementedError):
-            mf.check_slice(rcfg, all_rt._replace(**bad))
+    for mode in (dict(gi_mode="ddgi"), dict(gi_cfg=GIConfig(ao_mode="rtao")),
+                 dict(probe_cfg=ScreenProbeConfig(trace_mode="march")),
+                 dict(rt_granularity="triangle")):
+        mf.check_slice(rcfg, all_rt._replace(**mode))
+    with pytest.raises(NotImplementedError):
+        mf.check_slice(rcfg, all_rt._replace(
+            shadow_cfg=all_rt.shadow_cfg._replace(pipelined=True)))
 
 
 def test_gi_history_and_brdf_lut_cross_interop():
     """FrameHistory.empty with GI has chord_tpu's fields and shapes, which
-    interop carries across (the `ddgi` leaf is left behind); a per-frame
-    stacked env-BRDF LUT arrives once, shared by the path."""
+    interop carries across (the `ddgi` leaf, DDGI's off-placeholder here,
+    through ddgi_from_numpy); a per-frame stacked env-BRDF LUT arrives
+    once, shared by the path."""
     from chord_tpu.ops import brdf_lut as jbrdf
 
     jh = JHistory.empty(H, W, post_h=PH, post_w=PW, gi_cfg=JGIConfig(**GI),
@@ -240,9 +244,14 @@ def test_gi_history_and_brdf_lut_cross_interop():
     got = FrameHistory.empty(H, W, PH, PW, gi_cfg=GIConfig(**GI),
                              probe_tile=8, device="cpu")
     ref = {f.name: np.asarray(getattr(jh, f.name))
-           for f in dataclasses.fields(got)}
-    carried = interop.history_from_numpy(
-        dict(ref, ddgi=object()), device="cpu")
+           for f in dataclasses.fields(got) if f.name != "ddgi"}
+    carried = interop.history_from_numpy(dict(ref, ddgi=jh.ddgi),
+                                         device="cpu")
+    for f, a in jh.ddgi._asdict().items():
+        np.testing.assert_array_equal(getattr(got.ddgi, f).numpy(),
+                                      np.asarray(a), f)
+        np.testing.assert_array_equal(getattr(carried.ddgi, f).numpy(),
+                                      np.asarray(a), f)
     for name, a in ref.items():
         np.testing.assert_array_equal(getattr(got, name).numpy(), a, name)
         np.testing.assert_array_equal(getattr(carried, name).numpy(), a,

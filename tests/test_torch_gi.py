@@ -12,6 +12,13 @@ may land one cell over where XLA-CPU contracts a*b+c into an FMA, and then
 a whole probe row differs (none of this test's seeds does; the frame test
 allows it).
 
+RTAO (on a triangle soup and a sphere set, with and without the
+per-frame azimuth turn, chord_tpu's jitted noise fed to the port): >= 99%
+of pixels within 1e-5, every pixel within one ray's weight (a ray that
+grazes an edge may hit in one framework only); at these seeds the worst
+pixel is 2.7e-5 off (the sphere entry's f32 rounding at small t, divided
+by the radius) and no ray flips.
+
 The scatter-add is `index_put_(accumulate=True)`, which on a CUDA tensor
 PyTorch routes through a sort and sums each run of equal indices in order,
 so the cache does not change from run to run on the card (held there by
@@ -301,3 +308,81 @@ def test_update_cache_matches(frame):
     share, worst = _cells_agree(got, ref)
     assert share == 1.0, (share, worst)
     assert not np.array_equal(got.numpy(), cache)
+
+
+# --- rtao ---------------------------------------------------------------------
+
+def _jitted_ign(frames):
+    """chord_tpu's interleaved gradient noise under jit (XLA fuses a*x+b*y
+    into an FMA there: eager and jitted noise differ at ~0.35% of
+    pixels), in the port's signature."""
+    import jax
+    from chord_tpu.ops import bluenoise as jbn
+
+    def noise(h, w, frame=0, device=None):
+        f = int(frame) if isinstance(frame, torch.Tensor) else frame
+        out = jax.jit(jbn.interleaved_gradient_noise, static_argnums=(0, 1))(
+            h, w, np.int32(f))
+        frames.append(f)
+        return torch.from_numpy(np.array(out)).to(device or "cpu")
+    return noise
+
+
+def _ao_scene(kind):
+    """A dense scene for 1-unit AO rays -> (port BVH, surface points
+    (32,48,3), unit normals): a triangle soup or a sphere set in
+    [-6, 6]^3, the points on its triangles (or spheres), normals facing a
+    random side."""
+    from rt_cases import port_bvh, spheres, tri_bvh, triangles
+    rng = np.random.default_rng(21)
+    n_pts = 32 * 48
+    if kind == "triangle":
+        v0, e1, e2 = (x * np.float32(0.3) for x in triangles(400, 7))
+        bvh, _ = tri_bvh(v0, e1, e2)
+        k = rng.integers(0, len(v0), n_pts)
+        uv = rng.uniform(0.05, 0.45, (n_pts, 2))
+        pos = v0[k] + uv[:, :1] * e1[k] + uv[:, 1:] * e2[k]
+        nrm = bvh.leaf_normal.numpy()[k] * rng.choice([-1, 1], (n_pts, 1))
+    else:
+        sph = spheres(300, 7)
+        sph[:, :3] *= 0.3
+        from chord_tpu_torch.ops import rt
+        bvh = port_bvh(rt.build_bvh_numpy(sph), sph)
+        k = rng.integers(0, len(sph), n_pts)
+        nrm = _unit(rng, n_pts)
+        pos = sph[k, :3] + nrm * sph[k, 3:]
+    return (bvh, pos.reshape(32, 48, 3).astype(np.float32),
+            nrm.reshape(32, 48, 3).astype(np.float32))
+
+
+@pytest.mark.parametrize("kind", ["triangle", "sphere"])
+@pytest.mark.parametrize("frame", [None, 3])
+def test_rtao_matches(monkeypatch, kind, frame):
+    """RTAO on a triangle BVH and a sphere BVH, without the per-frame
+    azimuth turn and with it (chord_tpu's jitted noise fed to the port, as
+    in its frame): >= 99% of pixels within 1e-5 and the rest within one
+    ray's weight (a ray that grazes an edge or a sphere may hit in one
+    framework and miss in the other)."""
+    import jax
+    bvh, pos, nrm = _ao_scene(kind)
+    jbvh = jrt_bvh(bvh)
+    cfg_j, cfg_t = jgi.GIConfig(), gi.GIConfig()
+    frames = []
+    monkeypatch.setattr(gi, "interleaved_gradient_noise", _jitted_ign(frames))
+    ref = jax.jit(lambda p, n, f: jgi.rtao(p, n, jbvh, cfg_j, frame_index=f)
+                  if frame is not None else jgi.rtao(p, n, jbvh, cfg_j))(
+        jnp.asarray(pos), jnp.asarray(nrm), jnp.int32(frame or 0))
+    got = gi.rtao(_t(pos), _t(nrm), bvh, cfg_t, frame_index=None
+                  if frame is None else torch.tensor(frame,
+                                                     dtype=torch.int32))
+    assert frames == ([] if frame is None else [frame])
+    d = np.abs(got.numpy() - np.asarray(ref))
+    assert (d <= 1e-5).mean() >= 0.99, (d > 1e-5).mean()
+    assert d.max() <= 1.0 / cfg_t.rtao_rays + 1e-5
+    assert float(got.min()) < 0.9 and float(got.max()) == 1.0
+
+
+def jrt_bvh(bvh):
+    from chord_tpu.ops import rt as jrt
+    return jrt.SceneBVH(**{f: None if v is None else jnp.asarray(v.numpy())
+                           for f, v in bvh._asdict().items()})

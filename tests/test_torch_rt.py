@@ -153,9 +153,10 @@ def test_trace_brute_numpy_matches_chord_tpu():
 @pytest.mark.parametrize("n", [rt.DENSE_LEAF_LIMIT, rt.DENSE_LEAF_LIMIT + 1])
 def test_trace_dispatch(monkeypatch, n):
     """trace() takes the dense path up to DENSE_LEAF_LIMIT leaf spheres
-    with no step budget, the scan above it or with a budget, raises on a
-    triangle-exact BVH, and counts its calls, its dense calls and its
-    rays."""
+    with no step budget, the scan above it or with a budget, and counts
+    its calls, its dense calls and its rays; a triangle-exact BVH of as
+    many triangles (above DENSE_TRI_LIMIT) takes the scan
+    (tests/test_torch_rt_tri.py holds both sides of that limit)."""
     sph = _spheres(n, seed=9)
     o, d = _rays(64, seed=10)
     bvh = _port_bvh(rt.build_bvh_numpy(sph[:8]), sph)   # nodes unused
@@ -172,9 +173,9 @@ def test_trace_dispatch(monkeypatch, n):
     assert rt.trace.calls == calls + 2
     assert rt.trace.dense == dense + (want == "trace_dense")
     assert rt.trace.rays == rays + 2 * 64
-    with pytest.raises(NotImplementedError):
-        rt.trace(torch.from_numpy(o), torch.from_numpy(d),
-                 bvh._replace(tri_planes=torch.zeros((n, 12))))
+    rt.trace(torch.from_numpy(o), torch.from_numpy(d),
+             bvh._replace(tri_planes=torch.zeros((n, 12))))
+    assert ran[-1] == "trace_bvh" and rt.trace.calls == calls + 3
 
 
 def _scene(granularity):
@@ -232,15 +233,22 @@ def test_build_scene_bvh_matches(granularity):
 
 
 def test_build_scene_bvh_triangle_raises():
+    """An unknown granularity raises; "triangle" (once refused) builds a
+    BVH with its planes and normals (tests/test_torch_rt_tri.py holds it
+    to chord_tpu's)."""
     from chord_tpu_torch.asset.procedural import build_sponza_like
     from chord_tpu_torch.rhi.meshlet_scene import build_meshlet_pools
     from chord_tpu_torch.utils.camera import Camera
 
     b = build_sponza_like(detail=1)
-    with pytest.raises(NotImplementedError):
-        rt.build_scene_bvh(build_meshlet_pools(b, device="cpu"),
-                           b.frame_instances(Camera(64, 64), device="cpu"),
-                           granularity="triangle")
+    pools = build_meshlet_pools(b, device="cpu")
+    inst = b.frame_instances(Camera(64, 64), device="cpu")
+    with pytest.raises(ValueError):
+        rt.build_scene_bvh(pools, inst, granularity="sphere")
+    bvh = rt.build_scene_bvh(pools, inst, granularity="triangle")
+    n = bvh.leaf_sphere.shape[0]
+    assert tuple(bvh.tri_planes.shape) == (n, 12)
+    assert tuple(bvh.leaf_normal.shape) == (n, 3)
 
 
 @pytest.mark.parametrize("normals", [False, True])

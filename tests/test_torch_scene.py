@@ -154,10 +154,16 @@ def test_empty_history_matches():
 
     jh = JHistory.empty(64, 128, post_h=96, post_w=192)
     got = FrameHistory.empty(64, 128, 96, 192, device="cpu")
-    names = [f.name for f in dataclasses.fields(got)]
+    # the array fields; the `ddgi` leaf (a DDGIState) by its own fields
+    names = [f.name for f in dataclasses.fields(got) if f.name != "ddgi"]
     ref = {n: np.asarray(getattr(jh, n)) for n in names}
     _assert_same(got, ref, names)
-    _assert_same(interop.history_from_numpy(ref, device="cpu"), ref, names)
+    carried = interop.history_from_numpy(dict(ref, ddgi=jh.ddgi),
+                                         device="cpu")
+    _assert_same(carried, ref, names)
+    ddgi_ref = {k: np.asarray(v) for k, v in jh.ddgi._asdict().items()}
+    for h in (got, carried):
+        _assert_same(h.ddgi, ddgi_ref, list(ddgi_ref))
 
 
 def test_entry_points_default_to_the_card():
