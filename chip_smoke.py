@@ -4,7 +4,8 @@
     python3 chip_smoke.py              # the default run
     python3 chip_smoke.py --profile    # + a torch.profiler breakdown per path
 
-Thirteen paths: eleven frame paths and two tool paths. Three are the bench's
+Sixteen paths, fourteen frame paths and two tool paths, and the apps
+(phase 11). Three are the bench's
 `off`, `geo_tex` and `geo_shadow_atmo` rungs (bench.py:35-54): the
 1280x720 render of the 2.6M-triangle procedural bistro (Nanite LOD cut),
 upscaled to 1920x1080 by tile-mode TSR, bloom and the ACES tonemap;
@@ -58,7 +59,24 @@ with a z-clip plane and attributes, a second alpha test), at bench.py's
 pair capacity of 8192 (its worst queue holds 2,320 pairs at 1080p;
 phase 5 prints each path's worst queue); `off_no_occlusion`
 is `off` with occlusion=False (one cull, no HZB, one raster),
-object_precull=False, global-mode TSR upscale and the HDR10 output. The
+object_precull=False, global-mode TSR upscale and the HDR10 output.
+`geo_shadow_atmo_split` is `geo_shadow_atmo` with ShadowConfig(pipelined=
+True), run as bench.py:272-281 runs such a config, through
+render_sequence_split: each frame exports its PCSS inputs and lights with
+last frame's mask, then shadow_service_step refreshes the cascade,
+evaluates PCSS (K6) and blends (the shadows are one frame late, so its
+images differ from the inline path's by design). `interior` is BASELINE
+config #4, bench.py --scene interior at the `all` rung:
+build_bistro_interior(detail=3), an enclosed room lit through one window,
+on bench.py's interior camera path (bench.py:119-121), with the `all`
+rung's shadows, atmosphere, screen-probe GI, SSR and the object BVH built
+as bench.py:221-233 builds it (the rung's textured flags run on a scene
+without a texture pool: K5 samples the empty pool). `nanite` is BASELINE
+config #3, bench.py --scene nanite at the `off` rung:
+build_nanite_stress(rings=48), 100 instances of one ~9.2k-triangle sphere
+(~0.9M source triangles) whose Nanite cut decides what is drawn, on the
+orbit path (bench.py:122-126). Both render 1280x720, upscaled to
+1920x1080 by tile TSR. The
 tool paths are the port's
 chord_tpu_torch/tools: `repro_eval` runs all 22 variants of the
 shadow-evaluate fault bisection at its bench shapes (`tm_pallas` puts the
@@ -75,9 +93,10 @@ Phases (any failure raises and the script exits non-zero):
    times the launch floor: an empty one-block grid (csrc/launch_floor.cu)
    timed as the kernels are, the least time any launched kernel takes.
 3. Builds the scenes (the two bistros share the Nanite DAG of their common
-   meshes; the shadow and brick paths reuse the textured one; the flat
-   Sponza pools with a per-frame instance table) and the LUTs, and prints
-   build time, page count and pool bytes.
+   meshes; the shadow, split and brick paths reuse the textured one; the
+   flat Sponza pools with a per-frame instance table; the interior and the
+   Nanite field) and the LUTs, and prints build time, meshlets, page count
+   and pool bytes.
 4. Kernel vs plain version, per path: renders the path's first frame
    (on the shadow path its first four, so every cascade holds depth),
    then records every kernel call's inputs through the next frame, and
@@ -178,7 +197,9 @@ Phases (any failure raises and the script exits non-zero):
    the CPU (the path the tests hold against chord_tpu), stats exact,
    images within 2 u8 levels; then the same on the tiny `off` scene with
    TSR in each of the tile, gather and global modes, with and without the
-   upscale, and with enable_tsr=False and the upscale.
+   upscale, and with enable_tsr=False and the upscale. The split runs
+   the small textured bistro, `interior` build_bistro_interior(detail=1)
+   and `nanite` a 3x3 field of 16-ring spheres, on their camera paths.
 9. Goldens: the three configs of chord_tpu's golden test
    (tests/test_golden.py:60-87: build_sponza_like(detail=1) at 160x96,
    pair capacity 4096, big capacity 128, draw_capacity=512, no TSR; `basic`
@@ -196,8 +217,21 @@ Phases (any failure raises and the script exits non-zero):
    frame and its TSR history is finite. Then `meshlet` and `lod` on phase
    8's small `all` scene: the view debug_visualize returns on the third
    frame on the card equals the CPU's bit for bit.
+11. Apps: the port's editor in --exec mode (editor.run_script) imports
+   assets/demo_street.glb's meshes, builds and saves a .chtp of builtin
+   props (the viewer's .chtp library is the builtin meshes, as
+   chord_tpu's), adds the street's meshes as nodes and renders the
+   viewport at 1920x1080 on the card; then the port's viewer renders
+   4 frames at 1920x1080 with --shadows --atmosphere (MeshletRenderer:
+   3 cascade warm-up frames first) of the GLB (textured, masked leaf
+   cards, gather TSR) and of the saved .chtp (through SceneSubsystem).
+   Each run: launch counts set to 0 before it and equal to
+   kernels.EXPECTED_LAUNCHES after it, no bin overflow, non-constant
+   PNGs, and its last frame's kernel calls held to their plain versions
+   (tolerance 0) and timed as in phase 4.
 
-Phases 4-5 run per frame path, then 6 to 10. The line before the last
+Phases 4-5 run per frame path (the split's launches must equal the
+inline path's), then 6 to 11. The line before the last
 is the nvidia-smi name/power-limit line, the one before that the
 per-kernel JSON (one entry per kernel and path: launches, max_abs_err,
 per-frame ms / plain_ms / bound_ms / library_ms summed over the kernel's
@@ -205,7 +239,8 @@ calls in one frame, and the per-call detail, with K1, K6, K7, K8 and
 K10's work stats and K3 and K9's alternating rounds;
 plus each path's ms/frame and the launch floor),
 and before that the tools' JSON (each repro variant's first-call seconds
-and steady ms, the proto tool's coverage, match and ms); the last line is
+and steady ms, the proto tool's coverage, match and ms, each app run's
+seconds); the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
@@ -236,23 +271,33 @@ TIMED_RUNS = {"all_exact": 1}
 FLAT_W, FLAT_H = 1920, 1080
 FLAT_DETAIL = 4
 FLAT_PAIRS = 16384
+# the paths on a scene with the bench texture pool and masked materials
 TEXTURED_PATHS = ("geo_tex", "geo_shadow_atmo", "geo_tex_bricks",
                   "all_no_rt", "all", "all_ddgi", "all_exact",
-                  "geo_tex_native")
+                  "geo_tex_native", "geo_shadow_atmo_split")
 SHADOW_PATHS = ("geo_shadow_atmo", "all_no_rt", "all", "all_ddgi",
-                "all_exact")
+                "all_exact", "geo_shadow_atmo_split", "interior")
+# the bench rung a path renders with another scene or runner: the shadow
+# rung with ShadowConfig(pipelined=True) through render_sequence_split,
+# and bench.py's `--scene interior` (BASELINE #4, the `all` rung) and
+# `--scene nanite` (BASELINE #3, the `off` rung; bench.py:84-95)
+RUNG = {"geo_shadow_atmo_split": "geo_shadow_atmo", "interior": "all",
+        "nanite": "off"}
+SPLIT = "geo_shadow_atmo_split"
 # the paths that trace BVH rays, and the granularity of each one's BVH
 # (`all` is bench.py's object BVH; the others are built as MeshletRenderer
 # builds them: from the path's own instance table, at its granularity)
-RAY_PATHS = {"all": "object", "all_ddgi": "meshlet", "all_exact": "triangle"}
+RAY_PATHS = {"all": "object", "all_ddgi": "meshlet", "all_exact": "triangle",
+             "interior": "object"}
 # rt.trace calls a frame: the probe rays and SSR's misses; DDGI's update
 # and SSR's misses; RTAO's 4 rays, the probe rays and SSR's misses
-TRACES_PER_FRAME = {"all": 2, "all_ddgi": 2, "all_exact": 6}
+TRACES_PER_FRAME = {"all": 2, "all_ddgi": 2, "all_exact": 6, "interior": 2}
 # the scene a path's scene is made from (PATHS order builds it first)
 SCENE_FROM = {"geo_shadow_atmo": "geo_tex", "geo_tex_bricks": "geo_tex",
               "all_no_rt": "geo_shadow_atmo", "all": "all_no_rt",
               "all_ddgi": "all_no_rt", "all_exact": "all_no_rt",
-              "geo_tex_native": "geo_tex", "off_no_occlusion": "off"}
+              "geo_tex_native": "geo_tex", "off_no_occlusion": "off",
+              SPLIT: "geo_shadow_atmo"}
 # the GI stages' torch.profiler spans (renderer/meshlet_frame.py), named as
 # chord_tpu's named_scopes
 GI_SPANS = ("gi.ao", "gi.probe.spawn", "gi.probe.sh_reproject",
@@ -299,8 +344,9 @@ def bench_scenes(dev, paths):
     `geo_shadow_atmo` and `geo_tex_bricks` reuse the textured build, the
     former with views carrying the host cascade fit and the LUTs
     (bench.py:236-256), `all_no_rt` those views with the env-BRDF LUT, and
-    `all` adds the scene BVH (scene_bvh); `flat` is flat_scene(). `paths`
-    in PATHS order, each after the path its scene comes from."""
+    `all` adds the scene BVH (scene_bvh); `flat` is flat_scene(),
+    `interior` and `nanite` baseline_scene(). `paths` in PATHS order, each
+    after the path its scene comes from."""
     import numpy as np
 
     from chord_tpu_torch.asset.procedural import build_bistro_like
@@ -336,9 +382,12 @@ def bench_scenes(dev, paths):
             log(f"scene {path}: the geo_shadow_atmo scene and views, with "
                 f"the env-BRDF LUT in {time.time() - t0:.2f} s")
             continue
-        if path in ("geo_tex_bricks", "off_no_occlusion"):
+        if path in ("geo_tex_bricks", "off_no_occlusion", SPLIT):
             scenes[path] = scenes[SCENE_FROM[path]]
             log(f"scene {path}: the {SCENE_FROM[path]} scene")
+            continue
+        if path in ("interior", "nanite"):
+            scenes[path] = baseline_scene(path, dev)
             continue
         if path == "geo_tex_native":
             pools, inst, _, blend_tex, _ = scenes[SCENE_FROM[path]]
@@ -386,27 +435,81 @@ def bench_scenes(dev, paths):
     return scenes
 
 
-def camera_views(w: int, h: int, dev, shadow_cfg=None, cam=None):
-    """bench.py's camera path (bench.py:112-131) at w x h -> [DeviceView]
-    (with the host cascade fit when `shadow_cfg`); `cam` ends at the
-    path's last position."""
+def place_camera(cam, scene: str, t: float) -> None:
+    """bench.py's camera path of `scene` at t in [0, 1] (bench.py:112-131):
+    the bistro fly-through, the interior walk toward the window, the
+    orbit around the Nanite field."""
     import numpy as np
 
+    if scene == "interior":
+        cam.position = np.array([-6.0 + 3.0 * t, 2.2, 3.6 - 1.5 * t])
+        cam.look_at(np.array([6.0, 1.2, -2.0]))
+    elif scene == "nanite":
+        ang = t * 1.5
+        cam.position = np.array([50.0 * np.cos(ang), 9.0,
+                                 50.0 * np.sin(ang)])
+        cam.look_at(np.array([0.0, 2.0, 0.0]))
+    else:
+        cam.position = np.array([-45.0 + 70.0 * t, 5.0, 4.0])
+        cam.look_at(np.array([55.0, 3.0, -4.0]))
+
+
+def camera_views(w: int, h: int, dev, shadow_cfg=None, cam=None,
+                 scene: str = "bistro"):
+    """bench.py's camera path of `scene` at w x h -> [DeviceView] (with
+    the host cascade fit when `shadow_cfg`); `cam` ends at the path's last
+    position."""
     from chord_tpu_torch.renderer import DeviceView
     from chord_tpu_torch.utils.camera import Camera
 
     cam = cam or Camera(width=w, height=h)
     views = []
     for i in range(FRAMES):
-        t = i / (FRAMES - 1)
-        cam.position = np.array([-45.0 + 70.0 * t, 5.0, 4.0])
-        cam.look_at(np.array([55.0, 3.0, -4.0]))
+        place_camera(cam, scene, i / (FRAMES - 1))
         views.append(DeviceView.from_uniform(cam.view_uniform(i), device=dev,
                                              shadow_cfg=shadow_cfg))
     return views
 
 
-def scene_bvh(b, pools, dev):
+def baseline_scene(path, dev):
+    """BASELINE #4 or #3 as bench.py builds it at detail 3 (bench.py:
+    84-95): `interior` is build_bistro_interior(detail=3) with the `all`
+    rung's views (host cascade fit, atmosphere LUTs, env-BRDF LUT) and
+    object BVH (scene_bvh); `nanite` is build_nanite_stress(rings=48),
+    100 instances of one ~9.2k-triangle sphere whose Nanite cut decides
+    what is drawn. Prints the build time, meshlets and pool bytes."""
+    from chord_tpu_torch.asset.procedural import (build_bistro_interior,
+                                                  build_nanite_stress)
+    from chord_tpu_torch.renderer import DeviceView
+    from chord_tpu_torch.rhi.meshlet_scene import build_meshlet_pools
+    from chord_tpu_torch.utils.camera import Camera
+
+    t0 = time.time()
+    b = (build_bistro_interior(detail=3) if path == "interior"
+         else build_nanite_stress(rings=48))
+    pools = build_meshlet_pools(b, nanite=True, device=dev)
+    n_src = sum(b.meshes[m].num_triangles for m, _, _ in b.instances)
+    pool_bytes = sum(_nbytes(v) for v in vars(pools).values())
+    mcfg = configs(path)[1]
+    cam = Camera(width=W, height=H)
+    views = camera_views(W, H, dev, mcfg.shadow_cfg if mcfg.shadows else None,
+                         cam, scene=path)
+    what = ("build_bistro_interior(detail=3)" if path == "interior"
+            else "build_nanite_stress(rings=48)")
+    log(f"scene {path}: {what}, {len(b.instances)} instances, {n_src} "
+        f"source tris, {pools.num_meshlets} meshlets, {pools.num_pairs} "
+        f"pairs, {len(b.materials)} materials, {pool_bytes} B of pools, built in "
+        f"{time.time() - t0:.2f} s (nanite on)")
+    bvh = None
+    if mcfg.gi:
+        lut = brdf_lut(dev)
+        views = [v.replace(brdf_lut=lut) for v in with_luts(views, dev)]
+        bvh = scene_bvh(b, pools, dev, path)
+    return (pools, b.frame_instances(cam, device=dev), DeviceView.stack(views),
+            False, bvh)
+
+
+def scene_bvh(b, pools, dev, path: str = "all"):
     """The `all` rung's BVH as bench.py:221-233 builds it: once, on the
     host, one sphere per valid instance (granularity "object") of
     b.frame_instances(cam) with the camera where bench.py builds it, before
@@ -423,7 +526,7 @@ def scene_bvh(b, pools, dev):
                              granularity="object")
     leaves = bvh.leaf_sphere.shape[0]
     route = "dense" if leaves <= rt.DENSE_LEAF_LIMIT else "BVH scan"
-    log(f"scene all: the all_no_rt scene and views, with the object BVH "
+    log(f"scene {path}: the object BVH "
         f"built by the {rt.build_scene_bvh.builder} builder in "
         f"{time.time() - t0:.2f} s: {leaves} leaves, "
         f"{bvh.node_sphere.shape[0]} nodes, rt.trace route {route} "
@@ -524,7 +627,15 @@ def configs(path: str, blend_textured: bool = False, shadow_cfg=None,
     `off_no_occlusion` is off without occlusion or pre-cull, with global
     TSR and HDR10; `all_ddgi` is `all` with gi_mode="ddgi" and
     DDGIConfig() over a meshlet BVH, `all_exact` is `all` over a triangle
-    BVH with GIConfig(ao_mode="rtao") and the probe march."""
+    BVH with GIConfig(ao_mode="rtao") and the probe march; a RUNG path is
+    its rung's (the split with ShadowConfig(pipelined=True))."""
+    if path in RUNG:
+        config, mcfg = configs(RUNG[path], blend_textured, shadow_cfg,
+                               shadow_draws)
+        if path == SPLIT:
+            mcfg = mcfg._replace(
+                shadow_cfg=mcfg.shadow_cfg._replace(pipelined=True))
+        return config, mcfg
     from chord_tpu_torch.ops.ddgi import DDGIConfig
     from chord_tpu_torch.ops.gi import GIConfig
     from chord_tpu_torch.ops.kernels import GI_PATHS
@@ -599,13 +710,15 @@ def run_path(path, scene, config, mcfg, hist, lo: int = 0,
              hi: Optional[int] = None):
     """Frames lo..hi-1 (default: all) of a path -> (images, history,
     per-frame stats), through the entry points a user calls:
-    render_sequence_meshlet (with the scene's BVH on the ray paths), or
-    DeferredRenderer.render frame by frame on `flat`. The r.raster.bricks
-    cvar holds for the run on `geo_tex_bricks` and is off otherwise."""
+    render_sequence_meshlet (with the scene's BVH on the ray paths),
+    render_sequence_split on the split, or DeferredRenderer.render frame
+    by frame on `flat`. The r.raster.bricks cvar holds for the run on
+    `geo_tex_bricks` and is off otherwise."""
     import torch
 
     from chord_tpu_torch.renderer import (DeferredRenderer,
-                                          render_sequence_meshlet)
+                                          render_sequence_meshlet,
+                                          render_sequence_split)
     from chord_tpu_torch.utils.cvar import cvars
 
     from chord_tpu_torch.ops.kernels import run_frames
@@ -614,10 +727,10 @@ def run_path(path, scene, config, mcfg, hist, lo: int = 0,
     hi = run_frames(path) if hi is None else hi
     with cvars.override("r.raster.bricks", path == "geo_tex_bricks"):
         if path != "flat":
-            return render_sequence_meshlet(pools, inst,
-                                           frames(views, lo, hi), hist,
-                                           config, mcfg, bvh=bvh,
-                                           with_stats=True)
+            run = (render_sequence_split if path == SPLIT
+                   else render_sequence_meshlet)
+            return run(pools, inst, frames(views, lo, hi), hist, config,
+                       mcfg, bvh=bvh, with_stats=True)
         r = DeferredRenderer(config)
         r.history = hist
         imgs, per = [], []
@@ -1447,18 +1560,21 @@ def main_path(path, scene, card: str,
         again = run_path(path, scene, config, mcfg, hist0)
         torch.cuda.synchronize()
         times.append((time.time() - t0) / n_frames * 1000.0)
-        if i == 0 and mcfg is not None and mcfg.gi:
+        if i == 0 and mcfg is not None and (mcfg.gi or path == SPLIT):
             # the world cache sums probes by scatter-add, DDGI relocates by
-            # argmin: same inputs, same state, run after run?
+            # argmin, the split's service runs as a dispatch of its own:
+            # same inputs, same state, run after run?
+            keep = (("gi_", "probe_", "ddgi.") if mcfg.gi else ()) + (
+                ("shadow_",) if path == SPLIT else ())
             a, b = history_leaves(again[1]), history_leaves(hist)
             diff = {f: float((a[f] - b[f]).abs().max()) for f in a
-                    if f.startswith(("gi_", "probe_", "ddgi."))}
+                    if f.startswith(keep)}
             same = bool(torch.equal(again[0], imgs))
             log(f"{path} run to run: images equal {same}, max |difference| "
-                f"of the GI history {json.dumps(diff)}")
+                f"of the history {json.dumps(diff)}")
             if not same or any(v != 0.0 for v in diff.values()):
                 raise AssertionError(f"{path}: a second run changed the "
-                                     "images or the GI history")
+                                     "images or the history")
         del again
     ms = statistics.median(times)
     log(f"{label} path: {ms:.3f} ms/frame median of {len(times)} runs "
@@ -1651,7 +1767,9 @@ def small_scene(path, d, mcfg, frames: int = 3):
     a BVH of its instances at the path's granularity on a ray path."""
     import numpy as np
 
-    from chord_tpu_torch.asset.procedural import (build_bistro_like,
+    from chord_tpu_torch.asset.procedural import (build_bistro_interior,
+                                                  build_bistro_like,
+                                                  build_nanite_stress,
                                                   build_sponza_like)
     from chord_tpu_torch.ops import rt
     from chord_tpu_torch.renderer import DeviceView
@@ -1662,14 +1780,19 @@ def small_scene(path, d, mcfg, frames: int = 3):
         return flat_scene(d, detail=1, w=128, h=64, frames=frames,
                           jitter=True)
     tex = path in TEXTURED_PATHS
-    b = (build_bistro_like(detail=1, textures=True) if tex
-         else build_sponza_like(detail=1))
+    if path == "interior":
+        b = build_bistro_interior(detail=1)
+    elif path == "nanite":
+        b = build_nanite_stress(spheres=9, rings=16)
+    elif tex:
+        b = build_bistro_like(detail=1, textures=True)
+    else:
+        b = build_sponza_like(detail=1)
     cam = Camera(width=128, height=64)
     vs = []
     for i in range(frames):
-        if tex:
-            cam.position = np.array([-45.0 + 70.0 * i / 15, 5.0, 4.0])
-            cam.look_at(np.array([55.0, 3.0, -4.0]))
+        if tex or path in ("interior", "nanite"):
+            place_camera(cam, "bistro" if tex else path, i / 15)
         else:
             cam.position = np.array([-15.0 + 0.5 * i, 4.0, 0.3 * i])
             cam.look_at(np.array([10.0, 2.0, 0.0]))
@@ -1682,7 +1805,8 @@ def small_scene(path, d, mcfg, frames: int = 3):
         lut = brdf_lut(d)
         vs = [v.replace(brdf_lut=lut) for v in vs]
     pools = build_meshlet_pools(
-        b, device=d, texture_pool=getattr(b, "texture_pool", None))
+        b, device=d, texture_pool=getattr(b, "texture_pool", None),
+        nanite=path in ("interior", "nanite"))
     inst = b.frame_instances(cam, device=d)
     bvh = (rt.build_scene_bvh(pools, inst, granularity=RAY_PATHS[path])
            if path in RAY_PATHS else None)
@@ -1952,6 +2076,140 @@ def debug_views(scene, dev, card: str) -> None:
                                  "differ")
 
 
+# --- the apps ---------------------------------------------------------------
+
+REPO = os.path.dirname(os.path.abspath(__file__))
+APP_DIR = os.path.join(REPO, "build", "apps")
+GLB = os.path.join(REPO, "assets", "demo_street.glb")
+# the GLB's instances (name, library key, translation), laid out by the
+# editor as nodes under one parent
+STREET = (("ground", "street.1", (0, 0, 0)), ("house_w", "street.0",
+          (-10, 5, -2)), ("house_e", "street.0", (9, 5, -3)),
+          ("col_a", "street.2", (-6, 0, 4.5)), ("col_b", "street.2",
+          (6, 0, 4.5)), ("tree_a", "street.3", (-8, 0, -5)), ("tree_b",
+          "street.3", (3, 0, -5)), ("ball", "street.4", (1.5, 1.2, 2)),
+          ("sign", "street.5", (-10, 10.8, 1.2)))
+
+
+def editor_script(chtp: str, full: str, png: str) -> str:
+    """The editor's --exec script: import the street GLB's meshes into the
+    library, build a scene of builtin props and save it (`chtp`: the
+    viewer's .chtp library is the builtin meshes, as chord_tpu's viewer),
+    add the street's meshes as nodes, render the viewport at PWxPH and
+    save the whole scene (`full`)."""
+    cmds = [f"import {GLB} street", "add root props", "sky root",
+            "add props floor", "mesh floor builtin.plane", "scale floor 30",
+            "add props slab", "mesh slab builtin.box", "move slab 4 0.5 3",
+            "add props orb",
+            "mesh orb builtin.sphere", "move orb -4 1 3", "add props post",
+            "mesh post builtin.cylinder", "move post 0 0 6",
+            "mat red 0.8 0.1 0.1", "set slab Mesh.material_key red",
+            f"save {chtp}", "add root street"]
+    for name, key, (x, y, z) in STREET:
+        cmds += [f"add street {name}", f"mesh {name} {key}",
+                 f"move {name} {x} {y} {z}"]
+    cmds += [f"render {png} {PW} {PH} 14 8 18", f"save {full}", "ls"]
+    return "; ".join(cmds)
+
+
+def app_run(name: str, fn):
+    """Run one app invocation with every launch count set to 0 before it
+    and every kernel call recorded, each frame's start marked (the
+    calls from MeshletRenderer._frame on) -> (fn's result, launches, the
+    last frame's calls)."""
+    import torch
+
+    from chord_tpu_torch.ops import kernels
+    from chord_tpu_torch.renderer.meshlet_frame import MeshletRenderer
+
+    orig = MeshletRenderer._frame
+    marks = []
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    with kernels.capture_inputs() as captured:
+        def marked(self, *args, **kwargs):
+            marks.append({k: len(v) for k, v in captured.items()})
+            return orig(self, *args, **kwargs)
+
+        MeshletRenderer._frame = marked
+        try:
+            out = fn()
+        finally:
+            MeshletRenderer._frame = orig
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    last = {k: v[marks[-1][k]:] for k, v in captured.items()}
+    log(f"{name}: {len(marks)} frames, launches "
+        f"{ {k: n for k, n in launches.items() if n} }")
+    want = kernels.EXPECTED_LAUNCHES[name]
+    if {k: n for k, n in launches.items() if n} != want:
+        raise AssertionError(f"{name} launched {launches}, expected {want}")
+    return out, launches, last, len(marks)
+
+
+def check_png(path: str) -> None:
+    import numpy as np
+
+    img = read_png(path).astype(np.float32)
+    if float(img.std()) < 1.0:
+        raise AssertionError(f"{path} is constant")
+
+
+def apps_phase(dev, card: str):
+    """Phase 11: the port's editor in --exec mode imports the street GLB,
+    builds and saves a .chtp, renders the street at PWxPH; the viewer
+    renders the GLB (textured, masked leaves) and the saved .chtp, 4
+    frames each at PWxPH with --shadows --atmosphere, on the card. Each
+    run launches the kernels kernels.EXPECTED_LAUNCHES lists and no
+    other, overflows nothing, writes non-constant PNGs, and its last
+    frame's kernel calls equal their plain versions (tolerance 0, timed
+    as phase 4 times them) -> ({app: kernel rows}, summary)."""
+    import shutil
+
+    from chord_tpu_torch.apps import editor, viewer
+
+    shutil.rmtree(APP_DIR, ignore_errors=True)
+    os.makedirs(APP_DIR)
+    chtp = os.path.join(APP_DIR, "props.chtp")
+    png = os.path.join(APP_DIR, "editor.png")
+    lines = []
+    ed = editor.Editor(device=dev)
+    ed.out = lines.append
+    t0 = time.time()
+    _, launches, last, n = app_run("editor", lambda: editor.run_script(
+        ed, editor_script(chtp, os.path.join(APP_DIR, "street.chtp"), png)))
+    secs = {"editor": time.time() - t0}
+    errors = [ln for ln in lines if ln.startswith("error")]
+    log(f"editor on {card}: {len(lines)} lines of output in "
+        f"{secs['editor']:.2f} s, last: {lines[-12:]}")
+    if errors or int(ed.last_stats["bin_overflow"]) != 0:
+        raise AssertionError(f"editor: {errors}, bin_overflow "
+                             f"{int(ed.last_stats['bin_overflow'])}")
+    check_png(png)
+    rows = {"editor": (compare_kernels("editor", last, "the render"),
+                       launches)}
+    for app, scene in (("viewer_glb", GLB), ("viewer_chtp", chtp)):
+        out = os.path.join(APP_DIR, app)
+        args = viewer.parse_args(["--scene", scene, "--width", str(PW),
+                                  "--height", str(PH), "--frames", "4",
+                                  "--shadows", "--atmosphere", "--out", out])
+        t0 = time.time()
+        res, launches, last, n = app_run(app, lambda: viewer.run(args))
+        secs[app] = time.time() - t0
+        over = [int(st["bin_overflow"]) for st in res["stats"]]
+        drawn = [int(st["drawn_tris"]) for st in res["stats"]]
+        log(f"{app} on {card}: {n} frames (4 presented) in "
+            f"{secs[app]:.2f} s, drawn_tris {drawn}, bin_overflow {over}, "
+            f"textured {res['renderer'].mcfg.textured}, masked "
+            f"{[int(st.get('draws_masked', 0)) for st in res['stats']]}")
+        if any(over) or min(drawn) <= 0:
+            raise AssertionError(f"{app}: bin_overflow {over}, drawn {drawn}")
+        for i in range(4):
+            check_png(os.path.join(out, f"frame_{i:04d}.png"))
+        rows[app] = (compare_kernels(app, last, f"frame {n - 1}"), launches)
+    return rows, {"seconds": secs}
+
+
 def ptxas_lines(sources=("pcss.cu", "proto_paged_tex.cu")) -> None:
     """Registers, shared memory and spills of each kernel function of the
     sources, as ptxas reported them when the library was built."""
@@ -2027,10 +2285,11 @@ def main() -> int:
     floor_ms = launch_floor(smi)
 
     scenes = bench_scenes(dev, PATHS)
-    rows, ms_per_frame = [], {}
+    rows, ms_per_frame, path_launches = [], {}, {}
     for p in PATHS:
         krows = check_kernels(p, scenes[p])
         launches, ms_per_frame[p] = main_path(p, scenes[p], smi)
+        path_launches[p] = launches
         if p == "geo_shadow_atmo":
             ms_per_frame[f"{p} shadow_draw_capacity {FULL_SHADOW_DRAWS}"] = \
                 main_path(p, scenes[p], smi, FULL_SHADOW_DRAWS)[1]
@@ -2039,6 +2298,11 @@ def main() -> int:
         rows += list(krows.values())
         if "--profile" in sys.argv[1:]:
             profile(p, scenes[p])
+    # the split launches what the inline path launches: the service
+    # refreshes one cascade and evaluates PCSS once a frame
+    if path_launches[SPLIT] != path_launches["geo_shadow_atmo"]:
+        raise AssertionError(f"{SPLIT} launched {path_launches[SPLIT]}, the "
+                             f"inline path {path_launches['geo_shadow_atmo']}")
     tool_phase = {"repro_eval": lambda: repro_eval_path(dev, smi),
                   "proto_paged_tex": lambda: proto_paged_tex_path(smi)}
     tools = {}
@@ -2051,8 +2315,14 @@ def main() -> int:
         small_cross_check("off", dev, tsr)
     golden = goldens(dev, smi)
     debug_views(scenes["all"], dev, smi)
+    del scenes
+    app_rows, apps = apps_phase(dev, smi)
+    for krows, launches in app_rows.values():
+        for name, r in krows.items():
+            r["launches"] = launches[name]
+        rows += list(krows.values())
     log(f"chip_smoke: all phases passed in {time.time() - t_start:.1f} s")
-    print(json.dumps({"tools": tools, "goldens": golden}))
+    print(json.dumps({"tools": tools, "goldens": golden, "apps": apps}))
 
     order = ("name", "path", "route", "source", "replaces", "launches",
              "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",

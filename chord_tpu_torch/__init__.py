@@ -14,9 +14,13 @@ maps from the paged texture pool, the alpha-masked and blend buckets),
 `geo_shadow_atmo` (cascaded shadow maps with PCSS and a temporal mask,
 the physically based sky and aerial perspective) and `all` (screen-probe
 GI with BVH rays over bounding-sphere proxies, SSAO, SSR and the specular
-chain), with every other branch of that frame but the pipelined shadow
-split (among them DDGI, triangle-exact BVH leaves, RTAO and the probe
-march); the flat DeferredRenderer frame; two of chord_tpu's tools.
+chain), with every other branch of that frame (among them the pipelined
+shadow split, DDGI, triangle-exact BVH leaves, RTAO and the probe march);
+the flat DeferredRenderer frame; the host layers a user brings a scene
+through (glTF / PMX import, the .chtp asset container and manager, the
+scene graph and SceneSubsystem); the viewer and the editor
+(`python -m chord_tpu_torch.apps.viewer`, `... .apps.editor`); two of
+chord_tpu's tools.
 
 Every Pallas kernel on those paths is a hand-written CUDA kernel for sm_90a
 (`csrc/`, built with nvcc at first use into `build/` and loaded with
@@ -25,15 +29,19 @@ same function: a tensor on the CPU takes the plain version, a CUDA tensor
 launches the kernel.
 
 Layout (mirrors chord_tpu):
-    utils/     cvars, logging, math, camera, span allocator
+    utils/     cvars, logging (taps, file sink), events, timers, math,
+               camera, span allocator
     native/    ctypes binding to the shared native/ C++ library
     geometry/  meshlet clustering (host)
     rhi/       scene builder, meshlet pools, frame history
-    asset/     procedural benchmark scenes, texture pool
+    asset/     procedural benchmark scenes, texture pool, glTF and PMX
+               importers, the .chtp container, the asset manager
+    scene/     scene graph, components, SceneSubsystem
     ops/       cull, hzb, mesh shader, raster, row gather, textures,
                shading, shadows + PCSS, atmosphere, GI, BVH rays, post
     renderer/  the meshlet frame, the flat frame, the sequence runner,
                MeshletRenderer
+    apps/      the headless viewer and the scene editor
     tools/     the paged-texture prototype (kernel K10) and the shadow
                evaluate fault bisection (kernel K9)
     interop.py numpy state from chord_tpu -> this package's tensors

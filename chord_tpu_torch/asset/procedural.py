@@ -5,7 +5,9 @@ The reference demos on Sponza and Bistro, which are not redistributable,
 so the benchmark runs on procedural stand-ins with matched scale:
 `build_sponza_like` (an atrium, a few hundred objects) and
 `build_bistro_like` (a street at Bistro scale, 2.6M+ source triangles with
-`target_tris`). The builders are copies of chord_tpu's and draw from
+`target_tris`), `build_bistro_interior` (BASELINE #4, an enclosed room lit
+through one window) and `build_nanite_stress` (BASELINE #3, a field of one
+high-resolution sphere). The builders are copies of chord_tpu's and draw from
 `numpy.random.default_rng(seed)` in the same order, so both packages build
 identical scenes from one seed. `build_bistro_like(textures=True)` adds the
 bench texture pool (`bench_texture_pool`, on `builder.texture_pool`),
@@ -393,4 +395,96 @@ def build_bistro_like(seed: int = 11, detail: int = 3,
                   (rng.uniform(-55, 55), rng.uniform(1, 10),
                    rng.uniform(-25, 25)), s)
             deficit -= b.meshes[ball_hi].num_triangles
+    return b
+
+def build_bistro_interior(seed: int = 5, detail: int = 2) -> SceneBuilder:
+    """Indoor GI scene (BASELINE config #4: "Bistro indoor with
+    screen-probe diffuse GI"): an enclosed room lit only through a
+    window opening — most of the room sees NO direct sun, so visible
+    light there is the GI path's bounce (world cache + screen probes).
+    Strongly colored side walls make the bounce tint measurable
+    (Cornell-box style color bleeding)."""
+    rng = np.random.default_rng(seed)
+    b = SceneBuilder()
+    plane = b.add_mesh(make_plane(1.0, segments=6 * detail))
+    box = b.add_mesh(make_box())
+    sphere = b.add_mesh(make_uv_sphere(1.0, rings=8 * detail,
+                                       sectors=12 * detail))
+    column = b.add_mesh(make_cylinder(0.3, 4.0, sectors=10 * detail))
+
+    plaster = b.add_material(MaterialData(base_color=(0.82, 0.80, 0.75, 1.0),
+                                          roughness=0.9))
+    wood = b.add_material(MaterialData(base_color=(0.45, 0.30, 0.18, 1.0),
+                                       roughness=0.7))
+    red = b.add_material(MaterialData(base_color=(0.70, 0.08, 0.06, 1.0),
+                                      roughness=0.9))
+    green = b.add_material(MaterialData(base_color=(0.08, 0.55, 0.10, 1.0),
+                                        roughness=0.9))
+    brass = b.add_material(MaterialData(base_color=(0.85, 0.65, 0.25, 1.0),
+                                        roughness=0.35, metallic=1.0))
+
+    def place(mesh, mat, t, s=(1, 1, 1), yaw=0.0):
+        m = cmath.compose_trs(t, rotation_quat=(0, np.sin(yaw / 2), 0,
+                                                np.cos(yaw / 2)), scale=s)
+        b.add_instance(mesh, mat, m)
+
+    # room shell: 16 x 5 x 10 (x, y, z), open along +x where the window
+    # wall has a large opening for the sun shaft
+    place(plane, wood, (0, 0, 0), (16, 1, 10))             # floor
+    place(box, plaster, (0, 5.15, 0), (16, 0.3, 10))       # ceiling
+    place(box, red, (0, 2.5, -5.15), (16, 5, 0.3))         # back wall
+    place(box, green, (-8.15, 2.5, 0), (0.3, 5, 10))       # left wall
+    place(box, plaster, (0, 2.5, 5.15), (16, 5, 0.3))      # front wall
+    # window wall (+x): sill, header and two piers leaving a 4x2.6 opening
+    place(box, plaster, (8.15, 0.6, 0), (0.3, 1.2, 10))    # sill
+    place(box, plaster, (8.15, 4.4, 0), (0.3, 1.2, 10))    # header
+    place(box, plaster, (8.15, 2.5, -3.6), (0.3, 5, 2.8))  # pier -z
+    place(box, plaster, (8.15, 2.5, 3.6), (0.3, 5, 2.8))   # pier +z
+
+    # furniture: tables, columns, props
+    for i in range(3):
+        x = -5.0 + i * 4.0
+        place(box, wood, (x, 0.9, -1.5), (1.6, 0.12, 1.0))    # table top
+        place(box, wood, (x, 0.45, -1.5), (0.15, 0.9, 0.15))  # leg
+        place(sphere, brass, (x, 1.2, -1.5), (0.25, 0.25, 0.25))
+    for zs in (-3.5, 3.5):
+        place(column, plaster, (-6.5, 2.0, zs))
+    for _ in range(10 * detail):
+        place(sphere, _mat(b, rng),
+              (rng.uniform(-7, 7), 0.3, rng.uniform(-4, 4)),
+              (0.25, 0.25, 0.25))
+    return b
+
+
+def build_nanite_stress(seed: int = 3, spheres: int = 100,
+                        rings: int = 64) -> SceneBuilder:
+    """Nanite stress scene (BASELINE config #3: cluster-LOD selection +
+    software raster under fly-through): a field of high-resolution
+    spheres — ~2*rings^2 source triangles each, one shared mesh whose
+    full LOD DAG the runtime cut selects per instance by screen size.
+    Source triangle count scales ~spheres * 2 * rings^2 (100 spheres at
+    rings=64 ≈ 1.6M) while DRAWN triangles stay roughly constant."""
+    rng = np.random.default_rng(seed)
+    b = SceneBuilder()
+    sph = b.add_mesh(make_uv_sphere(1.0, rings=rings, sectors=2 * rings))
+    floor = b.add_mesh(make_plane(1.0, segments=8))
+    stone = b.add_material(MaterialData(base_color=(0.7, 0.68, 0.62, 1.0),
+                                        roughness=0.9))
+    mats = [b.add_material(MaterialData(
+        base_color=(float(c[0]), float(c[1]), float(c[2]), 1.0),
+        roughness=float(r), metallic=float(m)))
+        for c, r, m in zip(rng.uniform(0.2, 0.9, (8, 3)),
+                           rng.uniform(0.2, 0.9, 8),
+                           rng.uniform(0.0, 0.8, 8))]
+    m = cmath.compose_trs((0, 0, 0), scale=(120, 1, 120))
+    b.add_instance(floor, stone, m)
+    side = int(np.ceil(np.sqrt(spheres)))
+    for i in range(spheres):
+        gx, gz = i % side, i // side
+        t = (gx * 6.0 - side * 3.0 + rng.uniform(-1, 1),
+             1.0 + rng.uniform(0.0, 2.5),
+             gz * 6.0 - side * 3.0 + rng.uniform(-1, 1))
+        s = rng.uniform(0.6, 1.8)
+        b.add_instance(sph, mats[i % len(mats)],
+                       cmath.compose_trs(t, scale=(s, s, s)))
     return b

@@ -4,7 +4,7 @@ One entry per kernel: the module, the wrapper that launches the CUDA
 kernel (and counts its launches in `wrapper.launches`), the plain PyTorch
 version with the same signature, the CUDA source, the chord_tpu Pallas
 kernel it replaces and the paths (`paths`) that launch it: a frame path
-of PATHS or a tool path of TOOL_PATHS.
+of PATHS, a tool path of TOOL_PATHS or an app run of APP_PATHS.
 `capture_inputs` records the arguments each wrapper receives while a frame
 runs, so a check can hold kernel and plain version against each other on
 a path's own inputs and shapes.
@@ -27,19 +27,27 @@ from . import (fusion_barrier, mesh_shader, paged_texture, proto_paged_tex,
 # RTAO and the probe march (`all_exact`), `geo_tex` with the
 # r.raster.bricks cvar set, the flat DeferredRenderer frame with
 # RendererConfig(subtiles=True), `geo_tex` rendered natively at the post
-# size with gather TSR and the masked depth peel (`geo_tex_native`), and
+# size with gather TSR and the masked depth peel (`geo_tex_native`),
 # `off` without occlusion or pre-cull, with global TSR and the HDR10
-# output (`off_no_occlusion`)
+# output (`off_no_occlusion`), `geo_shadow_atmo` with the pipelined
+# shadow split (`geo_shadow_atmo_split`), and BASELINE configs #4 and #3
+# as bench.py's `--scene interior` (the `all` rung) and `--scene nanite`
+# (the `off` rung)
 PATHS = ("off", "geo_tex", "geo_shadow_atmo", "geo_tex_bricks", "flat",
          "all_no_rt", "all", "all_ddgi", "all_exact", "geo_tex_native",
-         "off_no_occlusion")
-MESHLET = ("off", "geo_tex", "geo_shadow_atmo", "geo_tex_bricks",
-           "all_no_rt", "all", "all_ddgi", "all_exact", "geo_tex_native",
-           "off_no_occlusion")
-GI_PATHS = ("all_no_rt", "all", "all_ddgi", "all_exact")
+         "off_no_occlusion", "geo_shadow_atmo_split", "interior", "nanite")
+MESHLET = tuple(p for p in PATHS if p != "flat")
+GI_PATHS = ("all_no_rt", "all", "all_ddgi", "all_exact", "interior")
+SHADOW = ("geo_shadow_atmo", "geo_shadow_atmo_split") + GI_PATHS
 # the meshlet paths whose TSR runs in tile mode (K4)
 TILE_TSR = ("off", "geo_tex", "geo_shadow_atmo", "geo_tex_bricks",
-            "all_no_rt", "all", "all_ddgi", "all_exact")
+            "all_no_rt", "all", "all_ddgi", "all_exact",
+            "geo_shadow_atmo_split", "interior", "nanite")
+# the apps' runs: the editor's `render` of an imported street at 1920x1080
+# (no TSR, no occlusion), and the viewer with --shadows --atmosphere on
+# assets/demo_street.glb (textured, masked leaves; gather TSR) and on a
+# .chtp scene the editor saved (builtin meshes, untextured)
+APP_PATHS = ("editor", "viewer_glb", "viewer_chtp")
 # frames in a path's run: 16, but 4 on `all_exact`, whose six traces a
 # frame take the lock-step BVH scan (seconds a frame on the card)
 RUN_FRAMES = {"all_exact": 4}
@@ -71,6 +79,23 @@ EXPECTED_LAUNCHES = {
     "all_exact": {"tile_reproject": 8, "paged_texture": 10, "pcss": 4},
     "geo_tex_native": {"raster": 80, "paged_texture": 48},
     "off_no_occlusion": {"raster": 16},
+    # the split runs the inline path's kernels: the service refreshes one
+    # cascade and evaluates PCSS once a frame (interior: no texture pool,
+    # but the textured rung's resolve, masked test and masked casters
+    # sample the empty one)
+    "geo_shadow_atmo_split": {"tile_reproject": 16, "paged_texture": 40,
+                              "pcss": 16},
+    "interior": {"tile_reproject": 32, "paged_texture": 40, "pcss": 16},
+    "nanite": {"tile_reproject": 16},
+    # every kernel call of a run: the editor renders one frame; the viewer
+    # 4 frames after 3 cascade warm-up frames (K5: the resolve and the
+    # masked test a frame, the masked casters of the 4 frames refreshing
+    # cascade 0 or 1)
+    "editor": {"raster": 1, "mesh_shader": 1, "row_gather": 2},
+    "viewer_glb": {"raster": 32, "mesh_shader": 32, "row_gather": 25,
+                   "paged_texture": 18, "pcss": 7},
+    "viewer_chtp": {"raster": 21, "mesh_shader": 21, "row_gather": 14,
+                    "pcss": 7},
 }
 # the port's tools: every variant of tools/repro_eval_kernel.py, and
 # tools/proto_paged_tex.py's main at its own size
@@ -85,7 +110,7 @@ class Kernel:
     plain: Callable
     source: str
     replaces: str
-    paths: Tuple[str, ...] = MESHLET
+    paths: Tuple[str, ...] = MESHLET + APP_PATHS
 
     def fn(self) -> Callable:
         return getattr(self.module, self.wrapper)
@@ -94,8 +119,8 @@ class Kernel:
 KERNELS: List[Kernel] = [
     Kernel("raster", raster, "raster_tiles", raster.raster_tiles_plain,
            "chord_tpu_torch/csrc/raster.cu", "chord_tpu/ops/raster.py:488",
-           paths=("off", "geo_tex", "geo_shadow_atmo") + GI_PATHS +
-           ("geo_tex_native", "off_no_occlusion")),
+           paths=tuple(p for p in MESHLET if p != "geo_tex_bricks") +
+           APP_PATHS),
     Kernel("mesh_shader", mesh_shader, "mesh_shader",
            mesh_shader.mesh_shader_plain,
            "chord_tpu_torch/csrc/mesh_shader.cu",
@@ -112,12 +137,12 @@ KERNELS: List[Kernel] = [
            paged_texture.paged_sample_plain,
            "chord_tpu_torch/csrc/paged_texture.cu",
            "chord_tpu/ops/paged_texture.py:251",
-           paths=("geo_tex", "geo_shadow_atmo", "geo_tex_bricks") +
-           GI_PATHS + ("geo_tex_native",)),
+           paths=("geo_tex", "geo_tex_bricks", "geo_tex_native",
+                  "viewer_glb") + SHADOW),
     Kernel("pcss", shadow_kernel, "pcss", shadow.pcss_plain,
            "chord_tpu_torch/csrc/pcss.cu",
            "chord_tpu/ops/shadow_kernel.py:145",
-           paths=("geo_shadow_atmo",) + GI_PATHS),
+           paths=SHADOW + ("viewer_glb", "viewer_chtp")),
     Kernel("raster_bricks", raster, "raster_bricks",
            raster.raster_bricks_plain,
            "chord_tpu_torch/csrc/raster_bricks.cu",

@@ -1,9 +1,11 @@
 """The GPU-driven meshlet frame (port of chord_tpu/renderer/meshlet_frame.py:
-every branch of chord_tpu's frame but the pipelined shadow split).
-That is geometry with or without two-phase HZB occlusion and the object
-pre-cull; material maps, the alpha-masked bucket (one layer, or two with
-the masked depth peel) and the blend bucket; cascaded shadow maps with
-PCSS and the temporal shadow mask, the physically based sky and aerial
+every branch of chord_tpu's frame). That is geometry with or without
+two-phase HZB occlusion and the object pre-cull; material maps, the
+alpha-masked bucket (one layer, or two with the masked depth peel) and
+the blend bucket; cascaded shadow maps with
+PCSS and the temporal shadow mask (inline, or pipelined: the frame exports
+the PCSS inputs and shadow_service_step refreshes the cascade, evaluates
+and blends after it, one frame late), the physically based sky and aerial
 perspective; screen-probe GI (its samples from the neighbour taps or the
 probe march), DDGI probe volumes or the world-cache GI, SSAO or RTAO, the
 specular chain and SSR, and with gi_rt the BVH rays (probe rays beside
@@ -40,8 +42,7 @@ alpha_masked the occlusion phases take the opaque bucket only. The GI
 stages run inside torch.profiler.record_function spans named as
 chord_tpu's named_scopes.
 
-The flags outside the port raise NotImplementedError naming the flag
-(check_slice). RendererConfig.subtiles is read only by the flat frame's
+RendererConfig.subtiles is read only by the flat frame's
 rasterize() and is ignored here, as in chord_tpu. The r.raster.bricks cvar
 switches every main-view raster (both phases, the masked bucket and its
 peel, the blend bucket) from K1 to K7; the shadow cascades build their
@@ -88,7 +89,7 @@ from .deferred import DeviceView, RendererConfig
 
 class MeshletFrameConfig(NamedTuple):
     """chord_tpu MeshletFrameConfig's fields, with its defaults. The port
-    runs every flag but ShadowConfig(pipelined=True)."""
+    runs every flag."""
 
     draw_capacity: int = 4096
     occlusion: bool = True
@@ -141,13 +142,8 @@ class MeshletFrameConfig(NamedTuple):
 
 
 def check_slice(config: RendererConfig, mcfg: MeshletFrameConfig) -> None:
-    """Raise NotImplementedError for a flag outside the ported slice: the
-    pipelined shadow split. ssr=True without gi is a no-op, as in
-    chord_tpu, and so is gi_rt."""
-    if mcfg.shadows and mcfg.shadow_cfg.pipelined:
-        raise NotImplementedError(
-            "ShadowConfig.pipelined=True (chord_tpu's split shadow dispatch) "
-            "is not ported; None or False run the shadows inline")
+    """Every flag of chord_tpu's frame is ported: nothing is refused.
+    ssr=True without gi is a no-op, as in chord_tpu, and so is gi_rt."""
 
 
 def pixel_view_dirs(h: int, w: int, clip_to_tw: torch.Tensor) -> torch.Tensor:
@@ -358,12 +354,11 @@ def _blend_shadow_mask(mask_q, phase_mask, pos_q, prev_mask, hist_valid,
     return mask_q + (prev - mask_q) * alpha
 
 
-def _render_shadows(pools, instances, view, history, rc, mcfg, gbuf, disocc,
-                    fc: int, h: int, w: int, stats: dict):
-    """The shadow block (chord_tpu meshlet_frame.py:699-823): refresh
-    cascade fc % N, evaluate PCSS on this frame's phase of the eval grid,
-    blend the temporal mask, upsample -> (sun_shadow (H,W), new mask,
-    new cascade maps, their matrices); the refresh's overflows go to
+def _refresh_cascade(pools, instances, view, history, rc, mcfg, fc: int,
+                     stats: Optional[dict]):
+    """shadow.cascade_fit -> shadow.render: refresh cascade fc % N of the
+    cached cascades (fit, scrolled raster with the periodic full refresh)
+    -> (cascade maps, their matrices); the refresh's overflows go to
     `stats`."""
     scfg = mcfg.shadow_cfg
     n_casc, r = scfg.cascade_count, scfg.resolution
@@ -389,36 +384,117 @@ def _render_shadows(pools, instances, view, history, rc, mcfg, gbuf, disocc,
     maps[k] = new_map
     mats = history.shadow_mats.clone()
     mats[k] = fit_mats[k]
+    return maps, mats
 
-    # phase-amortized PCSS: 1/ph^2 of the eval grid per frame, rotating
+
+def _eval_inputs(gbuf, disocc, scfg: ShadowConfig, fc: int) -> dict:
+    """The PCSS's inputs at eval res (1/eval_res_div): this frame's phase
+    of the grid (pos_e, nrm_e; phase-amortized PCSS evaluates 1/ph^2 of it
+    a frame, rotating) and the temporal blend's (pos_q, valid_q,
+    disocc_q) -> chord_tpu's `shadow_split` dict, with the host's frame
+    counter as `fc`."""
     kdiv = scfg.eval_res_div
     pos_q = post.decimate(gbuf.position_tw, kdiv)
-    he, we = pos_q.shape[:2]
-    ph = scfg.temporal_phase if scfg.temporal else 1
     nrm_q = post.decimate(gbuf.normal, kdiv)
+    ph = scfg.temporal_phase if scfg.temporal else 1
     if ph > 1:
         py_, px_ = divmod(fc % (ph * ph), ph)
         pos_e = post.decimate(torch.roll(pos_q, (-py_, -px_), (0, 1)), ph)
         nrm_e = post.decimate(torch.roll(nrm_q, (-py_, -px_), (0, 1)), ph)
     else:
         pos_e, nrm_e = pos_q, nrm_q
+    return {"pos_e": pos_e, "nrm_e": nrm_e, "pos_q": pos_q,
+            "valid_q": post.decimate(gbuf.valid, kdiv),
+            "disocc_q": post.decimate(disocc, kdiv), "fc": fc}
+
+
+def _evaluate_blend(sp: dict, view, history, maps, mats, scfg: ShadowConfig):
+    """shadow.evaluate -> shadow.temporal: PCSS (K6) on the eval inputs
+    `sp` against the cascades, expanded to eval res at the frame's phase
+    and blended with the reprojected mask -> (PCSS q, mask)."""
+    pos_e = sp["pos_e"]
     noise = None
     if scfg.jitter:
         noise = interleaved_gradient_noise(pos_e.shape[0], pos_e.shape[1],
-                                           history.frame_count)
-    q = evaluate_shadow_auto(pos_e, nrm_e, view.sun_direction, maps, mats,
-                             scfg, noise=noise)
-    mask, phase_mask = _phase_expand(q, fc, ph, he, we)
+                                           sp["fc"], device=pos_e.device)
+    q = evaluate_shadow_auto(pos_e, sp["nrm_e"], view.sun_direction, maps,
+                             mats, scfg, noise=noise)
+    ph = scfg.temporal_phase if scfg.temporal else 1
+    he, we = sp["pos_q"].shape[:2]
+    mask, phase_mask = _phase_expand(q, sp["fc"], ph, he, we)
     if scfg.temporal:
         mask = _blend_shadow_mask(
-            mask, phase_mask, pos_q, history.shadow_mask, history.valid,
-            post.decimate(gbuf.valid, kdiv), post.decimate(disocc, kdiv),
+            mask, phase_mask, sp["pos_q"], history.shadow_mask,
+            history.valid, sp["valid_q"], sp["disocc_q"],
             view.prev_tw_to_clip_nj, scfg.temporal_alpha)
+    return q, mask
+
+
+def _upsample_shadow(mask, kdiv: int, h: int, w: int) -> torch.Tensor:
+    """shadow.upsample: the eval-res mask at full res, 5-tap smoothed (it
+    hides the upsample blocks)."""
     s = post.upsample_nearest(mask, kdiv, h, w)
-    # 5-tap smoothing hides the upsample blocks
-    s = (s + torch.roll(s, 1, 0) + torch.roll(s, -1, 0) +
-         torch.roll(s, 1, 1) + torch.roll(s, -1, 1)) * 0.2
-    return s, mask, maps, mats
+    return (s + torch.roll(s, 1, 0) + torch.roll(s, -1, 0) +
+            torch.roll(s, 1, 1) + torch.roll(s, -1, 1)) * 0.2
+
+
+def _render_shadows(pools, instances, view, history, rc, mcfg, gbuf, disocc,
+                    fc: int, h: int, w: int, stats: dict):
+    """The inline shadow block (chord_tpu meshlet_frame.py:699-823):
+    refresh cascade fc % N, evaluate PCSS on this frame's phase of the
+    eval grid, blend the temporal mask, upsample -> (sun_shadow (H,W), new
+    mask, new cascade maps, their matrices); the refresh's overflows go to
+    `stats`."""
+    scfg = mcfg.shadow_cfg
+    maps, mats = _refresh_cascade(pools, instances, view, history, rc, mcfg,
+                                  fc, stats)
+    sp = _eval_inputs(gbuf, disocc, scfg, fc)
+    _, mask = _evaluate_blend(sp, view, history, maps, mats, scfg)
+    return (_upsample_shadow(mask, scfg.eval_res_div, h, w), mask, maps,
+            mats)
+
+
+def shadow_pipelined(scfg: ShadowConfig, device) -> bool:
+    """Resolve ShadowConfig.pipelined (None = auto) as chord_tpu does
+    (meshlet_frame.py:1189-1206), with `device` (the frame's tensors')
+    in place of jax.default_backend(): auto splits only where the PCSS is
+    told to skip its kernel (eval_kernel=False) off the CPU, which
+    evaluate_shadow_auto refuses on the card; so auto is inline here and
+    there, and pipelined=True runs the split on either device."""
+    pipe = scfg.pipelined
+    if pipe is None:
+        on_card = torch.device(device).type != "cpu"
+        ek = on_card if scfg.eval_kernel is None else scfg.eval_kernel
+        pipe = (not ek) and on_card
+    return bool(pipe)
+
+
+def shadow_service_step(pools, instances, view: DeviceView,
+                        history: FrameHistory, sp: dict, *,
+                        config: RendererConfig, mcfg: "MeshletFrameConfig",
+                        stats: Optional[dict] = None):
+    """The split shadow dispatch (chord_tpu meshlet_frame.py:1299-1386),
+    run after the frame that exported `sp` (its stats["shadow_split"]:
+    pos_e, nrm_e, pos_q, valid_q, disocc_q and `fc`, the frame's host
+    frame counter) on that frame's view and the history it returned:
+    cascade fit (to that frame's depth range), the round-robin refresh of
+    cascade fc % N with scroll and scroll_refresh_n (scroll off under
+    rt_dynamic), PCSS (K6), the phase expand and the temporal blend. Its
+    outputs re-enter the next frame through history.{shadow_maps,
+    shadow_mats, shadow_mask}. `stats`, when given, receives the
+    refresh's overflows (shadow_draw_overflow, shadow_masked_overflow,
+    shadow_bin_overflow). -> (shadow_maps (N,R,R), shadow_mats (N,4,4),
+    q (He/ph, We/ph), mask (He, We))."""
+    if mcfg.rt_dynamic and mcfg.shadow_cfg.scroll:
+        # dynamic casters invalidate scrolled strips
+        mcfg = mcfg._replace(
+            shadow_cfg=mcfg.shadow_cfg._replace(scroll=False))
+    maps, mats = _refresh_cascade(pools, instances, view, history,
+                                  config.raster_config(), mcfg, sp["fc"],
+                                  stats)
+    q, mask = _evaluate_blend(sp, view, history, maps, mats,
+                              mcfg.shadow_cfg)
+    return maps, mats, q, mask
 
 
 def _atmosphere(view: DeviceView, h: int, w: int):
@@ -907,7 +983,15 @@ def render_frame_meshlet(pools, instances, view: DeviceView,
     sun_shadow = None
     new_shadow = (history.shadow_mask, history.shadow_maps,
                   history.shadow_mats)
-    if mcfg.shadows:
+    if mcfg.shadows and shadow_pipelined(mcfg.shadow_cfg, depth.device):
+        # the split: export the PCSS's and the blend's inputs for
+        # shadow_service_step and light with the mask it made last frame;
+        # no cascade raster, PCSS or blend in the frame
+        stats["shadow_split"] = _eval_inputs(gbuf, disocc, mcfg.shadow_cfg,
+                                             frame_index)
+        sun_shadow = _upsample_shadow(history.shadow_mask,
+                                      mcfg.shadow_cfg.eval_res_div, h, w)
+    elif mcfg.shadows:
         sun_shadow, *new_shadow = _render_shadows(
             pools, instances, view, history, rc, mcfg, gbuf, disocc,
             frame_index, h, w, stats)
@@ -1023,6 +1107,47 @@ SEQUENCE_STATS = ("drawn_tris", "bin_overflow", "draw_overflow",
                   "shadow_masked_overflow", "shadow_bin_overflow")
 
 
+def resolve_split(stats: dict, pools, instances, view: DeviceView,
+                  history: FrameHistory, config: RendererConfig,
+                  mcfg: MeshletFrameConfig) -> FrameHistory:
+    """After a frame: when it exported a shadow split (pipelined shadows),
+    run shadow_service_step on it (its overflows into `stats`) and fold
+    the cascades, matrices and mask into the history the next frame reads
+    (chord_tpu's MeshletRenderer._resolve_split); else `history` as is."""
+    sp = stats.get("shadow_split")
+    if sp is None:
+        return history
+    maps, mats, _, mask = shadow_service_step(
+        pools, instances, view, history, sp, config=config, mcfg=mcfg,
+        stats=stats)
+    return history.replace(shadow_maps=maps, shadow_mats=mats,
+                           shadow_mask=mask)
+
+
+def _run_sequence(pools, instances, views_stacked, history, config, mcfg,
+                  bvh, with_stats):
+    """The host loop of both sequence runners: each frame, then its shadow
+    service when it exported a split. With shadows or GI the frame
+    counter is read once, before the loop, and counted on the host;
+    nothing inside the loop reads the device."""
+    images, per_frame = [], []
+    fc0 = int(history.frame_count) if mcfg.shadows or mcfg.gi else None
+    for i in range(views_stacked.num_frames):
+        view = views_stacked.frame(i)
+        image, history, stats = render_frame_meshlet(
+            pools, instances, view, history, config, mcfg,
+            frame_index=None if fc0 is None else fc0 + i, bvh=bvh)
+        history = resolve_split(stats, pools, instances, view, history,
+                                config, mcfg)
+        images.append(image)
+        per_frame.append({k: stats[k] for k in SEQUENCE_STATS if k in stats})
+    images = torch.stack(images)
+    if not with_stats:
+        return images, history
+    return images, history, {k: torch.stack([s[k] for s in per_frame])
+                             for k in per_frame[0]}
+
+
 def render_sequence_meshlet(pools, instances, views_stacked: DeviceView,
                             history: FrameHistory, config: RendererConfig,
                             mcfg: MeshletFrameConfig,
@@ -1032,28 +1157,39 @@ def render_sequence_meshlet(pools, instances, views_stacked: DeviceView,
     frame by frame -> (images (N,Hp,Wp,3) u8, history[, stats]) where stats
     maps each per-frame stat to an (N,) tensor (worst-frame audits read
     its max: in-sequence overflow is invisible to a single fresh frame).
-    With shadows or GI the frame counter is read once, here, and counted
-    on the host. `bvh` goes to every frame."""
-    images, per_frame = [], []
-    fc0 = int(history.frame_count) if mcfg.shadows or mcfg.gi else None
-    for i in range(views_stacked.num_frames):
-        image, history, stats = render_frame_meshlet(
-            pools, instances, views_stacked.frame(i), history, config, mcfg,
-            frame_index=None if fc0 is None else fc0 + i, bvh=bvh)
-        images.append(image)
-        per_frame.append(stats)
-    images = torch.stack(images)
-    if not with_stats:
-        return images, history
-    seq = {k: torch.stack([s[k] for s in per_frame])
-           for k in SEQUENCE_STATS if k in per_frame[0]}
-    return images, history, seq
+    `bvh` goes to every frame. A pipelined-shadow config is refused, as
+    chord_tpu refuses it (its service step is a dispatch of its own):
+    render_sequence_split runs it."""
+    if mcfg.shadows and shadow_pipelined(mcfg.shadow_cfg,
+                                         history.frame_count.device):
+        raise ValueError(
+            "render_sequence_meshlet cannot run a pipelined-shadow frame "
+            "(the split eval is its own dispatch): use "
+            "render_sequence_split")
+    return _run_sequence(pools, instances, views_stacked, history, config,
+                         mcfg, bvh, with_stats)
+
+
+def render_sequence_split(pools, instances, views_stacked: DeviceView,
+                          history: FrameHistory, config: RendererConfig,
+                          mcfg: MeshletFrameConfig,
+                          bvh: Optional[rt.SceneBVH] = None,
+                          with_stats: bool = False):
+    """The camera-path runner for pipelined-shadow configs (chord_tpu
+    meshlet_frame.py:1419-1442): a host loop of the frame, then the
+    shadow service on the split it exported, whose cascades, matrices
+    and mask the next frame reads -> render_sequence_meshlet's outputs,
+    the service's shadow overflows among the stats. Any other config
+    renders as render_sequence_meshlet would."""
+    return _run_sequence(pools, instances, views_stacked, history, config,
+                         mcfg, bvh, with_stats)
 
 
 class MeshletRenderer:
-    """Host-side runner for the meshlet frame (chord_tpu MeshletRenderer
-    without the split shadow dispatch), for every config check_slice
-    accepts (the repo's golden images render through it). History and
+    """Host-side runner for the meshlet frame (chord_tpu MeshletRenderer),
+    for every config (the repo's golden images render through it); with
+    pipelined shadows it runs the shadow service after each frame, the
+    cascade warm-up frames included. History and
     views go to the device the pools live on; the atmosphere LUTs and,
     with GI, the env-BRDF LUT are built once (the sky view once per sun
     direction); with gi_rt or DDGI the scene BVH is built on the host at
@@ -1098,6 +1234,8 @@ class MeshletRenderer:
         image, self.history, stats = render_frame_meshlet(
             pools, instances, view, self.history, self.config, self.mcfg,
             frame_index=frame_index, bvh=self._bvh)
+        self.history = resolve_split(stats, pools, instances, view,
+                                     self.history, self.config, self.mcfg)
         return image, stats
 
     def render(self, pools, instances, view_uniform, **light_kwargs):

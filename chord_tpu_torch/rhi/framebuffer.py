@@ -8,6 +8,7 @@ raster compares payloads as signed int32, and torch.uint32 lacks most ops.
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 from typing import Optional, Tuple
 
@@ -99,6 +100,10 @@ class FrameHistory:
     # DDGI (reference DDGIContext, selected by r.gi.method): an
     # ops.ddgi.DDGIState, chord_tpu's tiny placeholder when DDGI is off
     ddgi: "object"
+
+    def replace(self, **changes) -> "FrameHistory":
+        """A copy with `changes` (chord_tpu's struct replace)."""
+        return dataclasses.replace(self, **changes)
 
     @classmethod
     def empty(cls, h: int, w: int, post_h: Optional[int] = None,

@@ -34,7 +34,8 @@ from chord_tpu_torch.ops import proto_paged_tex as proto_sampler
 from chord_tpu_torch.renderer import (DeferredRenderer, DeviceView,
                                       MeshletFrameConfig, RendererConfig,
                                       render_frame_flat,
-                                      render_sequence_meshlet)
+                                      render_sequence_meshlet,
+                                      render_sequence_split)
 from chord_tpu_torch.rhi.framebuffer import FrameHistory
 from chord_tpu_torch.rhi.meshlet_scene import build_meshlet_pools
 from chord_tpu_torch.tools import proto_paged_tex, repro_eval_kernel
@@ -81,6 +82,9 @@ NATIVE_CFG = CFG._replace(post_width=0, post_height=0, tsr_mode="gather")
 NATIVE_MCFG = TEX_MCFG._replace(masked_layers=2)
 NO_OCC_CFG = CFG._replace(tsr_mode="global", output="hdr10")
 NO_OCC_MCFG = MCFG._replace(occlusion=False, object_precull=False)
+# geo_shadow_atmo_split: the shadow rung with the pipelined shadow split
+SPLIT_MCFG = SHADOW_MCFG._replace(
+    shadow_cfg=SHADOW_CFG._replace(pipelined=True))
 
 
 @pytest.fixture
@@ -130,8 +134,56 @@ def _tex_sequence(d, frames=3, shadows=False, gi=False, native=False,
             b.frame_instances(cam, device=d), DeviceView.stack(vs), hist)
 
 
+def _baseline_sequence(d, scene, frames=3):
+    """BASELINE #4 (`interior`: build_bistro_interior(detail=1) on
+    bench.py's interior camera path, with the shadow and GI history and
+    LUTs of the `all` rung) or #3 (`nanite`: a 3x3 field of
+    build_nanite_stress spheres on the orbit path), jittered."""
+    from chord_tpu_torch.asset.procedural import (build_bistro_interior,
+                                                  build_nanite_stress)
+
+    gi_ = scene == "interior"
+    b = (build_bistro_interior(detail=1) if gi_
+         else build_nanite_stress(spheres=9, rings=16))
+    cam = Camera(width=W, height=H)
+    vs = []
+    for i in range(frames):
+        t = i / 15
+        if gi_:
+            cam.position = np.array([-6.0 + 3.0 * t, 2.2, 3.6 - 1.5 * t])
+            cam.look_at(np.array([6.0, 1.2, -2.0]))
+        else:
+            a = t * 1.5
+            cam.position = np.array([20.0 * np.cos(a), 6.0,
+                                     20.0 * np.sin(a)])
+            cam.look_at(np.array([0.0, 2.0, 0.0]))
+        vs.append(DeviceView.from_uniform(
+            cam.view_uniform(i, jitter=True), device=d,
+            shadow_cfg=SHADOW_CFG if gi_ else None))
+    hist = FrameHistory.empty(H, W, PH, PW, device=d)
+    if gi_:
+        p = atm.AtmosphereParams()
+        t_lut = atm.build_transmittance_lut(p, 40, device=d)
+        ms = atm.build_multiscatter_lut(p, t_lut, dir_samples=16, steps=12)
+        sky = atm.build_sky_view_lut(p, t_lut, ms, vs[0].sun_direction)
+        lut = brdf_lut.build_env_brdf_lut(64, device=d)
+        vs = [v.replace(atmo_t_lut=t_lut, atmo_ms_lut=ms, atmo_sky_lut=sky,
+                        brdf_lut=lut) for v in vs]
+        hist = FrameHistory.empty(H, W, PH, PW, shadow_div=4,
+                                  shadow_cascades=2, shadow_res=256,
+                                  gi_cfg=GI_CFG, probe_tile=8, device=d)
+    return (build_meshlet_pools(b, nanite=True, device=d),
+            b.frame_instances(cam, device=d), DeviceView.stack(vs), hist)
+
+
 def _path_run(path, d):
     """-> (sequence inputs on `d`, frame config) of a meshlet path."""
+    if path == "interior":
+        return _baseline_sequence(d, path), RT_MCFG
+    if path == "nanite":
+        return _baseline_sequence(d, path), MCFG
+    if path == "geo_shadow_atmo_split":
+        return _tex_sequence(d, shadows=True), SPLIT_MCFG
     if path == "off":
         return _sequence(d), MCFG
     if path == "off_no_occlusion":
@@ -177,13 +229,14 @@ def _render_path(path, d):
                                    for k in stats[0]}
     inputs, mcfg = _path_run(path, d)
     bvh = (rt.build_scene_bvh(inputs[0], inputs[1], granularity=(
-        "object" if path == "all" else mcfg.rt_granularity))
+        "object" if path in ("all", "interior") else mcfg.rt_granularity))
         if mcfg.gi_rt else None)
     cfg = {"geo_tex_native": NATIVE_CFG,
            "off_no_occlusion": NO_OCC_CFG}.get(path, CFG)
+    run = (render_sequence_split if path == "geo_shadow_atmo_split"
+           else render_sequence_meshlet)
     with cvars.override("r.raster.bricks", path == "geo_tex_bricks"):
-        imgs, _, st = render_sequence_meshlet(*inputs, cfg, mcfg, bvh=bvh,
-                                              with_stats=True)
+        imgs, _, st = run(*inputs, cfg, mcfg, bvh=bvh, with_stats=True)
     return imgs, {k: v.cpu().tolist() for k, v in st.items()}
 
 
@@ -661,7 +714,9 @@ def test_wrappers_reject_bad_inputs(dev):
 @pytest.mark.parametrize("path", ["off", "geo_tex", "geo_shadow_atmo",
                                   "geo_tex_bricks", "flat", "all_no_rt",
                                   "all", "all_ddgi", "all_exact",
-                                  "geo_tex_native", "off_no_occlusion"])
+                                  "geo_tex_native", "off_no_occlusion",
+                                  "geo_shadow_atmo_split", "interior",
+                                  "nanite"])
 def test_gpu_frames_match_cpu_plain(dev, path):
     """The tiny sequence of each path through the kernels on the GPU equals
     the plain versions on the CPU (the path the CPU tests hold against
@@ -672,7 +727,8 @@ def test_gpu_frames_match_cpu_plain(dev, path):
         imgs, st = _render_path(path, d)
         out[d.type] = (imgs.cpu().numpy().astype(np.int32), st)
     assert out["cuda"][1] == out["cpu"][1]
-    if path not in ("off", "flat", "off_no_occlusion"):
+    if path not in ("off", "flat", "off_no_occlusion", "interior",
+                    "nanite"):
         assert max(out["cuda"][1]["draws_masked"]) > 0
     diff = np.abs(out["cuda"][0] - out["cpu"][0])
     assert (diff <= 2).mean() >= 0.999, diff.max()

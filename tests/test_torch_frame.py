@@ -134,13 +134,14 @@ def test_renderer_matches_sequence(runs):
 
 
 def test_flags_outside_the_slice_raise(runs):
-    """The pipelined shadow split is outside the slice and raises; the GI
-    branches (triangle-exact BVH leaves, DDGI, RTAO, the probe march) pass
-    the slice check; DDGI without the scene BVH raises chord_tpu's
+    """render_sequence_meshlet refuses the pipelined shadow split, as
+    chord_tpu's does (render_sequence_split runs it); the GI branches
+    (triangle-exact BVH leaves, DDGI, RTAO, the probe march) pass the
+    slice check; DDGI without the scene BVH raises chord_tpu's
     AssertionError."""
     b, pools, inst, views = runs["scene"]
     hist = FrameHistory.empty(H, W, PH, PW, device="cpu")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="render_sequence_split"):
         render_sequence_meshlet(
             pools, inst, views, hist, RendererConfig(**CFG),
             MeshletFrameConfig(shadows=True, shadow_cfg=ShadowConfig(

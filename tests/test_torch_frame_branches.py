@@ -323,8 +323,8 @@ def test_debug_visualize_matches(mode):
 def test_check_slice_accepts_the_non_gi_branches():
     """Every non-GI flag of chord_tpu's frame passes the slice check, with
     and without the upscale, and so do the GI branches (DDGI, RTAO, the
-    probe march, triangle-exact BVH leaves); the pipelined shadow split
-    still raises, naming the flag."""
+    probe march, triangle-exact BVH leaves) and the pipelined shadow
+    split."""
     from chord_tpu_torch.ops.gi import GIConfig
     from chord_tpu_torch.ops.screen_probe import ScreenProbeConfig
     from chord_tpu_torch.ops.shadow import ShadowConfig
@@ -345,6 +345,5 @@ def test_check_slice_accepts_the_non_gi_branches():
                      trace_mode="march")),
                  dict(gi=True, gi_rt=True, rt_granularity="triangle")]:
         mf.check_slice(rcfg, MeshletFrameConfig(**mode))
-    with pytest.raises(NotImplementedError, match="pipelined"):
-        mf.check_slice(rcfg, MeshletFrameConfig(
-            shadows=True, shadow_cfg=ShadowConfig(pipelined=True)))
+    mf.check_slice(rcfg, MeshletFrameConfig(
+        shadows=True, shadow_cfg=ShadowConfig(pipelined=True)))

@@ -210,8 +210,7 @@ def test_check_slice_accepts_all_no_rt():
     """bench.py's `all` rung (bench.py:204-219) passes the slice check with
     gi_rt=False and, since the BVH rays are ported, with gi_rt=True,
     rt_rays=2; and so does each of DDGI, RTAO, the probe march and
-    triangle-exact BVH leaves on it. Only the pipelined shadow split
-    still raises."""
+    triangle-exact BVH leaves on it, and the pipelined shadow split."""
     rcfg = RendererConfig(width=1280, height=720, post_width=1920,
                           post_height=1080, tsr_mode="tile")
     all_no_rt = MeshletFrameConfig(
@@ -227,9 +226,8 @@ def test_check_slice_accepts_all_no_rt():
                  dict(probe_cfg=ScreenProbeConfig(trace_mode="march")),
                  dict(rt_granularity="triangle")):
         mf.check_slice(rcfg, all_rt._replace(**mode))
-    with pytest.raises(NotImplementedError):
-        mf.check_slice(rcfg, all_rt._replace(
-            shadow_cfg=all_rt.shadow_cfg._replace(pipelined=True)))
+    mf.check_slice(rcfg, all_rt._replace(
+        shadow_cfg=all_rt.shadow_cfg._replace(pipelined=True)))
 
 
 def test_gi_history_and_brdf_lut_cross_interop():

@@ -111,18 +111,26 @@ def test_device_view_matches(jitter):
 
 
 def test_port_imports_no_jax():
-    """Every module of the port imports with jax and chex unavailable."""
+    """Every module of the port imports with jax, chex and chord_tpu
+    unavailable, the host layers (scene/, asset/) and the apps among
+    them."""
     code = textwrap.dedent("""
         import importlib, pkgutil, sys
         sys.modules["jax"] = None
         sys.modules["chex"] = None
+        sys.modules["chord_tpu"] = None
         import chord_tpu_torch
         names = [m.name for m in pkgutil.walk_packages(
             chord_tpu_torch.__path__, "chord_tpu_torch.")]
         for n in names:
             importlib.import_module(n)
-        assert not any(k == "jax" or k.startswith("jax.") for k, v in
-                       sys.modules.items() if v is not None)
+        assert not any(k == "jax" or k.startswith(("jax.", "chord_tpu."))
+                       for k, v in sys.modules.items() if v is not None)
+        for n in ("scene.scene", "scene.components", "scene.subsystem",
+                  "asset.gltf", "asset.pmx", "asset.serialize",
+                  "asset.manager", "utils.events", "utils.timer",
+                  "apps.viewer", "apps.editor"):
+            assert "chord_tpu_torch." + n in names, n
         print(len(names))
     """)
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
