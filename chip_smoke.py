@@ -4,8 +4,9 @@
     python3 chip_smoke.py              # the default run
     python3 chip_smoke.py --profile    # + a torch.profiler breakdown per path
 
-Sixteen paths, fourteen frame paths and two tool paths, and the apps
-(phase 11). Three are the bench's
+Eighteen paths, fourteen one-process frame paths, two strip-parallel
+frame paths (phase 12) and two tool paths, and the apps (phase 11).
+Three are the bench's
 `off`, `geo_tex` and `geo_shadow_atmo` rungs (bench.py:35-54): the
 1280x720 render of the 2.6M-triangle procedural bistro (Nanite LOD cut),
 upscaled to 1920x1080 by tile-mode TSR, bloom and the ACES tonemap;
@@ -230,8 +231,27 @@ Phases (any failure raises and the script exits non-zero):
    PNGs, and its last frame's kernel calls held to their plain versions
    (tolerance 0) and timed as in phase 4.
 
-Phases 4-5 run per frame path (the split's launches must equal the
-inline path's), then 6 to 11. The line before the last
+12. Strip-parallel frames (chord_tpu_torch/parallel/sharded.py): two
+   ranks share the card (spawn_strips: gloo, NCCL refuses two ranks on
+   one GPU), each renders half of the image; each path's host scene is
+   built once here and handed to the ranks as numpy. `sharded_all` is
+   `all`'s scene, BVH and LUTs rendered natively at 1920x1080 (render =
+   post size, as chord_tpu's strip frame needs; tile TSR), two 1920x540
+   strips; `sharded_flat` is `flat` in two strips. Per rank: the kernel
+   calls of rank 0's fifth frame (every cascade holding depth) held to
+   their plain versions (tolerance 0) and timed as in phase 4; the
+   16-frame run with launch counts set to 0 before and read after
+   (kernels.EXPECTED_LAUNCHES, per rank), no overflow, a finite history,
+   the summed stats and the world cache's digest equal on both ranks
+   after every frame; three timed runs (the slower rank's ms/frame) beside
+   one-process `all` at the same size; each exchange (histogram, world
+   cache, stats, image gather) timed alone. Then chord_tpu's tiny
+   strips-vs-one-chip configuration (tests/test_sharded.py: under 2% of
+   pixels off by more than 8 levels, no strip empty) and the dryrun(2)
+   line.
+
+Phases 4-5 run per one-process frame path (the split's launches must
+equal the inline path's), then 6 to 10, 12 and 11. The line before the last
 is the nvidia-smi name/power-limit line, the one before that the
 per-kernel JSON (one entry per kernel and path: launches, max_abs_err,
 per-frame ms / plain_ms / bound_ms / library_ms summed over the kernel's
@@ -2210,6 +2230,349 @@ def apps_phase(dev, card: str):
     return rows, {"seconds": secs}
 
 
+# --- strip-parallel frames (phase 12) ----------------------------------------
+
+# each sharded path renders its one-process path's frame in strips
+SHARDED_FROM = {"sharded_all": "all", "sharded_flat": "flat"}
+STRIP_RANKS = 2
+STRIP_TIMEOUT_S = 600
+LUTS = ("atmo_t_lut", "atmo_ms_lut", "atmo_sky_lut", "brdf_lut")
+
+
+def sharded_configs(path):
+    """A sharded path's RendererConfig and MeshletFrameConfig: its
+    one-process path's; `all` at its native PWxPH (render = post size: the
+    strips' history has no post size, as in chord_tpu), tile TSR."""
+    config, mcfg = configs(SHARDED_FROM[path])
+    if mcfg is not None:
+        config = config._replace(width=PW, height=PH, post_width=0,
+                                 post_height=0)
+    return config, mcfg
+
+
+def bistro_uniforms(w: int, h: int):
+    """bench.py's bistro camera path at w x h -> [ViewUniform]
+    (camera_views' cameras, as host uniforms)."""
+    from chord_tpu_torch.utils.camera import Camera
+
+    cam = Camera(width=w, height=h)
+    out = []
+    for i in range(FRAMES):
+        place_camera(cam, "bistro", i / (FRAMES - 1))
+        out.append(cam.view_uniform(i))
+    return out
+
+
+def strip_jobs(scenes) -> dict:
+    """{path: StripJob}: each sharded path's host scene, built once in this
+    process and handed to the ranks as numpy: `all`'s pools, instance
+    table, object BVH and LUTs with the camera path's uniforms at PWxPH;
+    `flat`'s pools, per-frame instances and uniforms."""
+    from chord_tpu_torch import interop
+    from chord_tpu_torch.parallel.sharded import StripJob
+
+    config, mcfg = sharded_configs("sharded_all")
+    pools, inst, views, _, bvh = scenes["all"]
+    jobs = {"sharded_all": StripJob(
+        "meshlet", config, mcfg, interop.to_numpy(pools),
+        interop.to_numpy(inst), bistro_uniforms(PW, PH),
+        bvh=interop.to_numpy(bvh),
+        luts={k: getattr(views, k).cpu().numpy() for k in LUTS},
+        light_kwargs=dict(shadow_cfg=mcfg.shadow_cfg))}
+    pools, insts, uniforms, _, _ = scenes["flat"]
+    jobs["sharded_flat"] = StripJob(
+        "flat", sharded_configs("sharded_flat")[0], None,
+        interop.to_numpy(pools), [interop.to_numpy(i) for i in insts],
+        uniforms)
+    return jobs
+
+
+def tiny_strip_job():
+    """chord_tpu's strips-vs-one-chip configuration (tests/test_sharded.py:
+    build_sponza_like(detail=1) at 128x64, draw_capacity=256,
+    occlusion=False, no bloom or TSR), built on the host -> (StripJob,
+    RendererConfig, MeshletFrameConfig)."""
+    import numpy as np
+
+    from chord_tpu_torch import interop
+    from chord_tpu_torch.asset.procedural import build_sponza_like
+    from chord_tpu_torch.parallel.sharded import StripJob
+    from chord_tpu_torch.renderer import MeshletFrameConfig, RendererConfig
+    from chord_tpu_torch.rhi.meshlet_scene import build_meshlet_pools
+    from chord_tpu_torch.utils.camera import Camera
+
+    b = build_sponza_like(detail=1)
+    pools = build_meshlet_pools(b, device="cpu")
+    cam = Camera(width=128, height=64)
+    cam.position = np.array([-15.0, 4.0, 3.0])
+    cam.look_at(np.array([10.0, 2.0, -2.0]))
+    inst = b.frame_instances(cam, device="cpu")
+    config = RendererConfig(width=128, height=64, pair_capacity=2048,
+                            big_capacity=64, enable_bloom=False,
+                            enable_tsr=False)
+    mcfg = MeshletFrameConfig(draw_capacity=256, occlusion=False)
+    u = cam.view_uniform(0)
+    return (StripJob("meshlet", config, mcfg, interop.to_numpy(pools),
+                     interop.to_numpy(inst), [u]), config, mcfg)
+
+
+def strip_path_rank(path, rank: int, device, job) -> dict:
+    """One rank of a sharded path (phases 4-5 for its strip): frames until
+    every cascade holds depth, then one frame whose kernel calls rank 0
+    holds to their plain versions and times (compare_kernels); the
+    16-frame run with every launch count set to 0 just before and read
+    just after (the stats, the world cache's digest after each frame, the
+    history's finiteness); three timed runs of 16 frames, each started
+    at a barrier."""
+    import torch
+    import torch.distributed as dist
+
+    from chord_tpu_torch.ops import kernels
+    from chord_tpu_torch.parallel.sharded import (ShardedRenderer, digest,
+                                                  load_job)
+
+    t0 = time.time()
+    r = ShardedRenderer(job.config, path=job.path, mcfg=job.mcfg,
+                        device=device)
+    pools, insts, bvh, luts = load_job(job, device)
+    kw = job.light_kwargs or {}
+
+    def frame(i):
+        return r.render(pools, insts[i], job.uniforms[i], bvh=bvh,
+                        luts=luts, **kw)
+
+    m = job.mcfg
+    warm = m.shadow_cfg.cascade_count if m is not None and m.shadows else 1
+    for i in range(warm):
+        frame(i)
+    with kernels.capture_inputs() as captured:
+        frame(warm)
+    torch.cuda.synchronize()
+    setup_s = time.time() - t0
+    rows = (compare_kernels(path, captured, f"frame {warm} of strip 0")
+            if rank == 0 else None)
+    del captured
+    dist.barrier()
+    r.reset_history()
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.time()
+    stats, digests = [], []
+    for i in range(FRAMES):
+        img, st = frame(i)
+        stats.append({k: v.cpu().tolist() for k, v in st.items()
+                      if isinstance(v, torch.Tensor)})
+        digests.append(digest(r.history.gi_cache))
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    first_s = time.time() - t0
+    finite = [name for name, x in history_leaves(r.history).items()
+              if not bool(torch.isfinite(x).all())]
+    last = img.float()
+    times = []
+    for _ in range(3):
+        r.reset_history()
+        torch.cuda.synchronize()
+        dist.barrier()
+        t0 = time.time()
+        for i in range(FRAMES):
+            frame(i)
+        torch.cuda.synchronize()
+        times.append((time.time() - t0) / FRAMES * 1000.0)
+    return dict(rows=rows, launches=launches, stats=stats, digests=digests,
+                not_finite=finite, shape=tuple(img.shape),
+                std=float(last.std()), mean=float(last.mean()), ms=times,
+                setup_s=setup_s, first_s=first_s,
+                exchange_ms=strip_exchange_ms(r, img, st))
+
+
+def strip_exchange_ms(r, image, stats, reps: int = 8) -> dict:
+    """Host-clock ms of each exchange a strip frame makes, each run alone
+    `reps` times on the last frame's tensors, both ranks started at a
+    barrier: the exposure histogram's mean (128 f32), the world cache's
+    (GI on), the stats' sum and the image gather."""
+    import torch
+    import torch.distributed as dist
+
+    from chord_tpu_torch.utils.collectives import all_reduce_mean
+
+    h = r.strip_config.height
+    strip = image[r.rank * h:(r.rank + 1) * h]
+    parts = {"histogram": lambda: all_reduce_mean(
+                 torch.zeros(128, device=r.device), r.group),
+             "stats": lambda: r.sum_stats(stats),
+             "image": lambda: r.gather(strip)}
+    if r.path == "meshlet" and r.mcfg.gi:
+        parts["world_cache"] = lambda: all_reduce_mean(r.history.gi_cache,
+                                                       r.group)
+    out = {}
+    for name, fn in parts.items():
+        torch.cuda.synchronize()
+        dist.barrier()
+        t0 = time.time()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        out[name] = (time.time() - t0) / reps * 1000.0
+    return out
+
+
+def strip_rank(rank: int, device, jobs: dict) -> dict:
+    """A rank of phase 12 (spawn_strips' function): each sharded path's
+    job, then the tiny configuration's one frame (its image)."""
+    from chord_tpu_torch.parallel.sharded import render_strips
+
+    out = {}
+    for name, job in jobs.items():
+        out[name] = (render_strips(rank, device, job)[0]["image"]
+                     if name == "tiny" else
+                     strip_path_rank(name, rank, device, job))
+    return out
+
+
+def native_all_ms(scenes, dev, card: str) -> dict:
+    """The one-process `all` frame at the sharded path's config (native
+    PWxPH, tile TSR), on `all`'s scene, BVH and LUTs: one warm run, then
+    three timed runs of 16 frames -> {median, runs}."""
+    import torch
+
+    from chord_tpu_torch.renderer import DeviceView
+
+    config, mcfg = sharded_configs("sharded_all")
+    pools, inst, views, blend_tex, bvh = scenes["all"]
+    native = DeviceView.stack(camera_views(PW, PH, dev, mcfg.shadow_cfg))
+    native = native.replace(**{k: getattr(views, k) for k in LUTS})
+    scene = (pools, inst, native, blend_tex, bvh)
+    run_path("all", scene, config, mcfg, history(config, mcfg, dev))
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        run_path("all", scene, config, mcfg, history(config, mcfg, dev))
+        torch.cuda.synchronize()
+        times.append((time.time() - t0) / FRAMES * 1000.0)
+    log(f"all at {PW}x{PH} in one process (render_sequence_meshlet): "
+        f"{statistics.median(times):.3f} ms/frame median of 3 runs "
+        f"({', '.join(f'{t:.3f}' for t in times)}) on {card}")
+    return dict(median=statistics.median(times), runs=times)
+
+
+def check_strip_path(path, res) -> None:
+    """The ranks' results of one sharded path: per rank every kernel of
+    the path launched and no other, kernels.EXPECTED_LAUNCHES, no
+    overflow on any frame, triangles drawn, a finite history, a finite
+    non-constant whole image of PHxPW (FLAT_HxFLAT_W); the stats and the
+    world cache equal on every rank after every frame."""
+    from chord_tpu_torch.ops import kernels
+
+    h, w = (PH, PW) if path == "sharded_all" else (FLAT_H, FLAT_W)
+    for rank, r in enumerate(res):
+        who = f"{path} rank {rank}"
+        for k in kernels.KERNELS:
+            n = r["launches"][k.name]
+            if (path in k.paths) != (n > 0):
+                raise AssertionError(f"{who}: kernel {k.name} launched {n} "
+                                     "times")
+        for name, n in kernels.EXPECTED_LAUNCHES[path].items():
+            if r["launches"][name] != n:
+                raise AssertionError(f"{who}: {name} launched "
+                                     f"{r['launches'][name]} times, expected "
+                                     f"{n}")
+        for st in r["stats"]:
+            for k in ("bin_overflow", "draw_overflow", "active_overflow"):
+                if st.get(k, 0) != 0:
+                    raise AssertionError(f"{who}: {k} = {st[k]}")
+            if st["drawn_tris"] <= 0:
+                raise AssertionError(f"{who}: a frame drew no triangles")
+        if r["not_finite"]:
+            raise AssertionError(f"{who}: history {r['not_finite']} not "
+                                 "finite")
+        if r["shape"] != (h, w, 3) or not r["std"] >= 1.0:
+            raise AssertionError(f"{who}: image {r['shape']}, std "
+                                 f"{r['std']}")
+        if r["stats"] != res[0]["stats"]:
+            raise AssertionError(f"{who}: the summed stats differ from "
+                                 "rank 0's")
+    for i, ds in enumerate(zip(*(r["digests"] for r in res))):
+        if len(set(ds)) != 1:
+            raise AssertionError(f"{path} frame {i}: the ranks' world "
+                                 "caches differ")
+    if path == "sharded_all" and max(st["draws_masked"]
+                                     for st in res[0]["stats"]) <= 0:
+        raise AssertionError(f"{path}: no masked draws on any frame")
+
+
+def sharded_phase(scenes, dev, card: str):
+    """Phase 12: the strip-parallel frames, two ranks on the one card
+    (spawn_strips: gloo, the ranks share the card), each path's host
+    scene handed to the ranks as numpy; rank 0's kernel calls held to
+    their plain versions, each rank's launches, overflows and history
+    checked, the world cache equal on both ranks after every frame
+    (check_strip_path), ms/frame beside the one-process `all` at the same
+    size; chord_tpu's tiny strips-vs-one-chip configuration under its 2%
+    gate; the dryrun(2) line -> (kernel rows, {path: ms/frame})."""
+    import numpy as np
+
+    from chord_tpu_torch import interop
+    from chord_tpu_torch.ops import kernels
+    from chord_tpu_torch.parallel.sharded import dryrun, spawn_strips
+    from chord_tpu_torch.renderer import MeshletRenderer
+
+    t0 = time.time()
+    jobs = strip_jobs(scenes)
+    tiny, tiny_cfg, tiny_mcfg = tiny_strip_job()
+    jobs["tiny"] = tiny
+    ms = {"all one process": native_all_ms(scenes, dev, card)}
+    log(f"phase 12: the strip jobs' host scenes in "
+        f"{time.time() - t0:.2f} s; {STRIP_RANKS} ranks")
+    t0 = time.time()
+    ranks = spawn_strips(STRIP_RANKS, strip_rank, jobs,
+                         timeout_s=STRIP_TIMEOUT_S)
+    log(f"phase 12: the ranks ran in {time.time() - t0:.2f} s")
+    rows = []
+    for path in kernels.SHARDED:
+        res = [r[path] for r in ranks]
+        check_strip_path(path, res)
+        runs = [max(t) for t in zip(*(r["ms"] for r in res))]
+        ms[path] = dict(median=statistics.median(runs), runs=runs,
+                        per_rank=[r["ms"] for r in res])
+        worst = {k: max(st[k] for st in res[0]["stats"])
+                 for k in res[0]["stats"][0]}
+        log(f"{path}: {STRIP_RANKS} strips of {res[0]['shape'][0] // STRIP_RANKS}"
+            f" rows, launches per rank {[r['launches'] for r in res]}, "
+            f"worst-frame summed stats {worst}, "
+            f"{'world caches equal on every frame, ' if path == 'sharded_all' else ''}"
+            f"first run {res[0]['first_s']:.3f} s, set-up "
+            f"{res[0]['setup_s']:.2f} s; {ms[path]['median']:.3f} ms/frame "
+            f"median of 3 runs ({', '.join(f'{t:.3f}' for t in runs)}; the "
+            f"slower rank's), mean u8 {res[0]['mean']:.3f} on {card}; "
+            f"exchanges alone, ms a frame per rank: "
+            f"{[r['exchange_ms'] for r in res]}")
+        ms[path]["exchange_ms"] = [r["exchange_ms"] for r in res]
+        for name, row in res[0]["rows"].items():
+            row["launches"] = res[0]["launches"][name]
+            rows.append(row)
+    log(f"sharded_all {ms['sharded_all']['median']:.3f} ms/frame against "
+        f"all in one process {ms['all one process']['median']:.3f} at "
+        f"{PW}x{PH} on {card}")
+    # chord_tpu's gate (tests/test_sharded.py): under 2% of pixels off by
+    # more than 8 levels, no strip empty
+    single = MeshletRenderer(tiny_cfg, tiny_mcfg)
+    one, _ = single.render(interop.pools_from_numpy(tiny.pools, dev),
+                           interop.instances_from_numpy(tiny.instances, dev),
+                           tiny.uniforms[0])
+    one = one.cpu().numpy().astype(np.int32)
+    img = ranks[0]["tiny"].astype(np.int32)
+    off = float((np.abs(one - img).max(-1) > 8).mean())
+    stds = [float(img[k * 32:(k + 1) * 32].std()) for k in range(2)]
+    log(f"tiny strips vs one process on {card}: {off:.4f} of pixels off by "
+        f"more than 8 levels (gate 0.02), strip std {stds}")
+    if off >= 0.02 or min(stds) <= 1.0:
+        raise AssertionError("the tiny sharded frame fails chord_tpu's gate")
+    dryrun(STRIP_RANKS)
+    return rows, ms
+
+
 def ptxas_lines(sources=("pcss.cu", "proto_paged_tex.cu")) -> None:
     """Registers, shared memory and spills of each kernel function of the
     sources, as ptxas reported them when the library was built."""
@@ -2261,7 +2624,7 @@ def main() -> int:
     # where chip_smoke.py stands alone)
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from chord_tpu_torch.ops import _cuda, raster
-    from chord_tpu_torch.ops.kernels import PATHS, TOOL_PATHS
+    from chord_tpu_torch.ops.kernels import FRAME_PATHS, TOOL_PATHS
 
     smi = card_line()
     log(f"card: {smi}")
@@ -2284,9 +2647,9 @@ def main() -> int:
     ptxas_lines()
     floor_ms = launch_floor(smi)
 
-    scenes = bench_scenes(dev, PATHS)
+    scenes = bench_scenes(dev, FRAME_PATHS)
     rows, ms_per_frame, path_launches = [], {}, {}
-    for p in PATHS:
+    for p in FRAME_PATHS:
         krows = check_kernels(p, scenes[p])
         launches, ms_per_frame[p] = main_path(p, scenes[p], smi)
         path_launches[p] = launches
@@ -2309,12 +2672,15 @@ def main() -> int:
     for p in TOOL_PATHS:
         krows, tools[p] = tool_phase[p]()
         rows += list(krows.values())
-    for p in PATHS:
+    for p in FRAME_PATHS:
         small_cross_check(p, dev)
     for tsr in TSR_VARIANTS:
         small_cross_check("off", dev, tsr)
     golden = goldens(dev, smi)
     debug_views(scenes["all"], dev, smi)
+    strip_rows, strip_ms = sharded_phase(scenes, dev, smi)
+    rows += strip_rows
+    ms_per_frame.update(strip_ms)
     del scenes
     app_rows, apps = apps_phase(dev, smi)
     for krows, launches in app_rows.values():

@@ -5,7 +5,7 @@ here carries the name of its counterpart there, and the tests hold the two
 against each other on the same inputs. This package imports torch and
 never jax.
 
-What is ported so far is the GPU-driven meshlet frame of the four
+What is ported is the GPU-driven meshlet frame of the four
 benchmark rungs: `off` (object pre-cull, two-phase HZB occlusion culling
 with the Nanite LOD cut, the mesh-shader setup, the tiled visibility
 raster, the g-buffer resolve, sun + ambient lighting, auto exposure,
@@ -20,7 +20,10 @@ the flat DeferredRenderer frame; the host layers a user brings a scene
 through (glTF / PMX import, the .chtp asset container and manager, the
 scene graph and SceneSubsystem); the viewer and the editor
 (`python -m chord_tpu_torch.apps.viewer`, `... .apps.editor`); two of
-chord_tpu's tools.
+chord_tpu's tools; the strip-parallel frame on torch.distributed (one
+process a strip, `parallel/`); the job system, the name table and the
+stable hashes, and every cvar chord_tpu registers. The port does all
+that chord_tpu does.
 
 Every Pallas kernel on those paths is a hand-written CUDA kernel for sm_90a
 (`csrc/`, built with nvcc at first use into `build/` and loaded with
@@ -30,8 +33,10 @@ launches the kernel.
 
 Layout (mirrors chord_tpu):
     utils/     cvars, logging (taps, file sink), events, timers, math,
-               camera, span allocator
-    native/    ctypes binding to the shared native/ C++ library
+               camera, span and slot allocators, names and stable hashes,
+               the strip frame's collectives
+    native/    ctypes binding to the shared native/ C++ library (Nanite
+               and BVH builders, the job system)
     geometry/  meshlet clustering (host)
     rhi/       scene builder, meshlet pools, frame history
     asset/     procedural benchmark scenes, texture pool, glTF and PMX
@@ -41,6 +46,7 @@ Layout (mirrors chord_tpu):
                shading, shadows + PCSS, atmosphere, GI, BVH rays, post
     renderer/  the meshlet frame, the flat frame, the sequence runner,
                MeshletRenderer
+    parallel/  strip-parallel frames: ShardedRenderer, spawn_strips
     apps/      the headless viewer and the scene editor
     tools/     the paged-texture prototype (kernel K10) and the shadow
                evaluate fault bisection (kernel K9)

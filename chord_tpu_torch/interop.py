@@ -7,7 +7,9 @@ FrameHistory (`bvh._asdict()` for its SceneBVH); each function keeps the
 fields the port's counterpart has and moves them to `device` (None = the
 card, as everywhere in the port).
 Nothing here imports chord_tpu or jax: the tests use it to feed both
-packages identical state.
+packages identical state. `to_numpy` goes the other way, from this
+package's pools, instances, views or BVH to such a mapping (how a strip
+job hands a scene to its ranks, parallel/sharded.py).
 """
 
 from __future__ import annotations
@@ -103,3 +105,14 @@ def bvh_from_numpy(arrays, device=None) -> SceneBVH:
     conv = lambda a: (None if a is None else
                       torch.from_numpy(np.array(a)).to(device))
     return SceneBVH(**{f: conv(arrays.get(f)) for f in SceneBVH._fields})
+
+
+def to_numpy(obj) -> dict:
+    """A dataclass of tensors (pools, instances, a view, a history without
+    its DDGI state) or a SceneBVH -> {field: numpy array or None}, the
+    mapping the *_from_numpy functions take."""
+    items = (obj._asdict().items() if hasattr(obj, "_asdict") else
+             ((f.name, getattr(obj, f.name))
+              for f in dataclasses.fields(obj)))
+    return {k: (v.detach().cpu().numpy() if isinstance(v, torch.Tensor)
+                else v) for k, v in items}

@@ -1,8 +1,8 @@
 """ctypes binding to the shared native C++ library (native/ at the repo
 root: nanite.cpp + jobsys.cpp), the same library chord_tpu binds
-(chord_tpu/native/__init__.py). Only the entry points the host scene path
-needs are bound: the Nanite cluster-LOD build, vertex normals and the BVH
-build over leaf spheres (ops/rt.py).
+(chord_tpu/native/__init__.py): the Nanite cluster-LOD build, vertex
+normals, the BVH build over leaf spheres (ops/rt.py) and the job system
+(JobSystem, job_system()).
 
 The tracked `native/libchordnative.so` is loaded in place. If it does not
 load on this machine, `native/*.cpp` are compiled with g++ into the
@@ -14,7 +14,7 @@ from __future__ import annotations
 import ctypes
 import subprocess
 from pathlib import Path
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 
@@ -48,6 +48,27 @@ def load() -> ctypes.CDLL:
     lib.chord_nanite_build_batch.restype = ctypes.c_int
     lib.chord_vertex_normals.restype = None
     lib.chord_bvh_build.restype = ctypes.c_int
+    lib.chord_job_workers.argtypes = []
+    lib.chord_job_workers.restype = ctypes.c_int
+    lib.chord_job_launch.restype = ctypes.c_int64
+    lib.chord_job_launch.argtypes = [
+        _JOB_FN, ctypes.c_void_p, ctypes.POINTER(ctypes.c_int64),
+        ctypes.c_int]
+    lib.chord_job_launch_child.restype = ctypes.c_int64
+    lib.chord_job_launch_child.argtypes = [ctypes.c_int64, _JOB_FN,
+                                           ctypes.c_void_p]
+    lib.chord_job_wait.argtypes = [ctypes.c_int64]
+    lib.chord_job_wait.restype = None
+    lib.chord_job_finished.argtypes = [ctypes.c_int64]
+    lib.chord_job_finished.restype = ctypes.c_int
+    lib.chord_jobs_drain.argtypes = []
+    lib.chord_jobs_drain.restype = None
+    lib.chord_parallel_for.argtypes = [ctypes.c_int, _FOR_FN,
+                                       ctypes.c_void_p]
+    lib.chord_parallel_for.restype = None
+    lib.chord_parallel_for_grain.argtypes = [ctypes.c_long, ctypes.c_long,
+                                             _RANGE_FN, ctypes.c_void_p]
+    lib.chord_parallel_for_grain.restype = None
     _lib = lib
     return lib
 
@@ -64,6 +85,110 @@ def available() -> bool:
 
 def _ptr(a: np.ndarray, ty):
     return a.ctypes.data_as(ctypes.POINTER(ty))
+
+
+# The job system (native/jobsys.cpp): a work-stealing worker pool with
+# parent counters and dependency chains (reference source/utils/
+# job_system.h:239 `launch`, :256 `parallelFor`).
+
+_JOB_FN = ctypes.CFUNCTYPE(None, ctypes.c_void_p)
+_FOR_FN = ctypes.CFUNCTYPE(None, ctypes.c_int, ctypes.c_void_p)
+_RANGE_FN = ctypes.CFUNCTYPE(None, ctypes.c_long, ctypes.c_long,
+                             ctypes.c_void_p)
+
+
+class JobSystem:
+    """The native job pool from Python (chord_tpu native/__init__.py:
+    73-158). Each callback takes the GIL, so the pool suits native work
+    and coarse Python tasks. Handles stay valid until drain(); an
+    exception raised inside a callback is kept and re-raised by the next
+    wait(), drain() or parallel_for."""
+
+    def __init__(self):
+        self._lib = load()
+        self._keep: dict = {}     # job handle -> its callback, kept alive
+        self._errors: list = []
+
+    @property
+    def workers(self) -> int:
+        return int(self._lib.chord_job_workers())
+
+    def _wrap(self, fn):
+        def call(_user):
+            try:
+                fn()
+            except BaseException as e:   # noqa: BLE001 - crosses the C ABI
+                self._errors.append(e)
+        return _JOB_FN(call)
+
+    def launch(self, fn, deps: Tuple[int, ...] = ()) -> int:
+        """Run fn() once every job in `deps` has retired -> its handle."""
+        cb = self._wrap(fn)
+        n = len(deps)
+        dep_arr = (ctypes.c_int64 * n)(*deps) if n else None
+        job = int(self._lib.chord_job_launch(cb, None, dep_arr, n))
+        self._keep[job] = cb
+        return job
+
+    def launch_child(self, parent: int, fn) -> int:
+        """A child of `parent`: waiting on the parent also waits for it.
+        Launch it before the parent is waited on."""
+        cb = self._wrap(fn)
+        job = int(self._lib.chord_job_launch_child(parent, cb, None))
+        self._keep[job] = cb
+        return job
+
+    def wait(self, job: int) -> None:
+        self._lib.chord_job_wait(job)
+        self._raise()
+
+    def finished(self, job: int) -> bool:
+        return bool(self._lib.chord_job_finished(job))
+
+    def drain(self) -> None:
+        """Wait for every job; the handles are invalid after."""
+        self._lib.chord_jobs_drain()
+        self._keep.clear()
+        self._raise()
+
+    def parallel_for(self, n: int, fn) -> None:
+        """fn(i) for i in [0, n) across the pool; returns when all ran."""
+        def call(i, _user):
+            try:
+                fn(int(i))
+            except BaseException as e:   # noqa: BLE001
+                self._errors.append(e)
+        self._lib.chord_parallel_for(n, _FOR_FN(call), None)
+        self._raise()
+
+    def parallel_for_grain(self, n: int, grain: int, fn) -> None:
+        """fn(start, end) over [0, n) in chunks of `grain`; returns when
+        all ran (the reference's parallelFor, job_system.h:256)."""
+        def call(s, e, _user):
+            try:
+                fn(int(s), int(e))
+            except BaseException as exc:   # noqa: BLE001
+                self._errors.append(exc)
+        self._lib.chord_parallel_for_grain(n, grain, _RANGE_FN(call), None)
+        self._raise()
+
+    def _raise(self) -> None:
+        if self._errors:
+            err = self._errors[0]
+            self._errors.clear()
+            raise err
+
+
+_jobsys: Optional[JobSystem] = None
+
+
+def job_system() -> JobSystem:
+    """The process-global JobSystem (the reference's jobsystem::
+    singleton)."""
+    global _jobsys
+    if _jobsys is None:
+        _jobsys = JobSystem()
+    return _jobsys
 
 
 _TABLE_KEYS = ("tri_offset", "tri_count", "lod_level", "sphere", "cone",

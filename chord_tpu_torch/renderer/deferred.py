@@ -27,8 +27,21 @@ from ..ops.raster import RasterConfig, rasterize
 from ..ops.transform import frustum_cull_spheres, transform_to_clip
 from ..rhi.framebuffer import FrameHistory
 from ..utils.camera import ViewUniform
+from ..utils.collectives import all_reduce_mean
 from ..utils.cvar import cvars
 from ..utils.device import resolve
+
+# the renderer's own variables (chord_tpu deferred.py:42-50): the same
+# names, defaults and types
+cvars.register("r.exposure.fix", -1.0,
+               "fixed exposure; <=0 enables auto exposure")
+cvars.register("r.render.width", 1920, "render width", vtype=int)
+cvars.register("r.render.height", 1080, "render height", vtype=int)
+cvars.register("r.render.pairCapacity", 8192,
+               "raster work-queue capacity", vtype=int)
+cvars.register("r.render.drawCapacity", 4096,
+               "visible meshlet draw capacity", vtype=int)
+cvars.register("r.render.output", "srgb8", "srgb8 | hdr10", vtype=str)
 
 
 # the atmosphere LUTs and the env-BRDF LUT: one set for a whole camera
@@ -182,19 +195,33 @@ class RendererConfig(NamedTuple):
             big_capacity=self.big_capacity, subtiles=self.subtiles,
             bricks=bricks, rp=int(cvars.get("r.raster.rp")))
 
+    @classmethod
+    def from_cvars(cls, **overrides) -> "RendererConfig":
+        """The config the r.render.*, r.bloom.enable and r.tsr.enable
+        cvars give (chord_tpu deferred.py:190-204); `overrides` win."""
+        base = dict(
+            width=int(cvars.get("r.render.width")),
+            height=int(cvars.get("r.render.height")),
+            pair_capacity=int(cvars.get("r.render.pairCapacity")),
+            enable_bloom=bool(cvars.get("r.bloom.enable")),
+            enable_tsr=bool(cvars.get("r.tsr.enable")),
+            output=str(cvars.get("r.render.output")),
+        )
+        base.update(overrides)
+        return cls(**base)
+
 
 def render_frame_flat(pools, instances, view: DeviceView,
                       history: FrameHistory, config: RendererConfig,
-                      axis_name: Optional[str] = None):
+                      group=None):
     """One flat frame -> (image (H,W,3) u8, new history, stats) (chord_tpu
     deferred.py:207-295). The TSR is always gather mode at render size
     (post.TSRConfig()), whatever config.tsr_mode says, as in chord_tpu;
     post_width/post_height are not read. Stats: bin_overflow, drawn_tris,
-    binned_pairs, visible_objects."""
-    if axis_name is not None:
-        raise NotImplementedError(
-            "render_frame_flat(axis_name=...): the multi-device histogram "
-            "is not ported")
+    binned_pairs, visible_objects. `group` (a torch.distributed process
+    group; None = one device) is the set of ranks that each render one
+    strip of the image: the exposure adapts to the whole image's
+    histogram, their mean (chord_tpu's `axis_name` psum)."""
     rc = config.raster_config()
     obj_visible = (frustum_cull_spheres(instances.object_sphere_tw,
                                         view.frustum_planes)
@@ -214,8 +241,11 @@ def render_frame_flat(pools, instances, view: DeviceView,
                            sky_ambient=view.sky_ambient)
     hdr = shading.shade_pixels(gbuf, sun)
     ecfg = post.ExposureConfig(fix_exposure=float(cvars.get("r.exposure.fix")))
-    exposure = post.adapt_exposure(post.luminance_histogram(hdr, ecfg),
-                                   history.exposure, 1.0 / 60.0, ecfg)
+    hist_lum = post.luminance_histogram(hdr, ecfg)
+    if group is not None:
+        hist_lum = all_reduce_mean(hist_lum, group)
+    exposure = post.adapt_exposure(hist_lum, history.exposure, 1.0 / 60.0,
+                                   ecfg)
     if config.enable_tsr:
         hdr = post.temporal_resolve(hdr, gbuf.motion, history.tsr_color,
                                     history.valid, post.TSRConfig())

@@ -83,6 +83,7 @@ from ..ops.raster import RasterConfig, bin_windows, raster_queue
 from ..ops.shadow import (ShadowConfig, evaluate_shadow_auto,
                           fit_cascades_device)
 from ..rhi.framebuffer import FrameHistory, unpack_visibility
+from ..utils.collectives import all_reduce_mean
 from ..utils.cvar import cvars
 from .deferred import DeviceView, RendererConfig
 
@@ -811,14 +812,16 @@ def render_frame_meshlet(pools, instances, view: DeviceView,
                          history: FrameHistory, config: RendererConfig,
                          mcfg: MeshletFrameConfig,
                          frame_index: Optional[int] = None,
-                         bvh: Optional[rt.SceneBVH] = None
+                         bvh: Optional[rt.SceneBVH] = None, group=None
                          ) -> Tuple[torch.Tensor, FrameHistory, dict]:
     """One GPU-driven frame -> (image (Hp,Wp,3) u8, new history, stats).
     `frame_index` is the host's copy of history.frame_count; the shadow
     pass and GI need it. `bvh` (ops/rt.SceneBVH) is what the gi_rt rays,
     RTAO and DDGI trace; without it the rays are skipped and RTAO falls
     back to SSAO, as in chord_tpu; DDGI needs it (AssertionError, as
-    chord_tpu's assert)."""
+    chord_tpu's assert). `group` (a torch.distributed process group;
+    None = one device): the ranks that each render one strip; the
+    exposure histogram is their mean (chord_tpu's `axis_name`)."""
     check_slice(config, mcfg)
     if (mcfg.shadows or mcfg.gi) and frame_index is None:
         raise ValueError("shadows=True or gi=True needs frame_index, the "
@@ -1047,8 +1050,11 @@ def render_frame_meshlet(pools, instances, view: DeviceView,
                 frame_count=history.frame_count, frame_index=frame_index))
 
     ecfg = post.ExposureConfig(fix_exposure=float(cvars.get("r.exposure.fix")))
-    exposure = post.adapt_exposure(post.luminance_histogram(hdr, ecfg),
-                                   history.exposure, 1.0 / 60.0, ecfg)
+    hist_lum = post.luminance_histogram(hdr, ecfg)
+    if group is not None:
+        hist_lum = all_reduce_mean(hist_lum, group)
+    exposure = post.adapt_exposure(hist_lum, history.exposure, 1.0 / 60.0,
+                                   ecfg)
 
     if mcfg.debug_mode != "none":
         extras = {"disocclusion": disocc,

@@ -3,7 +3,7 @@
 Host-side port of chord_tpu/utils/allocator.py, the reference span allocator
 (reference: source/utils/allocator/span_allocator.h — a free-list over a
 growable index space that backs GPUScene slots, and
-fixedsize_allocator.h for fixed blocks).
+fixedsize_allocator.h for fixed blocks; SlotAllocator is the fixed-size one).
 
 Device memory is plain tensors; the allocator hands out stable
 integer element ranges inside a pool array so scene data can be updated
@@ -84,3 +84,29 @@ class SpanAllocator:
             else:
                 merged.append((off, sz))
         self._free = merged
+
+
+class SlotAllocator:
+    """Fixed-size slot allocator with index recycling (chord_tpu
+    allocator.py:89-110; reference graphics/bindless.h:16-28, the bindless
+    index free-list): a freed index is handed out again, last freed
+    first."""
+
+    def __init__(self) -> None:
+        self._next = 0
+        self._free: List[int] = []
+
+    def allocate(self) -> int:
+        if self._free:
+            return self._free.pop()
+        idx = self._next
+        self._next += 1
+        return idx
+
+    def free(self, idx: int) -> None:
+        self._free.append(idx)
+
+    @property
+    def high_water(self) -> int:
+        """How many distinct slots were ever handed out."""
+        return self._next

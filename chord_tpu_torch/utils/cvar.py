@@ -1,9 +1,11 @@
 """Console-variable (cvar) registry (port of chord_tpu/utils/cvar.py).
 
 Typed, flagged console variables with change callbacks, settable from code
-or ini-style text (reference: source/utils/cvar.h). Only the variables the
-ported frame reads are registered here: the raster tiling knobs, the
-fixed-exposure override and the texture-pool compression switch.
+or ini-style text (reference: source/utils/cvar.h). Every variable
+chord_tpu registers is registered with the same name, default, type and
+flags: the core renderer variables here, the r.exposure.fix and r.render.*
+variables in renderer/deferred.py. Each change bumps `generation`, which a
+caller folds into anything it caches per configuration.
 """
 
 from __future__ import annotations
@@ -51,6 +53,7 @@ class CVarSystem:
     def __init__(self) -> None:
         self._vars: Dict[str, CVar] = {}
         self._lock = threading.Lock()
+        self._generation = 0
 
     def register(self, name: str, default: Any, help: str = "",
                  flags: CVarFlags = CVarFlags.NONE,
@@ -62,8 +65,18 @@ class CVarSystem:
                 vtype = bool if isinstance(default, bool) else type(default)
             var = CVar(name=name, value=default, default=default, help=help,
                        flags=flags, vtype=vtype)
+            var.on_change.append(lambda _v: self._bump())
             self._vars[name] = var
             return var
+
+    def _bump(self) -> None:
+        self._generation += 1
+
+    @property
+    def generation(self) -> int:
+        """Bumped on every change of any variable (an override and its
+        restore are two)."""
+        return self._generation
 
     def get(self, name: str) -> Any:
         return self._vars[name].value
@@ -110,9 +123,11 @@ class CVarSystem:
 
 cvars = CVarSystem()
 
-# The raster knobs read by RendererConfig.raster_config, with chord_tpu's
-# registered defaults (chord_tpu/utils/cvar.py:130-150).
+# chord_tpu's core renderer variables (chord_tpu/utils/cvar.py:125-177),
+# the same names, defaults, types and flags; help texts speak of the port
 cvars.register("r.raster.tileH", 216, "Raster tile height in pixels.",
+               vtype=int)
+cvars.register("r.raster.tileW", 128, "Raster tile width in pixels.",
                vtype=int)
 cvars.register("r.raster.subS", 8,
                "Raster subwindows per 128-tri window (groups of 128/S "
@@ -120,13 +135,40 @@ cvars.register("r.raster.subS", 8,
 cvars.register("r.raster.rp", 0,
                "Rows packed per raster row group (0 = auto: subS).",
                vtype=int)
+cvars.register("r.raster.subLoop", False,
+               "chord_tpu's dynamic subwindow loop (a compile workaround "
+               "of its Pallas raster); the CUDA rasters do not read it.",
+               vtype=bool)
 cvars.register("r.raster.bricks", False,
-               "chord_tpu brick accumulator layout; not ported (must stay "
-               "False).")
-cvars.register("r.exposure.fix", -1.0,
-               "fixed exposure; <=0 enables auto exposure")
+               "Brick raster (K7, csrc/raster_bricks.cu) in place of K1 on "
+               "the main-view rasters; tile_h rounds to a multiple of "
+               "4*subS.")
+cvars.register("r.raster.binCapacity", 1024,
+               "Max binned triangles per tile (overflow counted, logged).",
+               vtype=int)
+cvars.register("r.raster.bigTriCapacity", 256,
+               "Capacity of the large-triangle (tile-spanning) list.",
+               vtype=int)
 cvars.register("r.texture.compress", True,
                "Block-compress the paged texture pool (BC-style 4x4 blocks, "
                "4x smaller pages decoded per texel fetch — "
-               "ops/paged_texture.py compress_page; chord_tpu's default, "
-               "chord_tpu/utils/cvar.py:155).")
+               "ops/paged_texture.py compress_page).")
+cvars.register("r.instanceculling.enable", True,
+               "Object-level frustum culling.")
+cvars.register("r.instanceculling.hzb", True,
+               "Two-phase HZB occlusion culling.")
+cvars.register("r.nanite.errorPixels", 1.0,
+               "Cluster-LOD screen-space error threshold in pixels "
+               "(reference: nanite_shared.hlsli DAG cut rule).")
+cvars.register("r.shadow.cascadeCount", 4, "Number of shadow cascades.",
+               vtype=int)
+cvars.register("r.gi.enable", False, "Screen-probe GI.")
+cvars.register("r.gi.worldcache.probeDim", 32,
+               "World radiance cache probe volume dimension.", vtype=int)
+cvars.register("r.gi.worldcache.cascades", 8,
+               "World radiance cache clipmap cascade count.", vtype=int)
+cvars.register("r.tsr.enable", False, "Temporal super resolution.")
+cvars.register("r.tsr.sharpeness", 0.5, "TSR sharpen strength.")
+cvars.register("r.bloom.enable", True, "Bloom pyramid.")
+cvars.register("r.exposure.auto", True, "Histogram auto exposure.")
+cvars.register("r.log.file", False, "Also log to disk.")

@@ -266,7 +266,7 @@ def main() -> int:
         print("kernel_ab: no CUDA device", file=sys.stderr)
         return 2
     from chord_tpu_torch.ops import _cuda, kernels
-    from chord_tpu_torch.ops.kernels import PATHS
+    from chord_tpu_torch.ops.kernels import FRAME_PATHS
 
     smi = chip_smoke.card_line()
     chip_smoke.log(f"card: {smi}")
@@ -291,7 +291,8 @@ def main() -> int:
     home = _cuda.lib()
 
     paths = a.paths.split(",")
-    frame_paths = chip_smoke.scene_paths([p for p in paths if p in PATHS])
+    frame_paths = chip_smoke.scene_paths([p for p in paths
+                                          if p in FRAME_PATHS])
     scenes = chip_smoke.bench_scenes(dev, frame_paths) if frame_paths else {}
     wanted = set(a.kernels.split(",")) if a.kernels else None
     result = []

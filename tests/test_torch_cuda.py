@@ -263,8 +263,9 @@ def _exact(k, args, kwargs):
 
 @pytest.mark.cuda
 def test_kernels_match_plain_on_frame_inputs(dev):
-    """Every kernel, on the inputs of every path that lists it."""
-    for path in kernels.PATHS:
+    """Every kernel, on the inputs of every one-process path that lists
+    it (the sharded paths' are chip_smoke's)."""
+    for path in kernels.FRAME_PATHS:
         kernels.reset_launch_counts()
         with kernels.capture_inputs() as captured:
             _render_path(path, dev)
@@ -662,8 +663,8 @@ def test_wrappers_reject_bad_inputs(dev):
     with pytest.raises(ValueError):
         shadow_kernel.pcss(maps[:, :, :32], pre, shadow.ShadowConfig())
     # the brick raster needs tile_h % (4*sub_s) == 0, K7 a bricks config,
-    # K8 a 128-px tile; the flat frame's multi-device histogram is not
-    # ported
+    # K8 a 128-px tile; the flat frame takes a process group (`group=`),
+    # not chord_tpu's named axis
     setup = raster.TriangleSetup(coefT=table, window_bbox=slot,
                                  window_valid=slot, valid=slot)
     with pytest.raises(ValueError):
@@ -701,7 +702,7 @@ def test_wrappers_reject_bad_inputs(dev):
         fusion_barrier.fusion_barrier(x.t())
     with pytest.raises(ValueError):
         fusion_barrier.copy_cuda(x.cpu())
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError, match="axis_name"):
         render_frame_flat(b.build_pools(device=dev),
                           b.frame_instances(cam, device=dev),
                           DeviceView.from_uniform(cam.view_uniform(0),

@@ -133,12 +133,15 @@ def test_build_pools_matches():
 
 
 def test_render_frame_flat_refuses_axis_name():
+    """torch has no named mesh axis: the strip frame takes a process group
+    (`group=`, tests/test_torch_sharded.py), and chord_tpu's `axis_name`
+    is no argument of the port's frame."""
     pools = build_sponza_like(detail=1).build_pools(device="cpu")
     cam = Camera(width=W, height=H)
     cam.position = np.array([-15.0, 4.0, 0.0])
     cam.look_at(np.array([10.0, 2.0, 0.0]))
     b = build_sponza_like(detail=1)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError, match="axis_name"):
         render_frame_flat(pools, b.frame_instances(cam, device="cpu"),
                           DeviceView.from_uniform(cam.view_uniform(0),
                                                   device="cpu"),

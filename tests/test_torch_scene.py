@@ -112,8 +112,8 @@ def test_device_view_matches(jitter):
 
 def test_port_imports_no_jax():
     """Every module of the port imports with jax, chex and chord_tpu
-    unavailable, the host layers (scene/, asset/) and the apps among
-    them."""
+    unavailable, the host layers (scene/, asset/, utils/names), the apps
+    and the strip-parallel frame among them."""
     code = textwrap.dedent("""
         import importlib, pkgutil, sys
         sys.modules["jax"] = None
@@ -129,7 +129,8 @@ def test_port_imports_no_jax():
         for n in ("scene.scene", "scene.components", "scene.subsystem",
                   "asset.gltf", "asset.pmx", "asset.serialize",
                   "asset.manager", "utils.events", "utils.timer",
-                  "apps.viewer", "apps.editor"):
+                  "apps.viewer", "apps.editor", "utils.names",
+                  "utils.collectives", "parallel.sharded"):
             assert "chord_tpu_torch." + n in names, n
         print(len(names))
     """)
