@@ -4,15 +4,17 @@
     python3 chip_smoke.py              # the default run
     python3 chip_smoke.py --profile    # + a torch.profiler breakdown per path
 
-Eighteen paths, fourteen one-process frame paths, two strip-parallel
+Twenty paths, sixteen one-process frame paths, two strip-parallel
 frame paths (phase 12) and two tool paths, and the apps (phase 11).
 Three are the bench's
 `off`, `geo_tex` and `geo_shadow_atmo` rungs (bench.py:35-54): the
 1280x720 render of the 2.6M-triangle procedural bistro (Nanite LOD cut),
-upscaled to 1920x1080 by tile-mode TSR, bloom and the ACES tonemap;
-`geo_tex` adds the bench texture pool (12 layers of 256², block-compressed
-pages), base / normal / metal-rough maps, the alpha-masked bucket and the
-blend bucket, on the bistro built with textures=True; `geo_shadow_atmo`
+built as bench.py builds it for every rung (textures=True, with the
+bench texture pool: 12 layers of 256², block-compressed pages), upscaled
+to 1920x1080 by tile-mode TSR, bloom and the ACES tonemap; `off` renders
+it with the texture flags off (its leaves opaque, no page sampled);
+`geo_tex` adds base / normal / metal-rough maps, the alpha-masked bucket
+and the blend bucket; `geo_shadow_atmo`
 renders the same textured bistro with ShadowConfig() (4 cascades of 1024²,
 round-robin refresh, scrolled cache, alpha-tested masked casters, PCSS on
 a 2x2 phase of the 1/4-res grid, temporal mask), the physically based sky,
@@ -77,7 +79,16 @@ config #3, bench.py --scene nanite at the `off` rung:
 build_nanite_stress(rings=48), 100 instances of one ~9.2k-triangle sphere
 (~0.9M source triangles) whose Nanite cut decides what is drawn, on the
 orbit path (bench.py:122-126). Both render 1280x720, upscaled to
-1920x1080 by tile TSR. The
+1920x1080 by tile TSR. `all_4k` is BASELINE config #5, the `all` rung at
+bench.py --width 3840 --height 2160 (bench.py:171-186): `all`'s scene,
+object BVH and LUTs with the camera path at 2560x1440, upscaled by tile
+TSR to 3840x2160, at bench.py's 4K capacities (draws 4096, pairs 24576,
+big windows 128); where those drop anything (its worst-frame overflows
+are printed) it runs again at FULL_4K_CAPS with the shadow draws at 4096,
+where nothing may overflow. `all_cache` is `all` with gi_mode="cache",
+the viewer's `--gi --gi-mode cache --gi-rt`: the world SH cache takes the
+frame's lit surfels (gi.inject), no screen probes run (K4 only for TSR)
+and only SSR's misses trace the BVH. The
 tool paths are the port's
 chord_tpu_torch/tools: `repro_eval` runs all 22 variants of the
 shadow-evaluate fault bisection at its bench shapes (`tm_pallas` puts the
@@ -190,7 +201,8 @@ Phases (any failure raises and the script exits non-zero):
    call (tolerance 0), timed (bound: bytes of u, v, lm, meta, out, cov
    and the 32-B pool sectors the served texels lie in; operations 47 per
    pixel at the f32 rate).
-8. A small-input cross-check per frame path (tiny atrium, its flat pools on
+8. A small-input cross-check per frame path but `all_4k` (whose tiny
+   config is `all`'s) (tiny atrium, its flat pools on
    `flat`; small textured bistro, with 2 cascades of 256² on the shadow
    paths, and GI on the GI paths, with a BVH of the small scene's
    instances on the ray paths, at each one's granularity): kernels on
@@ -249,9 +261,20 @@ Phases (any failure raises and the script exits non-zero):
    strips-vs-one-chip configuration (tests/test_sharded.py: under 2% of
    pixels off by more than 8 levels, no strip empty) and the dryrun(2)
    line.
+13. Bench goldens (last): phase 5's frames held to
+   chord_tpu's own at bench size, tests/goldens/bench/ (rendered on the
+   CPU by tests/bench_goldens.py with bench.py's scene, camera path and
+   configs; its manifest records them): `off` frames 0, 7, 15 and
+   `nanite` 0, 7 with chord_tpu's three gates, `interior` 0, 7 with SSIM
+   and MAE (its worst window printed: its GI noise is the port's own).
+   The manifest must exist, come from the checkout's chord_tpu sources
+   (sha256) and hold the path's configs field for field; each frame's
+   stats are printed beside chord_tpu's and held equal to them;
+   `all` frames 7 and 15 against chord_tpu's TPU frames
+   docs/images/bench_all_1080p_f{7,15}.png, printed only.
 
 Phases 4-5 run per one-process frame path (the split's launches must
-equal the inline path's), then 6 to 10, 12 and 11. The line before the last
+equal the inline path's), then 6 to 10, 12, 11 and 13. The line before the last
 is the nvidia-smi name/power-limit line, the one before that the
 per-kernel JSON (one entry per kernel and path: launches, max_abs_err,
 per-frame ms / plain_ms / bound_ms / library_ms summed over the kernel's
@@ -260,7 +283,7 @@ K10's work stats and K3 and K9's alternating rounds;
 plus each path's ms/frame and the launch floor),
 and before that the tools' JSON (each repro variant's first-call seconds
 and steady ms, the proto tool's coverage, match and ms, each app run's
-seconds); the last line is
+seconds, phase 9's and 13's image numbers); the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
@@ -291,29 +314,46 @@ TIMED_RUNS = {"all_exact": 1}
 FLAT_W, FLAT_H = 1920, 1080
 FLAT_DETAIL = 4
 FLAT_PAIRS = 16384
+# BASELINE config #5, the `all` rung at bench.py --width 3840 --height 2160
+# (bench.py:171-186): render 2560x1440, tile TSR to 3840x2160, draw
+# capacity 4096, pair capacity 24576, big capacity 128; and the capacities
+# at which every frame of its path fits (the path runs again there when
+# bench.py's drop anything)
+W4, H4, PW4, PH4 = 2560, 1440, 3840, 2160
+FULL_4K_CAPS = dict(draw_capacity=8192, masked_draw_capacity=1024,
+                    pair_capacity=49152, big_capacity=256)
+# bench.py's bistro (bench.py:88-90): every rung renders the textured
+# build with its texture pool; `off` turns the texture flags off
+BISTRO = dict(detail=3, target_tris=2_600_000, textures=True)
 # the paths on a scene with the bench texture pool and masked materials
 TEXTURED_PATHS = ("geo_tex", "geo_shadow_atmo", "geo_tex_bricks",
                   "all_no_rt", "all", "all_ddgi", "all_exact",
-                  "geo_tex_native", "geo_shadow_atmo_split")
+                  "geo_tex_native", "geo_shadow_atmo_split", "all_4k",
+                  "all_cache")
 SHADOW_PATHS = ("geo_shadow_atmo", "all_no_rt", "all", "all_ddgi",
-                "all_exact", "geo_shadow_atmo_split", "interior")
+                "all_exact", "geo_shadow_atmo_split", "interior", "all_4k",
+                "all_cache")
 # the bench rung a path renders with another scene or runner: the shadow
 # rung with ShadowConfig(pipelined=True) through render_sequence_split,
 # and bench.py's `--scene interior` (BASELINE #4, the `all` rung) and
-# `--scene nanite` (BASELINE #3, the `off` rung; bench.py:84-95)
+# `--scene nanite` (BASELINE #3, the `off` rung; bench.py:84-95), the
+# `all` rung at 4K (BASELINE #5) and with the world-cache GI
 RUNG = {"geo_shadow_atmo_split": "geo_shadow_atmo", "interior": "all",
-        "nanite": "off"}
+        "nanite": "off", "all_4k": "all", "all_cache": "all"}
 SPLIT = "geo_shadow_atmo_split"
 # the paths that trace BVH rays, and the granularity of each one's BVH
 # (`all` is bench.py's object BVH; the others are built as MeshletRenderer
 # builds them: from the path's own instance table, at its granularity)
 RAY_PATHS = {"all": "object", "all_ddgi": "meshlet", "all_exact": "triangle",
-             "interior": "object"}
+             "interior": "object", "all_4k": "object", "all_cache": "object"}
 # rt.trace calls a frame: the probe rays and SSR's misses; DDGI's update
-# and SSR's misses; RTAO's 4 rays, the probe rays and SSR's misses
-TRACES_PER_FRAME = {"all": 2, "all_ddgi": 2, "all_exact": 6, "interior": 2}
+# and SSR's misses; RTAO's 4 rays, the probe rays and SSR's misses; in
+# cache mode SSR's misses alone
+TRACES_PER_FRAME = {"all": 2, "all_ddgi": 2, "all_exact": 6, "interior": 2,
+                    "all_4k": 2, "all_cache": 1}
 # the scene a path's scene is made from (PATHS order builds it first)
-SCENE_FROM = {"geo_shadow_atmo": "geo_tex", "geo_tex_bricks": "geo_tex",
+SCENE_FROM = {"geo_tex": "off", "geo_shadow_atmo": "geo_tex",
+              "geo_tex_bricks": "geo_tex", "all_4k": "all", "all_cache": "all",
               "all_no_rt": "geo_shadow_atmo", "all": "all_no_rt",
               "all_ddgi": "all_no_rt", "all_exact": "all_no_rt",
               "geo_tex_native": "geo_tex", "off_no_occlusion": "off",
@@ -359,14 +399,16 @@ def scene_paths(paths):
 
 def bench_scenes(dev, paths):
     """The scene of each path, (pools, instances, views, blend_textured,
-    bvh): the bench bistro (bench.py:88-100; textures off for `off`, on
-    for the others) and the bench camera path (bench.py:112-131);
-    `geo_shadow_atmo` and `geo_tex_bricks` reuse the textured build, the
-    former with views carrying the host cascade fit and the LUTs
-    (bench.py:236-256), `all_no_rt` those views with the env-BRDF LUT, and
-    `all` adds the scene BVH (scene_bvh); `flat` is flat_scene(),
-    `interior` and `nanite` baseline_scene(). `paths` in PATHS order, each
-    after the path its scene comes from."""
+    bvh): bench.py's bistro (bench.py:88-100: BISTRO, textured, with its
+    pool, for every rung; `off` renders it with the texture flags off) and
+    the bench camera path (bench.py:112-131); `geo_tex`, `geo_shadow_atmo`
+    and `geo_tex_bricks` reuse `off`'s build, `geo_shadow_atmo` with views
+    carrying the host cascade fit and the LUTs (bench.py:236-256),
+    `all_no_rt` those views with the env-BRDF LUT, and `all` adds the
+    scene BVH (scene_bvh); `all_cache` is `all`'s scene, `all_4k` `all`'s
+    with its views at 2560x1440; `flat` is flat_scene(), `interior` and
+    `nanite` baseline_scene(). `paths` in PATHS order, each after the path
+    its scene comes from."""
     import numpy as np
 
     from chord_tpu_torch.asset.procedural import build_bistro_like
@@ -377,7 +419,6 @@ def bench_scenes(dev, paths):
 
     if not available():
         raise RuntimeError("the native Nanite builder did not load")
-    cache = {}     # the two builds share their meshes' Nanite DAGs
     scenes, textured_bistro = {}, None
     for path in paths:
         t0 = time.time()
@@ -402,9 +443,21 @@ def bench_scenes(dev, paths):
             log(f"scene {path}: the geo_shadow_atmo scene and views, with "
                 f"the env-BRDF LUT in {time.time() - t0:.2f} s")
             continue
-        if path in ("geo_tex_bricks", "off_no_occlusion", SPLIT):
+        if path in ("geo_tex", "geo_tex_bricks", "off_no_occlusion", SPLIT,
+                    "all_cache"):
             scenes[path] = scenes[SCENE_FROM[path]]
             log(f"scene {path}: the {SCENE_FROM[path]} scene")
+            continue
+        if path == "all_4k":
+            pools, inst, _, blend_tex, bvh = scenes[SCENE_FROM[path]]
+            lut = brdf_lut(dev)
+            views = [v.replace(brdf_lut=lut) for v in with_luts(
+                camera_views(W4, H4, dev, configs(path)[1].shadow_cfg), dev)]
+            scenes[path] = (pools, inst, DeviceView.stack(views), blend_tex,
+                            bvh)
+            log(f"scene {path}: the all scene and BVH, views at {W4}x{H4} "
+                f"with the host cascade fit and the LUTs in "
+                f"{time.time() - t0:.2f} s")
             continue
         if path in ("interior", "nanite"):
             scenes[path] = baseline_scene(path, dev)
@@ -416,21 +469,17 @@ def bench_scenes(dev, paths):
                             blend_tex, None)
             log(f"scene {path}: the geo_tex scene, views at {PW}x{PH}")
             continue
-        textured = path != "off"
         shadows = path == "geo_shadow_atmo"
-        if shadows:     # the textured bistro of geo_tex
+        if shadows:     # the bistro of off and geo_tex
             pools, inst, _, blend_tex, _ = scenes[SCENE_FROM[path]]
         else:
-            b = build_bistro_like(detail=3, target_tris=2_600_000,
-                                  textures=textured)
-            pools = build_meshlet_pools(
-                b, meshlet_cache=cache, nanite=True, device=dev,
-                texture_pool=b.texture_pool if textured else None)
+            b = build_bistro_like(**BISTRO)
+            pools = build_meshlet_pools(b, nanite=True, device=dev,
+                                        texture_pool=b.texture_pool)
             n_src = sum(b.meshes[m].num_triangles for m, _, _ in b.instances)
             blend_tex = any(m.alpha_mode == "blend" and
                             m.base_color_texture >= 0 for m in b.materials)
-            if textured:
-                textured_bistro = b
+            textured_bistro = b
         mcfg = configs(path)[1]
         cam = Camera(width=W, height=H)
         views = camera_views(W, H, dev, mcfg.shadow_cfg if shadows else None,
@@ -443,7 +492,8 @@ def bench_scenes(dev, paths):
         else:
             inst = b.frame_instances(cam, device=dev)
             rows = 2 if pools.tex_meta.shape[0] == 3 else 8
-            log(f"scene {path}: {n_src} source tris, {pools.num_meshlets} "
+            log(f"scene {path}: build_bistro_like({BISTRO}), {n_src} "
+                f"source tris, {pools.num_meshlets} "
                 f"meshlets, {pools.num_pairs} pairs, "
                 f"{len(b.materials)} materials, texture pages "
                 f"{pools.tex_pages.shape[0] // rows} "
@@ -648,13 +698,24 @@ def configs(path: str, blend_textured: bool = False, shadow_cfg=None,
     TSR and HDR10; `all_ddgi` is `all` with gi_mode="ddgi" and
     DDGIConfig() over a meshlet BVH, `all_exact` is `all` over a triangle
     BVH with GIConfig(ao_mode="rtao") and the probe march; a RUNG path is
-    its rung's (the split with ShadowConfig(pipelined=True))."""
+    its rung's (the split with ShadowConfig(pipelined=True), `all_4k` at
+    W4xH4 upscaled to PW4xPH4 with bench.py's 4K capacities, `all_cache`
+    with gi_mode="cache"). Where bench.py renders the path, the two
+    configs are bench.py's field for field (bench.py leaves
+    rt_granularity at its default: its BVH is built outside the config)."""
     if path in RUNG:
         config, mcfg = configs(RUNG[path], blend_textured, shadow_cfg,
                                shadow_draws)
         if path == SPLIT:
             mcfg = mcfg._replace(
                 shadow_cfg=mcfg.shadow_cfg._replace(pipelined=True))
+        if path == "all_4k":
+            config = config._replace(width=W4, height=H4, post_width=PW4,
+                                     post_height=PH4, pair_capacity=24576,
+                                     big_capacity=128)
+            mcfg = mcfg._replace(draw_capacity=4096)
+        if path == "all_cache":
+            mcfg = mcfg._replace(gi_mode="cache")
         return config, mcfg
     from chord_tpu_torch.ops.ddgi import DDGIConfig
     from chord_tpu_torch.ops.gi import GIConfig
@@ -687,17 +748,18 @@ def configs(path: str, blend_textured: bool = False, shadow_cfg=None,
         object_precull=occlusion, textured=tex, normal_mapped=tex,
         pbr_textures=tex, alpha_masked=tex, alpha_blend=tex,
         blend_textured=blend_textured, shadows=shadows, atmosphere=shadows,
-        shadow_masked=True, shadow_draw_capacity=shadow_draws,
+        shadow_masked=shadows, shadow_draw_capacity=shadow_draws,
         shadow_cfg=shadow_cfg or ShadowConfig(), gi=gi,
         gi_mode="ddgi" if path == "all_ddgi" else "probe",
         gi_rt=path in RAY_PATHS, rt_rays=2,
-        rt_granularity=RAY_PATHS.get(path, "meshlet"), ssr=gi,
+        rt_granularity=("meshlet" if RAY_PATHS.get(path) == "object"
+                        else RAY_PATHS.get(path, "meshlet")), ssr=gi,
         trilinear=gi,
         gi_cfg=GIConfig(ao_mode="rtao") if exact else None,
         ddgi_cfg=DDGIConfig() if path == "all_ddgi" else None,
         probe_cfg=ScreenProbeConfig(
             rays=16, steps=6, history_mode="tile",
-            trace_mode="march" if exact else "taps") if gi else None,
+            trace_mode="march" if exact else "taps"),
         masked_layers=2 if path == "geo_tex_native" else 1)
 
 
@@ -1337,7 +1399,8 @@ def check_gi_history(path, hist, config, mcfg) -> None:
     """The GI state after a run: chord_tpu's shapes; with screen probes,
     probes on geometry that gathered samples; with DDGI, every probe of
     every cascade traced (16 frames update each (cascade, phase) slice
-    once) with finite non-negative irradiance that is not all zero; a
+    once) with finite non-negative irradiance that is not all zero; in
+    cache mode no probe planes (their 1x1 placeholders, zero); a
     world cache that took probes or surfels (a cascade takes probes only
     where its clipmap holds converged probes), non-negative diffuse and
     specular histories that are not all zero."""
@@ -1378,6 +1441,15 @@ def check_gi_history(path, hist, config, mcfg) -> None:
         if not float((n[on_geometry] > 8).float().mean()) > 0.5:
             raise AssertionError(f"{path}: most probes on geometry hold <= "
                                  "8 samples")
+    elif mcfg.gi_mode == "cache":
+        planes = {n: float(getattr(hist, n).abs().max())
+                  for n in ("probe_sh", "probe_depth", "gi_diffuse")}
+        log(f"{path}: world-cache mode, cache rows lit "
+            f"{int((hist.gi_cache[..., 27] > 0).sum())} of "
+            f"{hist.gi_cache[..., 27].numel()}, probe planes "
+            f"{json.dumps(planes)} (max |value|)")
+        if any(v != 0.0 for v in planes.values()):
+            raise AssertionError(f"{path}: cache mode wrote probe planes")
     else:
         dd = hist.ddgi
         traced = int((dd.weight > 0).sum())
@@ -1483,17 +1555,30 @@ def ray_report(path, scene, hist, config, mcfg, card: str) -> None:
 
 
 def main_path(path, scene, card: str,
-              shadow_draws: int = BENCH_SHADOW_DRAWS):
+              shadow_draws: int = BENCH_SHADOW_DRAWS,
+              caps: Optional[dict] = None):
     """Phase 5 for one path: the 16-frame sequence (4 on `all_exact`),
-    counted, checked and timed, at bench.py's shadow draw capacity unless
-    `shadow_draws` is given (and then no cascade may reach it)."""
+    counted, checked and timed, at bench.py's capacities unless
+    `shadow_draws` or `caps` (RendererConfig / MeshletFrameConfig fields)
+    are given (and then no cascade may reach its capacity and, with
+    `caps`, no counter overflow). On `all_4k` at bench.py's capacities an
+    overflow is printed, not failed. -> (launches, ms/frame, the
+    GOLDEN_FRAMES images and per-frame stats or None, whether a counter
+    overflowed)."""
     import torch
 
     from chord_tpu_torch.ops import kernels, rt
 
     config, mcfg = configs(path, scene[3], shadow_draws=shadow_draws)
-    bench = shadow_draws == BENCH_SHADOW_DRAWS
-    label = path if bench else f"{path} at shadow_draw_capacity {shadow_draws}"
+    if caps:
+        config = config._replace(**{k: v for k, v in caps.items()
+                                    if k in config._fields})
+        mcfg = mcfg._replace(**{k: v for k, v in caps.items()
+                                if k in mcfg._fields})
+    bench = shadow_draws == BENCH_SHADOW_DRAWS and not caps
+    label = path if bench else f"{path} at " + ", ".join(
+        f"{k} {v}" for k, v in dict(caps or {},
+                                    shadow_draw_capacity=shadow_draws).items())
     hist0 = history(config, mcfg, scene[0].positions.device)
     torch.cuda.synchronize()
     kernels.reset_launch_counts()
@@ -1514,9 +1599,18 @@ def main_path(path, scene, card: str,
             f", binned_pairs {stats['binned_pairs'].tolist()}, "
             f"bin_overflow {stats['bin_overflow'].tolist()} (pair capacity "
             f"{config.pair_capacity})")
+    over = {k: v for k, v in worst.items() if "overflow" in k}
+    if path == "all_4k":
+        log(f"{label}: worst-frame overflow "
+            f"{json.dumps(dict(over, max_draws_phase0=worst['draws_phase0']))}"
+            f" at draw capacity {mcfg.draw_capacity}, pair capacity "
+            f"{config.pair_capacity}, big capacity {config.big_capacity}, "
+            f"shadow draw capacity {mcfg.shadow_draw_capacity}")
     for k in ("bin_overflow", "draw_overflow", "active_overflow"):
-        if worst.get(k, 0) != 0:
+        if worst.get(k, 0) != 0 and not (path == "all_4k" and bench):
             raise AssertionError(f"{path}: worst-frame {k} = {worst[k]}")
+    if caps and any(over.values()):
+        raise AssertionError(f"{label}: overflow {over}")
     if int(stats["drawn_tris"].min()) <= 0:
         raise AssertionError(f"{path}: a frame drew no triangles")
     if mcfg is not None:
@@ -1535,6 +1629,11 @@ def main_path(path, scene, card: str,
               else (config.height, config.width))
     if tuple(imgs.shape) != (n_frames, *out_hw, 3):
         raise AssertionError(f"{path}: image shape {tuple(imgs.shape)}")
+    kept = None
+    if path in GOLDEN_FRAMES and bench:
+        kept = dict(images={i: imgs[i].cpu().numpy()
+                            for i in GOLDEN_FRAMES[path]},
+                    stats={k: v.tolist() for k, v in stats.items()})
     last = imgs[-1].float()
     if float(last.std()) < 1.0:
         raise AssertionError(f"{path}: the final image is constant")
@@ -1602,8 +1701,9 @@ def main_path(path, scene, card: str,
         f"{max(times) / min(times):.3f}x; {n_frames} frames each, "
         f"synchronize-bounded host clock) on {card}; mean u8 of the last "
         f"frame {float(last.mean()):.3f}")
-    return {k.name: launches[k.name] for k in kernels.KERNELS
-            if path in k.paths}, dict(median=ms, runs=times)
+    return ({k.name: launches[k.name] for k in kernels.KERNELS
+             if path in k.paths}, dict(median=ms, runs=times), kept,
+            any(v != 0 for v in over.values()))
 
 
 def profile(path, scene, n: int = 4) -> None:
@@ -1942,13 +2042,18 @@ def ssim(a, b) -> float:
 def windowed_ssim(a, b, win: int = 16) -> float:
     """The least SSIM over a grid of win x win windows (chord_tpu's
     tests/test_golden.py:36-56)."""
+    return worst_window(a, b, win)[0]
+
+
+def worst_window(a, b, win: int = 16) -> tuple:
+    """windowed_ssim's least window -> (SSIM, top row, left column)."""
     import numpy as np
 
     ga = a.astype(np.float64).mean(-1) / 255.0
     gb = b.astype(np.float64).mean(-1) / 255.0
     h, w = ga.shape
     c1, c2 = 0.01 ** 2, 0.03 ** 2
-    worst = 1.0
+    worst = (1.0, 0, 0)
     for y in range(0, h - win + 1, win):
         for x in range(0, w - win + 1, win):
             wa, wb = ga[y:y + win, x:x + win], gb[y:y + win, x:x + win]
@@ -1956,7 +2061,8 @@ def windowed_ssim(a, b, win: int = 16) -> float:
             cov = ((wa - mu_a) * (wb - mu_b)).mean()
             s = (((2 * mu_a * mu_b + c1) * (2 * cov + c2)) /
                  ((mu_a ** 2 + mu_b ** 2 + c1) * (wa.var() + wb.var() + c2)))
-            worst = min(worst, float(s))
+            if float(s) < worst[0]:
+                worst = (float(s), y, x)
     return worst
 
 
@@ -2031,6 +2137,139 @@ def goldens(dev, card: str) -> dict:
         if not (s >= 0.99 and mae < 2.0 and ws >= 0.95):
             raise AssertionError(f"golden {mode} fails its gates")
         out[mode] = dict(ssim=s, mae=mae, worst_window_ssim=ws)
+    return out
+
+
+# phase 13: the frames of phase 5's runs held to chord_tpu's at bench size
+# (tests/bench_goldens.py renders them on the CPU into BENCH_GOLDEN_DIR)
+# and, on `all`, to chord_tpu's own frames in docs/images (not gated: K5
+# has no page palette, ROADMAP §3, and their flags were not recorded)
+BENCH_GOLDEN_DIR = os.path.join(GOLDEN_DIR, "bench")
+GOLDEN_FRAMES = {"off": (0, 7, 15), "nanite": (0, 7), "interior": (0, 7),
+                 "all": (7, 15)}
+# the cells gated on the worst 16x16 window too (interior's GI noise is
+# the port's own: eager and jitted IGN differ at ~0.35% of pixels)
+WINDOW_GATED = ("off", "nanite")
+
+
+def chord_tpu_hash(root: str) -> str:
+    """sha256 over chord_tpu/'s *.py files under `root`: each one's path
+    (relative to `root`, sorted) and then its bytes (as
+    tests/bench_goldens.py records it)."""
+    import hashlib
+
+    files = []
+    for d, _, names in os.walk(os.path.join(root, "chord_tpu")):
+        files += [os.path.join(d, n) for n in names if n.endswith(".py")]
+    h = hashlib.sha256()
+    for rel in sorted(os.path.relpath(f, root).replace(os.sep, "/")
+                      for f in files):
+        h.update(rel.encode())
+        with open(os.path.join(root, rel), "rb") as f:
+            h.update(f.read())
+    return h.hexdigest()
+
+
+def config_dict(nt):
+    """A config NamedTuple (nested ones too) -> JSON-ready dict, without
+    chord_tpu's `interpret` (the port has none)."""
+    if hasattr(nt, "_asdict"):
+        return {k: config_dict(v) for k, v in nt._asdict().items()
+                if k != "interpret"}
+    if isinstance(nt, (tuple, list)):
+        return [config_dict(v) for v in nt]
+    return nt
+
+
+def image_gates(img, ref) -> dict:
+    """SSIM, MAE and the worst 16x16 window (SSIM, where) of two u8
+    images."""
+    import numpy as np
+
+    if img.shape != ref.shape:
+        raise AssertionError(f"image {img.shape}, reference {ref.shape}")
+    ws, y, x = worst_window(img, ref)
+    return dict(ssim=ssim(img, ref),
+                mae=float(np.abs(img.astype(int) - ref.astype(int)).mean()),
+                worst_window_ssim=ws, worst_window_at=[y, x])
+
+
+def bench_goldens(kept: dict, blend: dict, card: str) -> dict:
+    """Phase 13: `off` frames 0/7/15 and `nanite` 0/7 held to chord_tpu's
+    with its three gates (SSIM >= 0.99, MAE < 2, worst window >= 0.95),
+    `interior` 0/7 with the first two (its worst window printed); a
+    missing PNG or manifest, a manifest made from other chord_tpu sources
+    or with another config than the path's, fails. Each frame's stats
+    (those both packages make) held equal to chord_tpu's; `all` 7/15 against
+    docs/images/bench_all_1080p_f*.png, printed. -> numbers per image."""
+    with open(os.path.join(BENCH_GOLDEN_DIR, "manifest.json")) as f:
+        man = json.load(f)
+    sha = chord_tpu_hash(REPO)
+    if man["chord_tpu_sha256"] != sha:
+        raise AssertionError(f"the bench goldens were rendered from chord_tpu "
+                             f"sources {man['chord_tpu_sha256']}, the "
+                             f"checkout's are {sha}")
+    out = {}
+    for path in ("off", "nanite", "interior"):
+        cell = man["cells"][path]
+        config, mcfg = configs(path, blend[path])
+        for key, nt in (("renderer_config", config),
+                        ("meshlet_config", mcfg)):
+            want = json.loads(json.dumps(config_dict(nt)))
+            got = cell[key]
+            if got != want:
+                diff = sorted(k for k in set(got) | set(want)
+                              if got.get(k) != want.get(k))
+                raise AssertionError(f"bench golden {path}: the manifest's "
+                                     f"{key} differs from the path's in "
+                                     f"{diff}")
+        for i in GOLDEN_FRAMES[path]:
+            if str(i) not in cell["images"]:
+                raise AssertionError(f"bench golden {path}: no frame {i}")
+            ref = read_png(os.path.join(BENCH_GOLDEN_DIR,
+                                        cell["images"][str(i)]))
+            g = image_gates(kept[path]["images"][i], ref)
+            gated = path in WINDOW_GATED
+            log(f"bench golden {path} frame {i} ({cell['command']}) on "
+                f"{card}: SSIM {g['ssim']:.6f} (>= 0.99), MAE "
+                f"{g['mae']:.4f} (< 2), worst 16x16 window SSIM "
+                f"{g['worst_window_ssim']:.6f} at (row, column) "
+                f"{tuple(g['worst_window_at'])}"
+                f"{' (>= 0.95)' if gated else ' (printed, not gated)'}")
+            if not (g["ssim"] >= 0.99 and g["mae"] < 2.0 and
+                    (g["worst_window_ssim"] >= 0.95 or not gated)):
+                raise AssertionError(f"bench golden {path} frame {i} fails "
+                                     "its gates")
+            out[f"{path}_f{i:02d}"] = g
+        port = kept[path]["stats"]
+        ref = cell["stats"]
+        n = cell["frames_rendered"]
+        keys = sorted(set(port) & set(ref[0]))
+        differ = {}
+        for k in keys:
+            a, b = port[k][:n], [st[k] for st in ref]
+            frames_off = [f for f in range(n) if a[f] != b[f]]
+            log(f"bench golden {path} stat {k}: port {a}, chord_tpu {b}"
+                + (f", differ on frames {frames_off}" if frames_off
+                   else ", equal"))
+            if frames_off:
+                differ[k] = frames_off
+        log(f"bench golden {path}: stats only the port makes "
+            f"{sorted(set(port) - set(ref[0]))}, only chord_tpu "
+            f"{sorted(set(ref[0]) - set(port))}")
+        out[f"{path}_stats_differ"] = differ
+        if differ:
+            raise AssertionError(f"bench golden {path}: stats differ on "
+                                 f"{differ}")
+    for i in GOLDEN_FRAMES["all"]:
+        ref = read_png(os.path.join(REPO, "docs", "images",
+                                    f"bench_all_1080p_f{i}.png"))
+        g = image_gates(kept["all"]["images"][i], ref)
+        log(f"all frame {i} against chord_tpu's docs/images/"
+            f"bench_all_1080p_f{i}.png on {card} (printed, not gated): SSIM "
+            f"{g['ssim']:.6f}, MAE {g['mae']:.4f}, worst 16x16 window SSIM "
+            f"{g['worst_window_ssim']:.6f} at {tuple(g['worst_window_at'])}")
+        out[f"all_f{i:02d}_docs"] = g
     return out
 
 
@@ -2648,17 +2887,24 @@ def main() -> int:
     floor_ms = launch_floor(smi)
 
     scenes = bench_scenes(dev, FRAME_PATHS)
-    rows, ms_per_frame, path_launches = [], {}, {}
+    rows, ms_per_frame, path_launches, kept = [], {}, {}, {}
     for p in FRAME_PATHS:
+        t0 = time.time()
         krows = check_kernels(p, scenes[p])
-        launches, ms_per_frame[p] = main_path(p, scenes[p], smi)
+        launches, ms_per_frame[p], kept[p], over = main_path(p, scenes[p],
+                                                             smi)
         path_launches[p] = launches
         if p == "geo_shadow_atmo":
             ms_per_frame[f"{p} shadow_draw_capacity {FULL_SHADOW_DRAWS}"] = \
                 main_path(p, scenes[p], smi, FULL_SHADOW_DRAWS)[1]
+        if p == "all_4k" and over:
+            ms_per_frame[f"{p} {json.dumps(FULL_4K_CAPS)} shadow_draw_"
+                         f"capacity {FULL_SHADOW_DRAWS}"] = main_path(
+                p, scenes[p], smi, FULL_SHADOW_DRAWS, FULL_4K_CAPS)[1]
         for name, n in launches.items():
             krows[name]["launches"] = n
         rows += list(krows.values())
+        log(f"{p}: phases 4-5 in {time.time() - t0:.1f} s")
         if "--profile" in sys.argv[1:]:
             profile(p, scenes[p])
     # the split launches what the inline path launches: the service
@@ -2666,16 +2912,20 @@ def main() -> int:
     if path_launches[SPLIT] != path_launches["geo_shadow_atmo"]:
         raise AssertionError(f"{SPLIT} launched {path_launches[SPLIT]}, the "
                              f"inline path {path_launches['geo_shadow_atmo']}")
+    blend = {p: scenes[p][3] for p in kept}
     tool_phase = {"repro_eval": lambda: repro_eval_path(dev, smi),
                   "proto_paged_tex": lambda: proto_paged_tex_path(smi)}
     tools = {}
     for p in TOOL_PATHS:
         krows, tools[p] = tool_phase[p]()
         rows += list(krows.values())
+    t0 = time.time()
     for p in FRAME_PATHS:
-        small_cross_check(p, dev)
+        if p != "all_4k":     # its tiny config is `all`'s
+            small_cross_check(p, dev)
     for tsr in TSR_VARIANTS:
         small_cross_check("off", dev, tsr)
+    log(f"phase 8 in {time.time() - t0:.1f} s")
     golden = goldens(dev, smi)
     debug_views(scenes["all"], dev, smi)
     strip_rows, strip_ms = sharded_phase(scenes, dev, smi)
@@ -2687,8 +2937,12 @@ def main() -> int:
         for name, r in krows.items():
             r["launches"] = launches[name]
         rows += list(krows.values())
+    t0 = time.time()
+    bench_golden = bench_goldens(kept, blend, smi)
+    log(f"phase 13 in {time.time() - t0:.1f} s")
     log(f"chip_smoke: all phases passed in {time.time() - t_start:.1f} s")
-    print(json.dumps({"tools": tools, "goldens": golden, "apps": apps}))
+    print(json.dumps({"tools": tools, "goldens": golden,
+                      "bench_goldens": bench_golden, "apps": apps}))
 
     order = ("name", "path", "route", "source", "replaces", "launches",
              "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",

@@ -32,27 +32,31 @@ from . import (fusion_barrier, mesh_shader, paged_texture, proto_paged_tex,
 # output (`off_no_occlusion`), `geo_shadow_atmo` with the pipelined
 # shadow split (`geo_shadow_atmo_split`), and BASELINE configs #4 and #3
 # as bench.py's `--scene interior` (the `all` rung) and `--scene nanite`
-# (the `off` rung); then the strip-parallel frames
+# (the `off` rung), BASELINE config #5 as the `all` rung at
+# --width 3840 --height 2160 (`all_4k`: render 2560x1440, bench.py's 4K
+# capacities), and `all` with the world-cache GI (`all_cache`, the
+# viewer's --gi --gi-mode cache --gi-rt); then the strip-parallel frames
 # (parallel/sharded.py), two ranks on one card, each rendering half of
 # the image: the `all` rung's frame at its native 1920x1080 and the flat
 # frame (`sharded_all`, `sharded_flat`)
 PATHS = ("off", "geo_tex", "geo_shadow_atmo", "geo_tex_bricks", "flat",
          "all_no_rt", "all", "all_ddgi", "all_exact", "geo_tex_native",
          "off_no_occlusion", "geo_shadow_atmo_split", "interior", "nanite",
-         "sharded_all", "sharded_flat")
+         "all_4k", "all_cache", "sharded_all", "sharded_flat")
 SHARDED = ("sharded_all", "sharded_flat")
 # the paths one process renders
 FRAME_PATHS = tuple(p for p in PATHS if p not in SHARDED)
 FLAT = ("flat", "sharded_flat")
 MESHLET = tuple(p for p in PATHS if p not in FLAT)
 GI_PATHS = ("all_no_rt", "all", "all_ddgi", "all_exact", "interior",
-            "sharded_all")
+            "all_4k", "all_cache", "sharded_all")
 SHADOW = ("geo_shadow_atmo", "geo_shadow_atmo_split") + GI_PATHS
 # the meshlet paths whose TSR runs in tile mode (K4; on `sharded_all` at
 # render size)
 TILE_TSR = ("off", "geo_tex", "geo_shadow_atmo", "geo_tex_bricks",
             "all_no_rt", "all", "all_ddgi", "all_exact",
-            "geo_shadow_atmo_split", "interior", "nanite", "sharded_all")
+            "geo_shadow_atmo_split", "interior", "nanite", "all_4k",
+            "all_cache", "sharded_all")
 # the apps' runs: the editor's `render` of an imported street at 1920x1080
 # (no TSR, no occlusion), and the viewer with --shadows --atmosphere on
 # assets/demo_street.glb (textured, masked leaves; gather TSR) and on a
@@ -70,7 +74,7 @@ def run_frames(path: str) -> int:
 # launches of a kernel on a path's run that the path fixes, per rank on
 # the sharded paths (K4:
 # TSR's history and, with screen probes, the GI diffuse history every
-# frame (DDGI keeps no such history); K5 the resolve and each masked
+# frame (DDGI and the world-cache mode keep no such history); K5 the resolve and each masked
 # layer's alpha test, and on the shadow paths the masked casters of the
 # frames that refresh cascade 0 or 1; K1 on geo_tex_native the two
 # occlusion phases, the
@@ -98,6 +102,8 @@ EXPECTED_LAUNCHES = {
                               "pcss": 16},
     "interior": {"tile_reproject": 32, "paged_texture": 40, "pcss": 16},
     "nanite": {"tile_reproject": 16},
+    "all_4k": {"tile_reproject": 32, "paged_texture": 40, "pcss": 16},
+    "all_cache": {"tile_reproject": 16, "paged_texture": 40, "pcss": 16},
     # each rank's strip runs the whole frame: `all`'s kernels, the TSR
     # and GI histories at the strip's size; the flat frame's K8
     "sharded_all": {"tile_reproject": 32, "paged_texture": 40, "pcss": 16},

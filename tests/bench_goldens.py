@@ -1,0 +1,302 @@
+"""chord_tpu's bench-size frames, rendered on the CPU: the port's goldens.
+
+    JAX_PLATFORMS=cpu python tests/bench_goldens.py off        # ~20 min
+    JAX_PLATFORMS=cpu python tests/bench_goldens.py nanite     # ~4 min
+    JAX_PLATFORMS=cpu python tests/bench_goldens.py interior   # ~14 min
+    ... nanite --fma --out DIR    # XLA's default (FMA) build, into DIR
+    ... all --out DIR             # bench.py's `all` rung, for comparison
+
+Each cell is one bench.py command (CELLS), rendered by chord_tpu with
+bench.py's own scene and camera path (imported: bench.py:64-131) and its
+config, BVH and LUTs (copied from bench.py:171-256, adding only
+interpret=True, without which row_gather raises on the CPU). The frames
+are stepped one by one through render_frame_meshlet with their history,
+so a run can stop early: after each frame the kept images are written to
+tests/goldens/bench/<cell>_f<NN>.png and the cell's entry of
+manifest.json (scene, flags, sizes, capacities, configs, the per-frame
+stats and seconds) is rewritten, with the sha256 of chord_tpu/'s sources.
+The cells run in separate processes at once; the manifest is updated
+under a file lock.
+
+chord_tpu is compiled for the CPU without fused multiply-adds
+(XLA_FLAGS=--xla_cpu_max_isa=SSE4_2, set by main before JAX starts): the
+port rounds every f32 operation (its kernels build with -fmad=false),
+while XLA's default CPU build contracts a*b+c. At bench size that
+contraction flips the setup tests of near-degenerate triangles (|det|
+below f32 resolution; with the flag, chord_tpu's mesh-shader output on
+the port's inputs is bit-equal to the port's), which changes drawn_tris
+and the draw counts and moves single highlights of the Nanite field.
+
+This module imports jax and chord_tpu: the port and chip_smoke.py never
+import it (chip_smoke.py reads only the PNGs and the manifest).
+"""
+
+from __future__ import annotations
+
+import functools
+import json
+import os
+import sys
+import time
+
+import numpy as np
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+OUT_DIR = os.path.join(REPO, "tests", "goldens", "bench")
+MANIFEST = os.path.join(OUT_DIR, "manifest.json")
+
+WIDTH, HEIGHT = 1920, 1080
+DETAIL = 3
+TARGET_TRIS = 2_600_000
+RENDER_SCALE = 0.6667
+PATH_FRAMES = 16          # bench.py's default --frames: the camera path
+NO_FMA = "--xla_cpu_max_isa=SSE4_2"   # XLA's CPU build without FMA
+# cell -> the bench.py command it equals, the frames rendered (a prefix of
+# the 16-frame path) and the frames kept as PNGs
+CELLS = {
+    "off": dict(scene="bistro", features="off", frames=16, keep=(0, 7, 15),
+                command="bench.py --features off"),
+    "nanite": dict(scene="nanite", features="off", frames=8, keep=(0, 7),
+                   command="bench.py --scene nanite --features off"),
+    "interior": dict(scene="interior", features="all", frames=8,
+                     keep=(0, 7), command="bench.py --scene interior"),
+}
+# bench.py's own `all` rung, rendered only into another directory for
+# comparison: the textured rungs are not gated (the port's K5 has no page
+# palette, ROADMAP §3)
+COMPARE = {"all": dict(scene="bistro", features="all", frames=8,
+                       keep=(0, 7), command="bench.py")}
+
+
+def _bench():
+    if REPO not in sys.path:
+        sys.path.insert(0, REPO)
+    import bench
+    return bench
+
+
+def bench_configs(features: str, width: int = WIDTH, height: int = HEIGHT,
+                  blend_textured: bool = False,
+                  render_scale: float = RENDER_SCALE,
+                  draw_capacity: int = 2048):
+    """bench.py's RendererConfig and MeshletFrameConfig for a rung at
+    width x height (bench.py:171-219), with interpret=True."""
+    from chord_tpu.ops.screen_probe import ScreenProbeConfig
+    from chord_tpu.renderer.deferred import RendererConfig
+    from chord_tpu.renderer.meshlet_frame import MeshletFrameConfig
+
+    bench = _bench()
+    rw = int(width * render_scale) // 8 * 8
+    rh = int(height * render_scale) // 8 * 8
+    if rw > 1280:
+        draw_capacity = max(draw_capacity, 4096)
+    config = RendererConfig(width=rw, height=rh,
+                            post_width=width if render_scale != 1.0 else 0,
+                            post_height=height if render_scale != 1.0 else 0,
+                            pair_capacity=8192 if rw <= 1280 else 24576,
+                            big_capacity=64 if rw <= 1280 else 128,
+                            enable_bloom=True, enable_tsr=True,
+                            tsr_mode="tile", interpret=True)
+    lvl = bench.FEATURE_LEVELS[features]
+    mcfg = MeshletFrameConfig(
+        draw_capacity=draw_capacity, masked_draw_capacity=256,
+        occlusion=True,
+        shadows=lvl["shadows"], atmosphere=lvl["atmosphere"],
+        gi=lvl["gi"], gi_mode="probe", gi_rt=lvl["gi"], rt_rays=2,
+        ssr=lvl["gi"],
+        textured=lvl["textured"], alpha_masked=lvl["textured"],
+        alpha_blend=lvl["textured"],
+        blend_textured=blend_textured,
+        normal_mapped=lvl["pbr"], pbr_textures=lvl["pbr"],
+        shadow_masked=lvl["shadow_masked"],
+        trilinear=lvl["trilinear"],
+        probe_cfg=ScreenProbeConfig(rays=16, steps=6,
+                                    history_mode="tile"))
+    return config, mcfg
+
+
+def camera_uniforms(scene: str, w: int, h: int, cam=None):
+    """bench.py's 16 view uniforms of `scene` at w x h (bench.py:112-131);
+    `cam` ends at the path's last position."""
+    from chord_tpu.utils.camera import Camera
+
+    cam = cam or Camera(width=w, height=h)
+    return _bench()._camera_path(scene, cam, PATH_FRAMES)
+
+
+def _luts(dviews):
+    """The sun-independent LUTs, built once (bench.py:236-256)."""
+    import jax
+
+    from chord_tpu.ops import atmosphere as atm
+    from chord_tpu.ops import brdf_lut as brdf
+
+    p_atm = atm.AtmosphereParams()
+    t_lut = jax.jit(atm.build_transmittance_lut,
+                    static_argnums=1)(p_atm, 40)
+    ms_lut = jax.jit(lambda tl: atm.build_multiscatter_lut(
+        p_atm, tl, dir_samples=16, steps=12))(t_lut)
+    lut = jax.jit(brdf.build_env_brdf_lut, static_argnums=0)(64)
+    sun_d = np.asarray([0.3, 0.8, 0.5], np.float32)
+    sun_d /= np.linalg.norm(sun_d)
+    sky_lut = jax.jit(lambda tl, msl: atm.build_sky_view_lut(
+        p_atm, tl, msl, jax.numpy.asarray(sun_d)))(t_lut, ms_lut)
+    return [v.replace(atmo_t_lut=t_lut, atmo_ms_lut=ms_lut,
+                      atmo_sky_lut=sky_lut, brdf_lut=lut) for v in dviews]
+
+
+def _write_png(path: str, img) -> None:
+    from PIL import Image
+
+    Image.fromarray(img).save(path + ".tmp", format="PNG")
+    os.replace(path + ".tmp", path)
+
+
+def _update_manifest(out_dir: str, cell: str, entry: dict) -> None:
+    import fcntl
+
+    from chip_smoke import chord_tpu_hash
+
+    path = os.path.join(out_dir, "manifest.json")
+    lock = os.open(out_dir, os.O_RDONLY)     # the directory is the lock
+    try:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        man = {}
+        if os.path.exists(path):
+            with open(path) as f:
+                man = json.load(f)
+        man["chord_tpu_sha256"] = chord_tpu_hash(REPO)
+        man.setdefault("cells", {})[cell] = entry
+        with open(path + ".tmp", "w") as f:
+            json.dump(man, f, indent=1, sort_keys=True)
+            f.write("\n")
+        os.replace(path + ".tmp", path)
+    finally:
+        os.close(lock)
+
+
+def render_cell(cell: str, frames: int | None = None,
+                out_dir: str = OUT_DIR, fma: bool = False) -> None:
+    """Render frames 0..frames-1 of `cell` (default: CELLS') frame by
+    frame, writing the kept PNGs and the manifest entry into `out_dir`
+    after each; `fma`: XLA's default CPU build (for comparison only)."""
+    import jax
+
+    from chord_tpu.ops.gi import GIConfig
+    from chord_tpu.renderer.deferred import DeviceView
+    from chord_tpu.renderer.meshlet_frame import (render_frame_meshlet,
+                                                  shadow_pipelined)
+    from chord_tpu.rhi.framebuffer import FrameHistory
+    from chord_tpu.utils.camera import Camera
+    from chip_smoke import config_dict
+
+    if (NO_FMA in os.environ.get("XLA_FLAGS", "")) == fma:
+        raise RuntimeError(f"XLA_FLAGS must {'not ' if fma else ''}hold "
+                           f"{NO_FMA} before JAX starts (run this module "
+                           "as a script)")
+    spec = {**CELLS, **COMPARE}[cell]
+    frames = frames or spec["frames"]
+    bench = _bench()
+    scene, features = spec["scene"], spec["features"]
+    t0 = time.time()
+    b, pools, n_src = bench._make_scene(scene, DETAIL, TARGET_TRIS)
+    blend_tex = any(m.alpha_mode == "blend" and m.base_color_texture >= 0
+                    for m in b.materials)
+    config, mcfg = bench_configs(features, blend_textured=blend_tex)
+    lvl = bench.FEATURE_LEVELS[features]
+    rw, rh = config.width, config.height
+    cam = Camera(width=rw, height=rh)
+    bvh = None
+    if lvl["gi"]:
+        from chord_tpu.ops.rt import build_scene_bvh
+        bvh = build_scene_bvh(pools, b.frame_instances(cam),
+                              granularity="object")
+    views_u = camera_uniforms(scene, rw, rh, cam)
+    shadow_cfg = mcfg.shadow_cfg if lvl["shadows"] else None
+    dviews = [DeviceView.from_uniform(u, shadow_cfg=shadow_cfg)
+              for u in views_u]
+    if lvl["atmosphere"] or lvl["gi"] or lvl["shadows"]:
+        dviews = _luts(dviews)
+    hist = FrameHistory.empty(
+        rh, rw, post_h=HEIGHT, post_w=WIDTH,
+        gi_cfg=GIConfig() if lvl["gi"] else None,
+        shadow_cascades=(mcfg.shadow_cfg.cascade_count
+                         if lvl["shadows"] else 0),
+        shadow_res=(mcfg.shadow_cfg.resolution if lvl["shadows"] else 1),
+        shadow_div=mcfg.shadow_cfg.eval_res_div,
+        shadow_phase=(mcfg.shadow_cfg.temporal_phase
+                      if mcfg.shadow_cfg.temporal else 1),
+        probe_tile=8 if lvl["gi"] else 0)
+    inst = b.frame_instances(cam)
+    if lvl["shadows"] and shadow_pipelined(mcfg.shadow_cfg):
+        raise RuntimeError("bench.py runs this rung through "
+                           "render_sequence_split")
+    print(f"{cell}: scene {scene} ({n_src} source tris) and views in "
+          f"{time.time() - t0:.1f} s", flush=True)
+    fn = jax.jit(functools.partial(render_frame_meshlet, config=config,
+                                   mcfg=mcfg, bvh=bvh))
+    entry = dict(
+        command=spec["command"], xla_flags="" if fma else NO_FMA,
+        scene=scene,
+        detail=DETAIL,
+        target_tris=TARGET_TRIS if scene == "bistro" else None,
+        source_tris=int(n_src), features=features, flags=lvl,
+        width=WIDTH, height=HEIGHT, render_width=rw, render_height=rh,
+        render_scale=RENDER_SCALE, path_frames=PATH_FRAMES,
+        draw_capacity=mcfg.draw_capacity,
+        masked_draw_capacity=mcfg.masked_draw_capacity,
+        pair_capacity=config.pair_capacity,
+        big_capacity=config.big_capacity,
+        renderer_config=config_dict(config),
+        meshlet_config=config_dict(mcfg),
+        frames_rendered=0, images={}, stats=[], seconds=[])
+    for i in range(frames):
+        t1 = time.time()
+        img, hist, stats = fn(pools, inst, dviews[i], hist)
+        img = np.asarray(img)
+        dt = time.time() - t1
+        if img.shape != (HEIGHT, WIDTH, 3) or img.dtype != np.uint8:
+            raise RuntimeError(f"{cell} frame {i}: image {img.shape} "
+                               f"{img.dtype}")
+        st = {k: int(np.asarray(v)) for k, v in stats.items()
+              if not isinstance(v, dict) and np.ndim(v) == 0 and
+              np.issubdtype(np.asarray(v).dtype, np.integer)}
+        entry["stats"].append(st)
+        entry["seconds"].append(round(dt, 3))
+        entry["frames_rendered"] = i + 1
+        if i in spec["keep"]:
+            name = f"{cell}_f{i:02d}.png"
+            _write_png(os.path.join(out_dir, name), img)
+            entry["images"][str(i)] = name
+        _update_manifest(out_dir, cell, entry)
+        print(f"{cell} frame {i}: {dt:.1f} s, stats {st}", flush=True)
+
+
+def main(argv) -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("cell", nargs="?", choices=list(CELLS) + list(COMPARE))
+    ap.add_argument("--frames", type=int, help="frames 0..N-1 (default: "
+                    "the cell's)")
+    ap.add_argument("--out", default=OUT_DIR, help="the directory written "
+                    "(default: the goldens)")
+    ap.add_argument("--fma", action="store_true", help="XLA's default CPU "
+                    "build (needs --out)")
+    args = ap.parse_args(argv[1:])
+    if os.path.abspath(args.out) == OUT_DIR and (args.fma or
+                                                 args.cell in COMPARE):
+        ap.error("--fma and the comparison cells write only with --out")
+    if REPO not in sys.path:
+        sys.path.insert(0, REPO)
+    if not args.fma:
+        os.environ["XLA_FLAGS"] = " ".join(
+            [os.environ.get("XLA_FLAGS", ""), NO_FMA]).strip()
+    os.makedirs(args.out, exist_ok=True)
+    for cell in [args.cell] if args.cell else list(CELLS):
+        render_cell(cell, args.frames, args.out, fma=args.fma)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv))

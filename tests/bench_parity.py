@@ -1,0 +1,274 @@
+"""Probes of the port against chord_tpu at bench size, on the CPU.
+
+    python tests/bench_parity.py frames off [--goldens DIR] [--frames N]
+    python tests/bench_parity.py k2 nanite 0 [--no-fma]
+    python tests/bench_parity.py ign [--no-fma]
+    python tests/bench_parity.py images A.png B.png
+
+`frames`: the port's plain path renders a bench_goldens cell frame by
+frame (chip_smoke's scene, configs and history, on the CPU) and each
+frame's stats, and the kept frames' SSIM / MAE / worst window, are held to
+a goldens directory's manifest (default tests/goldens/bench; a
+`bench_goldens.py CELL --fma --out DIR` render for XLA's default build).
+
+`k2`: the mesh-shader setup of one frame of a cell. chord_tpu renders
+frames 0..FRAME (jitted, interpret mode) and records each
+mesh_shader_setup call's draws, per-draw matrices and validity; the port
+renders the same frames and records its K2 inputs. Per call: whether the
+draws and the matrices are equal, the valid triangles of each, and then
+chord_tpu's Pallas kernel (unsorted) and the port's plain K2 on the port's
+own inputs, lane by lane: the flipped triangles with their tests in
+float64 (screen bbox, the pixel centres it covers, the determinant and
+its share of the corner product), and the plane values that differ.
+
+`ign`: jitted chord_tpu interleaved-gradient noise against the port's
+eager one at 720x1280 and 180x320.
+
+`images`: chip_smoke's SSIM, MAE and worst window of two PNGs.
+
+`--no-fma` compiles chord_tpu with XLA_FLAGS=--xla_cpu_max_isa=SSE4_2
+(no fused multiply-adds), as tests/bench_goldens.py does; without it
+XLA's default CPU build contracts a*b+c. JAX_PLATFORMS=cpu is set here.
+"""
+
+from __future__ import annotations
+
+import argparse
+import functools
+import json
+import os
+import sys
+import time
+
+import numpy as np
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+REPO = os.path.dirname(HERE)
+
+
+def _port_cell(cell: str):
+    """chip_smoke's scene, configs and fresh history of a cell, on the CPU."""
+    import torch
+
+    import chip_smoke as cs
+
+    d = torch.device("cpu")
+    scene = cs.bench_scenes(d, cs.scene_paths([cell]))[cell]
+    config, mcfg = cs.configs(cell, scene[3])
+    return scene, config, mcfg, cs.history(config, mcfg, d)
+
+
+def frames(cell: str, goldens: str, n: int | None) -> None:
+    import chip_smoke as cs
+
+    with open(os.path.join(goldens, "manifest.json")) as f:
+        rec = json.load(f)["cells"][cell]
+    n = n or rec["frames_rendered"]
+    scene, config, mcfg, hist = _port_cell(cell)
+    for i in range(n):
+        t0 = time.time()
+        img, hist, st = cs.run_path(cell, scene, config, mcfg, hist, i, i + 1)
+        st = {k: int(v[0]) for k, v in st.items()}
+        ref = rec["stats"][i]
+        diff = {k: (st[k], ref[k]) for k in st if k in ref and st[k] != ref[k]}
+        line = (f"{cell} frame {i} ({time.time() - t0:.1f} s): stats "
+                f"{'equal' if not diff else f'differ (port, chord_tpu) {diff}'}")
+        if str(i) in rec["images"]:
+            g = cs.image_gates(img[0].numpy(), cs.read_png(
+                os.path.join(goldens, rec["images"][str(i)])))
+            line += f"; image {json.dumps(g)}"
+        print(line, flush=True)
+
+
+def k2(cell: str, frame: int) -> None:
+    import jax
+    import jax.numpy as jnp
+    import torch
+    from jax.experimental import pallas as pl
+    from jax.experimental.pallas import tpu as pltpu
+
+    import bench_goldens as bg
+    import chip_smoke as cs
+    import chord_tpu.renderer.meshlet_frame as jmf
+    from chord_tpu.ops.mesh_shader import META_ROWS, _mesh_shader_kernel
+    from chord_tpu.ops.raster import COEF_LANES, WINDOW
+    from chord_tpu.renderer.deferred import DeviceView as JView
+    from chord_tpu.rhi.framebuffer import FrameHistory as JHistory
+    from chord_tpu.utils.camera import Camera as JCamera
+    from chord_tpu_torch.ops import kernels
+    from chord_tpu_torch.ops import mesh_shader as tms
+
+    spec = bg.CELLS[cell]
+    if spec["features"] != "off":
+        raise SystemExit("k2 probes the untextured cells (off, nanite)")
+    b, pools, _ = bg._bench()._make_scene(spec["scene"], bg.DETAIL,
+                                           bg.TARGET_TRIS)
+    blend = any(m.alpha_mode == "blend" and m.base_color_texture >= 0
+                for m in b.materials)
+    config, mcfg = bg.bench_configs(spec["features"], blend_textured=blend)
+    cam = JCamera(width=config.width, height=config.height)
+    views = [JView.from_uniform(u) for u in bg.camera_uniforms(
+        spec["scene"], config.width, config.height, cam)]
+    hist = JHistory.empty(config.height, config.width, post_h=bg.HEIGHT,
+                          post_w=bg.WIDTH)
+    inst = b.frame_instances(cam)
+    calls = []
+    setup = jmf.mesh_shader_setup
+
+    def recorded(draws, pools_, instances, tw_to_clip, capacity, w, h,
+                 **kw):
+        out = setup(draws, pools_, instances, tw_to_clip, capacity, w, h,
+                    **kw)
+        obj = jnp.where(jnp.arange(capacity) < draws.count,
+                        draws.object_id, 0)
+        l2c = jnp.einsum("dij,jk->dik", instances.object_to_tw[obj],
+                         tw_to_clip, precision=jax.lax.Precision.HIGHEST)
+        calls.append(dict(mid=draws.meshlet_id, count=draws.count,
+                          valid=out.valid, l2c=l2c.reshape(capacity, 16)))
+        return out
+
+    def frame_fn(pools, inst, view, hist):
+        calls.clear()
+        img, hist, stats = jmf.render_frame_meshlet(pools, inst, view, hist,
+                                                    config=config, mcfg=mcfg)
+        return hist, stats, list(calls)
+
+    jmf.mesh_shader_setup = recorded
+    try:
+        fn = jax.jit(frame_fn)
+        for i in range(frame + 1):
+            hist, jstats, jcalls = fn(pools, inst, views[i], hist)
+    finally:
+        jmf.mesh_shader_setup = setup
+    jcalls = jax.tree.map(np.asarray, jcalls)
+    scene, pconfig, pmcfg, phist = _port_cell(cell)
+    if frame:
+        phist = cs.run_path(cell, scene, pconfig, pmcfg, phist, 0, frame)[1]
+    with kernels.capture_inputs() as captured:
+        _, _, pstats = cs.run_path(cell, scene, pconfig, pmcfg, phist, frame,
+                                   frame + 1)
+    print(f"{cell} frame {frame}: chord_tpu stats "
+          f"{ {k: int(v) for k, v in jstats.items() if np.ndim(v) == 0} }")
+    print(f"{cell} frame {frame}: port stats "
+          f"{ {k: int(v[0]) for k, v in pstats.items()} }")
+    for c, ((args, kw), j) in enumerate(zip(captured["mesh_shader"],
+                                            jcalls)):
+        dm, tcnt, count, mats, posT, attrT = (a.numpy() for a in args[:6])
+        width, height, base, cull = args[6:10]
+        n, cap = int(count[0]), dm.shape[0]
+        same = n == int(j["count"]) and np.array_equal(dm[:n], j["mid"][:n])
+        mats_same = np.array_equal(mats[:n, :16], j["l2c"][:n])
+        print(f"call {c}: {n} draws, equal {same}; per-draw matrices equal "
+              f"{mats_same}; valid triangles in the frames: chord_tpu "
+              f"{int(j['valid'].sum())}")
+        if n == 0:
+            continue
+        gs = pltpu.PrefetchScalarGridSpec(
+            num_scalar_prefetch=3, grid=(cap,),
+            in_specs=[pl.BlockSpec((8, 128), lambda i, *_: (i // 8, 0),
+                                   memory_space=pltpu.VMEM),
+                      pl.BlockSpec((12, WINDOW), lambda i, d, *_: (0, d[i]),
+                                   memory_space=pltpu.VMEM),
+                      pl.BlockSpec((16, WINDOW), lambda i, d, *_: (0, d[i]),
+                                   memory_space=pltpu.VMEM)],
+            out_specs=[pl.BlockSpec((WINDOW, COEF_LANES),
+                                    lambda i, *_: (i, 0),
+                                    memory_space=pltpu.VMEM),
+                       pl.BlockSpec((META_ROWS, WINDOW),
+                                    lambda i, *_: (0, i),
+                                    memory_space=pltpu.VMEM)])
+        kern = jax.jit(pl.pallas_call(
+            functools.partial(_mesh_shader_kernel, width=width,
+                              height=height, payload_base=base,
+                              backface_cull=cull, sort_tris=False),
+            grid_spec=gs, interpret=True,
+            out_shape=[jax.ShapeDtypeStruct((cap * WINDOW, COEF_LANES),
+                                            jnp.uint32),
+                       jax.ShapeDtypeStruct((META_ROWS, cap * WINDOW),
+                                            jnp.uint32)]))
+        jcoef, jmeta = (np.asarray(x) for x in kern(
+            dm, tcnt, count, np.concatenate(
+                [mats, np.zeros((cap, 102), np.float32)], 1), posT, attrT))
+        jmeta = jmeta.view(np.float32)
+        pcoef, pmeta = (x.numpy() for x in tms.mesh_shader_plain(
+            *args[:6], width, height, base, cull, False))
+        jv, pv = jmeta[0] > 0.5, pmeta[0] > 0.5
+        both = jv & pv
+        jp = jcoef[:cap * WINDOW, :15].view(np.float32)[both]
+        pp = pcoef[:cap * WINDOW, :15].view(np.float32)[both]
+        print(f"call {c}, the port's inputs: valid chord_tpu {int(jv.sum())}"
+              f", port {int(pv.sum())}, flipped {int((jv != pv).sum())}; "
+              f"plane values that differ {int((jp != pp).sum())} of "
+              f"{jp.size}")
+        for idx in np.nonzero(jv != pv)[0]:
+            s, lane = divmod(int(idx), WINDOW)
+            m = mats[s, :16].astype(np.float64).reshape(4, 4)
+            col = int(dm[s]) * WINDOW + lane
+            rows = []
+            for k in range(3):
+                c_ = np.array([posT[4 * k, col], posT[4 * k + 1, col],
+                               posT[4 * k + 2, col], 1.0]) @ m
+                rows.append(((c_[0] * 0.5 + c_[3] * 0.5) * width,
+                             (c_[3] * 0.5 - c_[1] * 0.5) * height, c_[3]))
+            r = np.array(rows)
+            sx, sy = r[:, 0] / r[:, 2], r[:, 1] / r[:, 2]
+            det = np.linalg.det(r)
+            scale = np.prod(np.abs(r).max(1))
+            print(f"  slot {s} lane {lane} (meshlet {int(dm[s])}): "
+                  f"chord_tpu {bool(jv[idx])}, port {bool(pv[idx])}; x "
+                  f"[{sx.min():.6f}, {sx.max():.6f}] y [{sy.min():.6f}, "
+                  f"{sy.max():.6f}], centres x "
+                  f"{np.ceil(sx.min() - 0.5):.0f}..{np.floor(sx.max() - 0.5):.0f}"
+                  f" y {np.ceil(sy.min() - 0.5):.0f}..{np.floor(sy.max() - 0.5):.0f}"
+                  f"; det {det:.4e} ({abs(det) / scale:.2e} of the corner "
+                  "product)")
+
+
+def ign() -> None:
+    import jax
+
+    from chord_tpu.ops import bluenoise as jbn
+    from chord_tpu_torch.ops.bluenoise import interleaved_gradient_noise
+
+    for h, w in ((720, 1280), (180, 320)):
+        for f in (0, 7, 31):
+            j = np.asarray(jax.jit(lambda f: jbn.interleaved_gradient_noise(
+                h, w, f))(np.int32(f)))
+            p = interleaved_gradient_noise(h, w, f, device="cpu").numpy()
+            print(f"IGN {h}x{w} frame {f}: values that differ "
+                  f"{float((j != p).mean()):.4f}")
+
+
+def main(argv) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("mode", choices=("frames", "k2", "ign", "images"))
+    ap.add_argument("cell", nargs="?", default="nanite",
+                    help="a cell; for images the first PNG")
+    ap.add_argument("frame", nargs="?", default="0",
+                    help="k2's frame; for images the second PNG")
+    ap.add_argument("--goldens", default=os.path.join(HERE, "goldens",
+                                                      "bench"))
+    ap.add_argument("--frames", type=int)
+    ap.add_argument("--no-fma", action="store_true")
+    args = ap.parse_args(argv[1:])
+    os.environ["JAX_PLATFORMS"] = "cpu"
+    if args.no_fma:
+        os.environ["XLA_FLAGS"] = " ".join(
+            [os.environ.get("XLA_FLAGS", ""),
+             "--xla_cpu_max_isa=SSE4_2"]).strip()
+    sys.path[:0] = [HERE, REPO]
+    if args.mode == "frames":
+        frames(args.cell, args.goldens, args.frames)
+    elif args.mode == "k2":
+        k2(args.cell, int(args.frame))
+    elif args.mode == "images":
+        import chip_smoke as cs
+        print(json.dumps(cs.image_gates(cs.read_png(args.cell),
+                                        cs.read_png(args.frame))))
+    else:
+        ign()
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv))

@@ -1,0 +1,217 @@
+"""The bench-size goldens (tests/goldens/bench/) and what chip_smoke.py
+holds to them, checked without rendering a frame.
+
+tests/bench_goldens.py renders chord_tpu's frames of three bench.py
+commands on the CPU (`off`, BASELINE #3 `nanite`, BASELINE #4 `interior`)
+and records them with their configs and per-frame stats; chip_smoke.py's
+phase 13 holds the port's frames on the card to them. Here: the
+generator's configs and camera path are chip_smoke's (field for field,
+views within f32 rounding), the manifest matches its PNGs and the
+checkout's chord_tpu sources, chip_smoke's `off` scene is bench.py's
+build, its image gates are chord_tpu's, and phase 13 itself passes on the
+goldens' own images and fails on a config that is not the manifest's.
+"""
+
+import dataclasses
+import json
+import os
+import sys
+
+import numpy as np
+import pytest
+from PIL import Image
+
+import bench_goldens as bg
+from test_golden import ssim, windowed_ssim
+
+sys.path.insert(0, bg.REPO)
+import chip_smoke  # noqa: E402
+
+# chip_smoke's path of each cell, and the bench.py size it renders
+PATHS = {"off": ("off", 1920, 1080), "nanite": ("off", 1920, 1080),
+         "interior": ("all", 1920, 1080), "all_4k": ("all", 3840, 2160)}
+CELL_FEATURES = {c: s["features"] for c, s in bg.CELLS.items()}
+SCENE = {"off": "bistro", "nanite": "nanite", "interior": "interior",
+         "all_4k": "bistro"}
+
+
+@pytest.fixture(scope="module")
+def manifest():
+    with open(bg.MANIFEST) as f:
+        return json.load(f)
+
+
+@pytest.fixture(scope="module")
+def blend():
+    """bench.py's blend_textured of each cell's scene (from its
+    materials, as bench.py:215-217 computes it)."""
+    from chord_tpu.asset.procedural import (build_bistro_interior,
+                                            build_bistro_like,
+                                            build_nanite_stress)
+
+    out = {}
+    for scene, b in (("bistro", build_bistro_like(**chip_smoke.BISTRO)),
+                     ("nanite", build_nanite_stress(rings=16 * bg.DETAIL)),
+                     ("interior", build_bistro_interior(detail=bg.DETAIL))):
+        out[scene] = any(m.alpha_mode == "blend" and
+                         m.base_color_texture >= 0 for m in b.materials)
+    return {cell: out[SCENE[cell]] for cell in PATHS}
+
+
+@pytest.mark.parametrize("cell", list(PATHS))
+def test_generator_configs_are_chip_smokes(cell, blend):
+    features, w, h = PATHS[cell]
+    jcfg, jmcfg = bg.bench_configs(features, w, h, blend[cell])
+    assert jcfg.interpret
+    config, mcfg = chip_smoke.configs("all_4k" if cell == "all_4k"
+                                      else cell, blend[cell])
+    for j, t in ((jcfg, config), (jmcfg, mcfg)):
+        assert json.loads(json.dumps(chip_smoke.config_dict(t))) == \
+            json.loads(json.dumps(chip_smoke.config_dict(j)))
+
+
+@pytest.mark.parametrize("cell", ["off", "nanite", "interior"])
+def test_manifest_configs_are_the_generators(cell, manifest, blend):
+    rec = manifest["cells"][cell]
+    jcfg, jmcfg = bg.bench_configs(CELL_FEATURES[cell],
+                                   blend_textured=blend[cell])
+    assert rec["renderer_config"] == json.loads(json.dumps(
+        chip_smoke.config_dict(jcfg)))
+    assert rec["meshlet_config"] == json.loads(json.dumps(
+        chip_smoke.config_dict(jmcfg)))
+    assert rec["command"] == bg.CELLS[cell]["command"]
+    assert (rec["render_width"], rec["render_height"]) == (1280, 720)
+    assert (rec["pair_capacity"], rec["big_capacity"],
+            rec["draw_capacity"]) == (8192, 64, 2048)
+
+
+@pytest.mark.parametrize("scene,w,h,shadows", [
+    ("bistro", 1280, 720, False), ("nanite", 1280, 720, False),
+    ("interior", 1280, 720, True), ("bistro", 2560, 1440, True)])
+def test_camera_path_is_chip_smokes(scene, w, h, shadows):
+    from chord_tpu.ops.shadow import ShadowConfig as JShadowConfig
+    from chord_tpu.renderer.deferred import DeviceView as JView
+
+    from chord_tpu_torch.ops.shadow import ShadowConfig
+
+    uniforms = bg.camera_uniforms(scene, w, h)
+    views = chip_smoke.camera_views(w, h, "cpu",
+                                    ShadowConfig() if shadows else None,
+                                    scene=scene)
+    assert len(uniforms) == len(views) == bg.PATH_FRAMES == chip_smoke.FRAMES
+    for u, v in zip(uniforms, views):
+        j = JView.from_uniform(u, shadow_cfg=JShadowConfig() if shadows
+                               else None)
+        n = 0
+        for f in dataclasses.fields(v):
+            got = getattr(v, f.name)
+            if got is None:
+                assert getattr(j, f.name, None) is None, f.name
+                continue
+            np.testing.assert_allclose(got.numpy(),
+                                       np.asarray(getattr(j, f.name)),
+                                       rtol=1e-6, atol=2e-6, err_msg=f.name)
+            n += 1
+        assert n >= 10 + (3 if shadows else 0)
+
+
+def test_manifest_matches_its_pngs(manifest):
+    pngs = sorted(f for f in os.listdir(bg.OUT_DIR) if f.endswith(".png"))
+    assert pngs == sorted(f"{c}_f{i:02d}.png" for c, s in bg.CELLS.items()
+                          for i in s["keep"])
+    assert set(manifest["cells"]) == set(bg.CELLS)
+    for cell, spec in bg.CELLS.items():
+        rec = manifest["cells"][cell]
+        assert rec["frames_rendered"] == spec["frames"]
+        assert len(rec["stats"]) == len(rec["seconds"]) == spec["frames"]
+        assert sorted(map(int, rec["images"])) == list(spec["keep"])
+        for i, name in rec["images"].items():
+            img = np.asarray(Image.open(os.path.join(bg.OUT_DIR, name)))
+            assert img.shape == (1080, 1920, 3) and img.dtype == np.uint8
+            assert img.std() > 1.0, name
+        for st in rec["stats"]:
+            assert st["drawn_tris"] > 0
+            assert all(v == 0 for k, v in st.items() if "overflow" in k)
+
+
+def test_manifest_hash_is_the_trees(manifest):
+    assert manifest["chord_tpu_sha256"] == chip_smoke.chord_tpu_hash(bg.REPO)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_chip_smoke_gates_are_test_goldens(seed):
+    rng = np.random.default_rng(seed)
+    h, w = [(96, 160), (100, 173), (64, 64)][seed]
+    a = rng.integers(0, 256, (h, w, 3)).astype(np.uint8)
+    noise = rng.integers(-6, 7, (h, w, 3))
+    b = np.clip(a.astype(int) + noise, 0, 255).astype(np.uint8)
+    assert chip_smoke.ssim(a, b) == ssim(a, b) < 1.0
+    assert chip_smoke.windowed_ssim(a, b) == windowed_ssim(a, b) < 1.0
+    ws, y, x = chip_smoke.worst_window(a, b)
+    assert ws == windowed_ssim(a, b)
+    assert chip_smoke.ssim(a[y:y + 16, x:x + 16],
+                           b[y:y + 16, x:x + 16]) == pytest.approx(ws)
+
+
+def test_off_scene_is_bench_pys_build(monkeypatch):
+    """chip_smoke's `off` (and so `off_no_occlusion`, `geo_tex`) builds
+    the bistro with bench.py's own arguments: textures=True for every rung
+    (bench.py:88-90)."""
+    import chord_tpu.asset.procedural as jproc
+
+    import chord_tpu_torch.asset.procedural as proc
+
+    class Built(Exception):
+        pass
+
+    def record(**kwargs):
+        raise Built(kwargs)
+
+    real_exists = os.path.exists
+    monkeypatch.setattr(os.path, "exists", lambda p: False if str(
+        p).startswith("/tmp/chord_scene") else real_exists(p))
+    monkeypatch.setattr(jproc, "build_bistro_like", record)
+    monkeypatch.setattr(proc, "build_bistro_like", record)
+    with pytest.raises(Built) as bench_args:
+        bg._bench()._make_scene("bistro", bg.DETAIL, bg.TARGET_TRIS)
+    with pytest.raises(Built) as smoke_args:
+        chip_smoke.bench_scenes("cpu", ["off"])
+    assert smoke_args.value.args[0] == bench_args.value.args[0] == dict(
+        detail=3, target_tris=2_600_000, textures=True)
+    for p in ("geo_tex", "off_no_occlusion"):
+        assert chip_smoke.scene_paths([p])[0] == "off"
+
+
+def _kept(manifest):
+    """The goldens' own images and stats, as phase 5 would keep them."""
+    kept = {}
+    for cell in ("off", "nanite", "interior"):
+        rec = manifest["cells"][cell]
+        kept[cell] = dict(
+            images={int(i): chip_smoke.read_png(os.path.join(bg.OUT_DIR, n))
+                    for i, n in rec["images"].items()},
+            stats={k: [st[k] for st in rec["stats"]]
+                   for k in rec["stats"][0]})
+    kept["all"] = dict(images={i: chip_smoke.read_png(os.path.join(
+        bg.REPO, "docs", "images", f"bench_all_1080p_f{i}.png"))
+        for i in chip_smoke.GOLDEN_FRAMES["all"]})
+    return kept
+
+
+def test_phase13_passes_on_the_goldens_and_fails_on_a_difference(
+        manifest, blend):
+    kept = _kept(manifest)
+    out = chip_smoke.bench_goldens(kept, blend, "cpu")
+    for cell in ("off", "nanite", "interior"):
+        for i in chip_smoke.GOLDEN_FRAMES[cell]:
+            g = out[f"{cell}_f{i:02d}"]
+            assert g["ssim"] == pytest.approx(1.0) and g["mae"] == 0.0
+        assert out[f"{cell}_stats_differ"] == {}
+    with pytest.raises(AssertionError, match="meshlet_config"):
+        chip_smoke.bench_goldens(kept, dict(blend, off=not blend["off"]),
+                                 "cpu")
+    stats = kept["nanite"]["stats"]
+    stats["drawn_tris"] = stats["drawn_tris"][:3] + [
+        stats["drawn_tris"][3] + 1] + stats["drawn_tris"][4:]
+    with pytest.raises(AssertionError, match="stats differ"):
+        chip_smoke.bench_goldens(kept, blend, "cpu")

@@ -75,6 +75,9 @@ EXACT_MCFG = RT_MCFG._replace(
     rt_granularity="triangle", gi_cfg=GI_CFG._replace(ao_mode="rtao"),
     probe_cfg=ScreenProbeConfig(trace_mode="march", rays=16, steps=6,
                                 history_mode="tile"))
+# all_cache: the world-cache GI (no screen probes), the viewer's
+# --gi --gi-mode cache --gi-rt
+CACHE_MCFG = RT_MCFG._replace(gi_mode="cache")
 # geo_tex_native: geo_tex at render size with gather TSR and the masked
 # depth peel; off_no_occlusion: off without occlusion or pre-cull, global
 # TSR upscale, HDR10
@@ -95,12 +98,12 @@ def dev():
 
 
 def _tex_sequence(d, frames=3, shadows=False, gi=False, native=False,
-                  ddgi=False):
+                  ddgi=False, cache=False):
     """The small textured bistro along bench.py's camera path, jittered;
     with shadows, the views carry the cascade fit and the atmosphere LUTs
     and the history the cascade cache; with gi, the views also carry the
     env-BRDF LUT and the history the GI state (DDGI's in place of the
-    screen probes' with `ddgi`); `native`: the history at render size (no
+    screen probes' with `ddgi`, none with `cache`); `native`: the history at render size (no
     upscale)."""
     b = build_bistro_like(detail=1, textures=True)
     cam = Camera(width=W, height=H)
@@ -124,7 +127,8 @@ def _tex_sequence(d, frames=3, shadows=False, gi=False, native=False,
         hist = FrameHistory.empty(H, W, PH, PW, shadow_div=4,
                                   shadow_cascades=2, shadow_res=256,
                                   gi_cfg=GI_CFG if gi else None,
-                                  probe_tile=8 if gi and not ddgi else 0,
+                                  probe_tile=(8 if gi and not ddgi
+                                              and not cache else 0),
                                   ddgi_cfg=DDGIConfig() if ddgi else None,
                                   device=d)
     if gi:
@@ -194,8 +198,11 @@ def _path_run(path, d):
         return _tex_sequence(d), TEX_MCFG
     if path == "all_no_rt":
         return _tex_sequence(d, shadows=True, gi=True), GI_MCFG
-    if path == "all":
+    if path in ("all", "all_4k"):     # all_4k's 4K shapes: chip_smoke's
         return _tex_sequence(d, shadows=True, gi=True), RT_MCFG
+    if path == "all_cache":
+        return (_tex_sequence(d, shadows=True, gi=True, cache=True),
+                CACHE_MCFG)
     if path == "all_ddgi":
         return _tex_sequence(d, shadows=True, gi=True, ddgi=True), DDGI_MCFG
     if path == "all_exact":
@@ -229,7 +236,8 @@ def _render_path(path, d):
                                    for k in stats[0]}
     inputs, mcfg = _path_run(path, d)
     bvh = (rt.build_scene_bvh(inputs[0], inputs[1], granularity=(
-        "object" if path in ("all", "interior") else mcfg.rt_granularity))
+        "object" if path in ("all", "interior", "all_4k", "all_cache")
+        else mcfg.rt_granularity))
         if mcfg.gi_rt else None)
     cfg = {"geo_tex_native": NATIVE_CFG,
            "off_no_occlusion": NO_OCC_CFG}.get(path, CFG)

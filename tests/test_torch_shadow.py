@@ -260,8 +260,8 @@ def test_evaluate_shadow_auto_is_the_plain_version_on_the_cpu():
     k6 = {k.name: k for k in kernels.KERNELS}["pcss"]
     assert k6.plain is shadow.pcss_plain and k6.paths == (
         "geo_shadow_atmo", "geo_shadow_atmo_split", "all_no_rt", "all",
-        "all_ddgi", "all_exact", "interior", "sharded_all", "viewer_glb",
-        "viewer_chtp")
+        "all_ddgi", "all_exact", "interior", "all_4k", "all_cache",
+        "sharded_all", "viewer_glb", "viewer_chtp")
 
 
 # --- render_shadow_cascade ----------------------------------------------------
