@@ -144,7 +144,9 @@ Phases (any failure raises and the script exits non-zero):
    rows, raster.band_split) the row visits, and the blocks launched; for
    K6 the in-map pixels, the PCF radius's distribution and the stack
    sectors the taps touch; for K10 the distinct tiles a pixel block asks
-   for and the share of textured pixels the palette serves.
+   for and the share of textured pixels the palette serves; for K5 the
+   share of textured texels its page palette serves, the share the
+   fallback mip serves and the rest (the average colour), per call.
 5. Each path's 16-frame sequence (4 frames on `all_exact`;
    render_sequence_meshlet(with_stats=True);
    on `flat`, DeferredRenderer.render frame by frame), with every launch
@@ -154,7 +156,10 @@ Phases (any failure raises and the script exits non-zero):
    times, 32 on the screen-probe paths; K5 32 times on `geo_tex` and
    `geo_tex_bricks`, 40 on the shadow paths: 32 plus the masked casters
    of the 8 frames that refresh cascade 0 or 1; K6 16 times; K7 64 times;
-   K8 16 times), masked draws on some frame of the textured paths, a
+   K8 16 times), K5's palette per path (the share of textured texels
+   its calls served from the palette, from the fallback mip and by the
+   average colour, by channel count), masked draws on some frame of the
+   textured paths, a
    finite cascade cache and shadow mask, on the GI paths the GI history
    (chord_tpu's shapes, probes with samples or every DDGI probe traced, a
    world cache that took probes or surfels, non-negative non-zero diffuse
@@ -265,13 +270,12 @@ Phases (any failure raises and the script exits non-zero):
    chord_tpu's own at bench size, tests/goldens/bench/ (rendered on the
    CPU by tests/bench_goldens.py with bench.py's scene, camera path and
    configs; its manifest records them): `off` frames 0, 7, 15 and
-   `nanite` 0, 7 with chord_tpu's three gates, `interior` 0, 7 with SSIM
-   and MAE (its worst window printed: its GI noise is the port's own).
-   The manifest must exist, come from the checkout's chord_tpu sources
-   (sha256) and hold the path's configs field for field; each frame's
-   stats are printed beside chord_tpu's and held equal to them;
-   `all` frames 7 and 15 against chord_tpu's TPU frames
-   docs/images/bench_all_1080p_f{7,15}.png, printed only.
+   frames 0, 7 of `nanite`, `interior`, `geo_tex`, `geo_shadow_atmo`
+   and `all`, each with chord_tpu's three gates (SSIM >= 0.99, MAE < 2,
+   worst 16x16 window >= 0.95). The manifest must exist, come from the
+   checkout's chord_tpu sources (sha256) and hold the path's configs
+   field for field; each frame's stats are printed beside chord_tpu's and
+   held equal to them.
 
 Phases 4-5 run per one-process frame path (the split's launches must
 equal the inline path's), then 6 to 10, 12, 11 and 13. The line before the last
@@ -919,13 +923,20 @@ def _ops(name: str, args, kwargs, cull: bool = True) -> float:
         count = int(args[2][0])
         return count * 128 * (3 * 28 + 3 * 15 + 100)
     if name == "paged_texture":
+        # per textured texel: the shared tap math of its mip and of the
+        # fallback mip (20 + 16 over C), its page and fallback ids against
+        # the block's two thresholds (4); per texel the palette or the
+        # fallback serves (this run's data), the taps' decode and filter
+        from chord_tpu_torch.ops import paged_texture
+
         layers = args[4]
         bilinear = kwargs.get("bilinear", True)
         compressed = args[1].shape[0] == 3
-        per = 20 / layers.shape[0]               # shared tap math
+        hit, fb = paged_texture.palette_shares(*args, **kwargs)
         taps = 4 if bilinear else 1
-        per += taps * 4 * (7 if compressed else 0)      # block decode
-        per += 4 * 13 if bilinear else 0                # filter + round
+        filt = taps * 4 * (7 if compressed else 0)      # block decode
+        filt += 4 * 13 if bilinear else 0               # filter + round
+        per = 36 / layers.shape[0] + 4 + (hit + fb) * filt
         return float((layers >= 0).sum()) * per
     if name == "pcss":
         # per in-map pixel: 5 blocker + 6 PCF taps (rotation 6, tap
@@ -1190,6 +1201,45 @@ def paged_inputs(args, kwargs) -> str:
             f"in 4 {pct(dx & dy)}")
 
 
+def palette_line(args, kwargs) -> str:
+    """K5's palette on a call: the share of textured texels served from
+    the palette, from the fallback mip, and by the average colour."""
+    from chord_tpu_torch.ops import paged_texture
+
+    if not bool((args[4] >= 0).any()):
+        return "no textured texel"
+    hit, fb = paged_texture.palette_shares(*args, **kwargs)
+    return (f"palette {hit:.4f}, fallback {fb:.4f}, average "
+            f"{1 - hit - fb:.4f}")
+
+
+def palette_report(path, calls) -> dict:
+    """Phase 5: K5's palette over a path's run, by channel count ->
+    {C: (palette, fallback, average) shares of the textured texels}."""
+    from chord_tpu_torch.ops import paged_texture
+
+    sums = {}
+    for args, kwargs in calls:
+        n = float((args[4] >= 0).sum())
+        hit, fb = paged_texture.palette_shares(*args, **kwargs)
+        t = sums.setdefault(args[4].shape[0], [0.0, 0.0, 0.0, 0])
+        t[0] += n
+        t[1] += hit * n
+        t[2] += fb * n
+        t[3] += 1
+    out = {}
+    for c, (n, hit, fb, calls_c) in sorted(sums.items()):
+        if n == 0:
+            log(f"{path}: K5 palette over {calls_c} C={c} calls: no "
+                "textured texel")
+            continue
+        out[c] = (hit / n, fb / n, 1 - (hit + fb) / n)
+        log(f"{path}: K5 palette over {calls_c} C={c} calls: palette "
+            f"{out[c][0]:.4f}, fallback {out[c][1]:.4f}, average "
+            f"{out[c][2]:.4f} of the textured texels")
+    return out
+
+
 def describe(name: str, args, kwargs) -> str:
     if name == "tile_reproject":
         img, tab = args
@@ -1207,7 +1257,9 @@ def describe(name: str, args, kwargs) -> str:
     if name == "paged_texture":
         c, h, w = args[4].shape
         mode = "bilinear" if kwargs.get("bilinear", True) else "nearest"
-        return f"C={c} {mode} {h}x{w}, " + paged_inputs(args, kwargs)
+        return (f"C={c} {mode} {h}x{w} K={kwargs.get('k_pages')}, "
+                f"{palette_line(args, kwargs)}, " +
+                paged_inputs(args, kwargs))
     if name == "proto_paged_sample":
         pool, _, u = args[:3]
         return (f"{'x'.join(map(str, u.shape))}, pool "
@@ -1654,6 +1706,8 @@ def main_path(path, scene, card: str,
     if path in TEXTURED_PATHS and int(stats["draws_masked"].max()) <= 0:
         raise AssertionError("no masked draws on any frame")
     k2_calls = captured["mesh_shader"]
+    if captured["paged_texture"]:
+        palette_report(label, captured["paged_texture"])
     del captured
     if mcfg is not None and mcfg.gi:
         check_gi_history(path, hist, config, mcfg)
@@ -2142,14 +2196,9 @@ def goldens(dev, card: str) -> dict:
 
 # phase 13: the frames of phase 5's runs held to chord_tpu's at bench size
 # (tests/bench_goldens.py renders them on the CPU into BENCH_GOLDEN_DIR)
-# and, on `all`, to chord_tpu's own frames in docs/images (not gated: K5
-# has no page palette, ROADMAP §3, and their flags were not recorded)
 BENCH_GOLDEN_DIR = os.path.join(GOLDEN_DIR, "bench")
 GOLDEN_FRAMES = {"off": (0, 7, 15), "nanite": (0, 7), "interior": (0, 7),
-                 "all": (7, 15)}
-# the cells gated on the worst 16x16 window too (interior's GI noise is
-# the port's own: eager and jitted IGN differ at ~0.35% of pixels)
-WINDOW_GATED = ("off", "nanite")
+                 "geo_tex": (0, 7), "geo_shadow_atmo": (0, 7), "all": (0, 7)}
 
 
 def chord_tpu_hash(root: str) -> str:
@@ -2195,13 +2244,12 @@ def image_gates(img, ref) -> dict:
 
 
 def bench_goldens(kept: dict, blend: dict, card: str) -> dict:
-    """Phase 13: `off` frames 0/7/15 and `nanite` 0/7 held to chord_tpu's
-    with its three gates (SSIM >= 0.99, MAE < 2, worst window >= 0.95),
-    `interior` 0/7 with the first two (its worst window printed); a
+    """Phase 13: the GOLDEN_FRAMES of each cell held to chord_tpu's with
+    its three gates (SSIM >= 0.99, MAE < 2, worst window >= 0.95); a
     missing PNG or manifest, a manifest made from other chord_tpu sources
     or with another config than the path's, fails. Each frame's stats
-    (those both packages make) held equal to chord_tpu's; `all` 7/15 against
-    docs/images/bench_all_1080p_f*.png, printed. -> numbers per image."""
+    (those both packages make) held equal to chord_tpu's. -> numbers per
+    image."""
     with open(os.path.join(BENCH_GOLDEN_DIR, "manifest.json")) as f:
         man = json.load(f)
     sha = chord_tpu_hash(REPO)
@@ -2210,7 +2258,7 @@ def bench_goldens(kept: dict, blend: dict, card: str) -> dict:
                              f"sources {man['chord_tpu_sha256']}, the "
                              f"checkout's are {sha}")
     out = {}
-    for path in ("off", "nanite", "interior"):
+    for path in GOLDEN_FRAMES:
         cell = man["cells"][path]
         config, mcfg = configs(path, blend[path])
         for key, nt in (("renderer_config", config),
@@ -2229,15 +2277,13 @@ def bench_goldens(kept: dict, blend: dict, card: str) -> dict:
             ref = read_png(os.path.join(BENCH_GOLDEN_DIR,
                                         cell["images"][str(i)]))
             g = image_gates(kept[path]["images"][i], ref)
-            gated = path in WINDOW_GATED
             log(f"bench golden {path} frame {i} ({cell['command']}) on "
                 f"{card}: SSIM {g['ssim']:.6f} (>= 0.99), MAE "
                 f"{g['mae']:.4f} (< 2), worst 16x16 window SSIM "
                 f"{g['worst_window_ssim']:.6f} at (row, column) "
-                f"{tuple(g['worst_window_at'])}"
-                f"{' (>= 0.95)' if gated else ' (printed, not gated)'}")
+                f"{tuple(g['worst_window_at'])} (>= 0.95)")
             if not (g["ssim"] >= 0.99 and g["mae"] < 2.0 and
-                    (g["worst_window_ssim"] >= 0.95 or not gated)):
+                    g["worst_window_ssim"] >= 0.95):
                 raise AssertionError(f"bench golden {path} frame {i} fails "
                                      "its gates")
             out[f"{path}_f{i:02d}"] = g
@@ -2261,15 +2307,6 @@ def bench_goldens(kept: dict, blend: dict, card: str) -> dict:
         if differ:
             raise AssertionError(f"bench golden {path}: stats differ on "
                                  f"{differ}")
-    for i in GOLDEN_FRAMES["all"]:
-        ref = read_png(os.path.join(REPO, "docs", "images",
-                                    f"bench_all_1080p_f{i}.png"))
-        g = image_gates(kept["all"]["images"][i], ref)
-        log(f"all frame {i} against chord_tpu's docs/images/"
-            f"bench_all_1080p_f{i}.png on {card} (printed, not gated): SSIM "
-            f"{g['ssim']:.6f}, MAE {g['mae']:.4f}, worst 16x16 window SSIM "
-            f"{g['worst_window_ssim']:.6f} at {tuple(g['worst_window_at'])}")
-        out[f"all_f{i:02d}_docs"] = g
     return out
 
 

@@ -1,12 +1,14 @@
 // Kernel K5: paged virtual-texture sampler.
 //
 // Replaces chord_tpu/ops/paged_texture.py::_paged_kernel (:251, via
-// paged_sample :442). The Pallas kernel stages a K-page palette per
-// (BH,128) pixel block and resolves taps with lane shuffles, because the
-// TPU has no gather; pixels whose page misses the palette fall back to a
-// coarse mip. Here every pixel reads its pages straight from global memory,
-// where the bench pool (~1.5 MB compressed) stays in L2: no palette, so no
-// miss and no fallback, every pixel gets its full-resolution sample.
+// paged_sample :442), and computes its function: per (16,128) pixel block
+// only the K smallest distinct page ids the block's (channel, pixel)s ask
+// for are served (the palette; K = 16 for the fused material maps, 10 for
+// one map). A texel whose page misses reads the single-page fallback mip
+// max(mip, first mip of size <= 16) if that page is among the C+4 smallest
+// distinct fallback pages of the block's missed texels, else the entry's
+// average colour. The palette decides which value a texel gets, so it is
+// part of the function, not a layout of the TPU's.
 //
 // Pages: raw = 1024 int32 RGBA8 texels (slot = sy*32 + sx); compressed =
 // 256 int32 (row 0: endpoints 0 | endpoints 1 per 4x4 block, row 1: the
@@ -14,26 +16,30 @@
 // chord_tpu's _stage_page (:230-248). Bilinear filters in f32 left to
 // right and rounds to u8; nearest returns the stored texel.
 //
-// Layout. Bilinear: one thread a pixel; the tap math (wrap, clamp, page
-// tile, apron slots) is done once and shared by the C channels. A
-// compressed footprint's four texels lie in one, two or four 4x4 blocks:
-// it straddles a block edge in x only when sx0 & 3 == 3 and in y only when
-// sy0 & 3 == 3, and never a page (the apron repeats the neighbour's first
-// texel). Each distinct block's three words are loaded once, and each
-// texel is decoded straight into the filter's sums, as floats and in the
-// filter's order: a decoded texel is an integer in [0, 255], so the plain
-// version's pack to u8 and unpack is the identity. Bytes become floats by
-// the 2^23 trick (PRMT + FADD) in place of I2F. Nearest: one thread a
-// (pixel, channel), grid.y = channel, so the layer load does not wait on a
-// channel loop.
+// Layout: one block of 16 warps per (16,128) pixel block; thread t takes
+// column t % 128 of rows t / 128 + 4j (j < 4), all C channels. Each texel's
+// page id is computed before any clamp (chord_tpu clamps only the page it
+// stages). The palette takes two levels and one barrier: each warp finds
+// the K smallest distinct ids of its texels by rounds of a warp-wide min,
+// the 16 lists go to shared memory, and every warp takes the K smallest
+// distinct of those. That is exact: each of the block's K smallest
+// distinct ids is among the K smallest of the warp that holds it. The
+// served ids are then those at or below the last id found. A second round
+// does the same over the missed texels' fallback pages with C+4. Then each
+// thread resolves its texels from global memory (the bench pool, ~1.5 MB
+// compressed, stays in L2). A compressed bilinear footprint's four texels
+// lie in one, two or four 4x4 blocks: it straddles a block edge in x only
+// when sx1 > sx0 crosses a multiple of 4, and never a page (the apron
+// repeats the neighbour's first texel; the fallback mip is one page). Each
+// distinct block's three words are loaded once, and each texel is decoded
+// straight into the filter's sums, as floats and in the filter's order: a
+// decoded texel is an integer in [0, 255], so the plain version's pack to
+// u8 and unpack is the identity. Bytes become floats by the 2^23 trick
+// (PRMT + FADD) in place of I2F.
 //
-// Bound at the bench's 1280x720: the bytes of the per-pixel inputs and
-// outputs (C layer planes + uv + mip read, C packed planes written; the
-// pages are L2-resident). The C=4 bilinear resolve is held back by the
-// decode's f32 operations, not by its gathers (PERF.md §6). Built with
-// -fmad=false, so every product and sum rounds as the plain PyTorch
-// version (chord_tpu_torch/ops/paged_texture.py paged_sample_plain) does:
-// the outputs match it bit for bit.
+// Built with -fmad=false, so every product and sum rounds as the plain
+// PyTorch version (chord_tpu_torch/ops/paged_texture.py paged_sample_plain)
+// does: the outputs match it bit for bit.
 
 #include <cuda_runtime.h>
 
@@ -47,7 +53,18 @@ namespace {
 
 constexpr int kTile = 32;
 constexpr int kUsable = 31;
-constexpr int kThreads = 256;
+constexpr int kBH = 16;                  // pixel rows per palette block
+constexpr int kBW = 128;                 // pixel columns per palette block
+constexpr int kThreads = 512;
+constexpr int kWarps = kThreads / 32;    // 16
+constexpr int kPix = kBH * kBW / kThreads;   // 4 pixels a thread
+constexpr int kMaxK = 16;                // palette pages (K <= 16)
+constexpr int kMaxFb = 8;                // fallback pages (C + 4 <= 8)
+constexpr int kBig = 1 << 30;            // "no page"
+static_assert(kThreads % kBW == 0 && kPix * kThreads == kBH * kBW,
+              "whole rows a step");
+static_assert(kWarps * kMaxK % 32 == 0 && kWarps * kMaxFb % 32 == 0,
+              "whole candidate rows");
 
 // f32 -> int32 as the port's f2i: NaN -> 0, saturating, truncating.
 __device__ __forceinline__ int f2i(float x) {
@@ -98,20 +115,18 @@ __device__ __forceinline__ void tap_into(unsigned e0, unsigned e1,
   }
 }
 
-// The per-pixel tap math, shared by the channels.
+// The tap math of one mip for one pixel, shared by the channels: u wraps,
+// taps clamp to `size`; tiled: the footprint's page tile (tcnt tiles a
+// row) and slots within it, else the mip's one page, slots unshifted.
 struct Taps {
-  int m, tile_in, sx0, sy0, sx1, sy1;
+  int tile_in, sx0, sy0, sx1, sy1;
   float fx, fy, wx0, wy0;
 };
 
 template <bool kBilinear>
-__device__ __forceinline__ Taps tap_math(float u, float v, int mip,
-                                         const ChordMipTable& mt,
-                                         int n_mips) {
+__device__ __forceinline__ Taps tap_math(float u, float v, int size,
+                                         bool tiled) {
   Taps tp;
-  int m = clampi(mip, 0, n_mips - 1);
-  int size = mt.size[m];
-  int tcnt = size <= kUsable ? 1 : (size + kUsable - 1) / kUsable;
   float sf = (float)size;
   float x = (u - floorf(u)) * sf;
   float y = (v - floorf(v)) * sf;
@@ -127,18 +142,22 @@ __device__ __forceinline__ Taps tap_math(float u, float v, int mip,
   }
   int x0 = f2i(x0f), y0 = f2i(y0f);
   int bx0 = clampi(x0, 0, size - 1), by0 = clampi(y0, 0, size - 1);
-  int tx = f2i(((float)bx0 + 0.5f) * (1.0f / kUsable));
-  int ty = f2i(((float)by0 + 0.5f) * (1.0f / kUsable));
-  tp.m = m;
-  tp.tile_in = ty * tcnt + tx;
-  tp.sx0 = bx0 - tx * kUsable;
-  tp.sy0 = by0 - ty * kUsable;
-  tp.sx1 = tp.sx0;
-  tp.sy1 = tp.sy0;
-  if (kBilinear) {
-    tp.sx1 = clampi(x0 + 1, 0, size - 1) - tx * kUsable;
-    tp.sy1 = clampi(y0 + 1, 0, size - 1) - ty * kUsable;
+  int bx1 = clampi(x0 + 1, 0, size - 1), by1 = clampi(y0 + 1, 0, size - 1);
+  tp.tile_in = 0;
+  if (tiled) {
+    int tcnt = size <= kUsable ? 1 : (size + kUsable - 1) / kUsable;
+    int tx = f2i(((float)bx0 + 0.5f) * (1.0f / kUsable));
+    int ty = f2i(((float)by0 + 0.5f) * (1.0f / kUsable));
+    tp.tile_in = ty * tcnt + tx;
+    bx0 -= tx * kUsable;
+    bx1 -= tx * kUsable;
+    by0 -= ty * kUsable;
+    by1 -= ty * kUsable;
   }
+  tp.sx0 = bx0;
+  tp.sy0 = by0;
+  tp.sx1 = kBilinear ? bx1 : bx0;
+  tp.sy1 = kBilinear ? by1 : by0;
   tp.fx = fx;
   tp.fy = fy;
   tp.wx0 = 1.0f - fx;
@@ -149,31 +168,19 @@ __device__ __forceinline__ Taps tap_math(float u, float v, int mip,
 struct Args {
   const int* pages;
   int n_pages;
-  const int* meta;
+  const int* meta;      // row 0: first page, row 1: average colour
   int e_pad;
   const int* layers;
-  int n_ch;
   const float* uv;
   const int* mip;
-  int npix;
+  int h, w;
   ChordMipTable mt;
   int n_mips;
+  int fb_idx;           // the first mip of size <= 16, else n_mips - 1
+  int k_pages;
   int* out;
+  int* cov;             // nullptr: no coverage output
 };
-
-__device__ __forceinline__ int page_of(const Args& g, const Taps& tp,
-                                       int layer) {
-  int e = clampi(layer * g.n_mips + tp.m, 0, g.e_pad - 1);
-  return clampi(__ldg(g.meta + e) + tp.tile_in, 0, g.n_pages - 1);
-}
-
-__device__ __forceinline__ Taps pixel_taps(const Args& g, int p,
-                                           bool bilinear) {
-  float u = __ldg(g.uv + 2 * (size_t)p), v = __ldg(g.uv + 2 * (size_t)p + 1);
-  int mip = __ldg(g.mip + p);
-  return bilinear ? tap_math<true>(u, v, mip, g.mt, g.n_mips)
-                  : tap_math<false>(u, v, mip, g.mt, g.n_mips);
-}
 
 // val + 0.5 clamped to [0, 255] (never NaN after fmaxf), so the port's f2i
 // is a plain truncation here.
@@ -254,55 +261,168 @@ __device__ __forceinline__ int nearest_texel(const int* __restrict__ pages,
                      (tp.sy0 & 3) * 4 + (tp.sx0 & 3));
 }
 
-// Bilinear: one thread a pixel, the channels in turn.
-template <bool kCompressed>
-__global__ void __launch_bounds__(kThreads) bilinear_kernel(const Args g) {
-  const int p = blockIdx.x * kThreads + threadIdx.x;
-  if (p >= g.npix) return;
-  const Taps tp = pixel_taps(g, p, true);
-  for (int c = 0; c < g.n_ch; ++c) {
-    const size_t o = (size_t)c * g.npix + p;
-    const int layer = __ldg(g.layers + o);
-    g.out[o] = layer < 0 ? -1
-                         : bilinear_texel<kCompressed>(
-                               g.pages, page_of(g, tp, layer), tp);
+template <bool kBilinear, bool kCompressed>
+__device__ __forceinline__ int texel(const Args& g, int page,
+                                     const Taps& tp) {
+  page = clampi(page, 0, g.n_pages - 1);
+  return kBilinear ? bilinear_texel<kCompressed>(g.pages, page, tp)
+                   : nearest_texel<kCompressed>(g.pages, page, tp);
+}
+
+// The up to k smallest distinct of the warp's N values a lane (values are
+// at most kBig), padded with kBig: rounds of a warp-wide min, each taking
+// the round's value out, until k or only kBig are left. Returns the last
+// value found (INT_MIN if none): the values served are those at or below.
+template <int N, int M>
+__device__ __forceinline__ int warp_smallest(const int (&key)[N], int k,
+                                             int (&ids)[M]) {
+  int rem[N];
+#pragma unroll
+  for (int j = 0; j < N; ++j) rem[j] = key[j];
+#pragma unroll
+  for (int i = 0; i < M; ++i) ids[i] = kBig;
+  int last = -2147483647 - 1;
+#pragma unroll
+  for (int i = 0; i < M; ++i) {
+    if (i >= k) break;                // block-uniform
+    int m = rem[0];
+#pragma unroll
+    for (int j = 1; j < N; ++j) m = min(m, rem[j]);
+    m = __reduce_min_sync(0xffffffffu, m);
+    if (m == kBig) break;             // warp-uniform
+    ids[i] = m;
+    last = m;
+#pragma unroll
+    for (int j = 0; j < N; ++j) rem[j] = rem[j] == m ? kBig : rem[j];
+  }
+  return last;
+}
+
+// The block's threshold: the last of the K smallest distinct keys of all
+// its threads (two levels through `cand`, kWarps * M ints, one barrier).
+template <int N, int M>
+__device__ __forceinline__ int block_threshold(const int (&key)[N], int k,
+                                               int* cand) {
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  int ids[M];
+  warp_smallest(key, k, ids);
+  if (lane == 0) {
+#pragma unroll
+    for (int i = 0; i < M; ++i) cand[warp * M + i] = ids[i];
+  }
+  __syncthreads();
+  constexpr int kPer = kWarps * M / 32;
+  int mine[kPer];
+#pragma unroll
+  for (int q = 0; q < kPer; ++q) mine[q] = cand[lane + 32 * q];
+  return warp_smallest(mine, k, ids);
+}
+
+template <int C, bool kBilinear, bool kCompressed>
+__global__ void __launch_bounds__(kThreads) palette_kernel(const Args g) {
+  __shared__ int s_cand[kWarps * kMaxK];
+  __shared__ int s_fb[kWarps * kMaxFb];
+  const int col = blockIdx.x * kBW + threadIdx.x % kBW;
+  const int row0 = blockIdx.y * kBH + threadIdx.x / kBW;
+  constexpr int kRowStep = kThreads / kBW;   // 4
+  const size_t npix = (size_t)g.h * g.w;
+
+  // per (pixel j, channel c) at i = j * C + c: the page id (kBig where
+  // untextured, padded or at or above kBig), its fallback page id and the
+  // entry (-1: untextured)
+  int key[kPix * C], fkey[kPix * C], ent[kPix * C];
+#pragma unroll
+  for (int j = 0; j < kPix; ++j) {
+    const int row = row0 + j * kRowStep;
+    const bool in = row < g.h && col < g.w;
+    const size_t p = in ? (size_t)row * g.w + col : 0;
+    const float u = in ? __ldg(g.uv + 2 * p) : 0.0f;
+    const float v = in ? __ldg(g.uv + 2 * p + 1) : 0.0f;
+    const int m = clampi(in ? __ldg(g.mip + p) : 0, 0, g.n_mips - 1);
+    const int fm = max(m, g.fb_idx);
+    const Taps tp = tap_math<kBilinear>(u, v, g.mt.size[m], true);
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      const int i = j * C + c;
+      const int layer = in ? __ldg(g.layers + c * npix + p) : -1;
+      ent[i] = layer < 0 ? -1 : clampi(layer * g.n_mips + m, 0, g.e_pad - 1);
+      const int fe = clampi(layer * g.n_mips + fm, 0, g.e_pad - 1);
+      key[i] = layer < 0 ? kBig : min(__ldg(g.meta + ent[i]) + tp.tile_in,
+                                      kBig);
+      fkey[i] = layer < 0 ? kBig : min(__ldg(g.meta + fe), kBig);
+    }
+  }
+
+  const int thr = block_threshold<kPix * C, kMaxK>(key, g.k_pages, s_cand);
+#pragma unroll
+  for (int i = 0; i < kPix * C; ++i)
+    fkey[i] = key[i] < kBig && key[i] <= thr ? kBig : fkey[i];
+  const int fthr = block_threshold<kPix * C, kMaxFb>(fkey, C + 4, s_fb);
+
+#pragma unroll
+  for (int j = 0; j < kPix; ++j) {
+    const int row = row0 + j * kRowStep;
+    if (row >= g.h || col >= g.w) continue;
+    const size_t p = (size_t)row * g.w + col;
+    const float u = __ldg(g.uv + 2 * p), v = __ldg(g.uv + 2 * p + 1);
+    const int m = clampi(__ldg(g.mip + p), 0, g.n_mips - 1);
+    const int fm = max(m, g.fb_idx);
+    const Taps tp = tap_math<kBilinear>(u, v, g.mt.size[m], true);
+    const Taps fp = tap_math<kBilinear>(u, v, g.mt.size[fm], false);
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      const int i = j * C + c;
+      const bool served = key[i] < kBig && key[i] <= thr;
+      int o = -1;
+      if (ent[i] >= 0) {
+        if (served)
+          o = texel<kBilinear, kCompressed>(g, key[i], tp);
+        else if (fkey[i] < kBig && fkey[i] <= fthr)
+          o = texel<kBilinear, kCompressed>(g, fkey[i], fp);
+        else
+          o = __ldg(g.meta + g.e_pad + ent[i]);
+      }
+      g.out[c * npix + p] = o;
+      if (g.cov) g.cov[c * npix + p] = (served || ent[i] < 0) ? 1 : 0;
+    }
   }
 }
 
-// Nearest: one thread a (pixel, channel = blockIdx.y).
-template <bool kCompressed>
-__global__ void __launch_bounds__(kThreads) nearest_kernel(const Args g) {
-  const int p = blockIdx.x * kThreads + threadIdx.x;
-  if (p >= g.npix) return;
-  const size_t o = (size_t)blockIdx.y * g.npix + p;
-  const int layer = __ldg(g.layers + o);
-  const Taps tp = pixel_taps(g, p, false);
-  g.out[o] = layer < 0 ? -1
-                       : nearest_texel<kCompressed>(
-                             g.pages, page_of(g, tp, layer), tp);
+template <int C>
+int launch(const Args& g, bool bilinear, bool compressed, cudaStream_t s) {
+  const dim3 grid((g.w + kBW - 1) / kBW, (g.h + kBH - 1) / kBH);
+  if (bilinear && compressed)
+    palette_kernel<C, true, true><<<grid, kThreads, 0, s>>>(g);
+  else if (bilinear)
+    palette_kernel<C, true, false><<<grid, kThreads, 0, s>>>(g);
+  else if (compressed)
+    palette_kernel<C, false, true><<<grid, kThreads, 0, s>>>(g);
+  else
+    palette_kernel<C, false, false><<<grid, kThreads, 0, s>>>(g);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
+// Returns a cudaError_t, or -1 for arguments the kernel does not take
+// (C outside [1, 4], K outside [1, 16]).
 extern "C" int chord_paged_sample(const void* pages, int n_pages,
                                   const void* meta, int e_pad,
                                   const void* layers, int n_ch, const void* uv,
-                                  const void* mip, int npix, ChordMipTable mt,
-                                  int n_mips, int bilinear, int compressed,
-                                  void* out, void* stream) {
-  if (npix <= 0 || n_ch <= 0) return 0;
+                                  const void* mip, int h, int w,
+                                  ChordMipTable mt, int n_mips, int fb_idx,
+                                  int k_pages, int bilinear, int compressed,
+                                  void* out, void* cov, void* stream) {
+  if (n_ch < 1 || n_ch > 4 || k_pages < 1 || k_pages > kMaxK) return -1;
+  if (h <= 0 || w <= 0) return 0;
   const Args g{(const int*)pages, n_pages, (const int*)meta, e_pad,
-               (const int*)layers, n_ch, (const float*)uv, (const int*)mip,
-               npix, mt, n_mips, (int*)out};
-  const int blocks = (npix + kThreads - 1) / kThreads;
+               (const int*)layers, (const float*)uv, (const int*)mip, h, w,
+               mt, n_mips, fb_idx, k_pages, (int*)out, (int*)cov};
   cudaStream_t s = (cudaStream_t)stream;
-  if (bilinear && compressed)
-    bilinear_kernel<true><<<blocks, kThreads, 0, s>>>(g);
-  else if (bilinear)
-    bilinear_kernel<false><<<blocks, kThreads, 0, s>>>(g);
-  else if (compressed)
-    nearest_kernel<true><<<dim3(blocks, n_ch), kThreads, 0, s>>>(g);
-  else
-    nearest_kernel<false><<<dim3(blocks, n_ch), kThreads, 0, s>>>(g);
-  return (int)cudaGetLastError();
+  switch (n_ch) {
+    case 1: return launch<1>(g, bilinear, compressed, s);
+    case 2: return launch<2>(g, bilinear, compressed, s);
+    case 3: return launch<3>(g, bilinear, compressed, s);
+    default: return launch<4>(g, bilinear, compressed, s);
+  }
 }

@@ -40,9 +40,12 @@ META_ROWS = 5
 
 
 def matmul4(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """(...,4,4) @ (4,4) with each dot summed left to right in f32."""
-    return (a[..., :, 0:1] * b[0] + a[..., :, 1:2] * b[1] +
-            a[..., :, 2:3] * b[2] + a[..., :, 3:4] * b[3])
+    """(...,4,4) @ (4,4) in f32, each dot summed in pairs,
+    (a0*b0 + a1*b1) + (a2*b2 + a3*b3): the order XLA's CPU dot gives
+    chord_tpu's einsum. Left to right differs in the last bits on ~3% of
+    a light matrix's entries, which moves every shadow-map depth."""
+    return ((a[..., :, 0:1] * b[0] + a[..., :, 1:2] * b[1]) +
+            (a[..., :, 2:3] * b[2] + a[..., :, 3:4] * b[3]))
 
 
 def mesh_shader_inputs(draws, pools, instances, tw_to_clip: torch.Tensor,

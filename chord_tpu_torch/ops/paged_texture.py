@@ -15,14 +15,15 @@ Device half, kernel K5:
                    paged_sample_plain (CPU tensors)
 
 Replaces chord_tpu/ops/paged_texture.py::_paged_kernel (:251, called by
-paged_sample :442). That kernel stages a K-page palette per (BH,128) block
-and resolves taps with lane shuffles, because the TPU has no gather; a
-pixel whose page misses the palette takes a coarser fallback mip. On the
-GPU every pixel reads its own page straight from global memory (the bench
-pool is ~1.5 MB and stays in L2), so there is no palette and no miss: the
-port computes the full-resolution sample everywhere — where chord_tpu's
-palette covered a pixel the packed texels are equal, where it missed the
-port gives the sample chord_tpu could not fit.
+paged_sample :442) and computes its function: per (block_h,128) pixel
+block only the k_pages smallest distinct page ids of the block's
+(channel, pixel)s are served (the palette; the frame uses block_h 16 and
+16 pages for the fused maps, 10 for one map, as chord_tpu/ops/texture.py).
+A texel whose page misses reads the single-page fallback mip if its page
+is among the block's C+4 smallest distinct fallback pages, else the
+entry's average colour. The palette decides the value, so the port keeps
+it; on the GPU the served pages are read straight from global memory (the
+bench pool is ~1.5 MB and stays in L2), not staged.
 
 The wrapper returns the packed (C,H,W) int32 texels; `unpack_rgba` turns
 them into f32 RGBA in PyTorch, as chord_tpu unpacks outside its kernel.
@@ -42,6 +43,7 @@ from ._util import f2i
 TILE = 32          # stored page edge (texels)
 USABLE = 31        # usable texels per axis (1-texel apron)
 MAX_MIPS = 16      # mip table size the kernel takes by value
+BIG = 1 << 30      # the palette's "no page" id
 
 
 # --- host half (numpy) -----------------------------------------------------
@@ -217,31 +219,16 @@ def _channels(p: torch.Tensor) -> List[torch.Tensor]:
     return [((p >> sh) & 255).float() for sh in (0, 8, 16, 24)]
 
 
-def paged_sample_plain(pages: torch.Tensor, meta: torch.Tensor, n_mips: int,
-                       mip_sizes: Sequence[int], layers: torch.Tensor,
-                       uv: torch.Tensor, mip: torch.Tensor,
-                       bilinear: bool = True) -> torch.Tensor:
-    """Plain PyTorch version of kernel K5 -> (C,H,W) int32 packed RGBA8
-    (-1, i.e. 1.0 after unpacking, where layer < 0).
-
-    Per pixel (shared by the C channels): u wraps, taps clamp to the mip's
-    size, the tap footprint's page tile is floor((b + .5) / 31) and the
-    slots index the 32x32 apron page; per channel the page is
-    meta[0][layer * n_mips + mip] + tile. Bilinear filters the four taps in
-    f32 and rounds to u8; nearest returns the texel as stored."""
-    dev = layers.device
-    compressed = meta.shape[0] == 3
-    n_pages = pages.shape[0] // (2 if compressed else 8)
-    e_pad = meta.shape[1]
-    sizes_l = [int(s) for s in mip_sizes[:n_mips]]
-    m = torch.clamp(mip, 0, n_mips - 1).long()
-    size = torch.tensor(sizes_l, dtype=torch.int32, device=dev)[m]
-    tcnt = torch.tensor([_tiles(s) for s in sizes_l], dtype=torch.int32,
-                        device=dev)[m]
+def _tap_slots(uv: torch.Tensor, size: torch.Tensor, tcnt, bilinear: bool):
+    """The tap math of one mip per pixel: u wraps, taps clamp to `size`,
+    the footprint's page tile is floor((b + .5) / 31) (tcnt tiles a row;
+    None: the page is the mip's only one, slots unshifted) -> (tile, slots,
+    fx, fy)."""
     sf = size.float()
     u, v = uv[..., 0], uv[..., 1]
     x = (u - torch.floor(u)) * sf
     y = (v - torch.floor(v)) * sf
+    fx = fy = None
     if bilinear:
         x0f = torch.floor(x - 0.5)
         y0f = torch.floor(y - 0.5)
@@ -253,36 +240,153 @@ def paged_sample_plain(pages: torch.Tensor, meta: torch.Tensor, n_mips: int,
     x0, y0 = f2i(x0f), f2i(y0f)
     smax = size - 1
     bx0, by0 = _clampi(x0, smax), _clampi(y0, smax)
-    tx = f2i((bx0.float() + 0.5) * (1.0 / USABLE))
-    ty = f2i((by0.float() + 0.5) * (1.0 / USABLE))
-    sx0 = bx0 - tx * USABLE
-    sy0 = by0 - ty * USABLE
-    tile_in = ty * tcnt + tx
+    bx1, by1 = _clampi(x0 + 1, smax), _clampi(y0 + 1, smax)
+    tile = torch.zeros_like(bx0)
+    if tcnt is not None:
+        tx = f2i((bx0.float() + 0.5) * (1.0 / USABLE))
+        ty = f2i((by0.float() + 0.5) * (1.0 / USABLE))
+        bx0, bx1 = bx0 - tx * USABLE, bx1 - tx * USABLE
+        by0, by1 = by0 - ty * USABLE, by1 - ty * USABLE
+        tile = ty * tcnt + tx
     if bilinear:
-        sx1 = _clampi(x0 + 1, smax) - tx * USABLE
-        sy1 = _clampi(y0 + 1, smax) - ty * USABLE
-        slots = (sy0 * TILE + sx0, sy0 * TILE + sx1,
-                 sy1 * TILE + sx0, sy1 * TILE + sx1)
+        slots = (by0 * TILE + bx0, by0 * TILE + bx1,
+                 by1 * TILE + bx0, by1 * TILE + bx1)
     else:
-        slots = (sy0 * TILE + sx0,)
+        slots = (by0 * TILE + bx0,)
+    return tile, slots, fx, fy
 
-    entry = torch.clamp(layers * n_mips + m.to(torch.int32)[None], 0,
-                        e_pad - 1)
-    page = torch.clamp(meta[0][entry.long()] + tile_in[None], 0, n_pages - 1)
+
+def _filter(pages, page, slots, fx, fy, compressed):
+    """Packed RGBA8 sample of `page` (C,H,W) at the shared `slots`:
+    bilinear filters the four taps in f32 left to right and rounds to u8,
+    nearest returns the texel as stored."""
     taps = [_fetch_plain(pages, page, s[None].expand_as(page), compressed)
             for s in slots]
-    if bilinear:
-        c00, c01, c10, c11 = (_channels(t) for t in taps)
-        out = torch.zeros(page.shape, dtype=torch.int64, device=dev)
-        for i, sh in enumerate((0, 8, 16, 24)):
-            val = (c00[i] * (1 - fx) * (1 - fy) + c01[i] * fx * (1 - fy) +
-                   c10[i] * (1 - fx) * fy + c11[i] * fx * fy)
-            ch = f2i(torch.clamp(val + 0.5, 0.0, 255.0))
-            out = out | (ch.to(torch.int64) << sh)
-        packed = _wrap_i32(out)
-    else:
-        packed = taps[0]
-    return torch.where(layers < 0, torch.full_like(packed, -1), packed)
+    if fx is None:
+        return taps[0]
+    c00, c01, c10, c11 = (_channels(t) for t in taps)
+    out = torch.zeros(page.shape, dtype=torch.int64, device=page.device)
+    for i, sh in enumerate((0, 8, 16, 24)):
+        val = (c00[i] * (1 - fx) * (1 - fy) + c01[i] * fx * (1 - fy) +
+               c10[i] * (1 - fx) * fy + c11[i] * fx * fy)
+        ch = f2i(torch.clamp(val + 0.5, 0.0, 255.0))
+        out = out | (ch.to(torch.int64) << sh)
+    return _wrap_i32(out)
+
+
+def _served(ids: torch.Tensor, block_h: int, k: int) -> torch.Tensor:
+    """The palette rule: per (block_h,128) pixel block of (C,H,W) `ids`
+    (blocks aligned at the origin, all C channels together), the k
+    smallest distinct ids below BIG are served -> (C,H,W) bool."""
+    c, h, w = ids.shape
+    hp, wp = -(-h // block_h) * block_h, -(-w // 128) * 128
+    key = torch.full((c, hp, wp), BIG, dtype=torch.int64, device=ids.device)
+    key[:, :h, :w] = torch.clamp_max(ids.long(), BIG)
+    nby, nbx = hp // block_h, wp // 128
+    blocks = (key.reshape(c, nby, block_h, nbx, 128)
+              .permute(1, 3, 0, 2, 4).reshape(nby * nbx, -1))
+    srt = torch.sort(blocks, dim=1).values
+    new = torch.ones_like(srt, dtype=torch.bool)
+    new[:, 1:] = srt[:, 1:] != srt[:, :-1]
+    rank = torch.cumsum(new.long(), dim=1)
+    lowest = torch.iinfo(torch.int64).min
+    thr = torch.where((rank <= k) & (srt < BIG), srt,
+                      torch.full_like(srt, lowest)).amax(dim=1)
+    thr = thr.reshape(nby, 1, nbx, 1).expand(nby, block_h, nbx, 128)
+    thr = thr.reshape(hp, wp)[:h, :w]
+    return (ids.long() <= thr[None]) & (ids.long() < BIG)
+
+
+def fallback_mip(mip_sizes: Sequence[int], n_mips: int) -> int:
+    """The first mip that fits one page (size <= 16), else the last: the
+    mip a palette miss falls back to (never finer than the one asked)."""
+    return next((m for m, s in enumerate(mip_sizes) if s <= 16), n_mips - 1)
+
+
+def _palette(pages, meta, n_mips, mip_sizes, layers, uv, mip, bilinear,
+             block_h, k_pages):
+    """The per-(channel, pixel) cases of K5 -> (entry, page, served,
+    fallback page, fallback served, main taps, fallback taps)."""
+    dev = layers.device
+    compressed = meta.shape[0] == 3
+    n_pages = pages.shape[0] // (2 if compressed else 8)
+    e_pad = meta.shape[1]
+    sizes_l = [int(s) for s in mip_sizes[:n_mips]]
+    fb_idx = fallback_mip(mip_sizes, n_mips)
+    if int(mip_sizes[fb_idx]) > TILE:
+        raise ValueError(f"the fallback mip ({mip_sizes[fb_idx]}) must fit "
+                         "one page")
+    m = torch.clamp(mip, 0, n_mips - 1).long()
+    size = torch.tensor(sizes_l, dtype=torch.int32, device=dev)[m]
+    tcnt = torch.tensor([_tiles(s) for s in sizes_l], dtype=torch.int32,
+                        device=dev)[m]
+    main = _tap_slots(uv, size, tcnt, bilinear)
+    fb_m = torch.clamp_min(m, fb_idx)
+    fb_size = torch.tensor([int(s) for s in mip_sizes], dtype=torch.int32,
+                           device=dev)[fb_m]
+    fall = _tap_slots(uv, fb_size, None, bilinear)
+
+    textured = layers >= 0
+    entry = torch.clamp(layers * n_mips + m.to(torch.int32)[None], 0,
+                        e_pad - 1)
+    ids = meta[0][entry.long()] + main[0][None]
+    big = torch.full_like(ids, BIG)
+    served = _served(torch.where(textured, ids, big), block_h, k_pages)
+    fb_entry = torch.clamp(layers * n_mips + fb_m.to(torch.int32)[None], 0,
+                           e_pad - 1)
+    fb_ids = meta[0][fb_entry.long()]
+    fb_served = _served(torch.where(textured & ~served, fb_ids, big),
+                        block_h, layers.shape[0] + 4)
+    page = torch.clamp(ids, 0, n_pages - 1)
+    fb_page = torch.clamp(fb_ids, 0, n_pages - 1)
+    return entry, page, served, fb_page, fb_served, main, fall
+
+
+def paged_sample_plain(pages: torch.Tensor, meta: torch.Tensor, n_mips: int,
+                       mip_sizes: Sequence[int], layers: torch.Tensor,
+                       uv: torch.Tensor, mip: torch.Tensor,
+                       bilinear: bool = True, block_h: int = 16,
+                       k_pages: int = 16, with_coverage: bool = False):
+    """Plain PyTorch version of kernel K5 -> (C,H,W) int32 packed RGBA8
+    (-1, i.e. 1.0 after unpacking, where layer < 0); with_coverage also
+    (C,H,W) bool, True where the palette served the texel or layer < 0.
+
+    Per pixel (shared by the C channels): u wraps, taps clamp to the mip's
+    size, the tap footprint's page tile is floor((b + .5) / 31) and the
+    slots index the 32x32 apron page; per channel the page id is
+    meta[0][layer * n_mips + mip] + tile. Per (block_h,128) block only
+    the k_pages smallest distinct ids are served (the palette): those
+    texels are filtered from their page (bilinear: four taps in f32,
+    rounded to u8; nearest: the texel as stored). A missed texel reads the
+    single-page fallback mip max(mip, fallback_mip) (entry page, no tile,
+    taps at its size) if its page is among the C+4 smallest distinct
+    fallback pages of the block's missed texels, else the entry's average
+    colour meta[1]."""
+    entry, page, served, fb_page, fb_served, main, fall = _palette(
+        pages, meta, n_mips, mip_sizes, layers, uv, mip, bilinear, block_h,
+        k_pages)
+    compressed = meta.shape[0] == 3
+    full = _filter(pages, page, main[1], main[2], main[3], compressed)
+    coarse = _filter(pages, fb_page, fall[1], fall[2], fall[3], compressed)
+    avg = meta[1][entry.long()]
+    packed = torch.where(served, full, torch.where(fb_served, coarse, avg))
+    untextured = layers < 0
+    packed = torch.where(untextured, torch.full_like(packed, -1), packed)
+    if with_coverage:
+        return packed, served | untextured
+    return packed
+
+
+def palette_shares(pages, meta, n_mips, mip_sizes, layers, uv, mip,
+                   bilinear=True, block_h=16, k_pages=16
+                   ) -> Tuple[float, float]:
+    """(palette hit share, fallback share) of the textured (channel, pixel)s
+    of a K5 call; the rest took the average colour."""
+    _, _, served, _, fb_served, _, _ = _palette(
+        pages, meta, n_mips, mip_sizes, layers, uv, mip, bilinear, block_h,
+        k_pages)
+    n = max(int((layers >= 0).sum()), 1)
+    return int(served.sum()) / n, int(fb_served.sum()) / n
 
 
 # --- K5: the CUDA kernel's wrapper --------------------------------------------
@@ -295,14 +399,19 @@ class _MipTable(ctypes.Structure):
 def paged_sample(pages: torch.Tensor, meta: torch.Tensor, n_mips: int,
                  mip_sizes: Sequence[int], layers: torch.Tensor,
                  uv: torch.Tensor, mip: torch.Tensor,
-                 bilinear: bool = True) -> torch.Tensor:
+                 bilinear: bool = True, block_h: int = 16,
+                 k_pages: int = 16, with_coverage: bool = False):
     """Kernel K5: (C,H,W) i32 layers (-1 = untextured) + (H,W,2) f32 uv +
     (H,W) i32 mip -> (C,H,W) i32 packed RGBA8 texels from the paged pool
-    (raw or block-compressed, told apart by meta's row count). CPU tensors
-    -> paged_sample_plain."""
+    (raw or block-compressed, told apart by meta's row count), served
+    through a k_pages palette per (block_h,128) block as
+    paged_sample_plain says; with_coverage also (C,H,W) bool. The kernel
+    takes block_h 16, C in [1, 4] and k_pages in [1, 16]. CPU tensors ->
+    paged_sample_plain."""
     if not layers.is_cuda:
         return paged_sample_plain(pages, meta, n_mips, mip_sizes, layers,
-                                  uv, mip, bilinear)
+                                  uv, mip, bilinear, block_h, k_pages,
+                                  with_coverage)
     c, h, w = layers.shape
     if meta.dim() != 2 or meta.shape[0] not in (2, 3):
         raise ValueError(f"meta must be (2|3, E) (got {tuple(meta.shape)})")
@@ -314,22 +423,35 @@ def paged_sample(pages: torch.Tensor, meta: torch.Tensor, n_mips: int,
     if not 1 <= n_mips <= min(MAX_MIPS, len(mip_sizes)):
         raise ValueError(f"n_mips={n_mips} must lie in [1, "
                          f"{min(MAX_MIPS, len(mip_sizes))}]")
+    if block_h != 16 or not 1 <= c <= 4 or not 1 <= k_pages <= 16:
+        raise ValueError(f"the kernel takes block_h 16, C in [1, 4] and "
+                         f"k_pages in [1, 16] (got {block_h}, {c}, "
+                         f"{k_pages})")
+    fb_idx = fallback_mip(mip_sizes, n_mips)
+    if fb_idx >= MAX_MIPS or int(mip_sizes[fb_idx]) > TILE:
+        raise ValueError(f"the fallback mip ({mip_sizes[fb_idx]}) must fit "
+                         "one page")
     _cuda.check(pages, "pages", torch.int32)
     _cuda.check(meta, "meta", torch.int32)
     _cuda.check(layers, "layers", torch.int32, (c, h, w))
     _cuda.check(uv, "uv", torch.float32, (h, w, 2))
     _cuda.check(mip, "mip", torch.int32, (h, w))
     table = _MipTable()
-    for i in range(n_mips):
-        table.size[i] = int(mip_sizes[i])
+    for i, size in enumerate(mip_sizes[:MAX_MIPS]):
+        table.size[i] = int(size)
     out = torch.empty((c, h, w), dtype=torch.int32, device=layers.device)
+    cov = torch.empty_like(out) if with_coverage else None
     _cuda.launch("chord_paged_sample", _cuda.ptr(pages),
                  _cuda.cint(pages.shape[0] // rows), _cuda.ptr(meta),
                  _cuda.cint(meta.shape[1]), _cuda.ptr(layers), _cuda.cint(c),
-                 _cuda.ptr(uv), _cuda.ptr(mip), _cuda.cint(h * w), table,
-                 _cuda.cint(n_mips), _cuda.cint(int(bilinear)),
-                 _cuda.cint(int(compressed)), _cuda.ptr(out), _cuda.stream())
+                 _cuda.ptr(uv), _cuda.ptr(mip), _cuda.cint(h), _cuda.cint(w),
+                 table, _cuda.cint(n_mips), _cuda.cint(fb_idx),
+                 _cuda.cint(k_pages), _cuda.cint(int(bilinear)),
+                 _cuda.cint(int(compressed)), _cuda.ptr(out), _cuda.ptr(cov),
+                 _cuda.stream())
     paged_sample.launches += 1
+    if with_coverage:
+        return out, cov > 0
     return out
 
 

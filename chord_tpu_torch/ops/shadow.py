@@ -136,9 +136,12 @@ def fit_cascades(view_forward: np.ndarray, sun_dir: np.ndarray,
 
 
 def _norm(x: torch.Tensor) -> torch.Tensor:
-    """Euclidean norm over the last axis (3 terms, summed left to right)."""
-    return torch.sqrt(x[..., 0] * x[..., 0] + x[..., 1] * x[..., 1] +
-                      x[..., 2] * x[..., 2])
+    """Euclidean norm over the last axis (3 terms, summed left to right),
+    its square root correctly rounded as XLA's and CUDA's are (through
+    float64: torch's f32 sqrt on the CPU is off by an ulp on ~0.7% of
+    values, and the fit's texel snap turns an ulp into a texel)."""
+    ss = x[..., 0] * x[..., 0] + x[..., 1] * x[..., 1] + x[..., 2] * x[..., 2]
+    return torch.sqrt(ss.double()).float()
 
 
 def _cross(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -187,7 +190,13 @@ def fit_cascades_device(view_forward: torch.Tensor, sun_dir: torch.Tensor,
     sy = sign[None, None, None, :, None]
     corners = (fwd * d + right * (sx * tan_x * d) +
                upv * (sy * tan_y * d)).reshape(n, 8, 3)
-    center = corners.mean(1)                                      # (N,3)
+    # the 8 corners summed left to right, as XLA reduces chord_tpu's
+    # mean (torch's sum over that axis pairs them otherwise, and the
+    # texel snap below turns the last bit into a one-texel shift)
+    center = corners[:, 0]
+    for i in range(1, 8):
+        center = center + corners[:, i]
+    center = center / 8.0                                         # (N,3)
     radius = _norm(corners - center[:, None]).amax(1)             # (N,)
     texel = 2.0 * radius / cfg.resolution
 

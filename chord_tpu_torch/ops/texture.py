@@ -5,9 +5,10 @@ lighting.hlsl with ddx/ddy-derived mips).
 `sample_material_maps` is the frame's path: one fused pass of kernel K5
 (ops/paged_texture.py) over every material map of a pixel. `sample_pool`
 is the plain per-layer gather over the raw u8 pool, kept as the oracle
-the tests hold the paged sampler against. The mip comes from screen-space
-uv differences (`mip_from_uv_density`), or is dithered between two levels
-by interleaved gradient noise (`mip_dithered`, stochastic trilinear).
+the tests hold the paged sampler's palette hits against. The mip comes
+from screen-space uv differences (`mip_from_uv_density`), or is dithered
+between two levels by interleaved gradient noise (`mip_dithered`,
+stochastic trilinear).
 """
 
 from __future__ import annotations
@@ -73,12 +74,15 @@ def sample_material_maps(pools, layers: torch.Tensor, uv: torch.Tensor,
                          mip: torch.Tensor, bilinear: bool = True
                          ) -> torch.Tensor:
     """Fused multi-channel material fetch through kernel K5:
-    (C,H,W) i32 layers, (H,W,2) uv, (H,W) mip -> (C,H,W,4) f32."""
+    (C,H,W) i32 layers, (H,W,2) uv, (H,W) mip -> (C,H,W,4) f32, with
+    chord_tpu's palette: 16-row blocks, 16 pages for the fused maps, 10
+    for a single one (chord_tpu/ops/texture.py:93-96)."""
     mip_sizes, _ = mip_chain(pools.tex_size)
     packed = paged_texture.paged_sample(
         pools.tex_pages, pools.tex_meta, len(mip_sizes), mip_sizes,
         layers.contiguous(), uv.contiguous(), mip.contiguous(),
-        bilinear=bilinear)
+        bilinear=bilinear, block_h=16,
+        k_pages=10 if layers.shape[0] == 1 else 16)
     return paged_texture.unpack_rgba(packed)
 
 

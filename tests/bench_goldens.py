@@ -3,8 +3,10 @@
     JAX_PLATFORMS=cpu python tests/bench_goldens.py off        # ~20 min
     JAX_PLATFORMS=cpu python tests/bench_goldens.py nanite     # ~4 min
     JAX_PLATFORMS=cpu python tests/bench_goldens.py interior   # ~14 min
+    JAX_PLATFORMS=cpu python tests/bench_goldens.py geo_tex    # ~15 min
+    JAX_PLATFORMS=cpu python tests/bench_goldens.py geo_shadow_atmo  # ~18
+    JAX_PLATFORMS=cpu python tests/bench_goldens.py all        # ~19 min
     ... nanite --fma --out DIR    # XLA's default (FMA) build, into DIR
-    ... all --out DIR             # bench.py's `all` rung, for comparison
 
 Each cell is one bench.py command (CELLS), rendered by chord_tpu with
 bench.py's own scene and camera path (imported: bench.py:64-131) and its
@@ -60,12 +62,14 @@ CELLS = {
                    command="bench.py --scene nanite --features off"),
     "interior": dict(scene="interior", features="all", frames=8,
                      keep=(0, 7), command="bench.py --scene interior"),
+    "geo_tex": dict(scene="bistro", features="geo_tex", frames=8,
+                    keep=(0, 7), command="bench.py --features geo_tex"),
+    "geo_shadow_atmo": dict(scene="bistro", features="geo_shadow_atmo",
+                            frames=8, keep=(0, 7),
+                            command="bench.py --features geo_shadow_atmo"),
+    "all": dict(scene="bistro", features="all", frames=8, keep=(0, 7),
+                command="bench.py"),
 }
-# bench.py's own `all` rung, rendered only into another directory for
-# comparison: the textured rungs are not gated (the port's K5 has no page
-# palette, ROADMAP §3)
-COMPARE = {"all": dict(scene="bistro", features="all", frames=8,
-                       keep=(0, 7), command="bench.py")}
 
 
 def _bench():
@@ -175,11 +179,9 @@ def _update_manifest(out_dir: str, cell: str, entry: dict) -> None:
         os.close(lock)
 
 
-def render_cell(cell: str, frames: int | None = None,
-                out_dir: str = OUT_DIR, fma: bool = False) -> None:
-    """Render frames 0..frames-1 of `cell` (default: CELLS') frame by
-    frame, writing the kept PNGs and the manifest entry into `out_dir`
-    after each; `fma`: XLA's default CPU build (for comparison only)."""
+def setup_cell(cell: str, fma: bool = False) -> dict:
+    """chord_tpu's scene, configs, BVH, views, fresh history and jitted
+    frame function of `cell`, as bench.py builds them (interpret=True)."""
     import jax
 
     from chord_tpu.ops.gi import GIConfig
@@ -188,17 +190,14 @@ def render_cell(cell: str, frames: int | None = None,
                                                   shadow_pipelined)
     from chord_tpu.rhi.framebuffer import FrameHistory
     from chord_tpu.utils.camera import Camera
-    from chip_smoke import config_dict
 
     if (NO_FMA in os.environ.get("XLA_FLAGS", "")) == fma:
         raise RuntimeError(f"XLA_FLAGS must {'not ' if fma else ''}hold "
                            f"{NO_FMA} before JAX starts (run this module "
                            "as a script)")
-    spec = {**CELLS, **COMPARE}[cell]
-    frames = frames or spec["frames"]
+    spec = CELLS[cell]
     bench = _bench()
     scene, features = spec["scene"], spec["features"]
-    t0 = time.time()
     b, pools, n_src = bench._make_scene(scene, DETAIL, TARGET_TRIS)
     blend_tex = any(m.alpha_mode == "blend" and m.base_color_texture >= 0
                     for m in b.materials)
@@ -231,17 +230,35 @@ def render_cell(cell: str, frames: int | None = None,
     if lvl["shadows"] and shadow_pipelined(mcfg.shadow_cfg):
         raise RuntimeError("bench.py runs this rung through "
                            "render_sequence_split")
-    print(f"{cell}: scene {scene} ({n_src} source tris) and views in "
-          f"{time.time() - t0:.1f} s", flush=True)
     fn = jax.jit(functools.partial(render_frame_meshlet, config=config,
                                    mcfg=mcfg, bvh=bvh))
+    return dict(fn=fn, pools=pools, inst=inst, views=dviews, hist=hist,
+                config=config, mcfg=mcfg, bvh=bvh, lvl=lvl, scene=scene,
+                features=features, n_src=n_src)
+
+
+def render_cell(cell: str, frames: int | None = None,
+                out_dir: str = OUT_DIR, fma: bool = False) -> None:
+    """Render frames 0..frames-1 of `cell` (default: CELLS') frame by
+    frame, writing the kept PNGs and the manifest entry into `out_dir`
+    after each; `fma`: XLA's default CPU build (for comparison only)."""
+    from chip_smoke import config_dict
+
+    spec = CELLS[cell]
+    frames = frames or spec["frames"]
+    t0 = time.time()
+    c = setup_cell(cell, fma)
+    config, mcfg, hist = c["config"], c["mcfg"], c["hist"]
+    print(f"{cell}: scene {c['scene']} ({c['n_src']} source tris) and "
+          f"views in {time.time() - t0:.1f} s", flush=True)
     entry = dict(
         command=spec["command"], xla_flags="" if fma else NO_FMA,
-        scene=scene,
+        scene=c["scene"],
         detail=DETAIL,
-        target_tris=TARGET_TRIS if scene == "bistro" else None,
-        source_tris=int(n_src), features=features, flags=lvl,
-        width=WIDTH, height=HEIGHT, render_width=rw, render_height=rh,
+        target_tris=TARGET_TRIS if c["scene"] == "bistro" else None,
+        source_tris=int(c["n_src"]), features=c["features"],
+        flags=c["lvl"], width=WIDTH, height=HEIGHT,
+        render_width=config.width, render_height=config.height,
         render_scale=RENDER_SCALE, path_frames=PATH_FRAMES,
         draw_capacity=mcfg.draw_capacity,
         masked_draw_capacity=mcfg.masked_draw_capacity,
@@ -252,7 +269,8 @@ def render_cell(cell: str, frames: int | None = None,
         frames_rendered=0, images={}, stats=[], seconds=[])
     for i in range(frames):
         t1 = time.time()
-        img, hist, stats = fn(pools, inst, dviews[i], hist)
+        img, hist, stats = c["fn"](c["pools"], c["inst"], c["views"][i],
+                                   hist)
         img = np.asarray(img)
         dt = time.time() - t1
         if img.shape != (HEIGHT, WIDTH, 3) or img.dtype != np.uint8:
@@ -276,7 +294,7 @@ def main(argv) -> int:
     import argparse
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("cell", nargs="?", choices=list(CELLS) + list(COMPARE))
+    ap.add_argument("cell", nargs="?", choices=list(CELLS))
     ap.add_argument("--frames", type=int, help="frames 0..N-1 (default: "
                     "the cell's)")
     ap.add_argument("--out", default=OUT_DIR, help="the directory written "
@@ -284,9 +302,8 @@ def main(argv) -> int:
     ap.add_argument("--fma", action="store_true", help="XLA's default CPU "
                     "build (needs --out)")
     args = ap.parse_args(argv[1:])
-    if os.path.abspath(args.out) == OUT_DIR and (args.fma or
-                                                 args.cell in COMPARE):
-        ap.error("--fma and the comparison cells write only with --out")
+    if os.path.abspath(args.out) == OUT_DIR and args.fma:
+        ap.error("--fma writes only with --out")
     if REPO not in sys.path:
         sys.path.insert(0, REPO)
     if not args.fma:

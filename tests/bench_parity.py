@@ -1,7 +1,9 @@
 """Probes of the port against chord_tpu at bench size, on the CPU.
 
     python tests/bench_parity.py frames off [--goldens DIR] [--frames N]
+                                            [--save DIR]
     python tests/bench_parity.py k2 nanite 0 [--no-fma]
+    python tests/bench_parity.py history geo_shadow_atmo --no-fma [--frames N]
     python tests/bench_parity.py ign [--no-fma]
     python tests/bench_parity.py images A.png B.png
 
@@ -9,7 +11,8 @@
 frame (chip_smoke's scene, configs and history, on the CPU) and each
 frame's stats, and the kept frames' SSIM / MAE / worst window, are held to
 a goldens directory's manifest (default tests/goldens/bench; a
-`bench_goldens.py CELL --fma --out DIR` render for XLA's default build).
+`bench_goldens.py CELL --fma --out DIR` render for XLA's default build);
+`--save DIR` writes the port's kept frames there as PNGs.
 
 `k2`: the mesh-shader setup of one frame of a cell. chord_tpu renders
 frames 0..FRAME (jitted, interpret mode) and records each
@@ -20,6 +23,14 @@ chord_tpu's Pallas kernel (unsorted) and the port's plain K2 on the port's
 own inputs, lane by lane: the flipped triangles with their tests in
 float64 (screen bbox, the pixel centres it covers, the determinant and
 its share of the corner product), and the plane values that differ.
+Cells without shadows only: chord_tpu renders a cascade inside a
+lax.switch, where the recorder cannot reach.
+
+`history`: chord_tpu (jitted, interpret mode; --no-fma as the goldens)
+and the port render a cell's frames side by side, and after each frame
+the histories' depth range, cascade matrices, shadow maps (per cascade),
+shadow mask, exposure and TSR colour are compared, with the image gates
+of the frame.
 
 `ign`: jitted chord_tpu interleaved-gradient noise against the port's
 eager one at 720x1280 and 180x320.
@@ -58,7 +69,8 @@ def _port_cell(cell: str):
     return scene, config, mcfg, cs.history(config, mcfg, d)
 
 
-def frames(cell: str, goldens: str, n: int | None) -> None:
+def frames(cell: str, goldens: str, n: int | None,
+           save: str | None = None) -> None:
     import chip_smoke as cs
 
     with open(os.path.join(goldens, "manifest.json")) as f:
@@ -77,7 +89,46 @@ def frames(cell: str, goldens: str, n: int | None) -> None:
             g = cs.image_gates(img[0].numpy(), cs.read_png(
                 os.path.join(goldens, rec["images"][str(i)])))
             line += f"; image {json.dumps(g)}"
+            if save:
+                from PIL import Image
+
+                os.makedirs(save, exist_ok=True)
+                Image.fromarray(img[0].numpy()).save(
+                    os.path.join(save, f"port_{cell}_f{i:02d}.png"))
         print(line, flush=True)
+
+
+def _diff(a, b) -> str:
+    d = np.abs(np.asarray(a, np.float64) - np.asarray(b, np.float64))
+    where = np.unravel_index(int(d.argmax()), d.shape)
+    return (f"max {d.max():.3g} at {tuple(int(v) for v in where)}, "
+            f"{float((d > 0).mean()):.2e} differ")
+
+
+def history(cell: str, n: int | None) -> None:
+    import bench_goldens as bg
+    import chip_smoke as cs
+
+    c = bg.setup_cell(cell)
+    jhist = c["hist"]
+    scene, config, mcfg, hist = _port_cell(cell)
+    for i in range(n or 8):
+        jimg, jhist, _ = c["fn"](c["pools"], c["inst"], c["views"][i], jhist)
+        img, hist, _ = cs.run_path(cell, scene, config, mcfg, hist, i, i + 1)
+        g = cs.image_gates(img[0].numpy(), np.asarray(jimg))
+        print(f"{cell} frame {i}: image {json.dumps(g)}", flush=True)
+        for name in ("depth_range", "shadow_mats", "shadow_maps",
+                     "shadow_mask", "exposure", "tsr_color"):
+            a, b = getattr(hist, name, None), getattr(jhist, name, None)
+            if a is None or b is None:
+                continue
+            a = a.numpy()
+            b = np.asarray(b)
+            if name == "shadow_maps":
+                for k in range(a.shape[0]):
+                    print(f"  {name}[{k}] {_diff(a[k], b[k])}", flush=True)
+            else:
+                print(f"  {name} {a.shape} {_diff(a, b)}", flush=True)
 
 
 def k2(cell: str, frame: int) -> None:
@@ -92,26 +143,16 @@ def k2(cell: str, frame: int) -> None:
     import chord_tpu.renderer.meshlet_frame as jmf
     from chord_tpu.ops.mesh_shader import META_ROWS, _mesh_shader_kernel
     from chord_tpu.ops.raster import COEF_LANES, WINDOW
-    from chord_tpu.renderer.deferred import DeviceView as JView
-    from chord_tpu.rhi.framebuffer import FrameHistory as JHistory
-    from chord_tpu.utils.camera import Camera as JCamera
     from chord_tpu_torch.ops import kernels
     from chord_tpu_torch.ops import mesh_shader as tms
 
-    spec = bg.CELLS[cell]
-    if spec["features"] != "off":
-        raise SystemExit("k2 probes the untextured cells (off, nanite)")
-    b, pools, _ = bg._bench()._make_scene(spec["scene"], bg.DETAIL,
-                                           bg.TARGET_TRIS)
-    blend = any(m.alpha_mode == "blend" and m.base_color_texture >= 0
-                for m in b.materials)
-    config, mcfg = bg.bench_configs(spec["features"], blend_textured=blend)
-    cam = JCamera(width=config.width, height=config.height)
-    views = [JView.from_uniform(u) for u in bg.camera_uniforms(
-        spec["scene"], config.width, config.height, cam)]
-    hist = JHistory.empty(config.height, config.width, post_h=bg.HEIGHT,
-                          post_w=bg.WIDTH)
-    inst = b.frame_instances(cam)
+    c = bg.setup_cell(cell, fma=bg.NO_FMA not in os.environ.get(
+        "XLA_FLAGS", ""))
+    if c["lvl"]["shadows"]:
+        raise SystemExit("k2 records no shadow cascade (chord_tpu renders "
+                         "them inside lax.switch); see `history`")
+    pools, inst, views, hist = c["pools"], c["inst"], c["views"], c["hist"]
+    config, mcfg, bvh = c["config"], c["mcfg"], c["bvh"]
     calls = []
     setup = jmf.mesh_shader_setup
 
@@ -130,7 +171,8 @@ def k2(cell: str, frame: int) -> None:
     def frame_fn(pools, inst, view, hist):
         calls.clear()
         img, hist, stats = jmf.render_frame_meshlet(pools, inst, view, hist,
-                                                    config=config, mcfg=mcfg)
+                                                    config=config, mcfg=mcfg,
+                                                    bvh=bvh)
         return hist, stats, list(calls)
 
     jmf.mesh_shader_setup = recorded
@@ -241,7 +283,8 @@ def ign() -> None:
 
 def main(argv) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("mode", choices=("frames", "k2", "ign", "images"))
+    ap.add_argument("mode", choices=("frames", "history", "k2", "ign",
+                                     "images"))
     ap.add_argument("cell", nargs="?", default="nanite",
                     help="a cell; for images the first PNG")
     ap.add_argument("frame", nargs="?", default="0",
@@ -249,6 +292,8 @@ def main(argv) -> int:
     ap.add_argument("--goldens", default=os.path.join(HERE, "goldens",
                                                       "bench"))
     ap.add_argument("--frames", type=int)
+    ap.add_argument("--save", help="frames: write the port's kept frames "
+                    "to this directory")
     ap.add_argument("--no-fma", action="store_true")
     args = ap.parse_args(argv[1:])
     os.environ["JAX_PLATFORMS"] = "cpu"
@@ -258,7 +303,9 @@ def main(argv) -> int:
              "--xla_cpu_max_isa=SSE4_2"]).strip()
     sys.path[:0] = [HERE, REPO]
     if args.mode == "frames":
-        frames(args.cell, args.goldens, args.frames)
+        frames(args.cell, args.goldens, args.frames, args.save)
+    elif args.mode == "history":
+        history(args.cell, args.frames)
     elif args.mode == "k2":
         k2(args.cell, int(args.frame))
     elif args.mode == "images":

@@ -1,9 +1,10 @@
 """The bench-size goldens (tests/goldens/bench/) and what chip_smoke.py
 holds to them, checked without rendering a frame.
 
-tests/bench_goldens.py renders chord_tpu's frames of three bench.py
-commands on the CPU (`off`, BASELINE #3 `nanite`, BASELINE #4 `interior`)
-and records them with their configs and per-frame stats; chip_smoke.py's
+tests/bench_goldens.py renders chord_tpu's frames of six bench.py
+commands on the CPU (`off`, BASELINE #3 `nanite`, BASELINE #4 `interior`
+and the textured rungs `geo_tex`, `geo_shadow_atmo`, `all`) and records
+them with their configs and per-frame stats; chip_smoke.py's
 phase 13 holds the port's frames on the card to them. Here: the
 generator's configs and camera path are chip_smoke's (field for field,
 views within f32 rounding), the manifest matches its PNGs and the
@@ -29,10 +30,14 @@ import chip_smoke  # noqa: E402
 
 # chip_smoke's path of each cell, and the bench.py size it renders
 PATHS = {"off": ("off", 1920, 1080), "nanite": ("off", 1920, 1080),
-         "interior": ("all", 1920, 1080), "all_4k": ("all", 3840, 2160)}
+         "interior": ("all", 1920, 1080), "all_4k": ("all", 3840, 2160),
+         "geo_tex": ("geo_tex", 1920, 1080),
+         "geo_shadow_atmo": ("geo_shadow_atmo", 1920, 1080),
+         "all": ("all", 1920, 1080)}
 CELL_FEATURES = {c: s["features"] for c, s in bg.CELLS.items()}
 SCENE = {"off": "bistro", "nanite": "nanite", "interior": "interior",
-         "all_4k": "bistro"}
+         "all_4k": "bistro", "geo_tex": "bistro", "geo_shadow_atmo": "bistro",
+         "all": "bistro"}
 
 
 @pytest.fixture(scope="module")
@@ -70,7 +75,7 @@ def test_generator_configs_are_chip_smokes(cell, blend):
             json.loads(json.dumps(chip_smoke.config_dict(j)))
 
 
-@pytest.mark.parametrize("cell", ["off", "nanite", "interior"])
+@pytest.mark.parametrize("cell", list(bg.CELLS))
 def test_manifest_configs_are_the_generators(cell, manifest, blend):
     rec = manifest["cells"][cell]
     jcfg, jmcfg = bg.bench_configs(CELL_FEATURES[cell],
@@ -87,7 +92,8 @@ def test_manifest_configs_are_the_generators(cell, manifest, blend):
 
 @pytest.mark.parametrize("scene,w,h,shadows", [
     ("bistro", 1280, 720, False), ("nanite", 1280, 720, False),
-    ("interior", 1280, 720, True), ("bistro", 2560, 1440, True)])
+    ("interior", 1280, 720, True), ("bistro", 2560, 1440, True),
+    ("bistro", 1280, 720, True)])
 def test_camera_path_is_chip_smokes(scene, w, h, shadows):
     from chord_tpu.ops.shadow import ShadowConfig as JShadowConfig
     from chord_tpu.renderer.deferred import DeviceView as JView
@@ -185,24 +191,23 @@ def test_off_scene_is_bench_pys_build(monkeypatch):
 def _kept(manifest):
     """The goldens' own images and stats, as phase 5 would keep them."""
     kept = {}
-    for cell in ("off", "nanite", "interior"):
+    for cell in chip_smoke.GOLDEN_FRAMES:
         rec = manifest["cells"][cell]
         kept[cell] = dict(
             images={int(i): chip_smoke.read_png(os.path.join(bg.OUT_DIR, n))
                     for i, n in rec["images"].items()},
             stats={k: [st[k] for st in rec["stats"]]
                    for k in rec["stats"][0]})
-    kept["all"] = dict(images={i: chip_smoke.read_png(os.path.join(
-        bg.REPO, "docs", "images", f"bench_all_1080p_f{i}.png"))
-        for i in chip_smoke.GOLDEN_FRAMES["all"]})
     return kept
 
 
 def test_phase13_passes_on_the_goldens_and_fails_on_a_difference(
         manifest, blend):
     kept = _kept(manifest)
+    assert set(chip_smoke.GOLDEN_FRAMES) == set(bg.CELLS)
     out = chip_smoke.bench_goldens(kept, blend, "cpu")
-    for cell in ("off", "nanite", "interior"):
+    for cell in chip_smoke.GOLDEN_FRAMES:
+        assert chip_smoke.GOLDEN_FRAMES[cell] == bg.CELLS[cell]["keep"]
         for i in chip_smoke.GOLDEN_FRAMES[cell]:
             g = out[f"{cell}_f{i:02d}"]
             assert g["ssim"] == pytest.approx(1.0) and g["mae"] == 0.0

@@ -45,6 +45,7 @@ import rt_cases
 from proto_palette_cases import sampler_inputs, tile_cases
 from test_torch_raster_bands import CASES as BAND_CASES
 from test_torch_paged_footprint import footprint_inputs
+from paged_palette_cases import MISS_CASES, miss_inputs
 from test_torch_raster_bands import band_inputs
 
 W, H, PW, PH = 128, 64, 192, 96
@@ -292,9 +293,13 @@ def test_kernels_match_plain_on_frame_inputs(dev):
 @pytest.mark.parametrize("compress", [False, True])
 def test_paged_sample_random_inputs(dev, compress):
     """K5 on the bench pool at 720x1280: the resolve's 4-map bilinear call
-    and the masked test's nearest call, random layers / uv / mips; then the
-    footprints that read one, two and four 4x4 blocks across the tile seam
-    (test_torch_paged_footprint), at the full and at an odd width."""
+    (16 pages) and the masked test's nearest call (10), random layers / uv
+    / mips, where the palette misses and even the C+4 fallback pages
+    overflow (the average colour shows); the palette cases of
+    paged_palette_cases (hits, fallback and average in every block; sizes
+    that are not whole blocks); then the footprints that read one, two and
+    four 4x4 blocks across the tile seam (test_torch_paged_footprint), at
+    the full and at an odd width. Coverage too."""
     tp = bench_texture_pool()
     pages, meta, n_mips = paged_texture.pack_paged_pool(
         tp.u8(), tp.mip_sizes, tp.mip_offsets, compress)
@@ -305,23 +310,40 @@ def test_paged_sample_random_inputs(dev, compress):
         uv = rng.uniform(-3, 3, (720, 1280, 2)).astype(np.float32)
         mip = rng.integers(-1, 11, (720, 1280)).astype(np.int32)
         cases.append((layers, uv, mip, bilinear))
+    for c, _, _, bilinear, h, w in MISS_CASES:
+        for b in (bilinear, not bilinear):
+            cases.append((*miss_inputs(c, h, w, seed=c * 10 + h), b))
     layers, uv, mip = footprint_inputs()
     for w in (layers.shape[2], layers.shape[2] - 1):
         for bilinear in (True, False):
             cases.append((np.ascontiguousarray(layers[..., :w]),
                           np.ascontiguousarray(uv[:, :w]),
                           np.ascontiguousarray(mip[:, :w]), bilinear))
+    shares = []
     for layers, uv, mip, bilinear in cases:
         args = [torch.from_numpy(pages), torch.from_numpy(meta), n_mips,
                 tp.mip_sizes, torch.from_numpy(layers), torch.from_numpy(uv),
                 torch.from_numpy(mip)]
-        ref = paged_texture.paged_sample_plain(*args, bilinear=bilinear)
-        got = paged_texture.paged_sample(
+        kw = dict(bilinear=bilinear, block_h=16,
+                  k_pages=10 if layers.shape[0] == 1 else 16)
+        ref, ref_cov = paged_texture.paged_sample_plain(
+            *args, with_coverage=True, **kw)
+        got, cov = paged_texture.paged_sample(
             *[a.to(dev) if isinstance(a, torch.Tensor) else a for a in args],
-            bilinear=bilinear)
+            with_coverage=True, **kw)
         torch.cuda.synchronize()
         assert torch.equal(got.cpu(), ref), (compress, layers.shape,
                                              bilinear)
+        assert torch.equal(cov.cpu(), ref_cov), (compress, layers.shape)
+        assert torch.equal(paged_texture.paged_sample(
+            *[a.to(dev) if isinstance(a, torch.Tensor) else a for a in args],
+            **kw).cpu(), ref)
+        shares.append(paged_texture.palette_shares(*args, **kw))
+    # the random calls reach the average colour, the palette cases all
+    # three outcomes
+    assert all(h + f < 0.9 for h, f in shares[:2]), shares
+    assert all(h > 0.1 and f > 0.01 and h + f < 0.95
+               for h, f in shares[2:2 + 2 * len(MISS_CASES)]), shares
 
 
 def _k2_inputs(cap, count, seed, n_meshlets=24):
@@ -656,7 +678,10 @@ def test_wrappers_reject_bad_inputs(dev):
     for bad in (dict(meta=meta[:1]), dict(pages=pages[:, :64]),
                 dict(layers=layers.float()), dict(uv=uv[..., :1]),
                 dict(mip=slot.float()), dict(n_mips=17),
-                dict(uv=uv.transpose(0, 1))):
+                dict(uv=uv.transpose(0, 1)), dict(block_h=8),
+                dict(k_pages=17), dict(k_pages=0),
+                dict(layers=torch.zeros((5, 4, 4), dtype=torch.int32,
+                                        device=dev))):
         a = dict(pages=pages, meta=meta, n_mips=2, mip_sizes=(2, 1),
                  layers=layers, uv=uv, mip=slot)
         a.update(bad)

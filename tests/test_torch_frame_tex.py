@@ -16,8 +16,12 @@ pages per block. Each package builds the scene with its own host code from
 the same seed.
 
 chord_tpu's `paged_sample` is wrapped here to report its palette coverage,
-which must be complete: then both packages compute the same function (the
-port has no palette). Nothing in chord_tpu changes.
+which is complete: so the masked alpha test's palette of 5 pages (the
+frame's is 10; the port samples with 10) serves the same texels, and both
+packages compute the same function. Where the palette misses, K5 is held
+to chord_tpu by test_torch_paged_texture.py and the bench-size frames by
+chip_smoke.py's phase 13 (tests/goldens/bench/). Nothing in chord_tpu
+changes.
 
 Tolerances: stats are integers and must match exactly. Images are u8
 after the ACES tonemap; f32 rounding differences (XLA's FMA contraction in
