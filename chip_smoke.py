@@ -101,9 +101,14 @@ Phases (any failure raises and the script exits non-zero):
 1. Requires a CUDA device; prints the card's name and power limit.
 2. Builds the ten hand-written kernels (chord_tpu_torch/csrc/*.cu, one
    nvcc per source, all at once) into build/kernels/, prints the
-   registers, shared memory and spills ptxas reports for K6 and K10, and
+   registers, shared memory and spills ptxas reports for K5, K6 and K10,
    times the launch floor: an empty one-block grid (csrc/launch_floor.cu)
-   timed as the kernels are, the least time any launched kernel takes.
+   timed as the kernels are, the least time any launched kernel takes,
+   and holds K5 to its plain version on the page-id edge cases of
+   tests/paged_palette_cases.py (ids beyond the pool and below 0, K and
+   K + 1 distinct ids a block, a pool wider than the kernel's bitmap,
+   untextured and partial blocks, a mip too large for the kernel's FP32-
+   pipe conversions), bilinear and nearest, coverage too.
 3. Builds the scenes (the two bistros share the Nanite DAG of their common
    meshes; the shadow, split and brick paths reuse the textured one; the
    flat Sponza pools with a per-frame instance table; the interior and the
@@ -2849,7 +2854,8 @@ def sharded_phase(scenes, dev, card: str):
     return rows, ms
 
 
-def ptxas_lines(sources=("pcss.cu", "proto_paged_tex.cu")) -> None:
+def ptxas_lines(sources=("pcss.cu", "proto_paged_tex.cu",
+                         "paged_texture.cu")) -> None:
     """Registers, shared memory and spills of each kernel function of the
     sources, as ptxas reported them when the library was built."""
     from chord_tpu_torch.ops import _cuda
@@ -2876,6 +2882,42 @@ def _demangle(names):
     except OSError:
         return names
 
+
+
+def paged_edge_cases(dev) -> None:
+    """K5 on the page-id edge cases of tests/paged_palette_cases.py (ids
+    at or above n_pages and below 0, exactly K and K + 1 distinct ids in a
+    block, a pool wider than the kernel's bitmap, untextured and partial
+    blocks, a huge mip), bilinear and nearest: output and coverage
+    bit-equal to the plain version, or the run fails."""
+    import torch
+
+    from chord_tpu_torch.ops import paged_texture
+
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(
+        __file__)), "tests"))
+    from paged_palette_cases import EDGE_CASES, edge_case
+
+    for name in sorted(EDGE_CASES):
+        case = edge_case(name)
+        args = [torch.from_numpy(case[k]) for k in ("pages", "meta")] + [
+            case["n_mips"], case["mip_sizes"]] + [
+            torch.from_numpy(case[k]) for k in ("layers", "uv", "mip")]
+        on_dev = [a.to(dev) if isinstance(a, torch.Tensor) else a
+                  for a in args]
+        for bilinear in (True, False):
+            kw = dict(bilinear=bilinear, block_h=16,
+                      k_pages=case["k_pages"], with_coverage=True)
+            got = paged_texture.paged_sample(*on_dev, **kw)
+            ref = paged_texture.paged_sample_plain(*args, **kw)
+            torch.cuda.synchronize()
+            if not all(torch.equal(g.cpu(), r) for g, r in zip(got, ref)):
+                raise AssertionError(f"K5 disagrees with its plain version "
+                                     f"on edge case {name}, bilinear "
+                                     f"{bilinear}")
+    log(f"K5 on {len(EDGE_CASES)} page-id edge cases "
+        f"({', '.join(sorted(EDGE_CASES))}), bilinear and nearest: output "
+        "and coverage equal to the plain version (tolerance 0)")
 
 def launch_floor(card: str) -> float:
     """The device time of an empty one-block launch (csrc/launch_floor.cu),
@@ -2922,6 +2964,7 @@ def main() -> int:
         raise AssertionError(f"kernel bands {bands} != raster's constants")
     ptxas_lines()
     floor_ms = launch_floor(smi)
+    paged_edge_cases(dev)
 
     scenes = bench_scenes(dev, FRAME_PATHS)
     rows, ms_per_frame, path_launches, kept = [], {}, {}, {}

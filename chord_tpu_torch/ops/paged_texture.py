@@ -22,8 +22,9 @@ block only the k_pages smallest distinct page ids of the block's
 A texel whose page misses reads the single-page fallback mip if its page
 is among the block's C+4 smallest distinct fallback pages, else the
 entry's average colour. The palette decides the value, so the port keeps
-it; on the GPU the served pages are read straight from global memory (the
-bench pool is ~1.5 MB and stays in L2), not staged.
+it; on the GPU a block stages its served compressed pages in shared
+memory (selector words and ramp colours), as chord_tpu stages each served
+page, and reads raw pages from L2.
 
 The wrapper returns the packed (C,H,W) int32 texels; `unpack_rgba` turns
 them into f32 RGBA in PyTorch, as chord_tpu unpacks outside its kernel.

@@ -45,7 +45,8 @@ import rt_cases
 from proto_palette_cases import sampler_inputs, tile_cases
 from test_torch_raster_bands import CASES as BAND_CASES
 from test_torch_paged_footprint import footprint_inputs
-from paged_palette_cases import MISS_CASES, miss_inputs
+from paged_palette_cases import (EDGE_CASES, MISS_CASES, edge_case,
+                                 miss_inputs)
 from test_torch_raster_bands import band_inputs
 
 W, H, PW, PH = 128, 64, 192, 96
@@ -345,6 +346,32 @@ def test_paged_sample_random_inputs(dev, compress):
     assert all(h > 0.1 and f > 0.01 and h + f < 0.95
                for h, f in shares[2:2 + 2 * len(MISS_CASES)]), shares
 
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(EDGE_CASES))
+def test_paged_sample_edge_cases(dev, name):
+    """K5 on the page-id edge cases of paged_palette_cases (exactly K and
+    K + 1 distinct ids in a block, ids at or above n_pages and below 0,
+    ids at or above BIG, a pool wider than the kernel's bitmap with ids far
+    apart in one block, untextured and partial blocks), bilinear and
+    nearest, with and without coverage: bit-equal to the plain version."""
+    case = edge_case(name)
+    args = [torch.from_numpy(case[k]) for k in ("pages", "meta")] + [
+        case["n_mips"], case["mip_sizes"]] + [
+        torch.from_numpy(case[k]) for k in ("layers", "uv", "mip")]
+    on_dev = [a.to(dev) if isinstance(a, torch.Tensor) else a for a in args]
+    for bilinear in (True, False):
+        kw = dict(bilinear=bilinear, block_h=16, k_pages=case["k_pages"])
+        ref, ref_cov = paged_texture.paged_sample_plain(
+            *args, with_coverage=True, **kw)
+        got, cov = paged_texture.paged_sample(*on_dev, with_coverage=True,
+                                              **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(got.cpu(), ref), (name, bilinear)
+        assert torch.equal(cov.cpu(), ref_cov), (name, bilinear)
+        assert torch.equal(paged_texture.paged_sample(*on_dev, **kw).cpu(),
+                           ref), (name, bilinear)
 
 def _k2_inputs(cap, count, seed, n_meshlets=24):
     """Random K2 inputs (CPU): draws of random meshlets with random

@@ -122,3 +122,19 @@ def test_decode_ramp_is_u8(sel):
                  + np.float32(0.5))
     assert v.dtype == np.float32
     assert v.min() >= 0 and v.max() <= 255 and (v == np.rint(v)).all()
+
+
+@pytest.mark.parametrize("sel", [0, 1, 2, 3])
+def test_decode_ramp_integer_form(sel):
+    """The plain version's ramp (_fetch_plain's f32 arithmetic) equals
+    (a*(3-sel) + b*sel + 1) // 3 in integers for all endpoint bytes a, b:
+    the form K5 decodes a staged page's ramp in (levels 0 and 3 are the
+    endpoints themselves)."""
+    a = torch.arange(256, dtype=torch.int64)[:, None].expand(256, 256)
+    b = torch.arange(256, dtype=torch.int64)[None, :].expand(256, 256)
+    s = torch.full((256, 256), float(sel))
+    plain = torch.floor((a.float() * (3.0 - s) + b.float() * s) * (1.0 / 3.0)
+                        + 0.5).long()
+    assert torch.equal(plain, (a * (3 - sel) + b * sel + 1) // 3)
+    if sel in (0, 3):
+        assert torch.equal(plain, a if sel == 0 else b)

@@ -34,7 +34,7 @@ from chord_tpu.ops import paged_texture as jpt
 
 from chord_tpu_torch.asset.procedural import bench_texture_pool
 from chord_tpu_torch.ops import paged_texture as pt
-from paged_palette_cases import MISS_CASES, miss_inputs
+from paged_palette_cases import EDGE_CASES, MISS_CASES, edge_case, miss_inputs
 from test_torch_paged_footprint import footprint_inputs
 
 BH = 8                 # chord_tpu's palette block height for these inputs
@@ -130,3 +130,108 @@ def test_palette_miss_matches_chord_tpu(pool, c, k, compress, bilinear, h, w):
     hit, fb = pt.palette_shares(*args, bilinear=bilinear, block_h=16,
                                 k_pages=k)
     assert 0.1 < hit < 0.9 and fb > 0.01 and hit + fb < 0.95, (hit, fb)
+
+
+# --- the palette rule on the page-id edge cases ----------------------------------
+
+SPAN = 4096     # ids the CUDA kernel's bitmap covers from a block's smallest
+                # (csrc/paged_texture.cu kSpan); beyond it, its second route
+
+
+def _edge_args(case):
+    return [torch.from_numpy(case["pages"]), torch.from_numpy(case["meta"]),
+            case["n_mips"], case["mip_sizes"]] + [
+        torch.from_numpy(case[k]) for k in ("layers", "uv", "mip")]
+
+
+def _brute_served(ids, k):
+    """The palette rule block by block in numpy: of each (16,128) block's
+    ids below BIG (all channels), the k smallest distinct are served."""
+    out = np.zeros(ids.shape, bool)
+    for y in range(0, ids.shape[1], 16):
+        for x in range(0, ids.shape[2], 128):
+            blk = ids[:, y:y + 16, x:x + 128]
+            live = np.unique(blk[blk < pt.BIG])
+            if live.size:
+                thr = live[min(k, live.size) - 1]
+                out[:, y:y + 16, x:x + 128] = (blk < pt.BIG) & (blk <= thr)
+    return out
+
+
+def _served_calls(monkeypatch, case, bilinear):
+    """(ids, k, served) of the plain version's two _served calls on the
+    case: the palette's, then the fallback's (ids BIG where not asked)."""
+    calls, orig = [], pt._served
+
+    def rec(ids, block_h, k):
+        out = orig(ids, block_h, k)
+        calls.append((ids.numpy().copy(), k, out.numpy()))
+        return out
+
+    monkeypatch.setattr(pt, "_served", rec)
+    pt.paged_sample_plain(*_edge_args(case), bilinear=bilinear, block_h=16,
+                          k_pages=case["k_pages"], with_coverage=True)
+    assert len(calls) == 2
+    return calls
+
+
+def _blocks(ids):
+    """Per (16,128) block: the sorted distinct ids below BIG."""
+    return [np.unique(b[b < pt.BIG]) for y in range(0, ids.shape[1], 16)
+            for x in range(0, ids.shape[2], 128)
+            for b in [ids[:, y:y + 16, x:x + 128]]]
+
+
+@pytest.mark.parametrize("bilinear", [True, False])
+@pytest.mark.parametrize("name", sorted(EDGE_CASES))
+def test_served_matches_brute_force(monkeypatch, name, bilinear):
+    """`_served` (the palette and the fallback pages) against the per-block
+    rule written out in numpy, on the page-id edge cases."""
+    for ids, k, got in _served_calls(monkeypatch, edge_case(name), bilinear):
+        np.testing.assert_array_equal(got, _brute_served(ids, k))
+
+
+def test_edge_cases_reach_their_routes(monkeypatch):
+    """Each edge case holds the blocks its docstring names."""
+    runs = {name: _served_calls(monkeypatch, edge_case(name), True)
+            for name in EDGE_CASES}
+    near = lambda b: int((b - b[0] < SPAN).sum())       # inside the bitmap
+    k_ex = [b.size for b in _blocks(runs["k_exact"][0][0])]
+    assert 16 in k_ex and 17 in k_ex and 0 in k_ex, k_ex
+    beyond = _blocks(runs["beyond_n_pages"][0][0])
+    inside = [int(((b >= 0) & (b < 64)).sum()) for b in beyond]
+    assert any(i < 10 and (b >= 64).any() for i, b in zip(inside, beyond))
+    assert any(i > 10 and (b >= 64).any() for i, b in zip(inside, beyond))
+    assert any((b < 0).any() for b in beyond) and any(i == 0 for i in inside)
+    case = edge_case("negative_base")
+    ids = runs["negative_base"][0][0]
+    assert (ids[case["layers"] >= 0] >= pt.BIG).any() and (ids < 0).any()
+    assert runs["negative_base"][1][2].any()
+    wide = _blocks(runs["wide_pool"][0][0])
+    assert any(near(b) < 16 <= b.size for b in wide)
+    assert any(near(b) < b.size < 16 for b in wide)
+    assert any(near(b) >= 16 and b[-1] - b[0] >= SPAN for b in wide)
+    fb = _blocks(runs["wide_pool"][1][0])
+    assert any(near(b) < min(b.size, 8) for b in fb if b.size)
+    layers = edge_case("untextured_edges")["layers"]
+    assert layers.shape[1] % 16 and layers.shape[2] % 128
+    assert 0 in [b.size for b in _blocks(runs["untextured_edges"][0][0])]
+
+
+def test_ids_beyond_the_pool_match_chord_tpu():
+    """Ids at or above n_pages and below 0, compared before the clamp: the
+    port against chord_tpu on the beyond_n_pages case (C=1, K=10, raw,
+    nearest), coverage included."""
+    case = edge_case("beyond_n_pages")
+    ref, cov = jpt.paged_sample(
+        *[jnp.asarray(case[k]) for k in ("pages", "meta")], case["n_mips"],
+        case["mip_sizes"], *[jnp.asarray(case[k])
+                             for k in ("layers", "uv", "mip")],
+        bilinear=False, block_h=16, k_pages=case["k_pages"],
+        with_coverage=True)
+    packed, got_cov = pt.paged_sample(
+        *_edge_args(case), bilinear=False, block_h=16,
+        k_pages=case["k_pages"], with_coverage=True)
+    np.testing.assert_array_equal(got_cov.numpy(), np.asarray(cov))
+    np.testing.assert_array_equal(np.rint(pt.unpack_rgba(packed).numpy() * 255),
+                                  np.rint(np.asarray(ref) * 255))
