@@ -274,10 +274,12 @@ Phases (any failure raises and the script exits non-zero):
 13. Bench goldens (last): phase 5's frames held to
    chord_tpu's own at bench size, tests/goldens/bench/ (rendered on the
    CPU by tests/bench_goldens.py with bench.py's scene, camera path and
-   configs; its manifest records them): `off` frames 0, 7, 15 and
-   frames 0, 7 of `nanite`, `interior`, `geo_tex`, `geo_shadow_atmo`
-   and `all`, each with chord_tpu's three gates (SSIM >= 0.99, MAE < 2,
-   worst 16x16 window >= 0.95). The manifest must exist, come from the
+   configs, and this script's configs on its own paths; its manifest
+   records them): frames 0, 7, 15 of `off` and `flat` (BASELINE #1) and
+   frames 0, 7 of `nanite`, `interior`, `geo_tex`, `geo_shadow_atmo`,
+   `all`, `all_ddgi`, `geo_tex_native`, `geo_shadow_atmo_split` and
+   `off_no_occlusion`, each with chord_tpu's three gates (SSIM >= 0.99,
+   MAE < 2, worst 16x16 window >= 0.95). The manifest must exist, come from the
    checkout's chord_tpu sources (sha256) and hold the path's configs
    field for field; each frame's stats are printed beside chord_tpu's and
    held equal to them.
@@ -2203,7 +2205,10 @@ def goldens(dev, card: str) -> dict:
 # (tests/bench_goldens.py renders them on the CPU into BENCH_GOLDEN_DIR)
 BENCH_GOLDEN_DIR = os.path.join(GOLDEN_DIR, "bench")
 GOLDEN_FRAMES = {"off": (0, 7, 15), "nanite": (0, 7), "interior": (0, 7),
-                 "geo_tex": (0, 7), "geo_shadow_atmo": (0, 7), "all": (0, 7)}
+                 "geo_tex": (0, 7), "geo_shadow_atmo": (0, 7), "all": (0, 7),
+                 "flat": (0, 7, 15), "all_ddgi": (0, 7),
+                 "geo_tex_native": (0, 7), SPLIT: (0, 7),
+                 "off_no_occlusion": (0, 7)}
 
 
 def chord_tpu_hash(root: str) -> str:

@@ -4,6 +4,7 @@ from __future__ import annotations
 
 import functools
 
+import numpy as np
 import torch
 
 _I32_MAX_F = 2147483520.0   # largest f32 below 2**31
@@ -15,6 +16,22 @@ def f2i(x: torch.Tensor) -> torch.Tensor:
     float is undefined on the CPU). NaN maps to 0."""
     x = torch.nan_to_num(x, nan=0.0)
     return torch.clamp(x, -2147483648.0, _I32_MAX_F).to(torch.int32)
+
+
+def recip(c) -> float:
+    """The f32 reciprocal of a constant divisor: chord_tpu's jitted code
+    divides by a constant as XLA compiles it, a multiply by the constant's
+    f32 reciprocal (PyTorch's CUDA division by a Python number does the
+    same; its CPU division is exact), so the port writes such an `x / c`
+    as `x * recip(c)` where rounding decides a later test."""
+    return float(np.float32(1.0) / np.float32(c))
+
+
+def centres(n: int, device) -> torch.Tensor:
+    """(arange(n) + 0.5) / n, the n cell centres in [0, 1], rounded as
+    chord_tpu's jitted code rounds them (recip)."""
+    return (torch.arange(n, dtype=torch.float32, device=device) + 0.5) * \
+        recip(n)
 
 
 def bits_i32(x: torch.Tensor) -> torch.Tensor:

@@ -18,7 +18,7 @@ from typing import NamedTuple, Tuple
 import numpy as np
 import torch
 
-from ._util import const, f2i
+from ._util import centres, const, f2i
 
 
 class AtmosphereParams(NamedTuple):
@@ -85,10 +85,6 @@ def _atmo_distance(p: AtmosphereParams, r: torch.Tensor, mu: torch.Tensor
     return torch.where(t_gnd > 0.0, t_gnd, torch.clamp_min(t_top, 0.0))
 
 
-def _centres(n: int, device) -> torch.Tensor:
-    return (torch.arange(n, dtype=torch.float32, device=device) + 0.5) / n
-
-
 # --- transmittance LUT: u = cos zenith in [-1,1], v = altitude ----------------
 
 def build_transmittance_lut(p: AtmosphereParams, steps: int = 40,
@@ -99,8 +95,8 @@ def build_transmittance_lut(p: AtmosphereParams, steps: int = 40,
 
     dev = resolve(device)
     h_atm = p.top_radius_km - p.ground_radius_km
-    alt = _centres(TRANSMITTANCE_H, dev) * h_atm
-    mu = _centres(TRANSMITTANCE_W, dev) * 2.0 - 1.0
+    alt = centres(TRANSMITTANCE_H, dev) * h_atm
+    mu = centres(TRANSMITTANCE_W, dev) * 2.0 - 1.0
     r = alt[:, None] + p.ground_radius_km                       # (H,1)
     mu2 = mu[None, :]                                           # (1,W)
     dt = _atmo_distance(p, r, mu2) / steps                      # (H,W)
@@ -147,8 +143,8 @@ def build_multiscatter_lut(p: AtmosphereParams, t_lut: torch.Tensor,
     eq. 5-7) over Fibonacci-sphere directions."""
     dev = t_lut.device
     h_atm = p.top_radius_km - p.ground_radius_km
-    sun_mu = _centres(MS_SIZE, dev) * 2.0 - 1.0                 # (S,)
-    r = (_centres(MS_SIZE, dev) * h_atm)[:, None] + p.ground_radius_km
+    sun_mu = centres(MS_SIZE, dev) * 2.0 - 1.0                 # (S,)
+    r = (centres(MS_SIZE, dev) * h_atm)[:, None] + p.ground_radius_km
     rs = const(p.rayleigh_scatter, t_lut.device)
 
     k = np.arange(dir_samples) + 0.5
@@ -251,8 +247,8 @@ def build_sky_view_lut(p: AtmosphereParams, t_lut: torch.Tensor,
     at the horizon)."""
     dev = t_lut.device
     r0 = torch.full((), cam_alt_km + p.ground_radius_km, device=dev)
-    v = _centres(SKYVIEW_H, dev)
-    u = _centres(SKYVIEW_W, dev)
+    v = centres(SKYVIEW_H, dev)
+    u = centres(SKYVIEW_W, dev)
     lat = torch.where(v < 0.5, -(0.5 - v) ** 2 * 2.0 * np.pi * 0.5,
                       (v - 0.5) ** 2 * 2.0 * np.pi * 0.5)       # [-pi/2, pi/2]
     lon = u * 2.0 * np.pi

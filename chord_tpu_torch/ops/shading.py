@@ -25,7 +25,7 @@ import torch
 
 from . import colorspace, row_gather
 from . import texture as texture_ops
-from ._util import bits_f32
+from ._util import bits_f32, centres
 from .row_gather import pack_table
 from ..rhi.framebuffer import unpack_visibility
 
@@ -121,10 +121,8 @@ def _resolve_from_ids(idx, obj, valid, pools, instances,
     tw = [xf(q, m) for q in p]
     c = [clip_of(q, view_tw_to_clip) for q in tw]
     # pixel-centre NDC (y up in NDC, y down in pixels)
-    xs = (torch.arange(w, dtype=torch.float32, device=dev) + 0.5) / w * 2.0 \
-        - 1.0
-    ys = 1.0 - (torch.arange(h, dtype=torch.float32, device=dev) + 0.5) / h \
-        * 2.0
+    xs = centres(w, dev) * 2.0 - 1.0
+    ys = 1.0 - centres(h, dev) * 2.0
     b0, b1, b2 = _barycentrics_from_clip(c[0], c[1], c[2],
                                          xs[None, :].expand(h, w),
                                          ys[:, None].expand(h, w))
@@ -196,8 +194,8 @@ def resolve_gbuffer_raster_rt(
     nrm = torch.stack([nx * inv_len, ny * inv_len, nz * inv_len], dim=-1)
     uv = torch.stack([u, v], dim=-1)
 
-    xs = (torch.arange(w, dtype=torch.float32, device=dev) + 0.5) / w * 2.0 - 1.0
-    ys = 1.0 - (torch.arange(h, dtype=torch.float32, device=dev) + 0.5) / h * 2.0
+    xs = centres(w, dev) * 2.0 - 1.0
+    ys = 1.0 - centres(h, dev) * 2.0
     px = xs[None, :].expand(h, w)
     py = ys[:, None].expand(h, w)
     ph = (px[..., None] * clip_to_tw[0] + py[..., None] * clip_to_tw[1] +

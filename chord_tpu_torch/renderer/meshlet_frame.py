@@ -74,7 +74,7 @@ from ..ops import gi as gi_ops
 from ..ops import rt
 from ..ops import screen_probe as sp
 from ..ops import ssr as ssr_ops
-from ..ops._util import const, f2i
+from ..ops._util import centres, const, f2i
 from ..ops.bluenoise import interleaved_gradient_noise
 from ..ops.cull import build_active_pairs, cull_pairs
 from ..ops.hzb import HZBPyramid, build_hzb, hzb_layout, valid_depth_range
@@ -151,8 +151,8 @@ def pixel_view_dirs(h: int, w: int, clip_to_tw: torch.Tensor) -> torch.Tensor:
     """Per-pixel view directions in translated world: unproject NDC
     (x, y, z=0.5) and normalize."""
     dev = clip_to_tw.device
-    xs = (torch.arange(w, dtype=torch.float32, device=dev) + 0.5) / w * 2.0 - 1.0
-    ys = 1.0 - (torch.arange(h, dtype=torch.float32, device=dev) + 0.5) / h * 2.0
+    xs = centres(w, dev) * 2.0 - 1.0
+    ys = 1.0 - centres(h, dev) * 2.0
     px = xs[None, :, None].expand(h, w, 1)
     py = ys[:, None, None].expand(h, w, 1)
     p = (px * clip_to_tw[0] + py * clip_to_tw[1] + 0.5 * clip_to_tw[2] +

@@ -6,17 +6,34 @@
     JAX_PLATFORMS=cpu python tests/bench_goldens.py geo_tex    # ~15 min
     JAX_PLATFORMS=cpu python tests/bench_goldens.py geo_shadow_atmo  # ~18
     JAX_PLATFORMS=cpu python tests/bench_goldens.py all        # ~19 min
+    JAX_PLATFORMS=cpu python tests/bench_goldens.py flat       # BASELINE #1
+    JAX_PLATFORMS=cpu python tests/bench_goldens.py all_ddgi
+    JAX_PLATFORMS=cpu python tests/bench_goldens.py geo_tex_native
+    JAX_PLATFORMS=cpu python tests/bench_goldens.py geo_shadow_atmo_split
+    JAX_PLATFORMS=cpu python tests/bench_goldens.py off_no_occlusion
     ... nanite --fma --out DIR    # XLA's default (FMA) build, into DIR
 
-Each cell is one bench.py command (CELLS), rendered by chord_tpu with
-bench.py's own scene and camera path (imported: bench.py:64-131) and its
-config, BVH and LUTs (copied from bench.py:171-256, adding only
-interpret=True, without which row_gather raises on the CPU). The frames
-are stepped one by one through render_frame_meshlet with their history,
-so a run can stop early: after each frame the kept images are written to
-tests/goldens/bench/<cell>_f<NN>.png and the cell's entry of
-manifest.json (scene, flags, sizes, capacities, configs, the per-frame
-stats and seconds) is rewritten, with the sha256 of chord_tpu/'s sources.
+Each of the first six cells is one bench.py command (CELLS), rendered by
+chord_tpu with bench.py's own scene and camera path (imported:
+bench.py:64-131) and its config, BVH and LUTs (copied from
+bench.py:171-256, adding only interpret=True, without which row_gather
+raises on the CPU). The other five are chip_smoke.py's frame paths of the
+same name, each a bench rung with what chip_smoke.configs changes
+(cell_configs): `flat` is BASELINE #1, build_sponza_like(detail=4)'s flat
+pools through DeferredRenderer at 1920x1080 along bench.py's Sponza path
+(bench.py:127-129), each frame's instances rebased to its camera;
+`all_ddgi` is `all` with DDGI over a meshlet BVH built from the path's
+instance table; `geo_tex_native` renders geo_tex at 1920x1080 with gather
+TSR and the masked depth peel; `geo_shadow_atmo_split` runs the shadow
+rung with ShadowConfig(pipelined=True) as bench.py:272-281 runs such a
+config (render_sequence_split's frame, then shadow_service_step);
+`off_no_occlusion` is `off` with one cull, global TSR and HDR10 output.
+The frames are stepped one by one with their history (the meshlet frame
+through render_frame_meshlet), so a run can stop early: after each frame
+the kept images are written to tests/goldens/bench/<cell>_f<NN>.png and
+the cell's entry of manifest.json (scene, flags, sizes, capacities,
+configs, the per-frame stats and seconds) is rewritten, with the sha256
+of chord_tpu/'s sources.
 The cells run in separate processes at once; the manifest is updated
 under a file lock.
 
@@ -53,8 +70,9 @@ TARGET_TRIS = 2_600_000
 RENDER_SCALE = 0.6667
 PATH_FRAMES = 16          # bench.py's default --frames: the camera path
 NO_FMA = "--xla_cpu_max_isa=SSE4_2"   # XLA's CPU build without FMA
-# cell -> the bench.py command it equals, the frames rendered (a prefix of
-# the 16-frame path) and the frames kept as PNGs
+# cell -> the bench.py command (or chip_smoke.py path) it equals, the
+# frames rendered (a prefix of the 16-frame path) and the frames kept as
+# PNGs; `rung` is the bench rung a chip_smoke path changes (cell_configs)
 CELLS = {
     "off": dict(scene="bistro", features="off", frames=16, keep=(0, 7, 15),
                 command="bench.py --features off"),
@@ -69,7 +87,24 @@ CELLS = {
                             command="bench.py --features geo_shadow_atmo"),
     "all": dict(scene="bistro", features="all", frames=8, keep=(0, 7),
                 command="bench.py"),
+    "flat": dict(scene="sponza", features=None, frames=16, keep=(0, 7, 15),
+                 command="chip_smoke.py path flat (BASELINE #1)"),
+    "all_ddgi": dict(scene="bistro", features="all", frames=8, keep=(0, 7),
+                     command="chip_smoke.py path all_ddgi"),
+    "geo_tex_native": dict(scene="bistro", features="geo_tex", frames=8,
+                           keep=(0, 7),
+                           command="chip_smoke.py path geo_tex_native"),
+    "geo_shadow_atmo_split": dict(
+        scene="bistro", features="geo_shadow_atmo", frames=8, keep=(0, 7),
+        command="chip_smoke.py path geo_shadow_atmo_split (bench.py:"
+                "272-281's runner for a pipelined-shadow config)"),
+    "off_no_occlusion": dict(scene="bistro", features="off", frames=8,
+                             keep=(0, 7),
+                             command="chip_smoke.py path off_no_occlusion"),
 }
+# BASELINE #1 as chip_smoke.py's flat path renders it
+FLAT_DETAIL = 4
+FLAT_PAIRS = 16384
 
 
 def _bench():
@@ -117,6 +152,55 @@ def bench_configs(features: str, width: int = WIDTH, height: int = HEIGHT,
         probe_cfg=ScreenProbeConfig(rays=16, steps=6,
                                     history_mode="tile"))
     return config, mcfg
+
+
+def cell_configs(cell: str, blend_textured: bool = False):
+    """The cell's RendererConfig and MeshletFrameConfig (interpret=True):
+    bench.py's for its rung, with what chip_smoke.configs changes on a
+    chip_smoke path; on `flat` the flat frame's config and None."""
+    from chord_tpu.renderer.deferred import RendererConfig
+
+    spec = CELLS[cell]
+    if spec["scene"] == "sponza":
+        return RendererConfig(width=WIDTH, height=HEIGHT,
+                              pair_capacity=FLAT_PAIRS, big_capacity=128,
+                              subtiles=True, enable_bloom=True,
+                              enable_tsr=True, interpret=True), None
+    config, mcfg = bench_configs(spec["features"],
+                                 blend_textured=blend_textured)
+    if cell == "all_ddgi":
+        from chord_tpu.ops.ddgi import DDGIConfig
+        mcfg = mcfg._replace(gi_mode="ddgi", ddgi_cfg=DDGIConfig(),
+                             rt_granularity="meshlet")
+    elif cell == "geo_tex_native":
+        config = config._replace(width=WIDTH, height=HEIGHT, post_width=0,
+                                 post_height=0, tsr_mode="gather")
+        mcfg = mcfg._replace(masked_layers=2)
+    elif cell == "geo_shadow_atmo_split":
+        mcfg = mcfg._replace(
+            shadow_cfg=mcfg.shadow_cfg._replace(pipelined=True))
+    elif cell == "off_no_occlusion":
+        config = config._replace(tsr_mode="global", output="hdr10")
+        mcfg = mcfg._replace(occlusion=False, object_precull=False)
+    return config, mcfg
+
+
+def flat_frames(b, w: int = WIDTH, h: int = HEIGHT,
+                frames: int = PATH_FRAMES):
+    """bench.py's Sponza camera path (bench.py:127-129), without jitter:
+    each frame's view uniform and instance table, rebased to that frame's
+    camera -> ([uniforms], [instances])."""
+    from chord_tpu.utils.camera import Camera
+
+    cam = Camera(width=w, height=h)
+    uniforms, insts = [], []
+    for i in range(frames):
+        t = i / max(frames - 1, 1)
+        cam.position = np.array([-16.0 + 6.0 * t, 4.5, 3.0])
+        cam.look_at(np.array([12.0, 2.0, -2.0]))
+        uniforms.append(cam.view_uniform(i))
+        insts.append(b.frame_instances(cam))
+    return uniforms, insts
 
 
 def camera_uniforms(scene: str, w: int, h: int, cam=None):
@@ -179,14 +263,43 @@ def _update_manifest(out_dir: str, cell: str, entry: dict) -> None:
         os.close(lock)
 
 
+def _setup_flat(cell: str) -> dict:
+    """BASELINE #1: chord_tpu's Sponza at FLAT_DETAIL, its flat pools and
+    the path's uniforms and instances; `step` renders a frame through
+    DeferredRenderer.render."""
+    from chord_tpu.asset.procedural import build_sponza_like
+    from chord_tpu.renderer.deferred import DeferredRenderer
+    from chord_tpu.rhi.framebuffer import FrameHistory
+
+    b = build_sponza_like(detail=FLAT_DETAIL)
+    pools = b.build_pools()
+    config, _ = cell_configs(cell)
+    uniforms, insts = flat_frames(b)
+    r = DeferredRenderer(config)
+
+    def step(i, hist):
+        r.history = hist
+        img, stats = r.render(pools, insts[i], uniforms[i])
+        return img, r.history, stats
+
+    n_src = sum(b.meshes[m].num_triangles for m, _, _ in b.instances)
+    return dict(step=step, pools=pools, inst=insts, views=uniforms,
+                hist=FrameHistory.empty(config.height, config.width),
+                config=config, mcfg=None, bvh=None, lvl=None,
+                scene="sponza", features=None, n_src=n_src)
+
+
 def setup_cell(cell: str, fma: bool = False) -> dict:
-    """chord_tpu's scene, configs, BVH, views, fresh history and jitted
-    frame function of `cell`, as bench.py builds them (interpret=True)."""
+    """chord_tpu's scene, configs, BVH, views and fresh history of `cell`,
+    as bench.py builds them (interpret=True), and `step(i, hist)` ->
+    (image, history, stats), its jitted frame i (on the split the frame,
+    then its shadow service)."""
     import jax
 
     from chord_tpu.ops.gi import GIConfig
     from chord_tpu.renderer.deferred import DeviceView
-    from chord_tpu.renderer.meshlet_frame import (render_frame_meshlet,
+    from chord_tpu.renderer.meshlet_frame import (_split_sequence_fns,
+                                                  render_frame_meshlet,
                                                   shadow_pipelined)
     from chord_tpu.rhi.framebuffer import FrameHistory
     from chord_tpu.utils.camera import Camera
@@ -196,17 +309,19 @@ def setup_cell(cell: str, fma: bool = False) -> dict:
                            f"{NO_FMA} before JAX starts (run this module "
                            "as a script)")
     spec = CELLS[cell]
+    if spec["scene"] == "sponza":
+        return _setup_flat(cell)
     bench = _bench()
     scene, features = spec["scene"], spec["features"]
     b, pools, n_src = bench._make_scene(scene, DETAIL, TARGET_TRIS)
     blend_tex = any(m.alpha_mode == "blend" and m.base_color_texture >= 0
                     for m in b.materials)
-    config, mcfg = bench_configs(features, blend_textured=blend_tex)
+    config, mcfg = cell_configs(cell, blend_tex)
     lvl = bench.FEATURE_LEVELS[features]
     rw, rh = config.width, config.height
     cam = Camera(width=rw, height=rh)
     bvh = None
-    if lvl["gi"]:
+    if lvl["gi"] and mcfg.gi_mode != "ddgi":
         from chord_tpu.ops.rt import build_scene_bvh
         bvh = build_scene_bvh(pools, b.frame_instances(cam),
                               granularity="object")
@@ -216,8 +331,10 @@ def setup_cell(cell: str, fma: bool = False) -> dict:
               for u in views_u]
     if lvl["atmosphere"] or lvl["gi"] or lvl["shadows"]:
         dviews = _luts(dviews)
+    ddgi = mcfg.gi and mcfg.gi_mode == "ddgi"
     hist = FrameHistory.empty(
-        rh, rw, post_h=HEIGHT, post_w=WIDTH,
+        rh, rw, post_h=config.post_height or None,
+        post_w=config.post_width or None,
         gi_cfg=GIConfig() if lvl["gi"] else None,
         shadow_cascades=(mcfg.shadow_cfg.cascade_count
                          if lvl["shadows"] else 0),
@@ -225,16 +342,35 @@ def setup_cell(cell: str, fma: bool = False) -> dict:
         shadow_div=mcfg.shadow_cfg.eval_res_div,
         shadow_phase=(mcfg.shadow_cfg.temporal_phase
                       if mcfg.shadow_cfg.temporal else 1),
-        probe_tile=8 if lvl["gi"] else 0)
+        probe_tile=8 if lvl["gi"] and not ddgi else 0,
+        ddgi_cfg=mcfg.ddgi_cfg if ddgi else None)
     inst = b.frame_instances(cam)
+    if ddgi:
+        # as MeshletRenderer builds it: from the frames' own instance
+        # table (the camera at the path's last position)
+        from chord_tpu.ops.rt import build_scene_bvh
+        bvh = build_scene_bvh(pools, inst,
+                              granularity=mcfg.rt_granularity)
     if lvl["shadows"] and shadow_pipelined(mcfg.shadow_cfg):
-        raise RuntimeError("bench.py runs this rung through "
-                           "render_sequence_split")
-    fn = jax.jit(functools.partial(render_frame_meshlet, config=config,
-                                   mcfg=mcfg, bvh=bvh))
-    return dict(fn=fn, pools=pools, inst=inst, views=dviews, hist=hist,
-                config=config, mcfg=mcfg, bvh=bvh, lvl=lvl, scene=scene,
-                features=features, n_src=n_src)
+        frame_fn, svc_fn = _split_sequence_fns(config, mcfg)
+
+        def step(i, h):      # render_sequence_split's loop body
+            img, h, stats = frame_fn(pools, inst, dviews[i], h, bvh)
+            sp = stats.get("shadow_split")
+            if sp is not None:
+                maps, mats, _, mask = svc_fn(pools, inst, dviews[i], h, sp)
+                h = h.replace(shadow_maps=maps, shadow_mats=mats,
+                              shadow_mask=mask)
+            return img, h, stats
+    else:
+        fn = jax.jit(functools.partial(render_frame_meshlet, config=config,
+                                       mcfg=mcfg, bvh=bvh))
+
+        def step(i, h):
+            return fn(pools, inst, dviews[i], h)
+    return dict(step=step, pools=pools, inst=inst, views=dviews,
+                hist=hist, config=config, mcfg=mcfg, bvh=bvh, lvl=lvl,
+                scene=scene, features=features, n_src=n_src)
 
 
 def render_cell(cell: str, frames: int | None = None,
@@ -254,23 +390,23 @@ def render_cell(cell: str, frames: int | None = None,
     entry = dict(
         command=spec["command"], xla_flags="" if fma else NO_FMA,
         scene=c["scene"],
-        detail=DETAIL,
+        detail=FLAT_DETAIL if c["scene"] == "sponza" else DETAIL,
         target_tris=TARGET_TRIS if c["scene"] == "bistro" else None,
         source_tris=int(c["n_src"]), features=c["features"],
         flags=c["lvl"], width=WIDTH, height=HEIGHT,
         render_width=config.width, render_height=config.height,
-        render_scale=RENDER_SCALE, path_frames=PATH_FRAMES,
-        draw_capacity=mcfg.draw_capacity,
-        masked_draw_capacity=mcfg.masked_draw_capacity,
+        render_scale=RENDER_SCALE if config.post_width else 1.0,
+        path_frames=PATH_FRAMES,
+        draw_capacity=mcfg.draw_capacity if mcfg else None,
+        masked_draw_capacity=mcfg.masked_draw_capacity if mcfg else None,
         pair_capacity=config.pair_capacity,
         big_capacity=config.big_capacity,
         renderer_config=config_dict(config),
-        meshlet_config=config_dict(mcfg),
+        meshlet_config=config_dict(mcfg) if mcfg else None,
         frames_rendered=0, images={}, stats=[], seconds=[])
     for i in range(frames):
         t1 = time.time()
-        img, hist, stats = c["fn"](c["pools"], c["inst"], c["views"][i],
-                                   hist)
+        img, hist, stats = c["step"](i, hist)
         img = np.asarray(img)
         dt = time.time() - t1
         if img.shape != (HEIGHT, WIDTH, 3) or img.dtype != np.uint8:

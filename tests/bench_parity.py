@@ -4,6 +4,12 @@
                                             [--save DIR]
     python tests/bench_parity.py k2 nanite 0 [--no-fma]
     python tests/bench_parity.py history geo_shadow_atmo --no-fma [--frames N]
+    python tests/bench_parity.py split geo_shadow_atmo_split 0 --no-fma
+    python3 tests/bench_parity.py dump all_ddgi --device cuda --out DIR
+                                       [--frames N] [--keep 0,1,7]
+    python tests/bench_parity.py history all_ddgi --no-fma --port-dump DIR
+    python3 tests/bench_parity.py devdiff all_ddgi 1 --device cuda
+                                          [--funcs sp.ggx_sample_normal,...]
     python tests/bench_parity.py ign [--no-fma]
     python tests/bench_parity.py images A.png B.png
 
@@ -27,10 +33,26 @@ Cells without shadows only: chord_tpu renders a cascade inside a
 lax.switch, where the recorder cannot reach.
 
 `history`: chord_tpu (jitted, interpret mode; --no-fma as the goldens)
-and the port render a cell's frames side by side, and after each frame
-the histories' depth range, cascade matrices, shadow maps (per cascade),
-shadow mask, exposure and TSR colour are compared, with the image gates
-of the frame.
+and the port render a cell's frames side by side (the split: each frame
+and then its shadow service), and after each frame the histories' depth
+range, cascade matrices, shadow maps (per cascade), shadow mask,
+exposure and TSR colour are compared, and with GI on the world cache
+(per cascade), the screen-probe planes and the diffuse and specular
+histories, or DDGI's irradiance, distance, SH, offset and weight (per
+cascade), with the image gates of the frame.
+
+`dump` (no JAX: for the card): the port's frames of a cell on a device,
+each kept frame's image and history leaves written to DIR; `history
+--port-dump DIR` then holds them to chord_tpu's frames here.
+
+`devdiff` (no JAX: for the card): in one frame of a cell rendered on a
+device, each call of the named functions (default the specular GI chain)
+rerun on the CPU on copies of its inputs, outputs compared.
+
+`split`: the split's shadow service pass by pass (PCSS evaluate, phase
+expand, temporal blend) of one frame, the port's on chord_tpu's own
+split dict, history and refreshed cascades, each output against
+chord_tpu's.
 
 `ign`: jitted chord_tpu interleaved-gradient noise against the port's
 eager one at 720x1280 and 180x320.
@@ -105,30 +127,272 @@ def _diff(a, b) -> str:
             f"{float((d > 0).mean()):.2e} differ")
 
 
-def history(cell: str, n: int | None) -> None:
+# the history leaves `history` compares (those the cell's config fills)
+HISTORY_LEAVES = ("depth_range", "shadow_mats", "shadow_maps", "shadow_mask",
+                  "exposure", "tsr_color", "gi_cache", "probe_sh",
+                  "gi_diffuse", "gi_specular", "ddgi.irr", "ddgi.dist",
+                  "ddgi.sh", "ddgi.offset", "ddgi.weight")
+
+
+def _leaves(hist) -> dict:
+    """HISTORY_LEAVES of a history (the port's or chord_tpu's) as numpy,
+    without those that are all zero (off, or not yet written)."""
+    out = {}
+    for name in HISTORY_LEAVES:
+        a = hist
+        for part in name.split("."):
+            a = getattr(a, part, None)
+        if a is None:
+            continue
+        a = a.cpu().numpy() if hasattr(a, "cpu") else np.asarray(a)
+        if a.any():
+            out[name] = a
+    return out
+
+
+def dump(cell: str, n: int | None, device: str, out: str, keep) -> None:
+    """The port's frames 0..n-1 of a cell on `device` (chip_smoke's scene,
+    configs and history, one frame a run_path call); after each frame in
+    `keep`, its image and history leaves (HISTORY_LEAVES but the shadow
+    maps and the TSR colour, tens of MB a frame) go to OUT/frame_NN.npz,
+    for `history --port-dump OUT`. Imports no JAX: it runs where the card
+    is."""
+    import torch
+
+    import chip_smoke as cs
+
+    d = torch.device(device)
+    scene = cs.bench_scenes(d, cs.scene_paths([cell]))[cell]
+    config, mcfg = cs.configs(cell, scene[3])
+    hist = cs.history(config, mcfg, d)
+    os.makedirs(out, exist_ok=True)
+    for i in range(n or 8):
+        img, hist, _ = cs.run_path(cell, scene, config, mcfg, hist, i, i + 1)
+        if keep is None or i in keep:
+            leaves = {k: v for k, v in _leaves(hist).items()
+                      if k not in ("shadow_maps", "tsr_color")}
+            np.savez_compressed(os.path.join(out, f"frame_{i:02d}.npz"),
+                                image=img[0].cpu().numpy(), **leaves)
+        print(f"{cell} frame {i} on {device}: dumped "
+              f"{keep is None or i in keep}", flush=True)
+
+
+# the DDGI update and the specular GI chain, as renderer/meshlet_frame.py
+# names them (module alias.function): devdiff's default
+DEVDIFF_FUNCS = ("ddgi_ops.ddgi_update", "mf.interleaved_gradient_noise",
+                 "sp.ggx_sample_normal",
+                 "gi_ops.sample_radiance", "ssr_ops.trace", "rt.trace",
+                 "rt.shade_hits", "sp.specular_firefly_clamp",
+                 "sp.spatial_filter_specular", "sp.temporal_specular")
+
+
+def _to(x, device):
+    """Tensors (in tuples, lists, dicts and NamedTuples) copied to
+    `device`; anything else as it is."""
+    import torch
+
+    if isinstance(x, torch.Tensor):
+        return x.detach().to(device, copy=True)
+    if isinstance(x, tuple) and hasattr(x, "_fields"):
+        return type(x)(*(_to(v, device) for v in x))
+    if isinstance(x, (tuple, list)):
+        return type(x)(_to(v, device) for v in x)
+    if isinstance(x, dict):
+        return {k: _to(v, device) for k, v in x.items()}
+    return x
+
+
+def _tensors(x) -> list:
+    import torch
+
+    if isinstance(x, torch.Tensor):
+        return [x]
+    if isinstance(x, (tuple, list)):
+        return [t for v in x for t in _tensors(v)]
+    return []
+
+
+def devdiff(cell: str, frame: int, device: str, funcs) -> None:
+    """Device against CPU, function by function (no JAX: for the card):
+    the port renders frames 0..FRAME of a cell on `device`; in frame FRAME
+    every call of `funcs` (DEVDIFF_FUNCS by default: the DDGI update and
+    the specular chain) is
+    recorded with its inputs and outputs, then rerun on CPU copies of its
+    inputs, and each output is compared: a function whose device result
+    differs from its CPU result on the same inputs is where the two
+    devices part."""
+    import torch
+
+    import chip_smoke as cs
+    from chord_tpu_torch.renderer import meshlet_frame as mf
+
+    d = torch.device(device)
+    scene = cs.bench_scenes(d, cs.scene_paths([cell]))[cell]
+    config, mcfg = cs.configs(cell, scene[3])
+    hist = cs.history(config, mcfg, d)
+    if frame:
+        hist = cs.run_path(cell, scene, config, mcfg, hist, 0, frame)[1]
+    calls, saved = [], []
+    for name in funcs:
+        alias, fn = name.split(".")
+        owner = mf if alias == "mf" else getattr(mf, alias)
+        f = getattr(owner, fn)
+        saved.append((owner, fn, f))
+
+        @functools.wraps(f)     # keeps the function's counters
+        def wrapped(*a, _f=f, _n=name, **kw):
+            out = _f(*a, **kw)
+            calls.append((_n, _f, _to(a, "cpu"), _to(kw, "cpu"),
+                          _to(out, "cpu")))
+            return out
+        setattr(owner, fn, wrapped)
+    try:
+        cs.run_path(cell, scene, config, mcfg, hist, frame, frame + 1)
+    finally:
+        for owner, fn, f in saved:
+            setattr(owner, fn, f)
+    print(f"{cell} frame {frame}: {len(calls)} calls, {device} against the "
+          "CPU on the same inputs", flush=True)
+    for name, f, a, kw, out in calls:
+        ref = f(*a, **kw)
+        for j, (x, y) in enumerate(zip(_tensors(out), _tensors(ref))):
+            where = "" if y.device.type == "cpu" else f" (rerun on {y.device})"
+            x, y = x.numpy(), y.cpu().numpy()
+            if x.dtype == bool:
+                x, y = x.astype(np.int8), y.astype(np.int8)
+            print(f"  {name} out {j} {x.shape} {_diff(x, y)}{where}",
+                  flush=True)
+
+
+def history(cell: str, n: int | None, port_dump: str | None = None) -> None:
     import bench_goldens as bg
     import chip_smoke as cs
 
     c = bg.setup_cell(cell)
     jhist = c["hist"]
-    scene, config, mcfg, hist = _port_cell(cell)
+    if port_dump is None:
+        scene, config, mcfg, hist = _port_cell(cell)
     for i in range(n or 8):
-        jimg, jhist, _ = c["fn"](c["pools"], c["inst"], c["views"][i], jhist)
-        img, hist, _ = cs.run_path(cell, scene, config, mcfg, hist, i, i + 1)
-        g = cs.image_gates(img[0].numpy(), np.asarray(jimg))
-        print(f"{cell} frame {i}: image {json.dumps(g)}", flush=True)
-        for name in ("depth_range", "shadow_mats", "shadow_maps",
-                     "shadow_mask", "exposure", "tsr_color"):
-            a, b = getattr(hist, name, None), getattr(jhist, name, None)
-            if a is None or b is None:
+        jimg, jhist, _ = c["step"](i, jhist)
+        if port_dump is None:
+            img, hist, _ = cs.run_path(cell, scene, config, mcfg, hist, i,
+                                       i + 1)
+            img, port = img[0].numpy(), _leaves(hist)
+        else:
+            path = os.path.join(port_dump, f"frame_{i:02d}.npz")
+            if not os.path.exists(path):
                 continue
-            a = a.numpy()
-            b = np.asarray(b)
-            if name == "shadow_maps":
-                for k in range(a.shape[0]):
+            with np.load(path) as z:
+                port = {k: z[k] for k in z.files}
+            img = port.pop("image")
+        g = cs.image_gates(img, np.asarray(jimg))
+        print(f"{cell} frame {i}: image {json.dumps(g)}", flush=True)
+        ref = _leaves(jhist)
+        for name in HISTORY_LEAVES:
+            if name not in port and name not in ref:
+                continue
+            a, b = port.get(name), ref.get(name)
+            if a is None or b is None:
+                print(f"  {name} only in "
+                      f"{'chord_tpu' if a is None else 'the port'}")
+                continue
+            if name in ("shadow_maps", "gi_cache") or name.startswith(
+                    "ddgi."):
+                for k in range(a.shape[0]):     # per cascade
                     print(f"  {name}[{k}] {_diff(a[k], b[k])}", flush=True)
             else:
                 print(f"  {name} {a.shape} {_diff(a, b)}", flush=True)
+
+
+def split(cell: str, frame: int) -> None:
+    """The split's shadow service, pass by pass, on chord_tpu's own inputs:
+    chord_tpu renders frames 0..FRAME of the cell (each frame, then its
+    service) and keeps the last frame's split dict, history and service
+    outputs; the port's PCSS evaluate, phase expand and temporal blend
+    then run on those inputs (chord_tpu's refreshed maps and matrices), and
+    each output is compared with chord_tpu's."""
+    import jax
+    import torch
+
+    import bench_goldens as bg
+    import chip_smoke as cs
+    import chord_tpu.renderer.meshlet_frame as jmf
+    from chord_tpu_torch import interop
+    from chord_tpu_torch.ops.bluenoise import interleaved_gradient_noise
+    from chord_tpu_torch.ops.shadow import ShadowConfig, evaluate_shadow_auto
+    from chord_tpu_torch.renderer import meshlet_frame as mf
+
+    c = bg.setup_cell(cell)
+    frame_fn, svc_fn = jmf._split_sequence_fns(c["config"], c["mcfg"])
+    h = c["hist"]
+    for i in range(frame):
+        h = c["step"](i, h)[1]
+    view = c["views"][frame]
+    _, h, stats = frame_fn(c["pools"], c["inst"], view, h, c["bvh"])
+    jsp = stats["shadow_split"]
+    jmaps, jmats, jq, jmask = svc_fn(c["pools"], c["inst"], view, h, jsp)
+    scfg = c["mcfg"].shadow_cfg
+    fc = int(jsp["fc"])
+    ph = scfg.temporal_phase if scfg.temporal else 1
+    hq, wq = jsp["pos_q"].shape[:2]
+    jexp, jphase = jax.jit(jmf._phase_expand, static_argnums=(2, 3, 4))(
+        jq, jsp["fc"], ph, hq, wq)
+
+    def t(x):
+        return torch.from_numpy(np.array(x))
+
+    sp = {k: t(v) for k, v in jsp.items() if k != "fc"}
+    hist = interop.history_from_numpy(
+        {k: v if k == "ddgi" else np.asarray(v) for k, v in vars(h).items()},
+        device="cpu")
+    tview = interop.view_from_numpy(
+        {k: np.asarray(v) for k, v in vars(view).items() if v is not None},
+        device="cpu")
+    tcfg = ShadowConfig(**scfg._asdict())
+    noise = (interleaved_gradient_noise(sp["pos_e"].shape[0],
+                                        sp["pos_e"].shape[1], fc,
+                                        device="cpu")
+             if tcfg.jitter else None)
+    q = evaluate_shadow_auto(sp["pos_e"], sp["nrm_e"], tview.sun_direction,
+                             t(jmaps), t(jmats), tcfg, noise=noise)
+    exp, phase = mf._phase_expand(t(jq), fc, ph, hq, wq)
+
+    def blend(m, pm):
+        if not tcfg.temporal:
+            return m
+        return mf._blend_shadow_mask(
+            m, pm, sp["pos_q"], hist.shadow_mask, hist.valid, sp["valid_q"],
+            sp["disocc_q"], tview.prev_tw_to_clip_nj, tcfg.temporal_alpha)
+
+    mask, mask_j = blend(exp, phase), blend(t(jexp), t(jphase))
+    # the port's own frame FRAME (after its frames 0..FRAME-1): its
+    # exported split dict and its whole service against chord_tpu's
+    scene, pconfig, pmcfg, phist = _port_cell(cell)
+    if frame:
+        phist = cs.run_path(cell, scene, pconfig, pmcfg, phist, 0, frame)[1]
+    pview = scene[2].frame(frame)
+    _, phist, pstats = mf.render_frame_meshlet(
+        scene[0], scene[1], pview, phist, pconfig, pmcfg, frame_index=frame,
+        bvh=scene[4])
+    psp = pstats["shadow_split"]
+    print(f"{cell} frame {frame}: the port's split dict against chord_tpu's "
+          f"(fc {psp['fc']} / {fc}):")
+    for k in ("pos_e", "nrm_e", "pos_q", "valid_q", "disocc_q"):
+        print(f"  {k} {tuple(psp[k].shape)} "
+              f"{_diff(psp[k].numpy(), np.asarray(jsp[k]))}")
+    out = mf.shadow_service_step(scene[0], scene[1], pview, phist, psp,
+                                 config=pconfig, mcfg=pmcfg)
+    for name, a, b in zip(("maps", "mats", "q", "mask"), out,
+                          (jmaps, jmats, jq, jmask)):
+        print(f"  the port's service: {name} "
+              f"{_diff(a.numpy(), np.asarray(b))}")
+    print(f"{cell} frame {frame} (fc {fc}), the service on chord_tpu's "
+          "inputs:")
+    print(f"  PCSS q {tuple(q.shape)} {_diff(q.numpy(), np.asarray(jq))}")
+    print(f"  phase expand {_diff(exp.numpy(), np.asarray(jexp))}; phase "
+          f"mask {_diff(phase.numpy(), np.asarray(jphase))}")
+    print(f"  blended mask {_diff(mask.numpy(), np.asarray(jmask))} (on "
+          f"chord_tpu's expand: {_diff(mask_j.numpy(), np.asarray(jmask))})")
 
 
 def k2(cell: str, frame: int) -> None:
@@ -283,8 +547,8 @@ def ign() -> None:
 
 def main(argv) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("mode", choices=("frames", "history", "k2", "ign",
-                                     "images"))
+    ap.add_argument("mode", choices=("frames", "history", "split", "dump",
+                                     "devdiff", "k2", "ign", "images"))
     ap.add_argument("cell", nargs="?", default="nanite",
                     help="a cell; for images the first PNG")
     ap.add_argument("frame", nargs="?", default="0",
@@ -295,8 +559,19 @@ def main(argv) -> int:
     ap.add_argument("--save", help="frames: write the port's kept frames "
                     "to this directory")
     ap.add_argument("--no-fma", action="store_true")
+    ap.add_argument("--port-dump", help="history: the port's side from a "
+                    "`dump` directory (rendered on the card) instead of "
+                    "the CPU")
+    ap.add_argument("--device", default="cpu", help="dump, devdiff: the "
+                    "device")
+    ap.add_argument("--funcs", help="devdiff: module alias.function, "
+                    "comma-separated (default the specular chain)")
+    ap.add_argument("--out", help="dump: the directory written")
+    ap.add_argument("--keep", help="dump: the frames written, e.g. 0,1,7 "
+                    "(default every frame)")
     args = ap.parse_args(argv[1:])
-    os.environ["JAX_PLATFORMS"] = "cpu"
+    if args.mode not in ("dump", "devdiff"):
+        os.environ["JAX_PLATFORMS"] = "cpu"
     if args.no_fma:
         os.environ["XLA_FLAGS"] = " ".join(
             [os.environ.get("XLA_FLAGS", ""),
@@ -305,9 +580,18 @@ def main(argv) -> int:
     if args.mode == "frames":
         frames(args.cell, args.goldens, args.frames, args.save)
     elif args.mode == "history":
-        history(args.cell, args.frames)
+        history(args.cell, args.frames, args.port_dump)
+    elif args.mode == "devdiff":
+        devdiff(args.cell, int(args.frame), args.device,
+                args.funcs.split(",") if args.funcs else DEVDIFF_FUNCS)
+    elif args.mode == "dump":
+        dump(args.cell, args.frames, args.device, args.out,
+             None if args.keep is None else
+             {int(f) for f in args.keep.split(",")})
     elif args.mode == "k2":
         k2(args.cell, int(args.frame))
+    elif args.mode == "split":
+        split(args.cell, int(args.frame))
     elif args.mode == "images":
         import chip_smoke as cs
         print(json.dumps(cs.image_gates(cs.read_png(args.cell),

@@ -3,14 +3,18 @@ holds to them, checked without rendering a frame.
 
 tests/bench_goldens.py renders chord_tpu's frames of six bench.py
 commands on the CPU (`off`, BASELINE #3 `nanite`, BASELINE #4 `interior`
-and the textured rungs `geo_tex`, `geo_shadow_atmo`, `all`) and records
-them with their configs and per-frame stats; chip_smoke.py's
+and the textured rungs `geo_tex`, `geo_shadow_atmo`, `all`) and of five
+of chip_smoke.py's frame paths (BASELINE #1 `flat`, `all_ddgi`,
+`geo_tex_native`, `geo_shadow_atmo_split`, `off_no_occlusion`) and
+records them with their configs and per-frame stats; chip_smoke.py's
 phase 13 holds the port's frames on the card to them. Here: the
 generator's configs and camera path are chip_smoke's (field for field,
-views within f32 rounding), the manifest matches its PNGs and the
-checkout's chord_tpu sources, chip_smoke's `off` scene is bench.py's
-build, its image gates are chord_tpu's, and phase 13 itself passes on the
-goldens' own images and fails on a config that is not the manifest's.
+views within f32 rounding; `flat`'s per-frame instance tables and the
+instance table `all_ddgi`'s BVH is built from equal), the manifest
+matches its PNGs and the checkout's chord_tpu sources, chip_smoke's `off`
+scene is bench.py's build, its image gates are chord_tpu's, and phase 13
+itself passes on the goldens' own images and fails on a config that is
+not the manifest's or on a stat that differs.
 """
 
 import dataclasses
@@ -33,11 +37,20 @@ PATHS = {"off": ("off", 1920, 1080), "nanite": ("off", 1920, 1080),
          "interior": ("all", 1920, 1080), "all_4k": ("all", 3840, 2160),
          "geo_tex": ("geo_tex", 1920, 1080),
          "geo_shadow_atmo": ("geo_shadow_atmo", 1920, 1080),
-         "all": ("all", 1920, 1080)}
-CELL_FEATURES = {c: s["features"] for c, s in bg.CELLS.items()}
+         "all": ("all", 1920, 1080), "flat": (None, 1920, 1080),
+         "all_ddgi": ("all", 1920, 1080),
+         "geo_tex_native": ("geo_tex", 1920, 1080),
+         "geo_shadow_atmo_split": ("geo_shadow_atmo", 1920, 1080),
+         "off_no_occlusion": ("off", 1920, 1080)}
 SCENE = {"off": "bistro", "nanite": "nanite", "interior": "interior",
          "all_4k": "bistro", "geo_tex": "bistro", "geo_shadow_atmo": "bistro",
-         "all": "bistro"}
+         "all": "bistro", "flat": "sponza", "all_ddgi": "bistro",
+         "geo_tex_native": "bistro", "geo_shadow_atmo_split": "bistro",
+         "off_no_occlusion": "bistro"}
+# each cell's render size and pair, big-window and draw capacities
+SIZES = {c: (1280, 720, 8192, 64, 2048) for c in bg.CELLS}
+SIZES.update(flat=(1920, 1080, 16384, 128, None),
+             geo_tex_native=(1920, 1080, 8192, 64, 2048))
 
 
 @pytest.fixture(scope="module")
@@ -60,14 +73,18 @@ def blend():
                      ("interior", build_bistro_interior(detail=bg.DETAIL))):
         out[scene] = any(m.alpha_mode == "blend" and
                          m.base_color_texture >= 0 for m in b.materials)
+    out["sponza"] = None      # the flat frame has no blend bucket
     return {cell: out[SCENE[cell]] for cell in PATHS}
 
 
 @pytest.mark.parametrize("cell", list(PATHS))
 def test_generator_configs_are_chip_smokes(cell, blend):
     features, w, h = PATHS[cell]
-    jcfg, jmcfg = bg.bench_configs(features, w, h, blend[cell])
+    jcfg, jmcfg = (bg.cell_configs(cell, blend[cell]) if cell in bg.CELLS
+                   else bg.bench_configs(features, w, h, blend[cell]))
     assert jcfg.interpret
+    if cell in bg.CELLS and features is not None:
+        assert bg.CELLS[cell]["features"] == features
     config, mcfg = chip_smoke.configs("all_4k" if cell == "all_4k"
                                       else cell, blend[cell])
     for j, t in ((jcfg, config), (jmcfg, mcfg)):
@@ -78,16 +95,16 @@ def test_generator_configs_are_chip_smokes(cell, blend):
 @pytest.mark.parametrize("cell", list(bg.CELLS))
 def test_manifest_configs_are_the_generators(cell, manifest, blend):
     rec = manifest["cells"][cell]
-    jcfg, jmcfg = bg.bench_configs(CELL_FEATURES[cell],
-                                   blend_textured=blend[cell])
+    jcfg, jmcfg = bg.cell_configs(cell, blend_textured=blend[cell])
     assert rec["renderer_config"] == json.loads(json.dumps(
         chip_smoke.config_dict(jcfg)))
     assert rec["meshlet_config"] == json.loads(json.dumps(
         chip_smoke.config_dict(jmcfg)))
     assert rec["command"] == bg.CELLS[cell]["command"]
-    assert (rec["render_width"], rec["render_height"]) == (1280, 720)
+    w, h, pairs, big, draws = SIZES[cell]
+    assert (rec["render_width"], rec["render_height"]) == (w, h)
     assert (rec["pair_capacity"], rec["big_capacity"],
-            rec["draw_capacity"]) == (8192, 64, 2048)
+            rec["draw_capacity"]) == (pairs, big, draws)
 
 
 @pytest.mark.parametrize("scene,w,h,shadows", [
@@ -119,6 +136,63 @@ def test_camera_path_is_chip_smokes(scene, w, h, shadows):
                                        rtol=1e-6, atol=2e-6, err_msg=f.name)
             n += 1
         assert n >= 10 + (3 if shadows else 0)
+
+
+def _np_fields(obj) -> dict:
+    return {k: np.asarray(v.numpy() if hasattr(v, "numpy") else v)
+            for k, v in vars(obj).items() if v is not None}
+
+
+def _assert_same_fields(port, jax_side, what):
+    p, j = _np_fields(port), _np_fields(jax_side)
+    assert set(p) == set(j), what
+    for k in p:
+        np.testing.assert_allclose(p[k], j[k], rtol=1e-6, atol=2e-6,
+                                   err_msg=f"{what} {k}")
+
+
+def test_flat_path_is_chip_smokes():
+    """`flat`: the generator's Sponza path (a uniform and an instance
+    table rebased to each frame's camera, no jitter) is chip_smoke's
+    flat_scene, frame for frame (the scene at detail 1: the tables do not
+    depend on it)."""
+    from chord_tpu.asset.procedural import build_sponza_like
+
+    uniforms, insts = bg.flat_frames(build_sponza_like(detail=1))
+    _, tinsts, tuniforms, blend, bvh = chip_smoke.flat_scene("cpu", detail=1)
+    assert blend is None and bvh is None
+    assert len(uniforms) == len(tuniforms) == chip_smoke.FRAMES
+    for i, (u, tu, inst, tinst) in enumerate(zip(uniforms, tuniforms, insts,
+                                                 tinsts)):
+        _assert_same_fields(tu, u, f"frame {i} uniform")
+        _assert_same_fields(tinst, inst, f"frame {i} instances")
+    # the camera moves, so the tables differ from frame to frame
+    assert not np.array_equal(_np_fields(insts[0])["object_to_tw"],
+                              _np_fields(insts[-1])["object_to_tw"])
+
+
+def test_ddgi_bvh_instances_are_chip_smokes():
+    """`all_ddgi`'s meshlet BVH is built from the frames' own instance
+    table, with the camera at the path's last position: the generator's
+    camera (moved by camera_uniforms) and chip_smoke's (moved by
+    camera_views) rebase the bistro's instances equally."""
+    from chord_tpu.asset.procedural import build_bistro_like as jbistro
+    from chord_tpu.utils.camera import Camera as JCamera
+
+    from chord_tpu_torch.asset.procedural import build_bistro_like
+    from chord_tpu_torch.utils.camera import Camera
+
+    jcam, cam = JCamera(width=1280, height=720), Camera(width=1280,
+                                                        height=720)
+    bg.camera_uniforms("bistro", 1280, 720, jcam)
+    chip_smoke.camera_views(chip_smoke.W, chip_smoke.H, "cpu", cam=cam)
+    np.testing.assert_array_equal(cam.position, jcam.position)
+    _assert_same_fields(build_bistro_like(detail=1).frame_instances(
+        cam, device="cpu"), jbistro(detail=1).frame_instances(jcam),
+        "instances")
+    cfg = bg.cell_configs("all_ddgi")[1]
+    assert (cfg.gi_mode, cfg.rt_granularity) == ("ddgi", "meshlet")
+    assert chip_smoke.RAY_PATHS["all_ddgi"] == cfg.rt_granularity
 
 
 def test_manifest_matches_its_pngs(manifest):
@@ -218,5 +292,39 @@ def test_phase13_passes_on_the_goldens_and_fails_on_a_difference(
     stats = kept["nanite"]["stats"]
     stats["drawn_tris"] = stats["drawn_tris"][:3] + [
         stats["drawn_tris"][3] + 1] + stats["drawn_tris"][4:]
+    with pytest.raises(AssertionError, match="stats differ"):
+        chip_smoke.bench_goldens(kept, blend, "cpu")
+
+
+NEW_CELLS = ("flat", "all_ddgi", "geo_tex_native", "geo_shadow_atmo_split",
+             "off_no_occlusion")
+
+
+@pytest.mark.parametrize("cell", NEW_CELLS)
+def test_phase13_fails_on_a_new_cells_config_or_stat(cell, manifest, blend,
+                                                     monkeypatch):
+    """Phase 13 on one of the cells this slice added (alone): it passes on
+    the goldens' own frames, and fails on a config other than the
+    manifest's (flat: the class default pair capacity; the others:
+    the blend bucket's textures flipped) and on one stat of one frame."""
+    monkeypatch.setattr(chip_smoke, "GOLDEN_FRAMES",
+                        {cell: chip_smoke.GOLDEN_FRAMES[cell]})
+    kept = _kept(manifest)
+    out = chip_smoke.bench_goldens(kept, blend, "cpu")
+    assert out[f"{cell}_stats_differ"] == {}
+    with monkeypatch.context() as m:
+        if cell == "flat":
+            m.setattr(chip_smoke, "FLAT_PAIRS", 8192)
+            want = "renderer_config"
+            other = blend
+        else:
+            want, other = "meshlet_config", dict(blend, **{cell: not blend[
+                cell]})
+        with pytest.raises(AssertionError, match=want):
+            chip_smoke.bench_goldens(kept, other, "cpu")
+    stats = kept[cell]["stats"]
+    key = "drawn_tris"
+    last = len(stats[key]) - 1
+    stats[key] = stats[key][:last] + [stats[key][last] - 1]
     with pytest.raises(AssertionError, match="stats differ"):
         chip_smoke.bench_goldens(kept, blend, "cpu")
