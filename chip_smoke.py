@@ -775,9 +775,10 @@ def configs(path: str, blend_textured: bool = False, shadow_cfg=None,
 
 
 def history(config, mcfg, dev):
-    """A fresh history for the path (with the cascade cache on the shadow
-    paths and the GI state with GI on: the screen probes', or DDGI's in
-    ddgi mode, bench.py:259-269)."""
+    """A fresh history for the path, as bench.py:259-269 and chord_tpu's
+    MeshletRenderer build it (with the cascade cache on the shadow paths
+    and the GI state with GI on: the screen probes' in probe mode only,
+    DDGI's in ddgi mode)."""
     from chord_tpu_torch.ops.gi import GIConfig
     from chord_tpu_torch.rhi.framebuffer import FrameHistory
 
@@ -787,7 +788,9 @@ def history(config, mcfg, dev):
     ph, pw = config.post_height, config.post_width
     s = mcfg.shadow_cfg
     if not mcfg.shadows:
-        return FrameHistory.empty(h, w, ph, pw, device=dev)
+        # the (unused) shadow mask at the eval size, as bench.py:259-269
+        return FrameHistory.empty(h, w, ph, pw, shadow_div=s.eval_res_div,
+                                  device=dev)
     probes = mcfg.gi and mcfg.gi_mode == "probe"
     return FrameHistory.empty(h, w, ph, pw, shadow_div=s.eval_res_div,
                               shadow_cascades=s.cascade_count,
@@ -2107,23 +2110,46 @@ def windowed_ssim(a, b, win: int = 16) -> float:
 
 
 def worst_window(a, b, win: int = 16) -> tuple:
-    """windowed_ssim's least window -> (SSIM, top row, left column)."""
+    """windowed_ssim's least window -> (SSIM, top row, left column), to
+    the bit as chord_tpu's loop computes it. Every window's SSIM is
+    first computed at once; only the windows within 1e-9 of the least
+    are then computed as the loop does, in its order. On a window equal
+    in both images the loop's covariance is its variance, so its SSIM is
+    1 exactly unless 2 mu mu and mu**2 + mu**2 round apart."""
     import numpy as np
 
     ga = a.astype(np.float64).mean(-1) / 255.0
     gb = b.astype(np.float64).mean(-1) / 255.0
     h, w = ga.shape
     c1, c2 = 0.01 ** 2, 0.03 ** 2
+    ny, nx = (h - win) // win + 1, (w - win) // win + 1
+    if ny <= 0 or nx <= 0:
+        return (1.0, 0, 0)
+    blk = [g[:ny * win, :nx * win].reshape(ny, win, nx, win)
+           for g in (ga, gb)]
+    mu = [x.mean(axis=(1, 3)) for x in blk]
+    cov = ((blk[0] - mu[0][:, None, :, None]) *
+           (blk[1] - mu[1][:, None, :, None])).mean(axis=(1, 3))
+    s_all = (((2 * mu[0] * mu[1] + c1) * (2 * cov + c2)) /
+             ((mu[0] ** 2 + mu[1] ** 2 + c1) *
+              (blk[0].var(axis=(1, 3)) + blk[1].var(axis=(1, 3)) + c2)))
+    same = (blk[0] == blk[1]).all(axis=(1, 3))
     worst = (1.0, 0, 0)
-    for y in range(0, h - win + 1, win):
-        for x in range(0, w - win + 1, win):
-            wa, wb = ga[y:y + win, x:x + win], gb[y:y + win, x:x + win]
-            mu_a, mu_b = wa.mean(), wb.mean()
-            cov = ((wa - mu_a) * (wb - mu_b)).mean()
-            s = (((2 * mu_a * mu_b + c1) * (2 * cov + c2)) /
-                 ((mu_a ** 2 + mu_b ** 2 + c1) * (wa.var() + wb.var() + c2)))
-            if float(s) < worst[0]:
-                worst = (float(s), y, x)
+    for i, j in np.argwhere(s_all <= s_all.min() + 1e-9):
+        y, x = int(i) * win, int(j) * win
+        wa, wb = ga[y:y + win, x:x + win], gb[y:y + win, x:x + win]
+        mu_a = wa.mean()
+        if same[i, j]:
+            if 2 * mu_a * mu_a == mu_a ** 2 + mu_a ** 2:
+                continue                          # SSIM 1 exactly
+            mu_b, cov_ab = mu_a, wa.var()
+        else:
+            mu_b = wb.mean()
+            cov_ab = ((wa - mu_a) * (wb - mu_b)).mean()
+        s = (((2 * mu_a * mu_b + c1) * (2 * cov_ab + c2)) /
+             ((mu_a ** 2 + mu_b ** 2 + c1) * (wa.var() + wb.var() + c2)))
+        if float(s) < worst[0]:
+            worst = (float(s), y, x)
     return worst
 
 
@@ -2208,7 +2234,10 @@ GOLDEN_FRAMES = {"off": (0, 7, 15), "nanite": (0, 7), "interior": (0, 7),
                  "geo_tex": (0, 7), "geo_shadow_atmo": (0, 7), "all": (0, 7),
                  "flat": (0, 7, 15), "all_ddgi": (0, 7),
                  "geo_tex_native": (0, 7), SPLIT: (0, 7),
-                 "off_no_occlusion": (0, 7)}
+                 "off_no_occlusion": (0, 7), "all_4k": (7,),
+                 "all_cache": (0, 7), "geo_tex_bricks": (0, 7),
+                 "all_no_rt": (0, 7), "sharded_all": (0, 7),
+                 "sharded_flat": (0, 7)}
 
 
 def chord_tpu_hash(root: str) -> str:
@@ -2257,8 +2286,10 @@ def bench_goldens(kept: dict, blend: dict, card: str) -> dict:
     """Phase 13: the GOLDEN_FRAMES of each cell held to chord_tpu's with
     its three gates (SSIM >= 0.99, MAE < 2, worst window >= 0.95); a
     missing PNG or manifest, a manifest made from other chord_tpu sources
-    or with another config than the path's, fails. Each frame's stats
-    (those both packages make) held equal to chord_tpu's. -> numbers per
+    or with another config than the path's, fails (on a strip path,
+    phase 12's gathered frames and summed stats: sharded_configs', and
+    STRIP_RANKS strips of its strip config). Each frame's stats (those
+    both packages make) held equal to chord_tpu's. -> numbers per
     image."""
     with open(os.path.join(BENCH_GOLDEN_DIR, "manifest.json")) as f:
         man = json.load(f)
@@ -2270,9 +2301,18 @@ def bench_goldens(kept: dict, blend: dict, card: str) -> dict:
     out = {}
     for path in GOLDEN_FRAMES:
         cell = man["cells"][path]
-        config, mcfg = configs(path, blend[path])
-        for key, nt in (("renderer_config", config),
-                        ("meshlet_config", mcfg)):
+        strips = path in SHARDED_FROM
+        config, mcfg = (sharded_configs if strips else configs)(path,
+                                                               blend[path])
+        pairs = (("renderer_config", config), ("meshlet_config", mcfg))
+        if strips:
+            if cell.get("strips") != STRIP_RANKS:
+                raise AssertionError(f"bench golden {path}: "
+                                     f"{cell.get('strips')} strips, the "
+                                     f"path renders {STRIP_RANKS}")
+            pairs += (("strip_config", config._replace(
+                height=config.height // STRIP_RANKS)),)
+        for key, nt in pairs:
             want = json.loads(json.dumps(config_dict(nt)))
             got = cell[key]
             if got != want:
@@ -2525,11 +2565,11 @@ STRIP_TIMEOUT_S = 600
 LUTS = ("atmo_t_lut", "atmo_ms_lut", "atmo_sky_lut", "brdf_lut")
 
 
-def sharded_configs(path):
+def sharded_configs(path, blend_textured: bool = False):
     """A sharded path's RendererConfig and MeshletFrameConfig: its
     one-process path's; `all` at its native PWxPH (render = post size: the
     strips' history has no post size, as in chord_tpu), tile TSR."""
-    config, mcfg = configs(SHARDED_FROM[path])
+    config, mcfg = configs(SHARDED_FROM[path], blend_textured)
     if mcfg is not None:
         config = config._replace(width=PW, height=PH, post_width=0,
                                  post_height=0)
@@ -2549,28 +2589,27 @@ def bistro_uniforms(w: int, h: int):
     return out
 
 
-def strip_jobs(scenes) -> dict:
-    """{path: StripJob}: each sharded path's host scene, built once in this
-    process and handed to the ranks as numpy: `all`'s pools, instance
-    table, object BVH and LUTs with the camera path's uniforms at PWxPH;
-    `flat`'s pools, per-frame instances and uniforms."""
+def strip_job(path, scenes):
+    """A sharded path's StripJob: its host scene, built once in this
+    process and handed to the ranks as numpy: on `sharded_all`, `all`'s
+    pools, instance table, object BVH and LUTs with the camera path's
+    uniforms at PWxPH; on `sharded_flat`, `flat`'s pools, per-frame
+    instances and uniforms."""
     from chord_tpu_torch import interop
     from chord_tpu_torch.parallel.sharded import StripJob
 
-    config, mcfg = sharded_configs("sharded_all")
-    pools, inst, views, _, bvh = scenes["all"]
-    jobs = {"sharded_all": StripJob(
+    pools, inst, views, blend_tex, bvh = scenes[SHARDED_FROM[path]]
+    config, mcfg = sharded_configs(path, blend_tex)
+    if path == "sharded_flat":
+        return StripJob("flat", config, None, interop.to_numpy(pools),
+                        [interop.to_numpy(i) for i in inst], views)
+    return StripJob(
         "meshlet", config, mcfg, interop.to_numpy(pools),
         interop.to_numpy(inst), bistro_uniforms(PW, PH),
         bvh=interop.to_numpy(bvh),
         luts={k: getattr(views, k).cpu().numpy() for k in LUTS},
-        light_kwargs=dict(shadow_cfg=mcfg.shadow_cfg))}
-    pools, insts, uniforms, _, _ = scenes["flat"]
-    jobs["sharded_flat"] = StripJob(
-        "flat", sharded_configs("sharded_flat")[0], None,
-        interop.to_numpy(pools), [interop.to_numpy(i) for i in insts],
-        uniforms)
-    return jobs
+        light_kwargs=dict(shadow_cfg=mcfg.shadow_cfg))
+
 
 
 def tiny_strip_job():
@@ -2643,12 +2682,14 @@ def strip_path_rank(path, rank: int, device, job) -> dict:
     torch.cuda.synchronize()
     kernels.reset_launch_counts()
     t0 = time.time()
-    stats, digests = [], []
+    stats, digests, images = [], [], {}
     for i in range(FRAMES):
         img, st = frame(i)
         stats.append({k: v.cpu().tolist() for k, v in st.items()
                       if isinstance(v, torch.Tensor)})
         digests.append(digest(r.history.gi_cache))
+        if rank == 0 and i in GOLDEN_FRAMES.get(path, ()):
+            images[i] = img.numpy()     # the gathered image, for phase 13
     torch.cuda.synchronize()
     launches = kernels.launch_counts()
     first_s = time.time() - t0
@@ -2666,7 +2707,7 @@ def strip_path_rank(path, rank: int, device, job) -> dict:
         torch.cuda.synchronize()
         times.append((time.time() - t0) / FRAMES * 1000.0)
     return dict(rows=rows, launches=launches, stats=stats, digests=digests,
-                not_finite=finite, shape=tuple(img.shape),
+                images=images, not_finite=finite, shape=tuple(img.shape),
                 std=float(last.std()), mean=float(last.mean()), ms=times,
                 setup_s=setup_s, first_s=first_s,
                 exchange_ms=strip_exchange_ms(r, img, st))
@@ -2796,7 +2837,9 @@ def sharded_phase(scenes, dev, card: str):
     checked, the world cache equal on both ranks after every frame
     (check_strip_path), ms/frame beside the one-process `all` at the same
     size; chord_tpu's tiny strips-vs-one-chip configuration under its 2%
-    gate; the dryrun(2) line -> (kernel rows, {path: ms/frame})."""
+    gate; the dryrun(2) line -> (kernel rows, {path: ms/frame}, {path:
+    rank 0's GOLDEN_FRAMES images and per-frame summed stats}, for phase
+    13)."""
     import numpy as np
 
     from chord_tpu_torch import interop
@@ -2805,7 +2848,7 @@ def sharded_phase(scenes, dev, card: str):
     from chord_tpu_torch.renderer import MeshletRenderer
 
     t0 = time.time()
-    jobs = strip_jobs(scenes)
+    jobs = {p: strip_job(p, scenes) for p in kernels.SHARDED}
     tiny, tiny_cfg, tiny_mcfg = tiny_strip_job()
     jobs["tiny"] = tiny
     ms = {"all one process": native_all_ms(scenes, dev, card)}
@@ -2815,10 +2858,13 @@ def sharded_phase(scenes, dev, card: str):
     ranks = spawn_strips(STRIP_RANKS, strip_rank, jobs,
                          timeout_s=STRIP_TIMEOUT_S)
     log(f"phase 12: the ranks ran in {time.time() - t0:.2f} s")
-    rows = []
+    rows, kept = [], {}
     for path in kernels.SHARDED:
         res = [r[path] for r in ranks]
         check_strip_path(path, res)
+        kept[path] = dict(images=res[0]["images"],
+                          stats={k: [st[k] for st in res[0]["stats"]]
+                                 for k in res[0]["stats"][0]})
         runs = [max(t) for t in zip(*(r["ms"] for r in res))]
         ms[path] = dict(median=statistics.median(runs), runs=runs,
                         per_rank=[r["ms"] for r in res])
@@ -2856,7 +2902,7 @@ def sharded_phase(scenes, dev, card: str):
     if off >= 0.02 or min(stds) <= 1.0:
         raise AssertionError("the tiny sharded frame fails chord_tpu's gate")
     dryrun(STRIP_RANKS)
-    return rows, ms
+    return rows, ms, kept
 
 
 def ptxas_lines(sources=("pcss.cu", "proto_paged_tex.cu",
@@ -2998,6 +3044,7 @@ def main() -> int:
         raise AssertionError(f"{SPLIT} launched {path_launches[SPLIT]}, the "
                              f"inline path {path_launches['geo_shadow_atmo']}")
     blend = {p: scenes[p][3] for p in kept}
+    blend.update({p: scenes[src][3] for p, src in SHARDED_FROM.items()})
     tool_phase = {"repro_eval": lambda: repro_eval_path(dev, smi),
                   "proto_paged_tex": lambda: proto_paged_tex_path(smi)}
     tools = {}
@@ -3013,9 +3060,10 @@ def main() -> int:
     log(f"phase 8 in {time.time() - t0:.1f} s")
     golden = goldens(dev, smi)
     debug_views(scenes["all"], dev, smi)
-    strip_rows, strip_ms = sharded_phase(scenes, dev, smi)
+    strip_rows, strip_ms, strip_kept = sharded_phase(scenes, dev, smi)
     rows += strip_rows
     ms_per_frame.update(strip_ms)
+    kept.update(strip_kept)
     del scenes
     app_rows, apps = apps_phase(dev, smi)
     for krows, launches in app_rows.values():

@@ -34,6 +34,17 @@ def centres(n: int, device) -> torch.Tensor:
         recip(n)
 
 
+def sqrt_rn(x: torch.Tensor) -> torch.Tensor:
+    """The square root rounded to nearest, as XLA's and CUDA's f32 sqrt
+    are. PyTorch's CPU sqrt is a vectorised approximation (an ulp off on
+    ~0.6% of f32 inputs with torch 2.13, and in f64 too, so which
+    elements round otherwise depends on how the threads split the
+    tensor); on the CPU numpy's IEEE root is taken."""
+    if x.device.type == "cpu":
+        return torch.from_numpy(np.sqrt(x.detach().contiguous().numpy()))
+    return torch.sqrt(x)
+
+
 def bits_i32(x: torch.Tensor) -> torch.Tensor:
     """f32 / i32 -> int32 bit pattern (no conversion)."""
     return x.contiguous().view(torch.int32) if x.dtype != torch.int32 else x

@@ -34,6 +34,7 @@ import numpy as np
 import torch
 
 from . import colorspace
+from ._util import sqrt_rn
 
 
 class SceneBVH(NamedTuple):
@@ -320,13 +321,26 @@ def trace_dense_tri(origins: torch.Tensor, dirs: torch.Tensor,
     return t_best.reshape(shape), leaf_best.reshape(shape)
 
 
+def _dot3(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The dot of the last (size 3) axes, broadcast, summed in order:
+    (a0 b0 + a1 b1) + a2 b2."""
+    return (a[..., 0] * b[..., 0] + a[..., 1] * b[..., 1]) + \
+        a[..., 2] * b[..., 2]
+
+
 def trace_dense(origins: torch.Tensor, dirs: torch.Tensor,
                 spheres: torch.Tensor, t_max: float = 1e9,
                 chunk: int = 512) -> Tuple[torch.Tensor, torch.Tensor]:
     """Every ray against every leaf sphere, `chunk` spheres at a time
     (the (R, chunk) planes stay bounded), keeping the running closest
     hit. (o-c)·d and |o-c|^2 expand into per-ray terms and the d @ c^T,
-    o @ c^T products. Padding spheres have radius -1 and never hit."""
+    o @ c^T products. Every 3-term dot is summed as chord_tpu's compiled
+    dot and sum are ((p0 + p1) + p2, one rounding an operation) on every
+    device: the expansion cancels on large spheres (t off by ~1e-5 at
+    r = 12), so another order (a BLAS matmul's) moves t by far more than
+    an ulp and flips the closest of two nearly equal hits; the root is
+    rounded to nearest on every device (_util.sqrt_rn). Padding spheres
+    have radius -1 and never hit."""
     shape = origins.shape[:-1]
     o = origins.reshape(-1, 3)
     d = dirs.reshape(-1, 3)
@@ -336,8 +350,8 @@ def trace_dense(origins: torch.Tensor, dirs: torch.Tensor,
         poison = torch.zeros((pad, 4), dtype=spheres.dtype, device=dev)
         poison[:, 3] = -1.0
         spheres = torch.cat([spheres, poison])
-    od = (o * d).sum(1, keepdim=True)                     # (R,1)
-    oo = (o * o).sum(1, keepdim=True)                     # (R,1)
+    od = _dot3(o, d)[:, None]                             # (R,1)
+    oo = _dot3(o, o)[:, None]                             # (R,1)
     zero = torch.zeros((), device=dev)
     inf = torch.full((), float("inf"), device=dev)
     t_best = torch.full((o.shape[0],), t_max, dtype=torch.float32, device=dev)
@@ -345,11 +359,11 @@ def trace_dense(origins: torch.Tensor, dirs: torch.Tensor,
     for base in range(0, spheres.shape[0], chunk):
         sc = spheres[base:base + chunk]
         c, rad = sc[:, :3], sc[:, 3]
-        b = od - d @ c.T                                  # (o-c)·d
-        c2 = (oo - 2.0 * (o @ c.T) + (c * c).sum(1)[None, :] -
-              (rad * rad)[None, :])
+        b = od - _dot3(d[:, None, :], c[None])            # (o-c)·d
+        c2 = (oo - 2.0 * _dot3(o[:, None, :], c[None]) +
+              _dot3(c, c)[None, :] - (rad * rad)[None, :])
         disc = b * b - c2
-        sq = torch.sqrt(torch.clamp_min(disc, 0.0))
+        sq = sqrt_rn(torch.clamp_min(disc, 0.0))
         t_entry = torch.where(c2 < 0.0, zero, -b - sq)
         hit = ((disc >= 0.0) & ((-b + sq) > 0.0) & (t_entry > 1e-4) &
                (rad[None, :] > 0.0))

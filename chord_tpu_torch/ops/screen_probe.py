@@ -68,37 +68,47 @@ def _octahedral_dirs(n_side: int) -> np.ndarray:
     return (d / np.linalg.norm(d, axis=-1, keepdims=True)).astype(np.float32)
 
 
-def _jitter_rotation(frame_count: torch.Tensor) -> torch.Tensor:
-    """Per-frame 3x3 rotation (golden-angle azimuth + tilt) of the ray
-    set, from the device counter."""
-    f = frame_count.float()
-    a = f * 2.3999632297286533          # golden angle
-    b = f * 1.1
-    ca, sa = torch.cos(a), torch.sin(a)
-    cb, sb = torch.cos(b), torch.sin(b)
-    zero = torch.zeros((), device=f.device)
-    one = torch.ones((), device=f.device)
-    rz = torch.stack([torch.stack([ca, -sa, zero]),
-                      torch.stack([sa, ca, zero]),
-                      torch.stack([zero, zero, one])])
-    rx = torch.stack([torch.stack([one, zero, zero]),
-                      torch.stack([zero, cb, -sb]),
-                      torch.stack([zero, sb, cb])])
-    return rz @ rx
+def ray_table(frame: int, rays: int) -> np.ndarray:
+    """The frame's (R,3) f32 ray set: the octahedral directions rotated
+    by the frame's jitter (golden-angle azimuth a = 2.39996 f, tilt
+    b = 1.1 f about x: base @ (Rz(a) Rx(b))^T, chord_tpu's
+    _jitter_rotation), rounded as chord_tpu's compiled frame rounds it
+    and the same on every device: computed on the host, the angles' cos
+    and sin in f64 rounded to f32, every product of the 3x3 rotations
+    summed in XLA's order ((p0 + p1) + p2, one rounding an operation; a
+    device's matmul and trig round otherwise)."""
+    f32 = np.float32
+    a = f32(frame) * f32(2.3999632297286533)
+    b = f32(frame) * f32(1.1)
+    ca, sa = f32(np.cos(np.float64(a))), f32(np.sin(np.float64(a)))
+    cb, sb = f32(np.cos(np.float64(b))), f32(np.sin(np.float64(b)))
+    rz = np.array([[ca, -sa, 0.0], [sa, ca, 0.0], [0.0, 0.0, 1.0]], f32)
+    rx = np.array([[1.0, 0.0, 0.0], [0.0, cb, -sb], [0.0, sb, cb]], f32)
+    rot = (rz[:, 0, None] * rx[0] + rz[:, 1, None] * rx[1]) + \
+        rz[:, 2, None] * rx[2]
+    base = _octahedral_dirs(int(np.sqrt(rays))).astype(f32)
+    return ((base[:, 0, None] * rot[:, 0] + base[:, 1, None] * rot[:, 1])
+            + base[:, 2, None] * rot[:, 2])
 
 
-def probe_ray_dirs(probes: "ProbeState", frame_count: torch.Tensor,
-                   cfg: ScreenProbeConfig) -> torch.Tensor:
+def probe_ray_dirs(probes: "ProbeState", frame_count, cfg: ScreenProbeConfig
+                   ) -> torch.Tensor:
     """The frame's per-probe ray set (Ph,Pw,R,3): jitter-rotated octahedral
-    directions flipped into each probe's hemisphere."""
+    directions (ray_table) flipped into each probe's hemisphere.
+    `frame_count` is the host's frame index (an int; a tensor is read,
+    which waits for the device). The table reaches the device by a
+    pinned, non-blocking copy: no synchronisation."""
     ph, pw = probes.depth.shape
-    r = cfg.rays
-    base = const(tuple(map(tuple, _octahedral_dirs(int(np.sqrt(r))).tolist())),
-                 probes.depth.device)
-    dirs = (base @ _jitter_rotation(frame_count).T)[None, None]
-    dirs = dirs.expand(ph, pw, r, 3)
-    ndot = (dirs * probes.normal[..., None, :]).sum(-1, keepdim=True)
-    return torch.where(ndot < 0.0, -dirs, dirs)
+    dev = probes.depth.device
+    table = torch.from_numpy(ray_table(int(frame_count), cfg.rays))
+    if dev.type == "cuda":
+        table = table.pin_memory()
+    dirs = table.to(dev, non_blocking=True)[None, None]
+    dirs = dirs.expand(ph, pw, cfg.rays, 3)
+    n = probes.normal[..., None, :]
+    ndot = (dirs[..., 0] * n[..., 0] + dirs[..., 1] * n[..., 1]) + \
+        dirs[..., 2] * n[..., 2]
+    return torch.where(ndot[..., None] < 0.0, -dirs, dirs)
 
 
 class ProbeState(NamedTuple):

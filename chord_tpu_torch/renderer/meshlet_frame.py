@@ -580,7 +580,7 @@ def _probe_diffuse(view: DeviceView, history: FrameHistory, gbuf, depth,
         # frame's 4-ray (at least) set, from 0.05 above the probe
         k = mcfg.rt_rays
         with record_function("gi.probe.rt_trace"):
-            rt_dirs = sp.probe_ray_dirs(probes, history.frame_count,
+            rt_dirs = sp.probe_ray_dirs(probes, frame_index,
                                         spcfg._replace(rays=max(k, 4))
                                         )[..., :k, :]
             org = (probes.pos_tw[..., None, :] +
@@ -601,7 +601,7 @@ def _probe_diffuse(view: DeviceView, history: FrameHistory, gbuf, depth,
             rad, ray_dirs, sample_w = sp.gather_probe_taps(
                 probes, scene_rad, sky_amb, spcfg)
     else:
-        ray_dirs = sp.probe_ray_dirs(probes, history.frame_count, spcfg)
+        ray_dirs = sp.probe_ray_dirs(probes, frame_index, spcfg)
         with record_function("gi.probe.trace"):
             rad, ray_dirs = sp.trace_probes(
                 probes, post.decimate(depth, spcfg.depth_div),

@@ -11,13 +11,20 @@
     JAX_PLATFORMS=cpu python tests/bench_goldens.py geo_tex_native
     JAX_PLATFORMS=cpu python tests/bench_goldens.py geo_shadow_atmo_split
     JAX_PLATFORMS=cpu python tests/bench_goldens.py off_no_occlusion
+    JAX_PLATFORMS=cpu python tests/bench_goldens.py all_4k     # BASELINE #5
+    JAX_PLATFORMS=cpu python tests/bench_goldens.py all_cache
+    JAX_PLATFORMS=cpu python tests/bench_goldens.py geo_tex_bricks
+    JAX_PLATFORMS=cpu python tests/bench_goldens.py all_no_rt
+    JAX_PLATFORMS=cpu python tests/bench_goldens.py sharded_all
+    JAX_PLATFORMS=cpu python tests/bench_goldens.py sharded_flat
     ... nanite --fma --out DIR    # XLA's default (FMA) build, into DIR
+    ... sharded_all --out DIR --keep 0,1,2,3,4,5,6,7   # every frame's PNG
 
-Each of the first six cells is one bench.py command (CELLS), rendered by
-chord_tpu with bench.py's own scene and camera path (imported:
-bench.py:64-131) and its config, BVH and LUTs (copied from
+The first six cells and `all_4k` are each one bench.py command (CELLS),
+rendered by chord_tpu with bench.py's own scene and camera path
+(imported: bench.py:64-131) and its config, BVH and LUTs (copied from
 bench.py:171-256, adding only interpret=True, without which row_gather
-raises on the CPU). The other five are chip_smoke.py's frame paths of the
+raises on the CPU). The others are chip_smoke.py's frame paths of the
 same name, each a bench rung with what chip_smoke.configs changes
 (cell_configs): `flat` is BASELINE #1, build_sponza_like(detail=4)'s flat
 pools through DeferredRenderer at 1920x1080 along bench.py's Sponza path
@@ -27,13 +34,25 @@ instance table; `geo_tex_native` renders geo_tex at 1920x1080 with gather
 TSR and the masked depth peel; `geo_shadow_atmo_split` runs the shadow
 rung with ShadowConfig(pipelined=True) as bench.py:272-281 runs such a
 config (render_sequence_split's frame, then shadow_service_step);
-`off_no_occlusion` is `off` with one cull, global TSR and HDR10 output.
+`off_no_occlusion` is `off` with one cull, global TSR and HDR10 output;
+`all_cache` is `all` in gi_mode "cache",
+`all_no_rt` `all` without BVH rays, `geo_tex_bricks` `geo_tex` under
+the r.raster.bricks cvar (set around every frame call: chord_tpu reads
+it when the frame is traced). `sharded_all` and `sharded_flat` are
+chord_tpu's ShardedRenderer stepping `all` (natively at 1920x1080) and
+`flat` frame by frame in two strips, over a mesh of two XLA host
+devices (main adds --xla_force_host_platform_device_count=2 to
+XLA_FLAGS before JAX starts; the cell refuses to run otherwise), with
+the history ShardedRenderer builds itself. The histories are built as
+chord_tpu's MeshletRenderer builds them (cell_history: screen probes in
+probe mode only).
 The frames are stepped one by one with their history (the meshlet frame
 through render_frame_meshlet), so a run can stop early: after each frame
 the kept images are written to tests/goldens/bench/<cell>_f<NN>.png and
 the cell's entry of manifest.json (scene, flags, sizes, capacities,
-configs, the per-frame stats and seconds) is rewritten, with the sha256
-of chord_tpu/'s sources.
+configs, the history's leaf shapes, the per-frame stats and seconds; on
+a strip cell the strip count and strip config) is rewritten, with the
+sha256 of chord_tpu/'s sources.
 The cells run in separate processes at once; the manifest is updated
 under a file lock.
 
@@ -101,10 +120,32 @@ CELLS = {
     "off_no_occlusion": dict(scene="bistro", features="off", frames=8,
                              keep=(0, 7),
                              command="chip_smoke.py path off_no_occlusion"),
+    "all_4k": dict(scene="bistro", features="all", frames=8, keep=(7,),
+                   width=3840, height=2160,
+                   command="bench.py --width 3840 --height 2160"),
+    "all_cache": dict(scene="bistro", features="all", frames=8, keep=(0, 7),
+                      command="chip_smoke.py path all_cache (the viewer's "
+                              "--gi --gi-mode cache --gi-rt)"),
+    "geo_tex_bricks": dict(scene="bistro", features="geo_tex", frames=8,
+                           keep=(0, 7),
+                           cvars={"r.raster.bricks": True},
+                           command="chip_smoke.py path geo_tex_bricks"),
+    "all_no_rt": dict(scene="bistro", features="all", frames=8, keep=(0, 7),
+                      command="chip_smoke.py path all_no_rt"),
+    "sharded_all": dict(
+        scene="bistro", features="all", frames=8, keep=(0, 7), strips=2,
+        command="chip_smoke.py path sharded_all (chord_tpu.parallel.sharded"
+                ".ShardedRenderer, path='meshlet', two host devices)"),
+    "sharded_flat": dict(
+        scene="sponza", features=None, frames=8, keep=(0, 7), strips=2,
+        command="chip_smoke.py path sharded_flat (chord_tpu.parallel."
+                "sharded.ShardedRenderer, path='flat', two host devices)"),
 }
 # BASELINE #1 as chip_smoke.py's flat path renders it
 FLAT_DETAIL = 4
 FLAT_PAIRS = 16384
+# the strip cells' XLA host devices (one a strip), set before JAX starts
+STRIP_DEVICES = "--xla_force_host_platform_device_count={}"
 
 
 def _bench():
@@ -167,7 +208,13 @@ def cell_configs(cell: str, blend_textured: bool = False):
                               subtiles=True, enable_bloom=True,
                               enable_tsr=True, interpret=True), None
     config, mcfg = bench_configs(spec["features"],
+                                 spec.get("width", WIDTH),
+                                 spec.get("height", HEIGHT),
                                  blend_textured=blend_textured)
+    if "strips" in spec:
+        # rendered natively: the strips' history has no post size
+        config = config._replace(width=WIDTH, height=HEIGHT, post_width=0,
+                                 post_height=0)
     if cell == "all_ddgi":
         from chord_tpu.ops.ddgi import DDGIConfig
         mcfg = mcfg._replace(gi_mode="ddgi", ddgi_cfg=DDGIConfig(),
@@ -182,6 +229,10 @@ def cell_configs(cell: str, blend_textured: bool = False):
     elif cell == "off_no_occlusion":
         config = config._replace(tsr_mode="global", output="hdr10")
         mcfg = mcfg._replace(occlusion=False, object_precull=False)
+    elif cell == "all_cache":
+        mcfg = mcfg._replace(gi_mode="cache")
+    elif cell == "all_no_rt":
+        mcfg = mcfg._replace(gi_rt=False)
     return config, mcfg
 
 
@@ -213,7 +264,14 @@ def camera_uniforms(scene: str, w: int, h: int, cam=None):
 
 
 def _luts(dviews):
-    """The sun-independent LUTs, built once (bench.py:236-256)."""
+    """The views with the LUTs of _lut_arrays."""
+    luts = _lut_arrays()
+    return [v.replace(**luts) for v in dviews]
+
+
+def _lut_arrays() -> dict:
+    """The sun-independent LUTs, built once (bench.py:236-256), by
+    DeviceView field."""
     import jax
 
     from chord_tpu.ops import atmosphere as atm
@@ -229,14 +287,14 @@ def _luts(dviews):
     sun_d /= np.linalg.norm(sun_d)
     sky_lut = jax.jit(lambda tl, msl: atm.build_sky_view_lut(
         p_atm, tl, msl, jax.numpy.asarray(sun_d)))(t_lut, ms_lut)
-    return [v.replace(atmo_t_lut=t_lut, atmo_ms_lut=ms_lut,
-                      atmo_sky_lut=sky_lut, brdf_lut=lut) for v in dviews]
+    return dict(atmo_t_lut=t_lut, atmo_ms_lut=ms_lut, atmo_sky_lut=sky_lut,
+                brdf_lut=lut)
 
 
 def _write_png(path: str, img) -> None:
     from PIL import Image
 
-    Image.fromarray(img).save(path + ".tmp", format="PNG")
+    Image.fromarray(img).save(path + ".tmp", format="PNG", optimize=True)
     os.replace(path + ".tmp", path)
 
 
@@ -275,6 +333,13 @@ def _setup_flat(cell: str) -> dict:
     pools = b.build_pools()
     config, _ = cell_configs(cell)
     uniforms, insts = flat_frames(b)
+    n_src = sum(b.meshes[m].num_triangles for m, _, _ in b.instances)
+    c = dict(pools=pools, inst=insts, views=uniforms, config=config,
+             mcfg=None, bvh=None, lvl=None, scene="sponza", features=None,
+             n_src=n_src)
+    if "strips" in CELLS[cell]:
+        return dict(c, **_strip_step(cell, config, None, pools, insts,
+                                     uniforms))
     r = DeferredRenderer(config)
 
     def step(i, hist):
@@ -282,11 +347,75 @@ def _setup_flat(cell: str) -> dict:
         img, stats = r.render(pools, insts[i], uniforms[i])
         return img, r.history, stats
 
-    n_src = sum(b.meshes[m].num_triangles for m, _, _ in b.instances)
-    return dict(step=step, pools=pools, inst=insts, views=uniforms,
-                hist=FrameHistory.empty(config.height, config.width),
-                config=config, mcfg=None, bvh=None, lvl=None,
-                scene="sponza", features=None, n_src=n_src)
+    return dict(c, step=step,
+                hist=FrameHistory.empty(config.height, config.width))
+
+
+def _strip_step(cell: str, config, mcfg, pools, insts, uniforms, bvh=None,
+                luts=None, **light_kwargs) -> dict:
+    """A strip cell: chord_tpu's ShardedRenderer over a mesh of the
+    cell's XLA host devices (sharded.py:89-181), `step(i, hist)` its
+    render of frame i (the history as it builds it: hist None) ->
+    {step, hist, strip_config}."""
+    import jax
+    from jax.sharding import Mesh
+
+    from chord_tpu.parallel.sharded import AXIS, ShardedRenderer
+
+    n = CELLS[cell]["strips"]
+    if (STRIP_DEVICES.format(n) not in os.environ.get("XLA_FLAGS", "")
+            or jax.device_count() != n):
+        raise RuntimeError(f"{cell}: XLA_FLAGS must hold "
+                           f"{STRIP_DEVICES.format(n)} before JAX starts "
+                           f"(run this module as a script); JAX has "
+                           f"{jax.device_count()} devices")
+    r = ShardedRenderer(config, Mesh(np.array(jax.devices()), (AXIS,)),
+                        path="flat" if mcfg is None else "meshlet",
+                        mcfg=mcfg)
+
+    def step(i, hist):
+        r.history = hist
+        img, stats = r.render(pools, insts[i], uniforms[i], bvh=bvh,
+                              luts=luts, **light_kwargs)
+        return img, r.history, stats
+
+    return dict(step=step, hist=None, strip_config=r.strip_config)
+
+
+def cell_history(cell: str, config, mcfg):
+    """chord_tpu's fresh history of a one-card cell (None on a strip
+    cell: ShardedRenderer builds its own), for bench.py's frame as
+    MeshletRenderer.render builds it (meshlet_frame.py:1540-1560): screen
+    probes in probe mode only, DDGI's state in ddgi mode."""
+    from chord_tpu.ops.gi import GIConfig
+    from chord_tpu.rhi.framebuffer import FrameHistory
+
+    if "strips" in CELLS[cell]:
+        return None
+    if mcfg is None:
+        return FrameHistory.empty(config.height, config.width)
+    ddgi = mcfg.gi and mcfg.gi_mode == "ddgi"
+    return FrameHistory.empty(
+        config.height, config.width, post_h=config.post_height or None,
+        post_w=config.post_width or None,
+        gi_cfg=GIConfig() if mcfg.gi else None,
+        shadow_cascades=(mcfg.shadow_cfg.cascade_count
+                         if mcfg.shadows else 0),
+        shadow_res=(mcfg.shadow_cfg.resolution if mcfg.shadows else 1),
+        shadow_div=mcfg.shadow_cfg.eval_res_div,
+        shadow_phase=(mcfg.shadow_cfg.temporal_phase
+                      if mcfg.shadow_cfg.temporal else 1),
+        probe_tile=8 if mcfg.gi and mcfg.gi_mode == "probe" else 0,
+        ddgi_cfg=mcfg.ddgi_cfg if ddgi else None)
+
+
+def history_shapes(hist, strips: int = 0) -> dict:
+    """{leaf: shape} of a chord_tpu history (chip_smoke's leaf names); a
+    strip history without its leading (strips,) axis."""
+    from chip_smoke import history_leaves
+
+    return {k: list(np.shape(v))[1 if strips else 0:]
+            for k, v in sorted(history_leaves(hist).items())}
 
 
 def setup_cell(cell: str, fma: bool = False) -> dict:
@@ -296,13 +425,12 @@ def setup_cell(cell: str, fma: bool = False) -> dict:
     then its shadow service)."""
     import jax
 
-    from chord_tpu.ops.gi import GIConfig
     from chord_tpu.renderer.deferred import DeviceView
     from chord_tpu.renderer.meshlet_frame import (_split_sequence_fns,
                                                   render_frame_meshlet,
                                                   shadow_pipelined)
-    from chord_tpu.rhi.framebuffer import FrameHistory
     from chord_tpu.utils.camera import Camera
+    from chord_tpu.utils.cvar import cvars
 
     if (NO_FMA in os.environ.get("XLA_FLAGS", "")) == fma:
         raise RuntimeError(f"XLA_FLAGS must {'not ' if fma else ''}hold "
@@ -321,7 +449,7 @@ def setup_cell(cell: str, fma: bool = False) -> dict:
     rw, rh = config.width, config.height
     cam = Camera(width=rw, height=rh)
     bvh = None
-    if lvl["gi"] and mcfg.gi_mode != "ddgi":
+    if mcfg.gi_rt and mcfg.gi_mode != "ddgi":
         from chord_tpu.ops.rt import build_scene_bvh
         bvh = build_scene_bvh(pools, b.frame_instances(cam),
                               granularity="object")
@@ -329,22 +457,19 @@ def setup_cell(cell: str, fma: bool = False) -> dict:
     shadow_cfg = mcfg.shadow_cfg if lvl["shadows"] else None
     dviews = [DeviceView.from_uniform(u, shadow_cfg=shadow_cfg)
               for u in views_u]
-    if lvl["atmosphere"] or lvl["gi"] or lvl["shadows"]:
+    if (lvl["atmosphere"] or lvl["gi"] or lvl["shadows"]) and \
+            "strips" not in spec:
         dviews = _luts(dviews)
     ddgi = mcfg.gi and mcfg.gi_mode == "ddgi"
-    hist = FrameHistory.empty(
-        rh, rw, post_h=config.post_height or None,
-        post_w=config.post_width or None,
-        gi_cfg=GIConfig() if lvl["gi"] else None,
-        shadow_cascades=(mcfg.shadow_cfg.cascade_count
-                         if lvl["shadows"] else 0),
-        shadow_res=(mcfg.shadow_cfg.resolution if lvl["shadows"] else 1),
-        shadow_div=mcfg.shadow_cfg.eval_res_div,
-        shadow_phase=(mcfg.shadow_cfg.temporal_phase
-                      if mcfg.shadow_cfg.temporal else 1),
-        probe_tile=8 if lvl["gi"] and not ddgi else 0,
-        ddgi_cfg=mcfg.ddgi_cfg if ddgi else None)
+    hist = cell_history(cell, config, mcfg)
     inst = b.frame_instances(cam)
+    c = dict(pools=pools, inst=inst, views=dviews, config=config, mcfg=mcfg,
+             bvh=bvh, lvl=lvl, scene=scene, features=features, n_src=n_src)
+    if "strips" in spec:
+        return dict(c, **_strip_step(
+            cell, config, mcfg, pools, [inst] * len(views_u), views_u,
+            bvh=bvh, luts=_lut_arrays(),
+            shadow_cfg=mcfg.shadow_cfg if mcfg.shadows else None))
     if ddgi:
         # as MeshletRenderer builds it: from the frames' own instance
         # table (the camera at the path's last position)
@@ -365,35 +490,49 @@ def setup_cell(cell: str, fma: bool = False) -> dict:
     else:
         fn = jax.jit(functools.partial(render_frame_meshlet, config=config,
                                        mcfg=mcfg, bvh=bvh))
+        bricks = spec.get("cvars", {}).get("r.raster.bricks", False)
 
         def step(i, h):
-            return fn(pools, inst, dviews[i], h)
-    return dict(step=step, pools=pools, inst=inst, views=dviews,
-                hist=hist, config=config, mcfg=mcfg, bvh=bvh, lvl=lvl,
-                scene=scene, features=features, n_src=n_src)
+            # chord_tpu reads r.raster.bricks when a frame is traced
+            # (deferred.py:172): every call that may compile runs under it
+            was = cvars.get("r.raster.bricks")
+            cvars.set("r.raster.bricks", bricks)
+            try:
+                return fn(pools, inst, dviews[i], h)
+            finally:
+                cvars.set("r.raster.bricks", was)
+    return dict(c, step=step, hist=hist)
 
 
 def render_cell(cell: str, frames: int | None = None,
-                out_dir: str = OUT_DIR, fma: bool = False) -> None:
+                out_dir: str = OUT_DIR, fma: bool = False,
+                keep=None) -> None:
     """Render frames 0..frames-1 of `cell` (default: CELLS') frame by
-    frame, writing the kept PNGs and the manifest entry into `out_dir`
-    after each; `fma`: XLA's default CPU build (for comparison only)."""
+    frame, writing the kept PNGs (default: CELLS') and the manifest entry
+    into `out_dir` after each; `fma`: XLA's default CPU build (for
+    comparison only)."""
     from chip_smoke import config_dict
 
     spec = CELLS[cell]
     frames = frames or spec["frames"]
+    keep = spec["keep"] if keep is None else keep
     t0 = time.time()
     c = setup_cell(cell, fma)
     config, mcfg, hist = c["config"], c["mcfg"], c["hist"]
+    out_hw = (config.post_height or config.height,
+              config.post_width or config.width)
     print(f"{cell}: scene {c['scene']} ({c['n_src']} source tris) and "
           f"views in {time.time() - t0:.1f} s", flush=True)
+    strips = spec.get("strips", 0)
+    flags = ([] if fma else [NO_FMA]) + (
+        [STRIP_DEVICES.format(strips)] if strips else [])
     entry = dict(
-        command=spec["command"], xla_flags="" if fma else NO_FMA,
+        command=spec["command"], xla_flags=" ".join(flags),
         scene=c["scene"],
         detail=FLAT_DETAIL if c["scene"] == "sponza" else DETAIL,
         target_tris=TARGET_TRIS if c["scene"] == "bistro" else None,
         source_tris=int(c["n_src"]), features=c["features"],
-        flags=c["lvl"], width=WIDTH, height=HEIGHT,
+        flags=c["lvl"], width=out_hw[1], height=out_hw[0],
         render_width=config.width, render_height=config.height,
         render_scale=RENDER_SCALE if config.post_width else 1.0,
         path_frames=PATH_FRAMES,
@@ -404,21 +543,27 @@ def render_cell(cell: str, frames: int | None = None,
         renderer_config=config_dict(config),
         meshlet_config=config_dict(mcfg) if mcfg else None,
         frames_rendered=0, images={}, stats=[], seconds=[])
+    if "cvars" in spec:
+        entry["cvars"] = spec["cvars"]
+    if strips:
+        entry.update(strips=strips,
+                     strip_config=config_dict(c["strip_config"]))
     for i in range(frames):
         t1 = time.time()
         img, hist, stats = c["step"](i, hist)
         img = np.asarray(img)
         dt = time.time() - t1
-        if img.shape != (HEIGHT, WIDTH, 3) or img.dtype != np.uint8:
+        if img.shape != out_hw + (3,) or img.dtype != np.uint8:
             raise RuntimeError(f"{cell} frame {i}: image {img.shape} "
                                f"{img.dtype}")
         st = {k: int(np.asarray(v)) for k, v in stats.items()
               if not isinstance(v, dict) and np.ndim(v) == 0 and
               np.issubdtype(np.asarray(v).dtype, np.integer)}
+        entry["history"] = history_shapes(hist, strips)
         entry["stats"].append(st)
         entry["seconds"].append(round(dt, 3))
         entry["frames_rendered"] = i + 1
-        if i in spec["keep"]:
+        if i in keep:
             name = f"{cell}_f{i:02d}.png"
             _write_png(os.path.join(out_dir, name), img)
             entry["images"][str(i)] = name
@@ -430,24 +575,29 @@ def main(argv) -> int:
     import argparse
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("cell", nargs="?", choices=list(CELLS))
+    ap.add_argument("cell", choices=list(CELLS))
     ap.add_argument("--frames", type=int, help="frames 0..N-1 (default: "
                     "the cell's)")
     ap.add_argument("--out", default=OUT_DIR, help="the directory written "
                     "(default: the goldens)")
     ap.add_argument("--fma", action="store_true", help="XLA's default CPU "
                     "build (needs --out)")
+    ap.add_argument("--keep", help="the frames written as PNGs, e.g. "
+                    "0,1,7 (default: the cell's; other frames need --out)")
     args = ap.parse_args(argv[1:])
-    if os.path.abspath(args.out) == OUT_DIR and args.fma:
-        ap.error("--fma writes only with --out")
+    if os.path.abspath(args.out) == OUT_DIR and (args.fma or args.keep):
+        ap.error("--fma and --keep write only with --out")
     if REPO not in sys.path:
         sys.path.insert(0, REPO)
-    if not args.fma:
-        os.environ["XLA_FLAGS"] = " ".join(
-            [os.environ.get("XLA_FLAGS", ""), NO_FMA]).strip()
+    strips = CELLS[args.cell].get("strips")
+    flags = ([] if args.fma else [NO_FMA]) + (
+        [STRIP_DEVICES.format(strips)] if strips else [])
+    os.environ["XLA_FLAGS"] = " ".join(
+        [os.environ.get("XLA_FLAGS", "")] + flags).strip()
     os.makedirs(args.out, exist_ok=True)
-    for cell in [args.cell] if args.cell else list(CELLS):
-        render_cell(cell, args.frames, args.out, fma=args.fma)
+    render_cell(args.cell, args.frames, args.out, fma=args.fma,
+                keep=None if args.keep is None else
+                {int(f) for f in args.keep.split(",")})
     return 0
 
 

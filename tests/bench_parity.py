@@ -1,7 +1,7 @@
 """Probes of the port against chord_tpu at bench size, on the CPU.
 
     python tests/bench_parity.py frames off [--goldens DIR] [--frames N]
-                                            [--save DIR]
+                                            [--save DIR] [--timeout S]
     python tests/bench_parity.py k2 nanite 0 [--no-fma]
     python tests/bench_parity.py history geo_shadow_atmo --no-fma [--frames N]
     python tests/bench_parity.py split geo_shadow_atmo_split 0 --no-fma
@@ -18,7 +18,10 @@ frame (chip_smoke's scene, configs and history, on the CPU) and each
 frame's stats, and the kept frames' SSIM / MAE / worst window, are held to
 a goldens directory's manifest (default tests/goldens/bench; a
 `bench_goldens.py CELL --fma --out DIR` render for XLA's default build);
-`--save DIR` writes the port's kept frames there as PNGs.
+`--save DIR` writes the port's kept frames there as PNGs. A strip cell
+(`sharded_all`, `sharded_flat`) renders through render_strips on two gloo
+CPU ranks (spawn_strips, deadline `--timeout`, default 4 h): its summed
+stats and rank 0's gathered image.
 
 `k2`: the mesh-shader setup of one frame of a cell. chord_tpu renders
 frames 0..FRAME (jitted, interpret mode) and records each
@@ -67,6 +70,7 @@ XLA's default CPU build contracts a*b+c. JAX_PLATFORMS=cpu is set here.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import functools
 import json
 import os
@@ -92,32 +96,78 @@ def _port_cell(cell: str):
 
 
 def frames(cell: str, goldens: str, n: int | None,
-           save: str | None = None) -> None:
+           save: str | None = None, timeout_s: float = 14400.0) -> None:
     import chip_smoke as cs
 
     with open(os.path.join(goldens, "manifest.json")) as f:
         rec = json.load(f)["cells"][cell]
     n = n or rec["frames_rendered"]
+    if cell in cs.SHARDED_FROM:
+        strip_frames(cell, rec, goldens, n, save, timeout_s)
+        return
     scene, config, mcfg, hist = _port_cell(cell)
     for i in range(n):
         t0 = time.time()
         img, hist, st = cs.run_path(cell, scene, config, mcfg, hist, i, i + 1)
-        st = {k: int(v[0]) for k, v in st.items()}
-        ref = rec["stats"][i]
-        diff = {k: (st[k], ref[k]) for k in st if k in ref and st[k] != ref[k]}
-        line = (f"{cell} frame {i} ({time.time() - t0:.1f} s): stats "
-                f"{'equal' if not diff else f'differ (port, chord_tpu) {diff}'}")
-        if str(i) in rec["images"]:
-            g = cs.image_gates(img[0].numpy(), cs.read_png(
-                os.path.join(goldens, rec["images"][str(i)])))
-            line += f"; image {json.dumps(g)}"
-            if save:
-                from PIL import Image
+        _frame_line(cell, i, {k: int(v[0]) for k, v in st.items()},
+                    img[0].numpy(), rec, goldens, save,
+                    f"{time.time() - t0:.1f} s")
 
-                os.makedirs(save, exist_ok=True)
-                Image.fromarray(img[0].numpy()).save(
-                    os.path.join(save, f"port_{cell}_f{i:02d}.png"))
-        print(line, flush=True)
+
+def strip_frames(cell: str, rec: dict, goldens: str, n: int,
+                 save: str | None, timeout_s: float) -> None:
+    """`frames` of a strip cell: chip_smoke's strip job (its host scene
+    on the CPU) for frames 0..n-1, rendered by render_strips on
+    STRIP_RANKS gloo CPU ranks (spawn_strips, with a deadline of
+    `timeout_s`), each frame's summed stats and rank 0's gathered image
+    held to the goldens."""
+    import torch
+
+    import chip_smoke as cs
+    from chord_tpu_torch.parallel.sharded import render_strips, spawn_strips
+
+    d = torch.device("cpu")
+    t0 = time.time()
+    scenes = cs.bench_scenes(d, cs.scene_paths([cs.SHARDED_FROM[cell]]))
+    job = cs.strip_job(cell, scenes)
+    del scenes
+    insts = job.instances
+    job = job._replace(uniforms=list(job.uniforms[:n]),
+                       instances=(insts[:n] if isinstance(insts, list)
+                                  else insts))
+    print(f"{cell}: the strip job's host scene in {time.time() - t0:.1f} s",
+          flush=True)
+    t0 = time.time()
+    ranks = spawn_strips(cs.STRIP_RANKS, render_strips, job, device="cpu",
+                         timeout_s=timeout_s)
+    per = f"{(time.time() - t0) / n:.1f} s a frame"
+    for i, fr in enumerate(ranks[0]):
+        _frame_line(cell, i, {k: int(v) for k, v in fr["stats"].items()
+                              if np.ndim(v) == 0},
+                    fr["image"], rec, goldens, save, per)
+
+
+def _frame_line(cell: str, i: int, st: dict, img, rec: dict, goldens: str,
+                save: str | None, took: str) -> None:
+    """Print frame i's stats against the manifest's and, on a kept frame,
+    its image gates against the golden PNG (the image saved to `save`)."""
+    import chip_smoke as cs
+
+    ref = rec["stats"][i]
+    diff = {k: (st[k], ref[k]) for k in st if k in ref and st[k] != ref[k]}
+    line = (f"{cell} frame {i} ({took}): stats "
+            f"{'equal' if not diff else f'differ (port, chord_tpu) {diff}'}")
+    if str(i) in rec["images"]:
+        g = cs.image_gates(img, cs.read_png(
+            os.path.join(goldens, rec["images"][str(i)])))
+        line += f"; image {json.dumps(g)}"
+        if save:
+            from PIL import Image
+
+            os.makedirs(save, exist_ok=True)
+            Image.fromarray(img).save(
+                os.path.join(save, f"port_{cell}_f{i:02d}.png"))
+    print(line, flush=True)
 
 
 def _diff(a, b) -> str:
@@ -155,17 +205,32 @@ def dump(cell: str, n: int | None, device: str, out: str, keep) -> None:
     configs and history, one frame a run_path call); after each frame in
     `keep`, its image and history leaves (HISTORY_LEAVES but the shadow
     maps and the TSR colour, tens of MB a frame) go to OUT/frame_NN.npz,
-    for `history --port-dump OUT`. Imports no JAX: it runs where the card
-    is."""
+    for `history --port-dump OUT`. A strip cell runs its STRIP_RANKS
+    ranks (spawn_strips; strip_dump_rank writes every frame's image and
+    the kept frames' leaves per rank). Imports no JAX: it runs where the
+    card is."""
     import torch
 
     import chip_smoke as cs
 
     d = torch.device(device)
+    os.makedirs(out, exist_ok=True)
+    if cell in cs.SHARDED_FROM:
+        from chord_tpu_torch.parallel.sharded import spawn_strips
+
+        job = cs.strip_job(cell, cs.bench_scenes(
+            d, cs.scene_paths([cs.SHARDED_FROM[cell]])))
+        insts = job.instances
+        job = job._replace(uniforms=list(job.uniforms[:n or 8]),
+                           instances=(insts[:n or 8] if isinstance(
+                               insts, list) else insts))
+        spawn_strips(cs.STRIP_RANKS, strip_dump_rank, job, out, keep,
+                     device="cpu" if d.type == "cpu" else None,
+                     timeout_s=3600)
+        return
     scene = cs.bench_scenes(d, cs.scene_paths([cell]))[cell]
     config, mcfg = cs.configs(cell, scene[3])
     hist = cs.history(config, mcfg, d)
-    os.makedirs(out, exist_ok=True)
     for i in range(n or 8):
         img, hist, _ = cs.run_path(cell, scene, config, mcfg, hist, i, i + 1)
         if keep is None or i in keep:
@@ -175,6 +240,32 @@ def dump(cell: str, n: int | None, device: str, out: str, keep) -> None:
                                 image=img[0].cpu().numpy(), **leaves)
         print(f"{cell} frame {i} on {device}: dumped "
               f"{keep is None or i in keep}", flush=True)
+
+
+def strip_dump_rank(rank: int, device, job, out: str, keep) -> None:
+    """A rank of `dump` on a strip cell (spawn_strips' function; this
+    module imports no JAX): the job's frames through ShardedRenderer;
+    after each frame rank 0 writes the gathered image to
+    OUT/frame_NN.npz and, on a frame in `keep` (None: every frame), each
+    rank its strip's history leaves (as `dump`) to
+    OUT/frame_NN_rankR.npz."""
+    from chord_tpu_torch.parallel.sharded import ShardedRenderer, load_job
+
+    r = ShardedRenderer(job.config, path=job.path, mcfg=job.mcfg,
+                        device=device)
+    pools, insts, bvh, luts = load_job(job, device)
+    for i, (u, inst) in enumerate(zip(job.uniforms, insts)):
+        img, _ = r.render(pools, inst, u, bvh=bvh, luts=luts,
+                          **(job.light_kwargs or {}))
+        if rank == 0:
+            np.savez_compressed(os.path.join(out, f"frame_{i:02d}.npz"),
+                                image=img.numpy())
+        if keep is None or i in keep:
+            leaves = {k: v for k, v in _leaves(r.history).items()
+                      if k not in ("shadow_maps", "tsr_color")}
+            np.savez_compressed(
+                os.path.join(out, f"frame_{i:02d}_rank{rank}.npz"), **leaves)
+        print(f"strip {rank} frame {i} on {device}: dumped", flush=True)
 
 
 # the DDGI update and the specular GI chain, as renderer/meshlet_frame.py
@@ -212,7 +303,8 @@ def _tensors(x) -> list:
     return []
 
 
-def devdiff(cell: str, frame: int, device: str, funcs) -> None:
+def devdiff(cell: str, frame: int, device: str, funcs,
+            save: str | None = None) -> None:
     """Device against CPU, function by function (no JAX: for the card):
     the port renders frames 0..FRAME of a cell on `device`; in frame FRAME
     every call of `funcs` (DEVDIFF_FUNCS by default: the DDGI update and
@@ -220,19 +312,51 @@ def devdiff(cell: str, frame: int, device: str, funcs) -> None:
     recorded with its inputs and outputs, then rerun on CPU copies of its
     inputs, and each output is compared: a function whose device result
     differs from its CPU result on the same inputs is where the two
-    devices part."""
+    devices part. A strip cell records on every rank
+    (strip_devdiff_rank); `save` DIR then receives each rank's recorded
+    outputs (DIR/devdiff_rankR.npz, `NN_function_outJ`), to hold one
+    device's run against another's."""
     import torch
 
     import chip_smoke as cs
-    from chord_tpu_torch.renderer import meshlet_frame as mf
 
     d = torch.device(device)
+    if cell in cs.SHARDED_FROM:
+        from chord_tpu_torch.parallel.sharded import spawn_strips
+
+        job = cs.strip_job(cell, cs.bench_scenes(
+            d, cs.scene_paths([cs.SHARDED_FROM[cell]])))
+        job = job._replace(uniforms=list(job.uniforms[:frame + 1]))
+        ranks = spawn_strips(cs.STRIP_RANKS, strip_devdiff_rank, job, frame,
+                             funcs, save, device="cpu" if d.type == "cpu"
+                             else None, timeout_s=3600)
+        for rank, lines in enumerate(ranks):
+            print(f"{cell} strip {rank} frame {frame}: {len(lines)} "
+                  f"outputs, {device} against the CPU on the same inputs")
+            print("\n".join(lines), flush=True)
+        return
     scene = cs.bench_scenes(d, cs.scene_paths([cell]))[cell]
     config, mcfg = cs.configs(cell, scene[3])
     hist = cs.history(config, mcfg, d)
     if frame:
         hist = cs.run_path(cell, scene, config, mcfg, hist, 0, frame)[1]
-    calls, saved = [], []
+    calls = []
+    with _recording(funcs, calls):
+        cs.run_path(cell, scene, config, mcfg, hist, frame, frame + 1)
+    print(f"{cell} frame {frame}: {len(calls)} calls, {device} against the "
+          "CPU on the same inputs", flush=True)
+    for line in _rerun(calls):
+        print(line, flush=True)
+
+
+@contextlib.contextmanager
+def _recording(funcs, calls: list):
+    """Inside: every call of `funcs` (renderer/meshlet_frame.py's module
+    alias.function) appends (name, function, CPU copies of its inputs, of
+    its outputs) to `calls`."""
+    from chord_tpu_torch.renderer import meshlet_frame as mf
+
+    saved = []
     for name in funcs:
         alias, fn = name.split(".")
         owner = mf if alias == "mf" else getattr(mf, alias)
@@ -247,12 +371,16 @@ def devdiff(cell: str, frame: int, device: str, funcs) -> None:
             return out
         setattr(owner, fn, wrapped)
     try:
-        cs.run_path(cell, scene, config, mcfg, hist, frame, frame + 1)
+        yield
     finally:
         for owner, fn, f in saved:
             setattr(owner, fn, f)
-    print(f"{cell} frame {frame}: {len(calls)} calls, {device} against the "
-          "CPU on the same inputs", flush=True)
+
+
+def _rerun(calls) -> list:
+    """Each recorded call rerun on its CPU inputs: a line per output, the
+    recorded output against the rerun's."""
+    lines = []
     for name, f, a, kw, out in calls:
         ref = f(*a, **kw)
         for j, (x, y) in enumerate(zip(_tensors(out), _tensors(ref))):
@@ -260,8 +388,34 @@ def devdiff(cell: str, frame: int, device: str, funcs) -> None:
             x, y = x.numpy(), y.cpu().numpy()
             if x.dtype == bool:
                 x, y = x.astype(np.int8), y.astype(np.int8)
-            print(f"  {name} out {j} {x.shape} {_diff(x, y)}{where}",
-                  flush=True)
+            lines.append(f"  {name} out {j} {x.shape} {_diff(x, y)}{where}")
+    return lines
+
+
+def strip_devdiff_rank(rank: int, device, job, frame: int, funcs,
+                       save: str | None = None) -> list:
+    """A rank of `devdiff` on a strip cell (spawn_strips' function): the
+    job's frames through ShardedRenderer, `funcs` recorded in frame FRAME
+    (their outputs written to SAVE/devdiff_rankR.npz) and rerun on the
+    CPU -> the comparison's lines."""
+    from chord_tpu_torch.parallel.sharded import ShardedRenderer, load_job
+
+    r = ShardedRenderer(job.config, path=job.path, mcfg=job.mcfg,
+                        device=device)
+    pools, insts, bvh, luts = load_job(job, device)
+    calls = []
+    for i, (u, inst) in enumerate(zip(job.uniforms, insts)):
+        with _recording(funcs if i == frame else (), calls):
+            r.render(pools, inst, u, bvh=bvh, luts=luts,
+                     **(job.light_kwargs or {}))
+    if save:
+        os.makedirs(save, exist_ok=True)
+        np.savez_compressed(
+            os.path.join(save, f"devdiff_rank{rank}.npz"),
+            **{f"{n:02d}_{name}_out{j}": x.numpy()
+               for n, (name, _, _, _, out) in enumerate(calls)
+               for j, x in enumerate(_tensors(out))})
+    return _rerun(calls)
 
 
 def history(cell: str, n: int | None, port_dump: str | None = None) -> None:
@@ -558,6 +712,10 @@ def main(argv) -> int:
     ap.add_argument("--frames", type=int)
     ap.add_argument("--save", help="frames: write the port's kept frames "
                     "to this directory")
+    ap.add_argument("--timeout", type=float, default=14400.0,
+                    help="frames of a strip cell: the ranks' deadline in "
+                    "seconds (spawn_strips' default of 600 is too short "
+                    "for bench-size frames on the CPU)")
     ap.add_argument("--no-fma", action="store_true")
     ap.add_argument("--port-dump", help="history: the port's side from a "
                     "`dump` directory (rendered on the card) instead of "
@@ -566,7 +724,9 @@ def main(argv) -> int:
                     "device")
     ap.add_argument("--funcs", help="devdiff: module alias.function, "
                     "comma-separated (default the specular chain)")
-    ap.add_argument("--out", help="dump: the directory written")
+    ap.add_argument("--out", help="dump: the directory written; devdiff "
+                    "of a strip cell: where each rank's recorded outputs "
+                    "go")
     ap.add_argument("--keep", help="dump: the frames written, e.g. 0,1,7 "
                     "(default every frame)")
     args = ap.parse_args(argv[1:])
@@ -578,12 +738,14 @@ def main(argv) -> int:
              "--xla_cpu_max_isa=SSE4_2"]).strip()
     sys.path[:0] = [HERE, REPO]
     if args.mode == "frames":
-        frames(args.cell, args.goldens, args.frames, args.save)
+        frames(args.cell, args.goldens, args.frames, args.save,
+               args.timeout)
     elif args.mode == "history":
         history(args.cell, args.frames, args.port_dump)
     elif args.mode == "devdiff":
         devdiff(args.cell, int(args.frame), args.device,
-                args.funcs.split(",") if args.funcs else DEVDIFF_FUNCS)
+                args.funcs.split(",") if args.funcs else DEVDIFF_FUNCS,
+                args.out)
     elif args.mode == "dump":
         dump(args.cell, args.frames, args.device, args.out,
              None if args.keep is None else

@@ -1,20 +1,24 @@
 """The bench-size goldens (tests/goldens/bench/) and what chip_smoke.py
 holds to them, checked without rendering a frame.
 
-tests/bench_goldens.py renders chord_tpu's frames of six bench.py
-commands on the CPU (`off`, BASELINE #3 `nanite`, BASELINE #4 `interior`
-and the textured rungs `geo_tex`, `geo_shadow_atmo`, `all`) and of five
-of chip_smoke.py's frame paths (BASELINE #1 `flat`, `all_ddgi`,
-`geo_tex_native`, `geo_shadow_atmo_split`, `off_no_occlusion`) and
-records them with their configs and per-frame stats; chip_smoke.py's
-phase 13 holds the port's frames on the card to them. Here: the
-generator's configs and camera path are chip_smoke's (field for field,
-views within f32 rounding; `flat`'s per-frame instance tables and the
-instance table `all_ddgi`'s BVH is built from equal), the manifest
-matches its PNGs and the checkout's chord_tpu sources, chip_smoke's `off`
-scene is bench.py's build, its image gates are chord_tpu's, and phase 13
-itself passes on the goldens' own images and fails on a config that is
-not the manifest's or on a stat that differs.
+tests/bench_goldens.py renders chord_tpu's frames of seven bench.py
+commands on the CPU (`off`, BASELINE #3 `nanite`, BASELINE #4 `interior`,
+the textured rungs `geo_tex`, `geo_shadow_atmo`, `all` and BASELINE #5
+`all_4k`) and of ten of chip_smoke.py's paths (BASELINE #1 `flat`,
+`all_ddgi`, `geo_tex_native`, `geo_shadow_atmo_split`,
+`off_no_occlusion`, `all_cache`, `geo_tex_bricks`, `all_no_rt` and the
+strip frames `sharded_all`, `sharded_flat`) and records them with their
+configs, histories and per-frame stats; chip_smoke.py's phase 13 holds
+the port's frames on the card to them. Here: the generator's configs,
+histories and camera path are chip_smoke's (field for field, leaf shapes
+equal, views within f32 rounding; `flat`'s per-frame instance tables and
+the instance table `all_ddgi`'s BVH is built from equal; the strip
+goldens' strip count, strip config and per-strip history the port's
+ShardedRenderer's), the manifest matches its PNGs and the checkout's
+chord_tpu sources, chip_smoke's `off` scene is bench.py's build, its
+image gates are chord_tpu's, and phase 13 itself passes on the goldens'
+own images and fails on a config that is not the manifest's, on a strip
+count or on a stat that differs.
 """
 
 import dataclasses
@@ -41,16 +45,63 @@ PATHS = {"off": ("off", 1920, 1080), "nanite": ("off", 1920, 1080),
          "all_ddgi": ("all", 1920, 1080),
          "geo_tex_native": ("geo_tex", 1920, 1080),
          "geo_shadow_atmo_split": ("geo_shadow_atmo", 1920, 1080),
-         "off_no_occlusion": ("off", 1920, 1080)}
+         "off_no_occlusion": ("off", 1920, 1080),
+         "all_cache": ("all", 1920, 1080),
+         "geo_tex_bricks": ("geo_tex", 1920, 1080),
+         "all_no_rt": ("all", 1920, 1080),
+         "sharded_all": ("all", 1920, 1080),
+         "sharded_flat": (None, 1920, 1080)}
 SCENE = {"off": "bistro", "nanite": "nanite", "interior": "interior",
          "all_4k": "bistro", "geo_tex": "bistro", "geo_shadow_atmo": "bistro",
          "all": "bistro", "flat": "sponza", "all_ddgi": "bistro",
          "geo_tex_native": "bistro", "geo_shadow_atmo_split": "bistro",
-         "off_no_occlusion": "bistro"}
+         "off_no_occlusion": "bistro", "all_cache": "bistro",
+         "geo_tex_bricks": "bistro", "all_no_rt": "bistro",
+         "sharded_all": "bistro", "sharded_flat": "sponza"}
 # each cell's render size and pair, big-window and draw capacities
 SIZES = {c: (1280, 720, 8192, 64, 2048) for c in bg.CELLS}
 SIZES.update(flat=(1920, 1080, 16384, 128, None),
-             geo_tex_native=(1920, 1080, 8192, 64, 2048))
+             sharded_flat=(1920, 1080, 16384, 128, None),
+             geo_tex_native=(1920, 1080, 8192, 64, 2048),
+             sharded_all=(1920, 1080, 8192, 64, 2048),
+             all_4k=(2560, 1440, 24576, 128, 4096))
+STRIPS = ("sharded_all", "sharded_flat")
+
+
+def smoke_configs(cell, blend_textured):
+    """chip_smoke's configs of a cell's path (a strip path's
+    sharded_configs)."""
+    return (chip_smoke.sharded_configs if cell in STRIPS
+            else chip_smoke.configs)(cell, blend_textured)
+
+
+_PNGS, _GATES = {}, {}
+
+
+@pytest.fixture(autouse=True)
+def _gates_once(monkeypatch):
+    """chip_smoke's PNG reads and image gates, each image pair computed
+    once in this module (the phase 13 cases hold the same goldens to
+    themselves again and again; a 1080p pair takes ~1 s)."""
+    import hashlib
+
+    read, gates = chip_smoke.read_png, chip_smoke.image_gates
+
+    def read_once(path):
+        if path not in _PNGS:
+            _PNGS[path] = read(path)
+        return _PNGS[path].copy()
+
+    def gates_once(img, ref):
+        key = tuple(hashlib.sha256(np.ascontiguousarray(x).tobytes())
+                    .hexdigest() for x in (img, ref)) + (img.shape,
+                                                         ref.shape)
+        if key not in _GATES:
+            _GATES[key] = gates(img, ref)
+        return dict(_GATES[key])
+
+    monkeypatch.setattr(chip_smoke, "read_png", read_once)
+    monkeypatch.setattr(chip_smoke, "image_gates", gates_once)
 
 
 @pytest.fixture(scope="module")
@@ -85,8 +136,7 @@ def test_generator_configs_are_chip_smokes(cell, blend):
     assert jcfg.interpret
     if cell in bg.CELLS and features is not None:
         assert bg.CELLS[cell]["features"] == features
-    config, mcfg = chip_smoke.configs("all_4k" if cell == "all_4k"
-                                      else cell, blend[cell])
+    config, mcfg = smoke_configs(cell, blend[cell])
     for j, t in ((jcfg, config), (jmcfg, mcfg)):
         assert json.loads(json.dumps(chip_smoke.config_dict(t))) == \
             json.loads(json.dumps(chip_smoke.config_dict(j)))
@@ -205,9 +255,11 @@ def test_manifest_matches_its_pngs(manifest):
         assert rec["frames_rendered"] == spec["frames"]
         assert len(rec["stats"]) == len(rec["seconds"]) == spec["frames"]
         assert sorted(map(int, rec["images"])) == list(spec["keep"])
+        size = (spec.get("height", 1080), spec.get("width", 1920))
+        assert (rec["height"], rec["width"]) == size
         for i, name in rec["images"].items():
-            img = np.asarray(Image.open(os.path.join(bg.OUT_DIR, name)))
-            assert img.shape == (1080, 1920, 3) and img.dtype == np.uint8
+            img = chip_smoke.read_png(os.path.join(bg.OUT_DIR, name))
+            assert img.shape == size + (3,) and img.dtype == np.uint8
             assert img.std() > 1.0, name
         for st in rec["stats"]:
             assert st["drawn_tris"] > 0
@@ -227,6 +279,25 @@ def test_chip_smoke_gates_are_test_goldens(seed):
     b = np.clip(a.astype(int) + noise, 0, 255).astype(np.uint8)
     assert chip_smoke.ssim(a, b) == ssim(a, b) < 1.0
     assert chip_smoke.windowed_ssim(a, b) == windowed_ssim(a, b) < 1.0
+    ws, y, x = chip_smoke.worst_window(a, b)
+    assert ws == windowed_ssim(a, b)
+    assert chip_smoke.ssim(a[y:y + 16, x:x + 16],
+                           b[y:y + 16, x:x + 16]) == pytest.approx(ws)
+
+
+@pytest.mark.parametrize("share", [0.0, 0.002, 1.0])
+def test_worst_window_is_the_loops(share):
+    """chip_smoke's worst_window (all windows at once, then the loop on
+    the least ones) gives the loop's value and place to the bit, on a
+    golden held to itself (windows tied at 1 up to rounding), with a few
+    pixels changed, and with every pixel changed."""
+    a = np.asarray(Image.open(os.path.join(bg.OUT_DIR, "all_f07.png")))
+    a = a[400:720, 1200:1600]
+    rng = np.random.default_rng(7)
+    b = a.copy()
+    m = rng.random(a.shape[:2]) < share
+    b[m] = np.clip(b[m].astype(int) + rng.integers(-2, 3, (m.sum(), 3)),
+                   0, 255).astype(np.uint8)
     ws, y, x = chip_smoke.worst_window(a, b)
     assert ws == windowed_ssim(a, b)
     assert chip_smoke.ssim(a[y:y + 16, x:x + 16],
@@ -297,7 +368,8 @@ def test_phase13_passes_on_the_goldens_and_fails_on_a_difference(
 
 
 NEW_CELLS = ("flat", "all_ddgi", "geo_tex_native", "geo_shadow_atmo_split",
-             "off_no_occlusion")
+             "off_no_occlusion", "all_4k", "all_cache", "geo_tex_bricks",
+             "all_no_rt", "sharded_all", "sharded_flat")
 
 
 @pytest.mark.parametrize("cell", NEW_CELLS)
@@ -313,7 +385,7 @@ def test_phase13_fails_on_a_new_cells_config_or_stat(cell, manifest, blend,
     out = chip_smoke.bench_goldens(kept, blend, "cpu")
     assert out[f"{cell}_stats_differ"] == {}
     with monkeypatch.context() as m:
-        if cell == "flat":
+        if cell in ("flat", "sharded_flat"):
             m.setattr(chip_smoke, "FLAT_PAIRS", 8192)
             want = "renderer_config"
             other = blend
@@ -328,3 +400,64 @@ def test_phase13_fails_on_a_new_cells_config_or_stat(cell, manifest, blend,
     stats[key] = stats[key][:last] + [stats[key][last] - 1]
     with pytest.raises(AssertionError, match="stats differ"):
         chip_smoke.bench_goldens(kept, blend, "cpu")
+
+
+def test_phase13_fails_on_a_strip_count_the_goldens_do_not_have(
+        manifest, blend, monkeypatch):
+    """A strip golden is held only to frames of as many strips as it was
+    rendered in: four ranks fail on the strip count."""
+    monkeypatch.setattr(chip_smoke, "GOLDEN_FRAMES",
+                        {"sharded_all": chip_smoke.GOLDEN_FRAMES[
+                            "sharded_all"]})
+    kept = _kept(manifest)
+    chip_smoke.bench_goldens(kept, blend, "cpu")
+    monkeypatch.setattr(chip_smoke, "STRIP_RANKS", 4)
+    with pytest.raises(AssertionError, match="strips"):
+        chip_smoke.bench_goldens(kept, blend, "cpu")
+
+
+def _shapes(hist) -> dict:
+    return {k: list(v.shape) for k, v in
+            sorted(chip_smoke.history_leaves(hist).items())}
+
+
+@pytest.mark.parametrize("cell", [c for c in bg.CELLS if c not in STRIPS])
+def test_golden_history_is_chip_smokes(cell, manifest, blend):
+    """Each one-card golden's fresh history (bench_goldens.cell_history,
+    as chord_tpu's MeshletRenderer builds it: screen probes in probe mode
+    only) has the leaf shapes of chip_smoke.history for the path, and of
+    the history the golden was rendered with where the manifest records
+    it."""
+    jcfg, jmcfg = bg.cell_configs(cell, blend[cell])
+    config, mcfg = chip_smoke.configs(cell, blend[cell])
+    want = _shapes(chip_smoke.history(config, mcfg, "cpu"))
+    assert bg.history_shapes(bg.cell_history(cell, jcfg, jmcfg)) == want
+    if "history" in manifest["cells"][cell]:
+        assert manifest["cells"][cell]["history"] == want
+    if cell == "all_cache":     # no screen probes in cache mode
+        assert want["probe_sh"][:2] == want["probe_depth"] == [1, 1]
+
+
+@pytest.mark.parametrize("cell", STRIPS)
+def test_strip_goldens_are_the_ports_strips(cell, manifest, blend,
+                                            monkeypatch):
+    """The strip goldens were rendered in chip_smoke's strip count, with
+    the strip config and the per-strip history shapes of the port's
+    ShardedRenderer on sharded_configs' config (a rank of STRIP_RANKS)."""
+    import chord_tpu_torch.parallel.sharded as sharded
+
+    rec = manifest["cells"][cell]
+    n = chip_smoke.STRIP_RANKS
+    assert rec["strips"] == bg.CELLS[cell]["strips"] == n
+    assert f"--xla_force_host_platform_device_count={n}" in rec["xla_flags"]
+    config, mcfg = chip_smoke.sharded_configs(cell, blend[cell])
+    monkeypatch.setattr(sharded.dist, "get_world_size", lambda g=None: n)
+    monkeypatch.setattr(sharded.dist, "get_rank", lambda g=None: 0)
+    monkeypatch.setattr(sharded, "reduces_on_host", lambda g: True)
+    r = sharded.ShardedRenderer(config, group=object(),
+                                path="flat" if mcfg is None else "meshlet",
+                                mcfg=mcfg, device="cpu")
+    assert rec["strip_config"] == json.loads(json.dumps(
+        chip_smoke.config_dict(r.strip_config)))
+    assert r.strip_config.height * n == config.height
+    assert rec["history"] == _shapes(r._empty_history())

@@ -126,8 +126,11 @@ def test_octahedral_dirs_and_jitter_rotation_match():
         np.testing.assert_array_equal(sp._octahedral_dirs(n),
                                       jsp._octahedral_dirs(n))
     for f in (0, 7, 40):
-        _close(sp._jitter_rotation(torch.tensor(f, dtype=torch.int32)),
-               jsp._jitter_rotation(jnp.int32(f)), atol=1e-6)
+        # the port's frame ray table: the octahedral set times the
+        # jitter rotation, built on the host
+        want = jsp._octahedral_dirs(4) @ np.asarray(
+            jsp._jitter_rotation(jnp.int32(f))).T
+        _close(torch.from_numpy(sp.ray_table(f, 16)), want, atol=1e-6)
 
 
 @pytest.mark.parametrize("frame", [0, 3, 13, 70])
