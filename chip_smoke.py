@@ -282,7 +282,13 @@ Phases (any failure raises and the script exits non-zero):
    MAE < 2, worst 16x16 window >= 0.95). The manifest must exist, come from the
    checkout's chord_tpu sources (sha256) and hold the path's configs
    field for field; each frame's stats are printed beside chord_tpu's and
-   held equal to them.
+   held equal to them. Then the ray cell `all_exact_rays` (GOLDEN_RAYS;
+   recorded by tests/bench_parity.py `rays`, traced by chord_tpu in
+   tests/bench_goldens.py): the triangle BVH phase 5 built for
+   `all_exact` must hash as chord_tpu's, and 4,096 rays of each of its
+   frame 0's six rt.trace calls, traced on the card over it (the scan at
+   its default budget), must give chord_tpu's leaf and t bit for bit on
+   every ray.
 
 Phases 4-5 run per one-process frame path (the split's launches must
 equal the inline path's), then 6 to 10, 12, 11 and 13. The line before the last
@@ -2282,6 +2288,19 @@ def image_gates(img, ref) -> dict:
                 worst_window_ssim=ws, worst_window_at=[y, x])
 
 
+def bench_manifest() -> dict:
+    """The bench goldens' manifest; it must come from the checkout's
+    chord_tpu sources."""
+    with open(os.path.join(BENCH_GOLDEN_DIR, "manifest.json")) as f:
+        man = json.load(f)
+    sha = chord_tpu_hash(REPO)
+    if man["chord_tpu_sha256"] != sha:
+        raise AssertionError(f"the bench goldens were rendered from chord_tpu "
+                             f"sources {man['chord_tpu_sha256']}, the "
+                             f"checkout's are {sha}")
+    return man
+
+
 def bench_goldens(kept: dict, blend: dict, card: str) -> dict:
     """Phase 13: the GOLDEN_FRAMES of each cell held to chord_tpu's with
     its three gates (SSIM >= 0.99, MAE < 2, worst window >= 0.95); a
@@ -2291,13 +2310,7 @@ def bench_goldens(kept: dict, blend: dict, card: str) -> dict:
     STRIP_RANKS strips of its strip config). Each frame's stats (those
     both packages make) held equal to chord_tpu's. -> numbers per
     image."""
-    with open(os.path.join(BENCH_GOLDEN_DIR, "manifest.json")) as f:
-        man = json.load(f)
-    sha = chord_tpu_hash(REPO)
-    if man["chord_tpu_sha256"] != sha:
-        raise AssertionError(f"the bench goldens were rendered from chord_tpu "
-                             f"sources {man['chord_tpu_sha256']}, the "
-                             f"checkout's are {sha}")
+    man = bench_manifest()
     out = {}
     for path in GOLDEN_FRAMES:
         cell = man["cells"][path]
@@ -2357,6 +2370,93 @@ def bench_goldens(kept: dict, blend: dict, card: str) -> dict:
         if differ:
             raise AssertionError(f"bench golden {path}: stats differ on "
                                  f"{differ}")
+    return out
+
+
+# phase 13's ray cells: a frame path's bench-size traces held ray for ray
+# to chord_tpu's (tests/bench_parity.py `rays` records a subset of the rays
+# of each rt.trace call of the port's CPU frame 0; tests/bench_goldens.py
+# traces them through chord_tpu's own BVH of the same scene): cell -> path
+GOLDEN_RAYS = {"all_exact_rays": "all_exact"}
+BVH_ARRAYS = ("node_sphere", "node_count", "node_leaf", "tri_planes",
+              "leaf_sphere")
+
+
+def bvh_hashes(bvh) -> dict:
+    """{array: {sha256, shape, dtype}} of a SceneBVH's BVH_ARRAYS (either
+    package's: tensors on any device, or arrays)."""
+    import hashlib
+
+    import numpy as np
+
+    out = {}
+    for name in BVH_ARRAYS:
+        x = getattr(bvh, name)
+        x = np.ascontiguousarray(x.detach().cpu().numpy()
+                                 if hasattr(x, "detach") else np.asarray(x))
+        out[name] = dict(sha256=hashlib.sha256(x.tobytes()).hexdigest(),
+                         shape=list(x.shape), dtype=str(x.dtype))
+    return out
+
+
+def hold_rays(cell: str, bvh, card: str) -> dict:
+    """Phase 13's ray cell `cell`: the BVH of its path (built on the card
+    in phase 5, or on the CPU) must hash as chord_tpu's did (BVH_ARRAYS),
+    and each recorded call's rays, traced through rt.trace over it (the
+    BVH scan at its default budget), must give chord_tpu's leaf and
+    chord_tpu's t to the bit on every ray; prints each call's rays, hit
+    share and rays that differ; a differing ray or hash fails. -> numbers
+    per call."""
+    import numpy as np
+    import torch
+
+    from chord_tpu_torch.ops import rt
+
+    man = bench_manifest()
+    rec = man["rays"][cell]
+    if rec["path"] != GOLDEN_RAYS[cell]:
+        raise AssertionError(f"ray golden {cell}: recorded on {rec['path']}")
+    got = bvh_hashes(bvh)
+    off = sorted(k for k in BVH_ARRAYS if got[k] != rec["bvh"][k])
+    shapes = ", ".join(f"{k} {tuple(got[k]['shape'])}" for k in BVH_ARRAYS)
+    log(f"ray golden {cell}: the {rec['path']} BVH's arrays ({shapes}) "
+        + (f"differ from chord_tpu's in {off}" if off else
+           "hash as chord_tpu's"))
+    if off:
+        raise AssertionError(f"ray golden {cell}: BVH arrays {off} differ "
+                             "from chord_tpu's")
+    data = np.load(os.path.join(BENCH_GOLDEN_DIR, rec["file"]))
+    dev = bvh.node_sphere.device
+    out, bad = {}, []
+    for k, name in enumerate(data["calls"].tolist()):
+        o = torch.from_numpy(data["origins"][k]).to(dev)
+        d = torch.from_numpy(data["dirs"][k]).to(dev)
+        dense, steps = rt.trace.dense, rt.scan_steps
+        t, leaf = rt.trace(o, d, bvh, float(data["t_max"][k]))
+        if rt.trace.dense != dense:
+            raise AssertionError(f"ray golden {cell} {name}: rt.trace took "
+                                 "the dense route")
+        t, leaf = t.cpu().numpy(), leaf.cpu().numpy()
+        want_t, want_leaf = data["t"][k], data["leaf"][k]
+        leaf_off = leaf != want_leaf
+        t_off = t.view(np.int32) != want_t.view(np.int32)
+        row = dict(rays=int(leaf.size), hit_share=float((leaf >= 0).mean()),
+                   chord_tpu_hit_share=float((want_leaf >= 0).mean()),
+                   scan_steps=rt.scan_steps - steps,
+                   leaf_differ=int(leaf_off.sum()), t_differ=int(t_off.sum()),
+                   differ=int((leaf_off | t_off).sum()))
+        log(f"ray golden {cell} call {name} (t_max {float(data['t_max'][k]):g})"
+            f" on {card}: {row['rays']} rays, hit share "
+            f"{row['hit_share']:.5f} (chord_tpu {row['chord_tpu_hit_share']:.5f}"
+            f"), {row['scan_steps']} scan steps, rays that differ "
+            f"{row['differ']} (leaf {row['leaf_differ']}, t bits "
+            f"{row['t_differ']})")
+        out[f"{cell}_{name}"] = row
+        if row["differ"]:
+            bad.append(name)
+    if bad:
+        raise AssertionError(f"ray golden {cell}: rays differ from "
+                             f"chord_tpu's on calls {bad}")
     return out
 
 
@@ -3043,6 +3143,8 @@ def main() -> int:
     if path_launches[SPLIT] != path_launches["geo_shadow_atmo"]:
         raise AssertionError(f"{SPLIT} launched {path_launches[SPLIT]}, the "
                              f"inline path {path_launches['geo_shadow_atmo']}")
+    # phase 13's ray cells trace over the BVHs phase 5 built
+    ray_bvhs = {c: scenes[p][4] for c, p in GOLDEN_RAYS.items()}
     blend = {p: scenes[p][3] for p in kept}
     blend.update({p: scenes[src][3] for p, src in SHARDED_FROM.items()})
     tool_phase = {"repro_eval": lambda: repro_eval_path(dev, smi),
@@ -3072,6 +3174,9 @@ def main() -> int:
         rows += list(krows.values())
     t0 = time.time()
     bench_golden = bench_goldens(kept, blend, smi)
+    for c, bvh in ray_bvhs.items():
+        bench_golden.update(hold_rays(c, bvh, smi))
+    del ray_bvhs
     log(f"phase 13 in {time.time() - t0:.1f} s")
     log(f"chip_smoke: all phases passed in {time.time() - t_start:.1f} s")
     print(json.dumps({"tools": tools, "goldens": golden,

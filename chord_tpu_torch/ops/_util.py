@@ -45,6 +45,38 @@ def sqrt_rn(x: torch.Tensor) -> torch.Tensor:
     return torch.sqrt(x)
 
 
+def jitter_rays(base: np.ndarray, frame: int, tilt: float) -> np.ndarray:
+    """A frame's ray set (R,3) f32: `base` (R,3) rotated by the frame's
+    jitter, base @ (Rz(a) Rx(b))^T with the golden-angle azimuth
+    a = f32(frame) * f32(2.3999632297286533) and b = f32(frame) *
+    f32(tilt), rounded as chord_tpu's compiled _jitter_rotation and its
+    product round it without FMA, and the same on every device: computed
+    on the host, the angles' cos and sin in f64 rounded to f32, every
+    product of the 3x3 rotations summed (p0 + p1) + p2, one rounding an
+    operation (a device's matmul and trig round otherwise)."""
+    f32 = np.float32
+    a = f32(frame) * f32(2.3999632297286533)
+    b = f32(frame) * f32(tilt)
+    ca, sa = f32(np.cos(np.float64(a))), f32(np.sin(np.float64(a)))
+    cb, sb = f32(np.cos(np.float64(b))), f32(np.sin(np.float64(b)))
+    rz = np.array([[ca, -sa, 0.0], [sa, ca, 0.0], [0.0, 0.0, 1.0]], f32)
+    rx = np.array([[1.0, 0.0, 0.0], [0.0, cb, -sb], [0.0, sb, cb]], f32)
+    rot = (rz[:, 0, None] * rx[0] + rz[:, 1, None] * rx[1]) + \
+        rz[:, 2, None] * rx[2]
+    base = np.asarray(base, f32)
+    return ((base[:, 0, None] * rot[:, 0] + base[:, 1, None] * rot[:, 1])
+            + base[:, 2, None] * rot[:, 2])
+
+
+def host_table(table: np.ndarray, device) -> torch.Tensor:
+    """A host table on `device` by a pinned, non-blocking copy: no
+    synchronisation."""
+    t = torch.from_numpy(table)
+    if torch.device(device).type == "cuda":
+        t = t.pin_memory()
+    return t.to(device, non_blocking=True)
+
+
 def bits_i32(x: torch.Tensor) -> torch.Tensor:
     """f32 / i32 -> int32 bit pattern (no conversion)."""
     return x.contiguous().view(torch.int32) if x.dtype != torch.int32 else x

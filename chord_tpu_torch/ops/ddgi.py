@@ -18,8 +18,9 @@ Chebyshev visibility.
 
 chord_tpu picks the frame's (cascade, phase) slice by a dynamic slice on
 the traced frame counter; here the host's `frame_index` picks it (as the
-world cache's cascade, ops/gi.py), and the rotation reads the device
-counter.
+world cache's cascade, ops/gi.py), and the same index builds the frame's
+rotated ray set on the host (ray_table), which rounds as chord_tpu's
+compiled rotation does.
 """
 
 from __future__ import annotations
@@ -31,7 +32,7 @@ import numpy as np
 import torch
 
 from . import rt
-from ._util import const, f2i
+from ._util import const, f2i, host_table, jitter_rays
 from .post import upsample_nearest
 
 
@@ -143,23 +144,13 @@ def probe_grid_positions(cfg: DDGIConfig) -> np.ndarray:
     return g.reshape(-1, 3).astype(np.float32)
 
 
-def _jitter_rotation(frame_count: torch.Tensor) -> torch.Tensor:
-    """The frame's 3x3 rotation of the ray set (golden-angle azimuth, a
-    tilt of 1.7 rad a frame), from the device counter."""
-    f = frame_count.float()
-    a = f * 2.3999632297286533
-    b = f * 1.7
-    ca, sa = torch.cos(a), torch.sin(a)
-    cb, sb = torch.cos(b), torch.sin(b)
-    zero = torch.zeros((), device=f.device)
-    one = torch.ones((), device=f.device)
-    rz = torch.stack([torch.stack([ca, -sa, zero]),
-                      torch.stack([sa, ca, zero]),
-                      torch.stack([zero, zero, one])])
-    rx = torch.stack([torch.stack([one, zero, zero]),
-                      torch.stack([zero, cb, -sb]),
-                      torch.stack([zero, sb, cb])])
-    return rz @ rx
+def ray_table(frame: int, rays: int) -> np.ndarray:
+    """The frame's (R,3) f32 probe ray set: the Fibonacci rays rotated by
+    the frame's jitter (golden-angle azimuth a = 2.39996 f, tilt b = 1.7 f
+    about x: fib @ (Rz(a) Rx(b))^T, chord_tpu's _jitter_rotation), rounded
+    as chord_tpu's compiled update rounds it and the same on every device
+    (_util.jitter_rays)."""
+    return jitter_rays(spherical_fibonacci(rays), frame, 1.7)
 
 
 # --- update: trace -> relight -> convolve -> relocate ------------------------
@@ -183,9 +174,9 @@ def convolve_numpy(rad: np.ndarray, dist: np.ndarray, dirs: np.ndarray,
 @functools.lru_cache(maxsize=None)
 def _table(name: str, n, device) -> torch.Tensor:
     """A direction or position table of this module on `device`, made
-    once: octahedral texel dirs of side n, Fibonacci rays of count n, or
-    the probe grid of config n."""
-    make = {"texels": octahedral_texel_dirs, "rays": spherical_fibonacci,
+    once: octahedral texel dirs of side n, or the probe grid of config
+    n."""
+    make = {"texels": octahedral_texel_dirs,
             "grid": probe_grid_positions}[name]
     return torch.from_numpy(make(n)).to(device)
 
@@ -249,8 +240,9 @@ def ddgi_update(state: DDGIState, bvh: rt.SceneBVH,
                 ) -> DDGIState:
     """One frame's probe update of one (cascade, phase) slice
     (update_slice of `frame_index`, the host's copy of `frame_count`):
-    trace the rotated Fibonacci rays of each probe through the BVH
-    (t_max 1e6), shade hits (shade_hits with half the sky as ambient),
+    trace the frame's rotated Fibonacci rays (ray_table of `frame_index`,
+    copied pinned and without a synchronisation) of each probe through the
+    BVH (t_max 1e6), shade hits (shade_hits with half the sky as ambient),
     misses the sky times sky_leak, distances capped at 4 spacings;
     convolve, blend by the hysteresis (a never-traced probe takes the new
     texels whole), project to SH, and push a probe whose nearest hit lies
@@ -266,8 +258,7 @@ def ddgi_update(state: DDGIState, bvh: rt.SceneBVH,
     grid = _table("grid", cfg, dev)
     off = state.offset[cascade, sl]
     pos = grid[sl] * spacing + off                            # (Pp,3)
-    fib = _table("rays", cfg.rays, dev)
-    dirs = fib @ _jitter_rotation(frame_count).T              # (R,3)
+    dirs = host_table(ray_table(frame_index, cfg.rays), dev)  # (R,3)
     org = pos[:, None, :].expand(pp, cfg.rays, 3)
     dir_b = dirs[None].expand(pp, cfg.rays, 3)
     t, leaf = rt.trace(org, dir_b, bvh, t_max=1e6)            # (Pp,R)

@@ -19,9 +19,11 @@ leaves tests every ray against every leaf in 512-leaf chunks
 (`trace_dense`: two (R,3) @ (3,512) products a chunk), a triangle BVH of
 up to DENSE_TRI_LIMIT triangles every ray against every triangle
 (`trace_dense_tri`: six products a chunk); above them, the lock-step
-skip-pointer scan (`trace_bvh`). Plain matrix products, TF32 off as this
-package sets it. None of these has a Pallas kernel in chord_tpu, and
-none has a kernel here.
+skip-pointer scan (`trace_bvh`). Every 3-term dot of these tests, the
+products included, is summed (p0 + p1) + p2 and every root rounded to
+nearest, as chord_tpu's compiled tests are without FMA: a ray's hit is
+then the same on the card, the CPU and chord_tpu. None of these has a
+Pallas kernel in chord_tpu, and none has a kernel here.
 
 Hit distances are float32; a miss has leaf -1 and t = t_max.
 """
@@ -229,14 +231,23 @@ def build_scene_bvh(pools, instances, coarse_only: bool = True,
 build_scene_bvh.builder = None
 
 
+def _dot3(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The dot of the last (size 3) axes, broadcast, summed in order:
+    (a0 b0 + a1 b1) + a2 b2."""
+    return (a[..., 0] * b[..., 0] + a[..., 1] * b[..., 1]) + \
+        a[..., 2] * b[..., 2]
+
+
 def _ray_sphere(o: torch.Tensor, d: torch.Tensor, sph: torch.Tensor):
     """Entry distance of ray o + t*d into sphere (...,4) -> (hit, t_entry);
-    an origin inside gives t_entry = 0."""
+    an origin inside gives t_entry = 0. Each dot is summed (p0 + p1) + p2
+    and the root rounded to nearest (_util.sqrt_rn), as chord_tpu's
+    compiled _ray_sphere rounds them, on every device."""
     oc = o - sph[..., :3]
-    b = (oc * d).sum(-1)
-    c2 = (oc * oc).sum(-1) - sph[..., 3] * sph[..., 3]
+    b = _dot3(oc, d)
+    c2 = _dot3(oc, oc) - sph[..., 3] * sph[..., 3]
     disc = b * b - c2
-    sq = torch.sqrt(torch.clamp_min(disc, 0.0))
+    sq = sqrt_rn(torch.clamp_min(disc, 0.0))
     t_entry = torch.where(c2 < 0.0, torch.zeros((), device=o.device),
                           -b - sq)
     return (disc >= 0.0) & ((-b + sq) > 0.0), t_entry
@@ -287,8 +298,11 @@ def trace_dense_tri(origins: torch.Tensor, dirs: torch.Tensor,
     """Every ray against every triangle's Baldwin-Weber planes, `chunk`
     triangles at a time, keeping the running closest hit (the first
     triangle of a chunk on a tie, the earlier chunk across chunks). Each
-    per-ray term is an (R,3) @ (3,chunk) product, u = (o.n1) + t (d.n1) +
-    d1 in that association. Padding rows are all zero: d.n = 0, a miss."""
+    per-ray term is a dot of a ray with a chunk's plane, broadcast to
+    (R,chunk) and summed (p0 + p1) + p2 as chord_tpu's compiled
+    (R,3) @ (3,chunk) products are (a BLAS matmul sums otherwise), and
+    u = (o.n1) + t (d.n1) + d1 in that association. Padding rows are all
+    zero: d.n = 0, a miss."""
     shape = origins.shape[:-1]
     o = origins.reshape(-1, 3)
     d = dirs.reshape(-1, 3)
@@ -298,19 +312,20 @@ def trace_dense_tri(origins: torch.Tensor, dirs: torch.Tensor,
         planes = torch.cat([planes, torch.zeros((pad, 12),
                                                 dtype=planes.dtype,
                                                 device=dev)])
+    o3, d3 = o[:, None, :], d[:, None, :]
     one = torch.ones((), device=dev)
     inf = torch.full((), float("inf"), device=dev)
     t_best = torch.full((o.shape[0],), t_max, dtype=torch.float32, device=dev)
     leaf_best = torch.full((o.shape[0],), -1, dtype=torch.int32, device=dev)
     for base in range(0, planes.shape[0], chunk):
         pc = planes[base:base + chunk]
-        nrm, n1, n2 = pc[:, 0:3], pc[:, 4:7], pc[:, 8:11]
-        den = d @ nrm.T                                   # (R,chunk)
-        num = -(o @ nrm.T + pc[:, 3][None, :])
+        nrm, n1, n2 = pc[None, :, 0:3], pc[None, :, 4:7], pc[None, :, 8:11]
+        den = _dot3(d3, nrm)                              # (R,chunk)
+        num = -(_dot3(o3, nrm) + pc[:, 3][None, :])
         safe = torch.abs(den) > 1e-12
         t = num / torch.where(safe, den, one)
-        u = (o @ n1.T) + t * (d @ n1.T) + pc[:, 7][None, :]
-        v = (o @ n2.T) + t * (d @ n2.T) + pc[:, 11][None, :]
+        u = (_dot3(o3, n1) + t * _dot3(d3, n1)) + pc[:, 7][None, :]
+        v = (_dot3(o3, n2) + t * _dot3(d3, n2)) + pc[:, 11][None, :]
         hit = safe & (t > 1e-4) & (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0)
         t_hit = torch.where(hit, t, inf)
         j = torch.argmin(t_hit, dim=1)
@@ -319,13 +334,6 @@ def trace_dense_tri(origins: torch.Tensor, dirs: torch.Tensor,
         t_best = torch.where(take, t_c, t_best)
         leaf_best = torch.where(take, (j + base).to(torch.int32), leaf_best)
     return t_best.reshape(shape), leaf_best.reshape(shape)
-
-
-def _dot3(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """The dot of the last (size 3) axes, broadcast, summed in order:
-    (a0 b0 + a1 b1) + a2 b2."""
-    return (a[..., 0] * b[..., 0] + a[..., 1] * b[..., 1]) + \
-        a[..., 2] * b[..., 2]
 
 
 def trace_dense(origins: torch.Tensor, dirs: torch.Tensor,
@@ -392,13 +400,13 @@ def _scan_step(o: torch.Tensor, d: torch.Tensor, bvh: SceneBVH, m: int,
     if bvh.tri_planes is not None:
         # the node sphere only prunes; the leaf test is the triangle
         pc = bvh.tri_planes[torch.clamp_min(lf, 0).long()]       # (R,12)
-        den = (d * pc[:, 0:3]).sum(-1)
+        den = _dot3(d, pc[:, 0:3])
         safe = torch.abs(den) > 1e-12
-        t_leaf = -((o * pc[:, 0:3]).sum(-1) + pc[:, 3]) / \
+        t_leaf = -(_dot3(o, pc[:, 0:3]) + pc[:, 3]) / \
             torch.where(safe, den, torch.ones((), device=dev))
         p = o + t_leaf[:, None] * d
-        u = (p * pc[:, 4:7]).sum(-1) + pc[:, 7]
-        v = (p * pc[:, 8:11]).sum(-1) + pc[:, 11]
+        u = _dot3(p, pc[:, 4:7]) + pc[:, 7]
+        v = _dot3(p, pc[:, 8:11]) + pc[:, 11]
         take = (useful & is_leaf & safe & (t_leaf > 1e-4) & (u >= 0.0) &
                 (v >= 0.0) & (u + v <= 1.0) & (t_leaf < t_best))
     else:

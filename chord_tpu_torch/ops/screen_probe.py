@@ -31,7 +31,7 @@ import torch
 
 from . import gi as gi_ops
 from . import sh
-from ._util import const, f2i
+from ._util import const, f2i, host_table, jitter_rays
 from .post import _linear_weights, _resample, upsample_linear, \
     upsample_nearest
 
@@ -73,22 +73,8 @@ def ray_table(frame: int, rays: int) -> np.ndarray:
     by the frame's jitter (golden-angle azimuth a = 2.39996 f, tilt
     b = 1.1 f about x: base @ (Rz(a) Rx(b))^T, chord_tpu's
     _jitter_rotation), rounded as chord_tpu's compiled frame rounds it
-    and the same on every device: computed on the host, the angles' cos
-    and sin in f64 rounded to f32, every product of the 3x3 rotations
-    summed in XLA's order ((p0 + p1) + p2, one rounding an operation; a
-    device's matmul and trig round otherwise)."""
-    f32 = np.float32
-    a = f32(frame) * f32(2.3999632297286533)
-    b = f32(frame) * f32(1.1)
-    ca, sa = f32(np.cos(np.float64(a))), f32(np.sin(np.float64(a)))
-    cb, sb = f32(np.cos(np.float64(b))), f32(np.sin(np.float64(b)))
-    rz = np.array([[ca, -sa, 0.0], [sa, ca, 0.0], [0.0, 0.0, 1.0]], f32)
-    rx = np.array([[1.0, 0.0, 0.0], [0.0, cb, -sb], [0.0, sb, cb]], f32)
-    rot = (rz[:, 0, None] * rx[0] + rz[:, 1, None] * rx[1]) + \
-        rz[:, 2, None] * rx[2]
-    base = _octahedral_dirs(int(np.sqrt(rays))).astype(f32)
-    return ((base[:, 0, None] * rot[:, 0] + base[:, 1, None] * rot[:, 1])
-            + base[:, 2, None] * rot[:, 2])
+    and the same on every device (_util.jitter_rays)."""
+    return jitter_rays(_octahedral_dirs(int(np.sqrt(rays))), frame, 1.1)
 
 
 def probe_ray_dirs(probes: "ProbeState", frame_count, cfg: ScreenProbeConfig
@@ -100,10 +86,7 @@ def probe_ray_dirs(probes: "ProbeState", frame_count, cfg: ScreenProbeConfig
     pinned, non-blocking copy: no synchronisation."""
     ph, pw = probes.depth.shape
     dev = probes.depth.device
-    table = torch.from_numpy(ray_table(int(frame_count), cfg.rays))
-    if dev.type == "cuda":
-        table = table.pin_memory()
-    dirs = table.to(dev, non_blocking=True)[None, None]
+    dirs = host_table(ray_table(int(frame_count), cfg.rays), dev)[None, None]
     dirs = dirs.expand(ph, pw, cfg.rays, 3)
     n = probes.normal[..., None, :]
     ndot = (dirs[..., 0] * n[..., 0] + dirs[..., 1] * n[..., 1]) + \

@@ -19,6 +19,8 @@
     JAX_PLATFORMS=cpu python tests/bench_goldens.py sharded_flat
     ... nanite --fma --out DIR    # XLA's default (FMA) build, into DIR
     ... sharded_all --out DIR --keep 0,1,2,3,4,5,6,7   # every frame's PNG
+    JAX_PLATFORMS=cpu python tests/bench_goldens.py all_exact_rays
+        # after `python tests/bench_parity.py rays all_exact`
 
 The first six cells and `all_4k` are each one bench.py command (CELLS),
 rendered by chord_tpu with bench.py's own scene and camera path
@@ -46,6 +48,13 @@ XLA_FLAGS before JAX starts; the cell refuses to run otherwise), with
 the history ShardedRenderer builds itself. The histories are built as
 chord_tpu's MeshletRenderer builds them (cell_history: screen probes in
 probe mode only).
+The ray cell `all_exact_rays` holds no frame: `tests/bench_parity.py rays
+all_exact` records the rays of each rt.trace call of the port's CPU frame 0
+of chip_smoke's `all_exact` path (a seeded 4,096 of each call) into
+tests/goldens/bench/all_exact_rays.npz, and trace_rays traces them through
+chord_tpu's own triangle BVH of the bench scene (a ray's scan result
+depends only on the ray and the step budget) and writes t, leaf and the
+BVH arrays' hashes beside them, and the manifest's `rays` entry.
 The frames are stepped one by one with their history (the meshlet frame
 through render_frame_meshlet), so a run can stop early: after each frame
 the kept images are written to tests/goldens/bench/<cell>_f<NN>.png and
@@ -140,6 +149,17 @@ CELLS = {
         scene="sponza", features=None, frames=8, keep=(0, 7), strips=2,
         command="chip_smoke.py path sharded_flat (chord_tpu.parallel."
                 "sharded.ShardedRenderer, path='flat', two host devices)"),
+}
+# ray cells (chip_smoke.GOLDEN_RAYS): the rays of each rt.trace call of a
+# chip_smoke path's frame 0, recorded from the port's CPU frame by
+# `tests/bench_parity.py rays PATH` (a seeded subset of each call), traced
+# here through chord_tpu's own BVH of the path's scene
+RAY_CELLS = {
+    "all_exact_rays": dict(
+        path="all_exact", scene="bistro", rung="all",
+        granularity="triangle",
+        command="chip_smoke.py path all_exact (frame 0's rt.trace calls: "
+                "RTAO's four, the probe rays, SSR's misses)"),
 }
 # BASELINE #1 as chip_smoke.py's flat path renders it
 FLAT_DETAIL = 4
@@ -298,7 +318,8 @@ def _write_png(path: str, img) -> None:
     os.replace(path + ".tmp", path)
 
 
-def _update_manifest(out_dir: str, cell: str, entry: dict) -> None:
+def _update_manifest(out_dir: str, cell: str, entry: dict,
+                     section: str = "cells") -> None:
     import fcntl
 
     from chip_smoke import chord_tpu_hash
@@ -312,7 +333,7 @@ def _update_manifest(out_dir: str, cell: str, entry: dict) -> None:
             with open(path) as f:
                 man = json.load(f)
         man["chord_tpu_sha256"] = chord_tpu_hash(REPO)
-        man.setdefault("cells", {})[cell] = entry
+        man.setdefault(section, {})[cell] = entry
         with open(path + ".tmp", "w") as f:
             json.dump(man, f, indent=1, sort_keys=True)
             f.write("\n")
@@ -571,11 +592,85 @@ def render_cell(cell: str, frames: int | None = None,
         print(f"{cell} frame {i}: {dt:.1f} s, stats {st}", flush=True)
 
 
+def trace_rays(cell: str, out_dir: str = OUT_DIR) -> None:
+    """A ray cell: the rays `tests/bench_parity.py rays` recorded into
+    OUT_DIR/<cell>.npz, traced by chord_tpu's jitted rt.trace (the BVH
+    scan at its default budget, each call's t_max) over chord_tpu's own
+    BVH of the cell's scene, built as chip_smoke.path_bvh builds the
+    port's: bench.py's bistro, the path's instance table (the camera at
+    the camera path's last position), the cell's granularity, the native
+    builder. Writes t and leaf and the BVH's hashes (chip_smoke.
+    bvh_hashes) into the npz, and the cell's entry into the manifest's
+    `rays`."""
+    import jax
+
+    from chip_smoke import bvh_hashes
+    from chord_tpu.native import available
+    from chord_tpu.ops import rt as jrt
+    from chord_tpu.utils.camera import Camera
+
+    if NO_FMA not in os.environ.get("XLA_FLAGS", ""):
+        raise RuntimeError(f"XLA_FLAGS must hold {NO_FMA} before JAX starts "
+                           "(run this module as a script)")
+    if not available():
+        raise RuntimeError("the native BVH builder did not load")
+    spec = RAY_CELLS[cell]
+    path = os.path.join(out_dir, f"{cell}.npz")
+    with np.load(path) as f:
+        data = {k: f[k] for k in ("calls", "origins", "dirs", "t_max",
+                                  "seed", "call_rays")}
+    t0 = time.time()
+    b, pools, n_src = _bench()._make_scene(spec["scene"], DETAIL,
+                                           TARGET_TRIS)
+    config, _ = cell_configs(spec["rung"])
+    cam = Camera(width=config.width, height=config.height)
+    camera_uniforms(spec["scene"], config.width, config.height, cam)
+    bvh = jrt.build_scene_bvh(pools, b.frame_instances(cam),
+                              granularity=spec["granularity"])
+    hashes = bvh_hashes(bvh)
+    setup_s = time.time() - t0
+    print(f"{cell}: scene ({n_src} source tris) and the "
+          f"{spec['granularity']} BVH ({bvh.node_sphere.shape[0]} nodes, "
+          f"{bvh.leaf_sphere.shape[0]} leaves) in {setup_s:.1f} s",
+          flush=True)
+    fn = jax.jit(lambda o, d, bv, tm: jrt.trace(o, d, bv, t_max=tm))
+    ts, leaves, secs = [], [], []
+    for k, name in enumerate(data["calls"].tolist()):
+        t1 = time.time()
+        t, leaf = fn(data["origins"][k], data["dirs"][k], bvh,
+                     np.float32(data["t_max"][k]))
+        ts.append(np.asarray(t))
+        leaves.append(np.asarray(leaf))
+        secs.append(round(time.time() - t1, 3))
+        print(f"{cell} call {name}: {ts[-1].size} rays, hit share "
+              f"{(leaves[-1] >= 0).mean():.5f}, {secs[-1]} s", flush=True)
+    np.savez_compressed(path + ".tmp.npz", **data, t=np.stack(ts),
+                        leaf=np.stack(leaves),
+                        bvh_sha256=np.array(json.dumps(hashes,
+                                                       sort_keys=True)))
+    os.replace(path + ".tmp.npz", path)
+    _update_manifest(out_dir, cell, dict(
+        command=spec["command"], path=spec["path"], file=f"{cell}.npz",
+        xla_flags=NO_FMA, scene=spec["scene"], detail=DETAIL,
+        target_tris=TARGET_TRIS, source_tris=int(n_src),
+        granularity=spec["granularity"],
+        render_width=config.width, render_height=config.height,
+        max_steps=int(min(bvh.node_sphere.shape[0],
+                          1536 if bvh.tri_planes is not None else 384)),
+        calls=data["calls"].tolist(), call_rays=data["call_rays"].tolist(),
+        rays_per_call=int(data["origins"].shape[1]), seed=int(data["seed"]),
+        t_max=data["t_max"].tolist(), bvh=hashes,
+        hit_share=[float((lf >= 0).mean()) for lf in leaves],
+        setup_seconds=round(setup_s, 3), seconds=secs), section="rays")
+    print(f"wrote {path} ({os.path.getsize(path)} B) and the manifest's "
+          f"rays entry", flush=True)
+
+
 def main(argv) -> int:
     import argparse
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("cell", choices=list(CELLS))
+    ap.add_argument("cell", choices=list(CELLS) + list(RAY_CELLS))
     ap.add_argument("--frames", type=int, help="frames 0..N-1 (default: "
                     "the cell's)")
     ap.add_argument("--out", default=OUT_DIR, help="the directory written "
@@ -589,6 +684,13 @@ def main(argv) -> int:
         ap.error("--fma and --keep write only with --out")
     if REPO not in sys.path:
         sys.path.insert(0, REPO)
+    if args.cell in RAY_CELLS:
+        if args.fma or args.keep or args.frames:
+            ap.error("a ray cell takes only --out")
+        os.environ["XLA_FLAGS"] = " ".join(
+            [os.environ.get("XLA_FLAGS", ""), NO_FMA]).strip()
+        trace_rays(args.cell, args.out)
+        return 0
     strips = CELLS[args.cell].get("strips")
     flags = ([] if args.fma else [NO_FMA]) + (
         [STRIP_DEVICES.format(strips)] if strips else [])

@@ -12,6 +12,7 @@
                                           [--funcs sp.ggx_sample_normal,...]
     python tests/bench_parity.py ign [--no-fma]
     python tests/bench_parity.py images A.png B.png
+    python tests/bench_parity.py rays all_exact [--check]
 
 `frames`: the port's plain path renders a bench_goldens cell frame by
 frame (chip_smoke's scene, configs and history, on the CPU) and each
@@ -61,6 +62,14 @@ chord_tpu's.
 eager one at 720x1280 and 180x320.
 
 `images`: chip_smoke's SSIM, MAE and worst window of two PNGs.
+
+`rays`: the inputs of each rt.trace call of the port's CPU frame 0 of a
+path (all_exact: RTAO's four calls, the probe rays, SSR's misses), 4,096
+rays a call chosen with a seed, written to the goldens directory
+(<path>_rays.npz) for `bench_goldens.py <path>_rays` to trace through
+chord_tpu; `--check` holds the port's CPU traces of them, over its own
+BVH of the path, to that golden (the BVH's hashes, leaf and t bit for
+bit), as chip_smoke's phase 13 does on the card.
 
 `--no-fma` compiles chord_tpu with XLA_FLAGS=--xla_cpu_max_isa=SSE4_2
 (no fused multiply-adds), as tests/bench_goldens.py does; without it
@@ -699,10 +708,107 @@ def ign() -> None:
                   f"{float((j != p).mean()):.4f}")
 
 
+# `rays`: the rays kept of each rt.trace call of the frame, chosen with a
+# seed (call k draws with RAY_SEED + k)
+RAY_SEED = 21
+RAYS_PER_CALL = 4096
+
+
+def rays(path: str, check: bool, goldens: str) -> None:
+    """The inputs of each rt.trace call of the port's CPU frame 0 of
+    `path` (chip_smoke's scene, configs and fresh history), RAYS_PER_CALL
+    rays a call chosen with a seed, written to GOLDENS/<path>_rays.npz
+    (origins, dirs, t_max, call names) for bench_goldens.py's
+    `<path>_rays` cell to trace through chord_tpu. A scan ray's result
+    depends only on the ray and the step budget, so each kept ray's
+    result in a call of the kept rays alone is its result in the frame's
+    call: checked here on the port. `check`: the port's BVH of the path,
+    built on the CPU as chip_smoke builds it, and its traces of the
+    recorded rays held to the golden (chip_smoke.hold_rays)."""
+    import torch
+
+    import chip_smoke as cs
+    from chord_tpu_torch.ops import rt
+    from chord_tpu_torch.ops.gi import GIConfig
+
+    cell = f"{path}_rays"
+    if cs.GOLDEN_RAYS.get(cell) != path:
+        raise SystemExit(f"no ray cell for {path}: {sorted(cs.GOLDEN_RAYS)}")
+    if check:
+        t0 = time.time()
+        scene = cs.bench_scenes(torch.device("cpu"),
+                                cs.scene_paths([path]))[path]
+        print(f"{path}: scene and BVH on the CPU in {time.time() - t0:.1f} s",
+              flush=True)
+        print(json.dumps(cs.hold_rays(cell, scene[4], "cpu")), flush=True)
+        return
+    t0 = time.time()
+    scene, config, mcfg, hist = _port_cell(path)
+    print(f"{path}: scene and BVH on the CPU in {time.time() - t0:.1f} s",
+          flush=True)
+    calls, orig = [], rt.trace
+
+    @functools.wraps(orig)      # rt.trace counts on the module's function
+    def recorded(o, d, bvh, t_max=1e9, max_steps=None):
+        t, leaf = orig(o, d, bvh, t_max, max_steps)
+        calls.append((o.reshape(-1, 3).clone(), d.reshape(-1, 3).clone(),
+                      t_max, max_steps, t.reshape(-1).clone(),
+                      leaf.reshape(-1).clone()))
+        return t, leaf
+
+    t0 = time.time()
+    rt.trace = recorded
+    try:
+        cs.run_path(path, scene, config, mcfg, hist, 0, 1)
+    finally:
+        rt.trace = orig
+    print(f"{path} frame 0: {len(calls)} rt.trace calls in "
+          f"{time.time() - t0:.1f} s", flush=True)
+    ao_radius = (mcfg.gi_cfg or GIConfig()).ao_radius
+    names, rtao, other = [], 0, iter(("probe", "specular"))
+    for o, d, t_max, max_steps, _, _ in calls:
+        if max_steps is not None:
+            raise RuntimeError(f"{path}: a call with a step budget")
+        if t_max == ao_radius:
+            names.append(f"rtao{rtao}")
+            rtao += 1
+        else:
+            names.append(next(other))
+    keep = {k: [] for k in ("origins", "dirs", "t_max")}
+    for k, (o, d, t_max, _, t, leaf) in enumerate(calls):
+        rng = np.random.default_rng(RAY_SEED + k)
+        idx = torch.from_numpy(np.sort(rng.choice(o.shape[0], RAYS_PER_CALL,
+                                                  replace=False)))
+        ts, ls = orig(o[idx], d[idx], scene[4], t_max)
+        same = bool(torch.equal(ls, leaf[idx]) and torch.equal(
+            ts.view(torch.int32), t[idx].view(torch.int32)))
+        print(f"{path} call {names[k]}: {o.shape[0]} rays, t_max {t_max:g}, "
+              f"hit share {float((leaf >= 0).float().mean()):.5f}; "
+              f"{RAYS_PER_CALL} kept (seed {RAY_SEED + k}), traced alone "
+              f"equal to the frame's call: {same}", flush=True)
+        if not same:
+            raise AssertionError(f"{path} call {names[k]}: the kept rays "
+                                 "trace otherwise alone")
+        keep["origins"].append(o[idx].numpy())
+        keep["dirs"].append(d[idx].numpy())
+        keep["t_max"].append(t_max)
+    out = os.path.join(goldens, f"{cell}.npz")
+    np.savez_compressed(out, calls=np.array(names),
+                        origins=np.stack(keep["origins"]),
+                        dirs=np.stack(keep["dirs"]),
+                        t_max=np.array(keep["t_max"], np.float64),
+                        seed=np.array(RAY_SEED),
+                        call_rays=np.array([c[0].shape[0] for c in calls]))
+    print(f"wrote {out} ({os.path.getsize(out)} B): {len(calls)} calls of "
+          f"{RAYS_PER_CALL} rays; now `JAX_PLATFORMS=cpu python "
+          f"tests/bench_goldens.py {cell}`", flush=True)
+
+
 def main(argv) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("mode", choices=("frames", "history", "split", "dump",
-                                     "devdiff", "k2", "ign", "images"))
+                                     "devdiff", "k2", "ign", "images",
+                                     "rays"))
     ap.add_argument("cell", nargs="?", default="nanite",
                     help="a cell; for images the first PNG")
     ap.add_argument("frame", nargs="?", default="0",
@@ -717,6 +823,9 @@ def main(argv) -> int:
                     "seconds (spawn_strips' default of 600 is too short "
                     "for bench-size frames on the CPU)")
     ap.add_argument("--no-fma", action="store_true")
+    ap.add_argument("--check", action="store_true", help="rays: hold the "
+                    "port's traces of the recorded rays to the golden "
+                    "instead of recording")
     ap.add_argument("--port-dump", help="history: the port's side from a "
                     "`dump` directory (rendered on the card) instead of "
                     "the CPU")
@@ -754,6 +863,8 @@ def main(argv) -> int:
         k2(args.cell, int(args.frame))
     elif args.mode == "split":
         split(args.cell, int(args.frame))
+    elif args.mode == "rays":
+        rays(args.cell, args.check, args.goldens)
     elif args.mode == "images":
         import chip_smoke as cs
         print(json.dumps(cs.image_gates(cs.read_png(args.cell),

@@ -8,8 +8,8 @@ every (cascade, phase) slice is updated and the first two again through
 the hysteresis; a seeded random state for the samplers.
 
 Tolerances. Direction tables, grid positions, texel indices and the
-update's slice: exact. The ray rotation: 1e-6 (cos / sin of f32 angles,
-libm against XLA). The convolution and SH projection: 1e-5 relative +
+update's slice: exact. The rotated ray table: 1e-6 (cos / sin of f32
+angles, f64 libm rounded against XLA's). The convolution and SH projection: 1e-5 relative +
 1e-6 absolute (einsum reduction order). The state after each update:
 irradiance, distance moments and SH within 1e-4 relative + 1e-5
 absolute on >= 99.9% of values, offsets within 1e-5, weights exact (a
@@ -64,8 +64,11 @@ def test_direction_tables_and_grid_match():
         assert ddgi.probe_count(ddgi.DDGIConfig(**cfg)) == \
             jddgi.probe_count(jddgi.DDGIConfig(**cfg))
     for f in (0, 5, 41):
-        _close(ddgi._jitter_rotation(torch.tensor(f, dtype=torch.int32)),
-               jddgi._jitter_rotation(jnp.int32(f)), atol=1e-6)
+        # the port's frame ray table: the Fibonacci set times the jitter
+        # rotation, built on the host
+        want = jddgi.spherical_fibonacci(16) @ np.asarray(
+            jddgi._jitter_rotation(jnp.int32(f))).T
+        _close(torch.from_numpy(ddgi.ray_table(f, 16)), want, atol=1e-6)
 
 
 def test_octahedral_texel_index_matches():
