@@ -98,8 +98,9 @@ own size, 1056x1920.
 
 Phases (any failure raises and the script exits non-zero):
 
-1. Requires a CUDA device; prints the card's name and power limit.
-2. Builds the ten hand-written kernels (chord_tpu_torch/csrc/*.cu, one
+1. Requires a CUDA device; prints the card's name and power limit, and
+   the host's C library.
+2. Builds the eleven hand-written kernels (chord_tpu_torch/csrc/*.cu, one
    nvcc per source, all at once) into build/kernels/, prints the
    registers, shared memory and spills ptxas reports for K5, K6 and K10,
    times the launch floor: an empty one-block grid (csrc/launch_floor.cu)
@@ -108,7 +109,14 @@ Phases (any failure raises and the script exits non-zero):
    tests/paged_palette_cases.py (ids beyond the pool and below 0, K and
    K + 1 distinct ids a block, a pool wider than the kernel's bitmap,
    untextured and partial blocks, a mip too large for the kernel's FP32-
-   pipe conversions), bilinear and nearest, coverage too.
+   pipe conversions), bilinear and nearest, coverage too. Then the
+   sincos kernel (csrc/sincos.cu: chord_tpu's XLA f32 sin and cos, the C
+   library's sinf / cosf, which the frame's PCSS disk rotation, GGX
+   azimuth and RTAO fan take on the card): bit-equal to its plain
+   version on every f32 in (-120, 120) in chunks and on 10^6 seeded
+   inputs of every range, those also counted against this host's C
+   library, and timed at a 1280x720 plane in turns with torch.sin +
+   torch.cos (sincos_checks).
 3. Builds the scenes (the two bistros share the Nanite DAG of their common
    meshes; the shadow, split and brick paths reuse the textured one; the
    flat Sponza pools with a per-frame instance table; the interior and the
@@ -151,7 +159,11 @@ Phases (any failure raises and the script exits non-zero):
    sectors the taps touch; for K10 the distinct tiles a pixel block asks
    for and the share of textured pixels the palette serves; for K5 the
    share of textured texels its page palette serves, the share the
-   fallback mip serves and the rest (the average colour), per call.
+   fallback mip serves and the rest (the average colour), per call. The
+   sincos kernel on its calls of the frame (the PCSS rotation on the
+   shadow paths, the GGX azimuth on the GI paths, RTAO's four on
+   `all_exact`), f64 operations at 34 TFLOP/s in its bound and
+   torch.sin + torch.cos as its yardstick.
 5. Each path's 16-frame sequence (4 frames on `all_exact`;
    render_sequence_meshlet(with_stats=True);
    on `flat`, DeferredRenderer.render frame by frame), with every launch
@@ -161,7 +173,8 @@ Phases (any failure raises and the script exits non-zero):
    times, 32 on the screen-probe paths; K5 32 times on `geo_tex` and
    `geo_tex_bricks`, 40 on the shadow paths: 32 plus the masked casters
    of the 8 frames that refresh cascade 0 or 1; K6 16 times; K7 64 times;
-   K8 16 times), K5's palette per path (the share of textured texels
+   K8 16 times; the sincos kernel kernels.SINCOS_PER_FRAME a frame),
+   K5's palette per path (the share of textured texels
    its calls served from the palette, from the fallback mip and by the
    average colour, by channel count), masked draws on some frame of the
    textured paths, a
@@ -200,8 +213,9 @@ Phases (any failure raises and the script exits non-zero):
    ray spans gi.probe.rt_trace and gi.specular.rt).
 6. `repro_eval`: every variant through the tool's run_variant (one call
    at frame 1, three steady), launch counts set to 0 before each variant
-   and read after it (K9 1 + 3 times on `tm_pallas`, no kernel on any
-   other), the first call's outputs against the same variant on the CPU,
+   and read after it (K9 1 + 3 times on `tm_pallas`, the sincos kernel
+   once a PCSS evaluate with IGN noise, no other kernel), the first
+   call's outputs against the same variant on the CPU,
    each variant's steady ms; K9 against its plain version on
    `tm_pallas`'s first call (tolerance 0), timed in turn with x.clone(),
    its library yardstick.
@@ -285,10 +299,14 @@ Phases (any failure raises and the script exits non-zero):
    held equal to them. Then the ray cell `all_exact_rays` (GOLDEN_RAYS;
    recorded by tests/bench_parity.py `rays`, traced by chord_tpu in
    tests/bench_goldens.py): the triangle BVH phase 5 built for
-   `all_exact` must hash as chord_tpu's, and 4,096 rays of each of its
-   frame 0's six rt.trace calls, traced on the card over it (the scan at
-   its default budget), must give chord_tpu's leaf and t bit for bit on
-   every ray.
+   `all_exact` must hash as chord_tpu's; on RTAO's four calls and the
+   specular call the port's directions, made on the card by gi.rtao and
+   meshlet_frame.specular_directions from the recorded G-buffer values
+   at the kept pixels, their coordinates and the frame count, must be
+   chord_tpu's (its gi.rtao and frame lines on the same inputs) bit for
+   bit; and 4,096 rays of each of its frame 0's six rt.trace calls,
+   traced on the card over it (the scan at its default budget), must
+   give chord_tpu's leaf and t bit for bit on every ray.
 
 Phases 4-5 run per one-process frame path (the split's launches must
 equal the inline path's), then 6 to 10, 12, 11 and 13. The line before the last
@@ -300,7 +318,8 @@ K10's work stats and K3 and K9's alternating rounds;
 plus each path's ms/frame and the launch floor),
 and before that the tools' JSON (each repro variant's first-call seconds
 and steady ms, the proto tool's coverage, match and ms, each app run's
-seconds, phase 9's and 13's image numbers); the last line is
+seconds, phase 9's and 13's image numbers, the sincos kernel's checks
+and times); the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
@@ -308,6 +327,7 @@ from __future__ import annotations
 
 import json
 import os
+import platform
 import statistics
 import subprocess
 import sys
@@ -387,6 +407,9 @@ GI_SPANS = ("gi.ao", "gi.probe.spawn", "gi.probe.sh_reproject",
 RASTERS = ("raster", "raster_bricks", "raster_subtile")   # K1, K7, K8
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory
 F32_OPS_PER_S = 67e12         # H100 SXM f32 outside the tensor cores
+F64_OPS_PER_S = 34e12         # H100 SXM f64 outside the tensor cores
+# the kernels whose operations are f64 (the rest count f32)
+F64_KERNELS = ("sincos",)
 
 
 def log(msg: str) -> None:
@@ -969,6 +992,13 @@ def _ops(name: str, args, kwargs, cull: bool = True) -> float:
         # all 32-bit, counted at the f32 rate
         u = args[2]
         return float(u.numel()) * (12 + 8 + 3 * 6 + 6 + 3)
+    if name == "sincos":
+        # f64, per element of this call's data: below 2^-12 none; below
+        # 0.75 x^2 and both polynomials (1 + 8 + 10); above, the reduction
+        # (4), the sign and x^2 (2) and both polynomials
+        a = args[0].abs()
+        return float((a >= 2.0 ** -12).sum()) * 19 + float(
+            (a >= 0.75).sum()) * 5
     return 0.0
 
 
@@ -1048,7 +1078,8 @@ def bound(name: str, args, kwargs, out, cull: bool = True) -> tuple:
         n_bytes = (_nbytes(args) + _nbytes(list(kwargs.values())) +
                    _nbytes(out))
     t_bytes = n_bytes / HBM_BYTES_PER_S
-    t_ops = _ops(name, args, kwargs, cull) / F32_OPS_PER_S
+    t_ops = _ops(name, args, kwargs, cull) / (
+        F64_OPS_PER_S if name in F64_KERNELS else F32_OPS_PER_S)
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
 
@@ -1059,12 +1090,15 @@ def library_call(name: str, args):
     a bilinear grid_sample of the (C,h,w) view of the history with the
     coordinate clamped to the border, which is K4's taps clamped to the
     history (the same values up to the grid's rounding; it writes (1,C,h,w),
-    not (h,w,C)); K9 is a clone. Indices and grids are built here, outside
-    the timed call."""
+    not (h,w,C)); K9 is a clone; the sincos kernel's yardstick is
+    PyTorch's own f32 sin and cos (two calls, other roundings). Indices
+    and grids are built here, outside the timed call."""
     import torch
 
     if name == "fusion_barrier":
         return lambda: args[0].clone()
+    if name == "sincos":
+        return lambda: (torch.sin(args[0]), torch.cos(args[0]))
     if name == "tile_reproject":
         import torch.nn.functional as F
 
@@ -1284,6 +1318,10 @@ def describe(name: str, args, kwargs) -> str:
         x = args[0]
         return (f"{'x'.join(map(str, x.shape))} {str(x.dtype)[6:]}, "
                 f"{x.numel() * x.element_size()} B")
+    if name == "sincos":
+        x = args[0]
+        return (f"{'x'.join(map(str, x.shape))} angles in "
+                f"[{float(x.min()):.4g}, {float(x.max()):.4g}]")
     return " ".join("x".join(map(str, a.shape)) for a in args
                     if hasattr(a, "shape"))[:80]
 
@@ -1838,7 +1876,8 @@ def repro_eval_path(dev, card):
     """Phase 6: every variant of the port's repro_eval_kernel tool on the
     card through its run_variant (one call at frame 1, three steady), the
     launch counts set to 0 before each variant and read after it (K9
-    launched 1 + 3 times by tm_pallas, no kernel by any other variant);
+    launched 1 + 3 times by tm_pallas, the sincos kernel once a call of
+    it (each PCSS evaluate with IGN noise), no other kernel);
     each variant's first outputs against the same variant on the CPU
     (>= 99.9% of elements within 1e-5: CUDA's cos/sin/exp may move a PCSS
     tap across a texel edge; the scan means within 5e-3); then K9 against
@@ -1859,9 +1898,12 @@ def repro_eval_path(dev, card):
         torch.cuda.synchronize()
         counts = kernels.launch_counts()
         want = {k.name: 0 for k in kernels.KERNELS}
+        # the PCSS evaluates with IGN noise rotate their disks
+        want["sincos"] = len(captured["sincos"])
         if v == "tm_pallas":
             want["fusion_barrier"] = 1 + steady
             k9_calls = {k: calls[:1] for k, calls in captured.items()}
+            k9_launches = want
         if counts != want:
             raise AssertionError(f"repro {v}: launches {counts}, expected "
                                  f"{want}")
@@ -1881,7 +1923,8 @@ def repro_eval_path(dev, card):
         timings[v] = dict(first_s=res["first_s"], steady_ms=res["steady_ms"],
                           sum=res["sum"], within_1e5_of_cpu=frac)
     rows = compare_kernels("repro_eval", k9_calls, "tm_pallas frame 1")
-    rows["fusion_barrier"]["launches"] = 1 + steady
+    for name, r in rows.items():
+        r["launches"] = k9_launches[name]
     return rows, timings
 
 
@@ -2399,14 +2442,67 @@ def bvh_hashes(bvh) -> dict:
     return out
 
 
+def held_directions(data, k: int) -> bool:
+    """Whether call k of a ray golden records what its directions are made
+    of (RTAO's and the specular GI's calls: a plane size), so the
+    directions themselves are held."""
+    return int(data["plane"][k][0]) > 0
+
+
+def ray_directions(name: str, data, k: int, gi_cfg, dev):
+    """The port's directions of the kept rays of call k (`name`) of a ray
+    golden, made from what the golden recorded: the kept pixels of the
+    call's plane (its size `plane`), their G-buffer values and the frame
+    count, through the port's own functions on `dev` at the frame's plane
+    size (the other pixels zero): RTAO's k-th fan ray of each pixel
+    (gi.rtao with `gi_cfg`, rt.trace stubbed) or the specular GI's
+    reflection (renderer.meshlet_frame.specular_directions) -> (N,3)."""
+    import torch
+
+    from chord_tpu_torch.ops import gi, rt
+    from chord_tpu_torch.renderer import meshlet_frame
+
+    h, w = (int(v) for v in data["plane"][k])
+    pix = torch.from_numpy(data["pixel"][k].astype("int64")).to(dev)
+
+    def plane(key, c):
+        x = torch.zeros((h * w, c), device=dev)
+        x[pix] = torch.from_numpy(data[key][k].reshape(-1, c)).to(dev)
+        return x.reshape(h, w, c) if c > 1 else x.reshape(h, w)
+
+    fc = torch.tensor(int(data["frame_count"]), dtype=torch.int32,
+                      device=dev)
+    if name == "specular":
+        _, refl = meshlet_frame.specular_directions(
+            plane("pos", 3), plane("normal", 3), plane("rough", 1), fc)
+        return refl.reshape(-1, 3)[pix]
+    dirs, orig = [], rt.trace
+
+    def stub(o, d, bvh, t_max=1e9, max_steps=None):
+        dirs.append(d.reshape(-1, 3))
+        shape = o.shape[:-1]
+        return (torch.full(shape, float(t_max), device=o.device),
+                torch.full(shape, -1, dtype=torch.int32, device=o.device))
+
+    rt.trace = stub
+    try:
+        gi.rtao(plane("pos", 3), plane("normal", 3), None, gi_cfg,
+                frame_index=fc)
+    finally:
+        rt.trace = orig
+    return dirs[int(name[len("rtao"):])][pix]
+
+
 def hold_rays(cell: str, bvh, card: str) -> dict:
     """Phase 13's ray cell `cell`: the BVH of its path (built on the card
-    in phase 5, or on the CPU) must hash as chord_tpu's did (BVH_ARRAYS),
-    and each recorded call's rays, traced through rt.trace over it (the
-    BVH scan at its default budget), must give chord_tpu's leaf and
-    chord_tpu's t to the bit on every ray; prints each call's rays, hit
-    share and rays that differ; a differing ray or hash fails. -> numbers
-    per call."""
+    in phase 5, or on the CPU) must hash as chord_tpu's did (BVH_ARRAYS);
+    on RTAO's and the specular GI's calls the port's own directions, made
+    from the recorded inputs (ray_directions), must be chord_tpu's bit for
+    bit on every kept ray; then each call's rays (those directions), traced
+    through rt.trace over the BVH (the scan at its default budget), must
+    give chord_tpu's leaf and chord_tpu's t to the bit on every ray;
+    prints each call's rays, hit share, directions and rays that differ; a
+    differing direction, ray or hash fails. -> numbers per call."""
     import numpy as np
     import torch
 
@@ -2427,10 +2523,17 @@ def hold_rays(cell: str, bvh, card: str) -> dict:
                              "from chord_tpu's")
     data = np.load(os.path.join(BENCH_GOLDEN_DIR, rec["file"]))
     dev = bvh.node_sphere.device
+    gi_cfg = configs(rec["path"])[1].gi_cfg
     out, bad = {}, []
     for k, name in enumerate(data["calls"].tolist()):
         o = torch.from_numpy(data["origins"][k]).to(dev)
         d = torch.from_numpy(data["dirs"][k]).to(dev)
+        dir_off = None
+        if held_directions(data, k):
+            mine = ray_directions(name, data, k, gi_cfg, dev)
+            dir_off = int((mine.view(torch.int32) != d.view(torch.int32))
+                          .any(-1).sum())
+            d = mine
         dense, steps = rt.trace.dense, rt.scan_steps
         t, leaf = rt.trace(o, d, bvh, float(data["t_max"][k]))
         if rt.trace.dense != dense:
@@ -2444,15 +2547,19 @@ def hold_rays(cell: str, bvh, card: str) -> dict:
                    chord_tpu_hit_share=float((want_leaf >= 0).mean()),
                    scan_steps=rt.scan_steps - steps,
                    leaf_differ=int(leaf_off.sum()), t_differ=int(t_off.sum()),
-                   differ=int((leaf_off | t_off).sum()))
+                   differ=int((leaf_off | t_off).sum()),
+                   direction_differ=dir_off)
         log(f"ray golden {cell} call {name} (t_max {float(data['t_max'][k]):g})"
-            f" on {card}: {row['rays']} rays, hit share "
-            f"{row['hit_share']:.5f} (chord_tpu {row['chord_tpu_hit_share']:.5f}"
-            f"), {row['scan_steps']} scan steps, rays that differ "
-            f"{row['differ']} (leaf {row['leaf_differ']}, t bits "
-            f"{row['t_differ']})")
+            f" on {card}: {row['rays']} rays, " +
+            ("directions from the recorded inputs that differ from "
+             f"chord_tpu's {dir_off}, " if dir_off is not None else
+             "directions as recorded, ") +
+            f"hit share {row['hit_share']:.5f} (chord_tpu "
+            f"{row['chord_tpu_hit_share']:.5f}), {row['scan_steps']} scan "
+            f"steps, rays that differ {row['differ']} (leaf "
+            f"{row['leaf_differ']}, t bits {row['t_differ']})")
         out[f"{cell}_{name}"] = row
-        if row["differ"]:
+        if row["differ"] or dir_off:
             bad.append(name)
     if bad:
         raise AssertionError(f"ray golden {cell}: rays differ from "
@@ -3070,6 +3177,92 @@ def paged_edge_cases(dev) -> None:
         f"({', '.join(sorted(EDGE_CASES))}), bilinear and nearest: output "
         "and coverage equal to the plain version (tolerance 0)")
 
+# the sincos kernel's exhaustive hold: f32 bit patterns a chunk; the
+# seeded inputs held to this host's C library; the plane it is timed at
+SINCOS_CHUNK = 1 << 25
+SINCOS_LIBM = 1_000_000
+SINCOS_PLANE = (720, 1280)
+
+
+def sincos_checks(dev, card: str) -> dict:
+    """The sincos kernel (csrc/sincos.cu, chord_tpu's XLA f32 sin and cos
+    on the card): bit for bit its plain version on every f32 in (-120, 120)
+    (every bit pattern below 120.0f's, both signs, in chunks: the fast
+    reduction's whole range; a difference fails); SINCOS_LIBM seeded inputs
+    of every range against the plain version (a difference fails) and
+    against this host's C library sinf / cosf (counted and printed beside
+    the library's version: the goldens' trig is the C library of the host
+    that rendered them, which the plain version transcribes); then timed
+    at a SINCOS_PLANE plane of angles in RTAO's range in turns with
+    torch.sin + torch.cos -> numbers."""
+    import numpy as np
+    import torch
+
+    from chord_tpu_torch.ops import _util
+
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(
+        __file__)), "tests"))
+    from rt_cases import libm_sincosf
+
+    t0 = time.time()
+    top, n, bad = 0x42F00000, 0, 0        # 120.0f's bits
+    for lo in range(0, top, SINCOS_CHUNK):
+        bits = torch.arange(lo, min(lo + SINCOS_CHUNK, top),
+                            dtype=torch.int32, device=dev)
+        for sign in (0, -2 ** 31):
+            x = (bits | sign).view(torch.float32)
+            got, ref = _util.sincos_cuda(x), _util.sincosf_plain(x)
+            for g, r in zip(got, ref):
+                bad += int((g.view(torch.int32) != r.view(torch.int32)).sum())
+            n += x.numel()
+    torch.cuda.synchronize()
+    log(f"sincos kernel on every f32 in (-120, 120) ({n} values, chunks of "
+        f"{SINCOS_CHUNK}) on {card}: {bad} sin or cos bits differ from its "
+        f"plain version, in {time.time() - t0:.1f} s")
+    if bad:
+        raise AssertionError(f"sincos kernel: {bad} values differ from its "
+                             "plain version in (-120, 120)")
+    rng = np.random.default_rng(22)
+    k = SINCOS_LIBM // 4
+    x = np.concatenate([
+        rng.uniform(-30, 30, k), rng.uniform(-1, 1, k),
+        rng.uniform(-1e5, 1e5, k),
+        10 ** rng.uniform(-30, 38, SINCOS_LIBM - 3 * k) *
+        rng.choice([-1.0, 1.0], SINCOS_LIBM - 3 * k)]).astype(np.float32)
+    got = [g.cpu().numpy() for g in _util.sincos_cuda(
+        torch.from_numpy(x).to(dev))]
+    ref = [r.numpy() for r in _util.sincosf_plain(torch.from_numpy(x))]
+    plain_off = sum(int((g.view(np.int32) != r.view(np.int32)).sum())
+                    for g, r in zip(got, ref))
+    libm = libm_sincosf(x)
+    libm_off = sum(int((g.view(np.int32) != r.view(np.int32)).sum())
+                   for g, r in zip(got, libm))
+    libc = " ".join(platform.libc_ver())
+    log(f"sincos kernel on {x.size} seeded inputs (seed 22; |x| up to "
+        f"1e38): {plain_off} sin or cos values differ from the plain "
+        f"version on the CPU, {libm_off} from this host's C library "
+        f"({libc}) sinf / cosf")
+    if plain_off:
+        raise AssertionError(f"sincos kernel: {plain_off} seeded values "
+                             "differ from the plain version")
+    ang = torch.from_numpy(rng.uniform(
+        0.0, 2.0 * np.pi + 3.5 * 2.4, SINCOS_PLANE).astype(np.float32)).to(
+        dev)
+    kern = lambda: _util.sincos_cuda(ang)
+    lib = lambda: (torch.sin(ang), torch.cos(ang))
+    runs = alternate([kern, lib])
+    ms, lib_ms = (statistics.median(r) for r in runs)
+    log(f"sincos kernel at {SINCOS_PLANE[1]}x{SINCOS_PLANE[0]} angles in "
+        f"[0, 2 pi + 8.4) on {card}: {spread(runs[0])} vs torch.sin + "
+        f"torch.cos {spread(runs[1])}, medians of {len(runs[0])} "
+        "alternating rounds of 200 calls")
+    return dict(exhaustive_values=n, exhaustive_differ=bad,
+                seeded=int(x.size), seeded_differ_plain=plain_off,
+                seeded_differ_libm=libm_off, libc=libc,
+                plane=list(SINCOS_PLANE), ms=ms, torch_sin_cos_ms=lib_ms,
+                ms_rounds=runs[0], torch_sin_cos_ms_rounds=runs[1])
+
+
 def launch_floor(card: str) -> float:
     """The device time of an empty one-block launch (csrc/launch_floor.cu),
     timed as the kernels are -> ms."""
@@ -3098,7 +3291,8 @@ def main() -> int:
     smi = card_line()
     log(f"card: {smi}")
     log(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
-        f"cuda {torch.version.cuda}")
+        f"cuda {torch.version.cuda}, C library "
+        f"{' '.join(platform.libc_ver())}")
 
     dev = torch.device("cuda", 0)
     t_start = t0 = time.time()
@@ -3116,6 +3310,7 @@ def main() -> int:
     ptxas_lines()
     floor_ms = launch_floor(smi)
     paged_edge_cases(dev)
+    sincos = sincos_checks(dev, smi)
 
     scenes = bench_scenes(dev, FRAME_PATHS)
     rows, ms_per_frame, path_launches, kept = [], {}, {}, {}
@@ -3180,7 +3375,8 @@ def main() -> int:
     log(f"phase 13 in {time.time() - t0:.1f} s")
     log(f"chip_smoke: all phases passed in {time.time() - t_start:.1f} s")
     print(json.dumps({"tools": tools, "goldens": golden,
-                      "bench_goldens": bench_golden, "apps": apps}))
+                      "bench_goldens": bench_golden, "apps": apps,
+                      "sincos": sincos}))
 
     order = ("name", "path", "route", "source", "replaces", "launches",
              "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",

@@ -18,7 +18,7 @@ from typing import NamedTuple, Tuple
 import numpy as np
 import torch
 
-from ._util import centres, const, f2i
+from ._util import centres, const, dot3, f2i, host_table, sincosf_plain
 
 
 class AtmosphereParams(NamedTuple):
@@ -247,26 +247,31 @@ def build_sky_view_lut(p: AtmosphereParams, t_lut: torch.Tensor,
     at the horizon)."""
     dev = t_lut.device
     r0 = torch.full((), cam_alt_km + p.ground_radius_km, device=dev)
-    v = centres(SKYVIEW_H, dev)
-    u = centres(SKYVIEW_W, dev)
-    lat = torch.where(v < 0.5, -(0.5 - v) ** 2 * 2.0 * np.pi * 0.5,
-                      (v - 0.5) ** 2 * 2.0 * np.pi * 0.5)       # [-pi/2, pi/2]
-    lon = u * 2.0 * np.pi
+    sin_lat, cos_lat, sin_lon, cos_lon = (
+        host_table(t.numpy(), dev) for t in _sky_view_trig())
     shape = (SKYVIEW_H, SKYVIEW_W)
-    mu = torch.sin(lat)[:, None] * torch.ones((1, SKYVIEW_W), device=dev)
-    cl = torch.cos(lat)[:, None]
-    view = torch.stack([cl * torch.cos(lon)[None, :],
-                        torch.sin(lat)[:, None].expand(shape),
-                        cl * torch.sin(lon)[None, :]], -1)
-    cos_sv = _dot3(view, sun_dir)
+    mu = sin_lat[:, None] * torch.ones((1, SKYVIEW_W), device=dev)
+    cl = cos_lat[:, None]
+    view = torch.stack([cl * cos_lon[None, :], sin_lat[:, None].expand(shape),
+                        cl * sin_lon[None, :]], -1)
+    cos_sv = dot3(view, sun_dir)
     lum, _ = raymarch_scattering(p, t_lut, ms_lut, r0.expand(shape), mu,
                                  sun_dir[1].expand(shape), cos_sv)
     return lum
 
 
-def _dot3(a: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
-    """(...,3) . (3,) summed left to right."""
-    return a[..., 0] * d[0] + a[..., 1] * d[1] + a[..., 2] * d[2]
+def _sky_view_trig():
+    """-> sin and cos of the sky-view LUT's latitudes (rows; non-linear,
+    more rows at the horizon, in [-pi/2, pi/2]) and of its longitudes
+    (columns), f32 on the host: the angles depend only on the grid, and
+    sincosf_plain takes them as chord_tpu's XLA does."""
+    cpu = torch.device("cpu")
+    v = centres(SKYVIEW_H, cpu)
+    u = centres(SKYVIEW_W, cpu)
+    lat = torch.where(v < 0.5, -(0.5 - v) ** 2 * 2.0 * np.pi * 0.5,
+                      (v - 0.5) ** 2 * 2.0 * np.pi * 0.5)
+    lon = u * 2.0 * np.pi
+    return (*sincosf_plain(lat), *sincosf_plain(lon))
 
 
 def sample_sky(lut: torch.Tensor, view_dir: torch.Tensor) -> torch.Tensor:
@@ -290,7 +295,7 @@ def sun_disk_radiance(p: AtmosphereParams, t_lut: torch.Tensor,
     """Sun disk with limb transmittance, added to sky pixels: one
     transmittance sample at the sun's elevation for the whole disk."""
     r0 = torch.full((), cam_alt_km + p.ground_radius_km, device=t_lut.device)
-    in_disk = (_dot3(view_dir, sun_dir) >= math.cos(sun_angular_radius)
+    in_disk = (dot3(view_dir, sun_dir) >= math.cos(sun_angular_radius)
                )[..., None]
     t_sun = sample_transmittance(t_lut, p, r0, sun_dir[1])
     return torch.where(in_disk, t_sun * p.sun_illuminance * 50.0,

@@ -15,6 +15,7 @@ import math
 import numpy as np
 import torch
 
+from . import _util
 from ._util import const, f2i
 from ..utils.device import resolve
 
@@ -52,12 +53,13 @@ def build_env_brdf_lut(samples: int = 256, device=None) -> torch.Tensor:
     g_v = nov_g / (nov_g * (1 - k) + k)
     A = torch.zeros_like(nov_g)
     B = torch.zeros_like(nov_g)
+    # the samples' azimuths' sin and cos, in one call
+    sin_p, cos_p = _util.sincosf(2 * math.pi * xi[:, 0])
     for i in range(samples):
-        e1, e2 = xi[i, 0], xi[i, 1]
-        phi = 2 * math.pi * e1
+        e2 = xi[i, 1]
         ct = torch.sqrt((1 - e2) / (1 + (a ** 2 - 1) * e2))
         st = torch.sqrt(torch.clamp_min(1 - ct * ct, 0.0))
-        h = torch.stack([st * torch.cos(phi), st * torch.sin(phi), ct], -1)
+        h = torch.stack([st * cos_p[i], st * sin_p[i], ct], -1)
         voh = (v * h).sum(-1)
         l_ = 2 * voh[..., None] * h - v
         nol = torch.clamp(l_[..., 2], 0.0, 1.0)

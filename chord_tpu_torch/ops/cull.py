@@ -14,6 +14,7 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
+from ._util import dot3
 from .hzb import HZBPyramid, occlusion_test_spheres
 
 
@@ -89,11 +90,6 @@ def frustum_visible(centers: torch.Tensor, radii: torch.Tensor,
     return (d + radii[:, None] >= 0.0).all(dim=1)
 
 
-def _dot3(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Row-wise dot of (N,3) rows, summed left to right."""
-    return _sum3(a[:, 0] * b[:, 0], a[:, 1] * b[:, 1], a[:, 2] * b[:, 2])
-
-
 def cone_visible(pools, instances, centers_tw: torch.Tensor,
                  od: Optional[PairObjectData] = None) -> torch.Tensor:
     """Meshlet normal-cone backface cull (camera at the TW origin)."""
@@ -103,18 +99,18 @@ def cone_visible(pools, instances, centers_tw: torch.Tensor,
     nm = od.nm
     axis = (cone[:, 0:1] * nm[:, 0] + cone[:, 1:2] * nm[:, 1] +
             cone[:, 2:3] * nm[:, 2])
-    axis = axis / torch.clamp_min(torch.sqrt(_dot3(axis, axis)), 1e-8)[:, None]
-    dist = torch.clamp_min(torch.sqrt(_dot3(centers_tw, centers_tw)), 1e-8)
+    axis = axis / torch.clamp_min(torch.sqrt(dot3(axis, axis)), 1e-8)[:, None]
+    dist = torch.clamp_min(torch.sqrt(dot3(centers_tw, centers_tw)), 1e-8)
     view = centers_tw / dist[:, None]
     cutoff = cone[:, 3]
-    return ((_dot3(view, axis) < cutoff) | (cutoff >= 0.999) |
+    return ((dot3(view, axis) < cutoff) | (cutoff >= 0.999) |
             (od.two_sided > 0.5))
 
 
 def project_error_px(center_tw: torch.Tensor, radius_err: torch.Tensor,
                      proj_scale) -> torch.Tensor:
     """Screen-space size (pixels) of an error sphere; eye inside -> 1e9."""
-    d2 = _dot3(center_tw, center_tw)
+    d2 = dot3(center_tw, center_tw)
     r2 = radius_err * radius_err
     inside = d2 <= r2 * 1.0001
     dist = torch.sqrt(torch.clamp_min(d2 - r2, 1e-12))

@@ -32,7 +32,7 @@ import numpy as np
 import torch
 
 from . import rt
-from ._util import const, f2i, host_table, jitter_rays
+from ._util import const, dot3, f2i, host_table, jitter_rays, norm3
 from .post import upsample_nearest
 
 
@@ -356,9 +356,11 @@ def sample_ddgi(state: DDGIState, pos_tw: torch.Tensor,
         # wrap shading: probes behind the surface count less (ddgi.h:248)
         probe_pos = (cell.float() - (dims - 1.0) * 0.5) * spacing + off_t[idx]
         to_probe = probe_pos - pos
-        dist_tp = torch.linalg.vector_norm(to_probe, dim=-1)
+        # XLA's order: the distance and the dot feed the texel choice and
+        # the Chebyshev test
+        dist_tp = norm3(to_probe)
         dir_tp = to_probe / torch.clamp_min(dist_tp[:, None], 1e-6)
-        wrap = ((dir_tp * nrm).sum(-1) * 0.5 + 0.5) ** 2 + 0.05
+        wrap = (dot3(dir_tp, nrm) * 0.5 + 0.5) ** 2 + 0.05
         # Chebyshev visibility from the distance texels (ddgi.h:248-270)
         oct_d = octahedral_texel_index(-dir_tp, cfg.dist_side).long()
         mm = dist_t[idx, oct_d]

@@ -25,7 +25,7 @@ import torch
 
 import numpy as np
 
-from . import rt
+from . import _util, rt
 from . import sh as sh_ops
 from ._util import const, f2i
 from .bluenoise import interleaved_gradient_noise
@@ -296,8 +296,9 @@ def rtao(pos_tw: torch.Tensor, normal: torch.Tensor, bvh: rt.SceneBVH,
         phi = rot + (i + 0.5) * (np.pi * (3.0 - np.sqrt(5.0)))
         ct = np.float32(np.sqrt((i + 0.5) / k))        # cos(elevation)
         st = np.float32(np.sqrt(1.0 - ct * ct))
-        d = (t1 * (torch.cos(phi) * float(st))[..., None] +
-             t2 * (torch.sin(phi) * float(st))[..., None] + n * float(ct))
+        sin_p, cos_p = _util.sincosf(phi)
+        d = (t1 * (cos_p * float(st))[..., None] +
+             t2 * (sin_p * float(st))[..., None] + n * float(ct))
         t_hit, leaf = rt.trace(org, d, bvh, t_max=cfg.ao_radius)
         occ = occ + torch.where(
             leaf >= 0, torch.clamp(1.0 - t_hit / radius, 0.0, 1.0), zero)

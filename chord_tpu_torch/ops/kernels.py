@@ -3,8 +3,10 @@
 One entry per kernel: the module, the wrapper that launches the CUDA
 kernel (and counts its launches in `wrapper.launches`), the plain PyTorch
 version with the same signature, the CUDA source, the chord_tpu Pallas
-kernel it replaces and the paths (`paths`) that launch it: a frame path
-of PATHS, a tool path of TOOL_PATHS or an app run of APP_PATHS.
+kernel it replaces (the sincos kernel replaces none: it computes
+chord_tpu's XLA f32 sin and cos, glibc's sinf and cosf, on the card) and
+the paths (`paths`) that launch it: a frame path of PATHS, a tool path of
+TOOL_PATHS or an app run of APP_PATHS.
 `capture_inputs` records the arguments each wrapper receives while a frame
 runs, so a check can hold kernel and plain version against each other on
 a path's own inputs and shapes.
@@ -18,8 +20,9 @@ from typing import Callable, Dict, List, Tuple
 
 import torch
 
-from . import (fusion_barrier, mesh_shader, paged_texture, proto_paged_tex,
-               raster, row_gather, shadow, shadow_kernel, tile_reproject)
+from . import (_util, fusion_barrier, mesh_shader, paged_texture,
+               proto_paged_tex, raster, row_gather, shadow, shadow_kernel,
+               tile_reproject)
 
 # the paths the port renders: the bench rungs (bench.py FEATURE_LEVELS;
 # `all_no_rt` is the `all` rung with gi_rt=False), the `all` rung with
@@ -71,6 +74,13 @@ def run_frames(path: str) -> int:
     return RUN_FRAMES.get(path, 16)
 
 
+# the sincos kernel's calls a frame: the PCSS disk rotation on the shadow
+# paths, the specular GI's GGX azimuth on the GI paths and RTAO's 4 rays
+# on `all_exact`
+SINCOS_PER_FRAME = {p: (1 if p in SHADOW else 0) + (1 if p in GI_PATHS
+                                                    else 0)
+                    for p in PATHS}
+SINCOS_PER_FRAME["all_exact"] += 4
 # launches of a kernel on a path's run that the path fixes, per rank on
 # the sharded paths (K4:
 # TSR's history and, with screen probes, the GI diffuse history every
@@ -79,7 +89,8 @@ def run_frames(path: str) -> int:
 # frames that refresh cascade 0 or 1; K1 on geo_tex_native the two
 # occlusion phases, the
 # masked layer, its peel and the blend bucket; the BVH rays, RTAO, DDGI
-# and the probe march launch no kernel of their own)
+# and the probe march launch no kernel of their own; the sincos kernel
+# SINCOS_PER_FRAME, added below)
 EXPECTED_LAUNCHES = {
     "off": {"tile_reproject": 16},
     "geo_tex": {"tile_reproject": 16, "paged_texture": 32},
@@ -118,6 +129,12 @@ EXPECTED_LAUNCHES = {
     "viewer_chtp": {"raster": 21, "mesh_shader": 21, "row_gather": 14,
                     "pcss": 7},
 }
+for _p, _n in SINCOS_PER_FRAME.items():
+    if _n:
+        EXPECTED_LAUNCHES[_p]["sincos"] = _n * run_frames(_p)
+# the viewer's PCSS calls rotate their disks too
+for _p in ("viewer_glb", "viewer_chtp"):
+    EXPECTED_LAUNCHES[_p]["sincos"] = EXPECTED_LAUNCHES[_p]["pcss"]
 # the port's tools: every variant of tools/repro_eval_kernel.py, and
 # tools/proto_paged_tex.py's main at its own size
 TOOL_PATHS = ("repro_eval", "proto_paged_tex")
@@ -180,6 +197,12 @@ KERNELS: List[Kernel] = [
            proto_paged_tex.paged_sample_plain,
            "chord_tpu_torch/csrc/proto_paged_tex.cu",
            "tools/proto_paged_tex.py:70", paths=("proto_paged_tex",)),
+    Kernel("sincos", _util, "sincosf", _util.sincosf_plain,
+           "chord_tpu_torch/csrc/sincos.cu",
+           "none: chord_tpu's XLA f32 sin / cos (glibc sinf, cosf) at "
+           "chord_tpu/ops/gi.py:365, screen_probe.py:673, shadow.py:274, "
+           "shadow_kernel.py:382",
+           paths=SHADOW + ("viewer_glb", "viewer_chtp", "repro_eval")),
 ]
 
 

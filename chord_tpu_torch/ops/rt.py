@@ -36,7 +36,7 @@ import numpy as np
 import torch
 
 from . import colorspace
-from ._util import sqrt_rn
+from ._util import dot3, sqrt_rn
 
 
 class SceneBVH(NamedTuple):
@@ -231,21 +231,14 @@ def build_scene_bvh(pools, instances, coarse_only: bool = True,
 build_scene_bvh.builder = None
 
 
-def _dot3(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """The dot of the last (size 3) axes, broadcast, summed in order:
-    (a0 b0 + a1 b1) + a2 b2."""
-    return (a[..., 0] * b[..., 0] + a[..., 1] * b[..., 1]) + \
-        a[..., 2] * b[..., 2]
-
-
 def _ray_sphere(o: torch.Tensor, d: torch.Tensor, sph: torch.Tensor):
     """Entry distance of ray o + t*d into sphere (...,4) -> (hit, t_entry);
     an origin inside gives t_entry = 0. Each dot is summed (p0 + p1) + p2
     and the root rounded to nearest (_util.sqrt_rn), as chord_tpu's
     compiled _ray_sphere rounds them, on every device."""
     oc = o - sph[..., :3]
-    b = _dot3(oc, d)
-    c2 = _dot3(oc, oc) - sph[..., 3] * sph[..., 3]
+    b = dot3(oc, d)
+    c2 = dot3(oc, oc) - sph[..., 3] * sph[..., 3]
     disc = b * b - c2
     sq = sqrt_rn(torch.clamp_min(disc, 0.0))
     t_entry = torch.where(c2 < 0.0, torch.zeros((), device=o.device),
@@ -320,12 +313,12 @@ def trace_dense_tri(origins: torch.Tensor, dirs: torch.Tensor,
     for base in range(0, planes.shape[0], chunk):
         pc = planes[base:base + chunk]
         nrm, n1, n2 = pc[None, :, 0:3], pc[None, :, 4:7], pc[None, :, 8:11]
-        den = _dot3(d3, nrm)                              # (R,chunk)
-        num = -(_dot3(o3, nrm) + pc[:, 3][None, :])
+        den = dot3(d3, nrm)                               # (R,chunk)
+        num = -(dot3(o3, nrm) + pc[:, 3][None, :])
         safe = torch.abs(den) > 1e-12
         t = num / torch.where(safe, den, one)
-        u = (_dot3(o3, n1) + t * _dot3(d3, n1)) + pc[:, 7][None, :]
-        v = (_dot3(o3, n2) + t * _dot3(d3, n2)) + pc[:, 11][None, :]
+        u = (dot3(o3, n1) + t * dot3(d3, n1)) + pc[:, 7][None, :]
+        v = (dot3(o3, n2) + t * dot3(d3, n2)) + pc[:, 11][None, :]
         hit = safe & (t > 1e-4) & (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0)
         t_hit = torch.where(hit, t, inf)
         j = torch.argmin(t_hit, dim=1)
@@ -358,8 +351,8 @@ def trace_dense(origins: torch.Tensor, dirs: torch.Tensor,
         poison = torch.zeros((pad, 4), dtype=spheres.dtype, device=dev)
         poison[:, 3] = -1.0
         spheres = torch.cat([spheres, poison])
-    od = _dot3(o, d)[:, None]                             # (R,1)
-    oo = _dot3(o, o)[:, None]                             # (R,1)
+    od = dot3(o, d)[:, None]                              # (R,1)
+    oo = dot3(o, o)[:, None]                              # (R,1)
     zero = torch.zeros((), device=dev)
     inf = torch.full((), float("inf"), device=dev)
     t_best = torch.full((o.shape[0],), t_max, dtype=torch.float32, device=dev)
@@ -367,9 +360,9 @@ def trace_dense(origins: torch.Tensor, dirs: torch.Tensor,
     for base in range(0, spheres.shape[0], chunk):
         sc = spheres[base:base + chunk]
         c, rad = sc[:, :3], sc[:, 3]
-        b = od - _dot3(d[:, None, :], c[None])            # (o-c)·d
-        c2 = (oo - 2.0 * _dot3(o[:, None, :], c[None]) +
-              _dot3(c, c)[None, :] - (rad * rad)[None, :])
+        b = od - dot3(d[:, None, :], c[None])             # (o-c)·d
+        c2 = (oo - 2.0 * dot3(o[:, None, :], c[None]) +
+              dot3(c, c)[None, :] - (rad * rad)[None, :])
         disc = b * b - c2
         sq = sqrt_rn(torch.clamp_min(disc, 0.0))
         t_entry = torch.where(c2 < 0.0, zero, -b - sq)
@@ -400,13 +393,13 @@ def _scan_step(o: torch.Tensor, d: torch.Tensor, bvh: SceneBVH, m: int,
     if bvh.tri_planes is not None:
         # the node sphere only prunes; the leaf test is the triangle
         pc = bvh.tri_planes[torch.clamp_min(lf, 0).long()]       # (R,12)
-        den = _dot3(d, pc[:, 0:3])
+        den = dot3(d, pc[:, 0:3])
         safe = torch.abs(den) > 1e-12
-        t_leaf = -(_dot3(o, pc[:, 0:3]) + pc[:, 3]) / \
+        t_leaf = -(dot3(o, pc[:, 0:3]) + pc[:, 3]) / \
             torch.where(safe, den, torch.ones((), device=dev))
         p = o + t_leaf[:, None] * d
-        u = _dot3(p, pc[:, 4:7]) + pc[:, 7]
-        v = _dot3(p, pc[:, 8:11]) + pc[:, 11]
+        u = dot3(p, pc[:, 4:7]) + pc[:, 7]
+        v = dot3(p, pc[:, 8:11]) + pc[:, 11]
         take = (useful & is_leaf & safe & (t_leaf > 1e-4) & (u >= 0.0) &
                 (v >= 0.0) & (u + v <= 1.0) & (t_leaf < t_best))
     else:

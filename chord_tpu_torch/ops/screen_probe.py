@@ -31,7 +31,9 @@ import torch
 
 from . import gi as gi_ops
 from . import sh
-from ._util import const, f2i, host_table, jitter_rays
+from . import _util
+from ._util import (const, dot3, f2i, host_table, jitter_rays, norm3,
+                    sqrt_rn)
 from .post import _linear_weights, _resample, upsample_linear, \
     upsample_nearest
 
@@ -258,11 +260,11 @@ def gather_probe_taps(probes: ProbeState, scene_rad: torch.Tensor,
         tr = torch.roll(scene_rad, (dy, dx), (0, 1))
         tv = torch.roll(probes.valid, (dy, dx), (0, 1))
         d = tp - probes.pos_tw
-        dist = torch.linalg.vector_norm(d, dim=-1)
+        dist = norm3(d)
         dirn = d / torch.clamp_min(dist[..., None], 1e-6)
         # taps below the tangent plane see the probe's own surface from
         # behind; distant taps lose weight
-        cosn = (dirn * probes.normal).sum(-1)
+        cosn = dot3(dirn, probes.normal)
         w = ((tv & probes.valid & (dist > 1e-3) & (cosn > 0.05)).float() *
              torch.exp(-dist * 0.02))
         rads.append(tr)
@@ -540,13 +542,15 @@ def ggx_sample_normal(nrm: torch.Tensor, view: torch.Tensor,
     """GGX-importance-sampled microfacet normal (Walter07: theta_h =
     atan(a sqrt(u1/(1-u1))), a = rough^2) for the specular trace; the
     shading normal where reflecting about the sample would dive below the
-    surface. It doubles as SSR's virtual normal."""
+    surface. It doubles as SSR's virtual normal. Rounded as chord_tpu's
+    jitted function: roots to nearest, cos and sin by _util.sincosf, the
+    length and the two dots summed (p0 + p1) + p2."""
     a = torch.clamp_min(rough * rough, 1e-4)[..., None]
     u1c = torch.clamp(u1, 0.0, 0.999)[..., None]
     u2e = u2[..., None]
     t2 = (a * a) * u1c / (1.0 - u1c)
-    cos_t = 1.0 / torch.sqrt(1.0 + t2)
-    sin_t = torch.sqrt(torch.clamp_min(1.0 - cos_t * cos_t, 0.0))
+    cos_t = 1.0 / sqrt_rn(1.0 + t2)
+    sin_t = sqrt_rn(torch.clamp_min(1.0 - cos_t * cos_t, 0.0))
     phi = (2.0 * np.pi) * u2e
     # branchless orthonormal basis (Duff et al.)
     dev = nrm.device
@@ -556,12 +560,11 @@ def ggx_sample_normal(nrm: torch.Tensor, view: torch.Tensor,
     t1v = torch.cat([1.0 + s * nrm[..., 0:1] ** 2 * c_, s * b_,
                      -s * nrm[..., 0:1]], -1)
     t2v = torch.cat([b_, s + nrm[..., 1:2] ** 2 * c_, -nrm[..., 1:2]], -1)
-    h = (t1v * (torch.cos(phi) * sin_t) + t2v * (torch.sin(phi) * sin_t) +
-         nrm * cos_t)
-    h = h / torch.clamp_min(torch.linalg.vector_norm(h, dim=-1,
-                                                     keepdim=True), 1e-8)
-    d = 2.0 * (view * h).sum(-1, keepdim=True) * h - view
-    ok = (d * nrm).sum(-1, keepdim=True) > 1e-3
+    sin_p, cos_p = _util.sincosf(phi)
+    h = (t1v * (cos_p * sin_t) + t2v * (sin_p * sin_t) + nrm * cos_t)
+    h = h / torch.clamp_min(norm3(h, keepdim=True), 1e-8)
+    d = 2.0 * dot3(view, h)[..., None] * h - view
+    ok = dot3(d, nrm)[..., None] > 1e-3
     return torch.where(ok, h, nrm)
 
 

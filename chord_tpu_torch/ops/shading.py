@@ -25,7 +25,7 @@ import torch
 
 from . import colorspace, row_gather
 from . import texture as texture_ops
-from ._util import bits_f32, centres
+from ._util import bits_f32, centres, norm3
 from .row_gather import pack_table
 from ..rhi.framebuffer import unpack_visibility
 
@@ -132,8 +132,7 @@ def _resolve_from_ids(idx, obj, valid, pools, instances,
     nl = interp(*n)
     nrm = (nl[..., 0:1] * nm[..., 0, :] + nl[..., 1:2] * nm[..., 1, :] +
            nl[..., 2:3] * nm[..., 2, :])
-    nrm = nrm / torch.clamp_min(torch.linalg.vector_norm(
-        nrm, dim=-1, keepdim=True), 1e-8)
+    nrm = nrm / torch.clamp_min(norm3(nrm, keepdim=True), 1e-8)
     uv = interp(*t)
     # motion: NDC delta of the interpolated point between frames
     prev = [xf(q, mp) for q in p]

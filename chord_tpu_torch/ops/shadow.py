@@ -32,6 +32,7 @@ import numpy as np
 import torch
 
 from ..utils import math as cmath
+from . import _util
 from ._util import const, f2i
 
 
@@ -304,7 +305,7 @@ def shadow_prepass(position_tw: torch.Tensor, normal: torch.Tensor,
             tx / torch.clamp_min(dr, 1e-6))
     if noise is not None:
         theta = noise * (2.0 * math.pi)
-        ca, sa = torch.cos(theta), torch.sin(theta)
+        sa, ca = _util.sincosf(theta)
     else:
         ca, sa = torch.ones_like(zeros), zeros
     return ShadowPrepass(cascade=cascade, u=u, v=v, z_cmp=z_recv + bias,

@@ -16,7 +16,7 @@ from typing import NamedTuple, Tuple
 import numpy as np
 import torch
 
-from ._util import f2i
+from ._util import dot3, f2i, norm3
 
 
 class SSRConfig(NamedTuple):
@@ -43,9 +43,9 @@ def trace(depth_q: torch.Tensor, color_prev: torch.Tensor,
     fh, fw = color_prev.shape[:2]
     dev = depth_q.device
     v = -pos_q
-    v = v / torch.clamp_min(torch.linalg.vector_norm(v, dim=-1,
-                                                     keepdim=True), 1e-6)
-    r = 2.0 * (v * nrm_q).sum(-1, keepdim=True) * nrm_q - v
+    # XLA's order: the march's hits turn on the direction's last bits
+    v = v / torch.clamp_min(norm3(v, keepdim=True), 1e-6)
+    r = 2.0 * dot3(v, nrm_q)[..., None] * nrm_q - v
     m = tw_to_clip
 
     found = torch.zeros((h, w), dtype=torch.bool, device=dev)

@@ -74,7 +74,7 @@ from ..ops import gi as gi_ops
 from ..ops import rt
 from ..ops import screen_probe as sp
 from ..ops import ssr as ssr_ops
-from ..ops._util import centres, const, f2i
+from ..ops._util import centres, const, dot3, f2i, norm3
 from ..ops.bluenoise import interleaved_gradient_noise
 from ..ops.cull import build_active_pairs, cull_pairs
 from ..ops.hzb import HZBPyramid, build_hzb, hzb_layout, valid_depth_range
@@ -638,6 +638,21 @@ def _probe_diffuse(view: DeviceView, history: FrameHistory, gbuf, depth,
     return indirect, gi_cache, probe_sh, probes.depth, diff_half
 
 
+def specular_directions(pos_q: torch.Tensor, nrm_q: torch.Tensor,
+                        rough_q: torch.Tensor, frame_count):
+    """The specular GI's directions (chord_tpu meshlet_frame.py:969-984)
+    at the sample res: the GGX half-vector about the view direction
+    -pos / |pos|, with the IGN pair of `frame_count` at each pixel, and the
+    view reflected about it -> (h_ggx, refl_q), rounded as chord_tpu's
+    jitted frame (the length and the dot summed (p0 + p1) + p2)."""
+    v_q = -pos_q / torch.clamp_min(norm3(pos_q, keepdim=True), 1e-6)
+    hq, wq = rough_q.shape
+    u1 = interleaved_gradient_noise(hq, wq, frame_count)
+    u2 = interleaved_gradient_noise(hq, wq, frame_count + 31)
+    h_ggx = sp.ggx_sample_normal(nrm_q, v_q, rough_q, u1, u2)
+    return h_ggx, 2.0 * dot3(v_q, h_ggx)[..., None] * h_ggx - v_q
+
+
 def _specular_gi(view: DeviceView, history: FrameHistory, gbuf, depth,
                  motion_dilated, disocc, ao, sun_radiance,
                  mcfg: MeshletFrameConfig, gcfg: gi_ops.GIConfig,
@@ -652,14 +667,9 @@ def _specular_gi(view: DeviceView, history: FrameHistory, gbuf, depth,
         k = gcfg.sample_res_div
         pos_q = post.decimate(gbuf.position_tw, k)
         nrm_q = post.decimate(gbuf.normal, k)
-        v_q = -pos_q / torch.clamp_min(torch.linalg.vector_norm(
-            pos_q, dim=-1, keepdim=True), 1e-6)
         rough_q = post.decimate(gbuf.roughness, k)
-        hq, wq = rough_q.shape
-        u1 = interleaved_gradient_noise(hq, wq, history.frame_count)
-        u2 = interleaved_gradient_noise(hq, wq, history.frame_count + 31)
-        h_ggx = sp.ggx_sample_normal(nrm_q, v_q, rough_q, u1, u2)
-        refl_q = 2.0 * (v_q * h_ggx).sum(-1, keepdim=True) * h_ggx - v_q
+        h_ggx, refl_q = specular_directions(pos_q, nrm_q, rough_q,
+                                            history.frame_count)
         anchor = torch.zeros(3, device=dev)
         spec_q, conf_q = gi_ops.sample_radiance(history.gi_cache, pos_q,
                                                 refl_q, anchor, gcfg)

@@ -50,8 +50,12 @@ chord_tpu's MeshletRenderer builds them (cell_history: screen probes in
 probe mode only).
 The ray cell `all_exact_rays` holds no frame: `tests/bench_parity.py rays
 all_exact` records the rays of each rt.trace call of the port's CPU frame 0
-of chip_smoke's `all_exact` path (a seeded 4,096 of each call) into
-tests/goldens/bench/all_exact_rays.npz, and trace_rays traces them through
+of chip_smoke's `all_exact` path (a seeded 4,096 of each call) and, for
+RTAO's and the specular GI's calls, what their directions are made of,
+into tests/goldens/bench/all_exact_rays.npz; trace_rays makes those
+directions with chord_tpu's own gi.rtao and the frame's GGX reflection
+(ggx_sample_normal), jitted without FMA, from the recorded inputs,
+replaces the recorded ones with them, traces every call through
 chord_tpu's own triangle BVH of the bench scene (a ray's scan result
 depends only on the ray and the step budget) and writes t, leaf and the
 BVH arrays' hashes beside them, and the manifest's `rays` entry.
@@ -157,7 +161,7 @@ CELLS = {
 RAY_CELLS = {
     "all_exact_rays": dict(
         path="all_exact", scene="bistro", rung="all",
-        granularity="triangle",
+        granularity="triangle", gi_cfg=dict(ao_mode="rtao"),
         command="chip_smoke.py path all_exact (frame 0's rt.trace calls: "
                 "RTAO's four, the probe rays, SSR's misses)"),
 }
@@ -592,21 +596,101 @@ def render_cell(cell: str, frames: int | None = None,
         print(f"{cell} frame {i}: {dt:.1f} s, stats {st}", flush=True)
 
 
+# the recorded arrays of a ray cell (tests/bench_parity.py `rays`)
+RAY_INPUTS = ("calls", "origins", "dirs", "t_max", "seed", "call_rays",
+              "pixel", "plane", "pos", "normal", "rough", "frame_count")
+
+
+def _plane(data, key: str, k: int):
+    """The recorded values of call k at its kept pixels, scattered into
+    the call's plane (zero elsewhere)."""
+    h, w = (int(v) for v in data["plane"][k])
+    c = 1 if data[key].ndim == 2 else 3
+    x = np.zeros((h * w, c), np.float32)
+    x[data["pixel"][k]] = data[key][k].reshape(-1, c)
+    return x.reshape(h, w, c) if c > 1 else x.reshape(h, w)
+
+
+def jax_specular_directions(pos_q, nrm_q, rough_q, frame_count):
+    """chord_tpu's specular GI directions (renderer/meshlet_frame.py:
+    969-984): the view -pos / |pos|, the IGN pair of `frame_count`,
+    ggx_sample_normal and the view reflected about it -> refl_q."""
+    import jax.numpy as jnp
+
+    from chord_tpu.ops import bluenoise as jbn
+    from chord_tpu.ops import screen_probe as jsp
+
+    v_q = -pos_q / jnp.maximum(
+        jnp.linalg.norm(pos_q, axis=-1, keepdims=True), 1e-6)
+    hq, wq = rough_q.shape
+    u1 = jbn.interleaved_gradient_noise(hq, wq, frame_count)
+    u2 = jbn.interleaved_gradient_noise(hq, wq, frame_count + 31)
+    h_ggx = jsp.ggx_sample_normal(nrm_q, v_q, rough_q, u1, u2)
+    return 2.0 * jnp.sum(v_q * h_ggx, -1, keepdims=True) * h_ggx - v_q
+
+
+def golden_directions(data, gi_cfg) -> dict:
+    """chord_tpu's directions of the kept rays of each call whose inputs a
+    ray cell recorded, from those inputs at the frame's plane size: RTAO's
+    k-th fan ray (gi.rtao with `gi_cfg`, its trace stubbed) and the
+    specular GI's reflection (jax_specular_directions), each jitted ->
+    {call index: (N,3)}."""
+    import jax
+    import jax.numpy as jnp
+
+    from chord_tpu.ops import gi as jgi
+    from chord_tpu.ops import rt as jrt
+
+    def rtao_dirs(pos, nrm, fc):
+        seen = []
+        trace = jrt.trace
+
+        def stub(o, d, bvh, t_max=1e9, max_steps=None):
+            seen.append(d)
+            shape = o.shape[:-1]
+            return jnp.full(shape, t_max, jnp.float32), jnp.full(
+                shape, -1, jnp.int32)
+        jrt.trace = stub
+        try:
+            jgi.rtao(pos, nrm, None, gi_cfg, frame_index=fc)
+        finally:
+            jrt.trace = trace
+        return seen
+
+    fc = jnp.int32(int(data["frame_count"]))
+    out = {}
+    for k, name in enumerate(data["calls"].tolist()):
+        if int(data["plane"][k][0]) <= 0:
+            continue
+        pos, nrm = _plane(data, "pos", k), _plane(data, "normal", k)
+        if name == "specular":
+            d = jax.jit(jax_specular_directions)(pos, nrm,
+                                                 _plane(data, "rough", k), fc)
+        else:
+            d = jax.jit(rtao_dirs)(pos, nrm, fc)[int(name[len("rtao"):])]
+        out[k] = np.asarray(d).reshape(-1, 3)[data["pixel"][k]]
+    return out
+
+
 def trace_rays(cell: str, out_dir: str = OUT_DIR) -> None:
     """A ray cell: the rays `tests/bench_parity.py rays` recorded into
-    OUT_DIR/<cell>.npz, traced by chord_tpu's jitted rt.trace (the BVH
-    scan at its default budget, each call's t_max) over chord_tpu's own
-    BVH of the cell's scene, built as chip_smoke.path_bvh builds the
-    port's: bench.py's bistro, the path's instance table (the camera at
-    the camera path's last position), the cell's granularity, the native
-    builder. Writes t and leaf and the BVH's hashes (chip_smoke.
-    bvh_hashes) into the npz, and the cell's entry into the manifest's
-    `rays`."""
+    OUT_DIR/<cell>.npz, RTAO's and the specular GI's directions made anew
+    by chord_tpu from the recorded inputs (golden_directions, replacing
+    the recorded ones; how many of the port's CPU frame's differed is
+    printed and kept in the manifest), traced by chord_tpu's jitted
+    rt.trace (the BVH scan at its default budget, each call's t_max) over
+    chord_tpu's own BVH of the cell's scene, built as chip_smoke.path_bvh
+    builds the port's: bench.py's bistro, the path's instance table (the
+    camera at the camera path's last position), the cell's granularity,
+    the native builder. Writes the directions, t and leaf and the BVH's
+    hashes (chip_smoke.bvh_hashes) into the npz, and the cell's entry into
+    the manifest's `rays`."""
     import jax
 
     from chip_smoke import bvh_hashes
     from chord_tpu.native import available
     from chord_tpu.ops import rt as jrt
+    from chord_tpu.ops.gi import GIConfig
     from chord_tpu.utils.camera import Camera
 
     if NO_FMA not in os.environ.get("XLA_FLAGS", ""):
@@ -617,8 +701,19 @@ def trace_rays(cell: str, out_dir: str = OUT_DIR) -> None:
     spec = RAY_CELLS[cell]
     path = os.path.join(out_dir, f"{cell}.npz")
     with np.load(path) as f:
-        data = {k: f[k] for k in ("calls", "origins", "dirs", "t_max",
-                                  "seed", "call_rays")}
+        data = {k: f[k] for k in RAY_INPUTS}
+    t0 = time.time()
+    golden = golden_directions(data, GIConfig(**spec["gi_cfg"]))
+    port_differ = {}
+    for k, d in golden.items():
+        name = data["calls"][k]
+        port_differ[str(name)] = int((d.view(np.int32) != data["dirs"][k].view(
+            np.int32)).any(-1).sum())
+        data["dirs"][k] = d
+        print(f"{cell} call {name}: chord_tpu's directions from the "
+              f"recorded inputs; the port's CPU frame's differ on "
+              f"{port_differ[str(name)]} of {d.shape[0]}", flush=True)
+    dir_s = time.time() - t0
     t0 = time.time()
     b, pools, n_src = _bench()._make_scene(spec["scene"], DETAIL,
                                            TARGET_TRIS)
@@ -660,6 +755,10 @@ def trace_rays(cell: str, out_dir: str = OUT_DIR) -> None:
         calls=data["calls"].tolist(), call_rays=data["call_rays"].tolist(),
         rays_per_call=int(data["origins"].shape[1]), seed=int(data["seed"]),
         t_max=data["t_max"].tolist(), bvh=hashes,
+        held_directions=sorted(port_differ),
+        port_directions_differ=port_differ, gi_cfg=spec["gi_cfg"],
+        frame_count=int(data["frame_count"]),
+        directions_seconds=round(dir_s, 3),
         hit_share=[float((lf >= 0).mean()) for lf in leaves],
         setup_seconds=round(setup_s, 3), seconds=secs), section="rays")
     print(f"wrote {path} ({os.path.getsize(path)} B) and the manifest's "

@@ -8,6 +8,7 @@
     python3 tests/bench_parity.py dump all_ddgi --device cuda --out DIR
                                        [--frames N] [--keep 0,1,7]
     python tests/bench_parity.py history all_ddgi --no-fma --port-dump DIR
+    python tests/bench_parity.py history all_4k --no-fma --window 896,688
     python3 tests/bench_parity.py devdiff all_ddgi 1 --device cuda
                                           [--funcs sp.ggx_sample_normal,...]
     python tests/bench_parity.py ign [--no-fma]
@@ -43,7 +44,9 @@ range, cascade matrices, shadow maps (per cascade), shadow mask,
 exposure and TSR colour are compared, and with GI on the world cache
 (per cascade), the screen-probe planes and the diffuse and specular
 histories, or DDGI's irradiance, distance, SH, offset and weight (per
-cascade), with the image gates of the frame.
+cascade), with the image gates of the frame; `--window ROW,COLUMN`
+then reports that 16x16 output window: its pixels, each image-like
+leaf's difference over the same region and the port's G-buffer there.
 
 `dump` (no JAX: for the card): the port's frames of a cell on a device,
 each kept frame's image and history leaves written to DIR; `history
@@ -65,11 +68,14 @@ eager one at 720x1280 and 180x320.
 
 `rays`: the inputs of each rt.trace call of the port's CPU frame 0 of a
 path (all_exact: RTAO's four calls, the probe rays, SSR's misses), 4,096
-rays a call chosen with a seed, written to the goldens directory
-(<path>_rays.npz) for `bench_goldens.py <path>_rays` to trace through
-chord_tpu; `--check` holds the port's CPU traces of them, over its own
-BVH of the path, to that golden (the BVH's hashes, leaf and t bit for
-bit), as chip_smoke's phase 13 does on the card.
+rays a call chosen with a seed, and for RTAO's and the specular GI's
+calls what their directions are made of (the kept pixels of the call's
+plane, their G-buffer values, the frame count), written to the goldens
+directory (<path>_rays.npz) for `bench_goldens.py <path>_rays` to make
+those directions and trace the rays through chord_tpu; `--check` holds
+the port's CPU directions and traces of them, over its own BVH of the
+path, to that golden (the BVH's hashes, the directions, leaf and t bit
+for bit), as chip_smoke's phase 13 does on the card.
 
 `--no-fma` compiles chord_tpu with XLA_FLAGS=--xla_cpu_max_isa=SSE4_2
 (no fused multiply-adds), as tests/bench_goldens.py does; without it
@@ -427,14 +433,62 @@ def strip_devdiff_rank(rank: int, device, job, frame: int, funcs,
     return _rerun(calls)
 
 
-def history(cell: str, n: int | None, port_dump: str | None = None) -> None:
+def _window_report(img, ref_img, port: dict, ref: dict, window,
+                   gbuf) -> None:
+    """What lies in the 16x16 output window at `window` (row, column): the
+    image's levels there, each image-like history leaf's difference over
+    the same region at its own size, and the port's surface there (the
+    G-buffer of the frame: base colour, roughness, metallic)."""
+    r, c = window
+    ph, pw = img.shape[:2]
+    d = np.abs(img.astype(int) - np.asarray(ref_img).astype(int)).max(-1)
+    box = d[r:r + 16, c:c + 16]
+    print(f"  window ({r}, {c}): {int((box > 0).sum())} of 256 pixels "
+          f"differ, by up to {int(box.max())} levels; the image "
+          f"{int((d > 0).sum())} pixels", flush=True)
+    for name in HISTORY_LEAVES:
+        a, b = port.get(name), ref.get(name)
+        if a is None or b is None or a.ndim < 2 or name in (
+                "shadow_maps", "gi_cache", "shadow_mats"):
+            continue
+        sy, sx = a.shape[0] / ph, a.shape[1] / pw
+        ys = slice(int(r * sy), max(int(np.ceil((r + 16) * sy)), 1))
+        xs = slice(int(c * sx), max(int(np.ceil((c + 16) * sx)), 1))
+        print(f"  window in {name} {a.shape} rows {ys.start}-{ys.stop} "
+              f"columns {xs.start}-{xs.stop}: "
+              f"{_diff(a[ys, xs], b[ys, xs])}", flush=True)
+    if gbuf is not None:
+        gh, gw = gbuf.valid.shape
+        ys = slice(int(r * gh / ph), int(np.ceil((r + 16) * gh / ph)))
+        xs = slice(int(c * gw / pw), int(np.ceil((c + 16) * gw / pw)))
+        for f in ("valid", "base_color", "roughness", "metallic", "normal"):
+            v = getattr(gbuf, f)[ys, xs].float().numpy()
+            v = v.reshape(-1, v.shape[-1]) if v.ndim == 3 else v.reshape(-1)
+            print(f"  the port's {f} over render rows {ys.start}-{ys.stop} "
+                  f"columns {xs.start}-{xs.stop}: min {v.min(0)}, max "
+                  f"{v.max(0)}, mean {v.mean(0)}", flush=True)
+
+
+def history(cell: str, n: int | None, port_dump: str | None = None,
+            window=None) -> None:
     import bench_goldens as bg
     import chip_smoke as cs
 
     c = bg.setup_cell(cell)
     jhist = c["hist"]
+    gbufs = []
     if port_dump is None:
         scene, config, mcfg, hist = _port_cell(cell)
+        if window is not None:
+            from chord_tpu_torch.ops import shading
+
+            resolve = shading.resolve_gbuffer_raster_rt
+
+            @functools.wraps(resolve)
+            def kept(*a, **k):
+                gbufs[:] = [resolve(*a, **k)]
+                return gbufs[0]
+            shading.resolve_gbuffer_raster_rt = kept
     for i in range(n or 8):
         jimg, jhist, _ = c["step"](i, jhist)
         if port_dump is None:
@@ -465,6 +519,9 @@ def history(cell: str, n: int | None, port_dump: str | None = None) -> None:
                     print(f"  {name}[{k}] {_diff(a[k], b[k])}", flush=True)
             else:
                 print(f"  {name} {a.shape} {_diff(a, b)}", flush=True)
+        if window is not None:
+            _window_report(img, jimg, port, ref, window,
+                           gbufs[0] if gbufs else None)
 
 
 def split(cell: str, frame: int) -> None:
@@ -718,18 +775,25 @@ def rays(path: str, check: bool, goldens: str) -> None:
     """The inputs of each rt.trace call of the port's CPU frame 0 of
     `path` (chip_smoke's scene, configs and fresh history), RAYS_PER_CALL
     rays a call chosen with a seed, written to GOLDENS/<path>_rays.npz
-    (origins, dirs, t_max, call names) for bench_goldens.py's
-    `<path>_rays` cell to trace through chord_tpu. A scan ray's result
-    depends only on the ray and the step budget, so each kept ray's
-    result in a call of the kept rays alone is its result in the frame's
-    call: checked here on the port. `check`: the port's BVH of the path,
-    built on the CPU as chip_smoke builds it, and its traces of the
-    recorded rays held to the golden (chip_smoke.hold_rays)."""
+    (origins, dirs, t_max, call names; for RTAO's and the specular GI's
+    calls the kept rays' pixels, the plane size, pos, normal and rough at
+    those pixels and the frame count) for bench_goldens.py's `<path>_rays`
+    cell. A scan ray's result depends only on the ray and the step budget,
+    so each kept ray's result in a call of the kept rays alone is its
+    result in the frame's call; and a pixel's direction depends only on
+    its G-buffer values, coordinates and the frame, so the directions made
+    from the recorded inputs alone (chip_smoke.ray_directions) are the
+    frame's: both checked here on the port. `check`: the port's BVH of the
+    path, built on the CPU as chip_smoke builds it, and its directions and
+    traces of the recorded rays held to the golden (chip_smoke.hold_rays).
+    """
     import torch
 
     import chip_smoke as cs
+    from chord_tpu_torch.ops import gi as gi_ops
     from chord_tpu_torch.ops import rt
     from chord_tpu_torch.ops.gi import GIConfig
+    from chord_tpu_torch.renderer import meshlet_frame
 
     cell = f"{path}_rays"
     if cs.GOLDEN_RAYS.get(cell) != path:
@@ -756,12 +820,29 @@ def rays(path: str, check: bool, goldens: str) -> None:
                       leaf.reshape(-1).clone()))
         return t, leaf
 
+    # what RTAO's and the specular GI's directions are made of
+    made = {"rtao": [], "specular": []}
+    rtao, spec_dirs = gi_ops.rtao, meshlet_frame.specular_directions
+
+    def rtao_recorded(pos, normal, bvh, cfg, frame_index=None):
+        made["rtao"].append(dict(pos=pos.clone(), normal=normal.clone(),
+                                 frame_count=int(frame_index)))
+        return rtao(pos, normal, bvh, cfg, frame_index=frame_index)
+
+    def spec_recorded(pos_q, nrm_q, rough_q, frame_count):
+        made["specular"].append(dict(pos=pos_q.clone(), normal=nrm_q.clone(),
+                                     rough=rough_q.clone(),
+                                     frame_count=int(frame_count)))
+        return spec_dirs(pos_q, nrm_q, rough_q, frame_count)
+
     t0 = time.time()
-    rt.trace = recorded
+    rt.trace, gi_ops.rtao = recorded, rtao_recorded
+    meshlet_frame.specular_directions = spec_recorded
     try:
         cs.run_path(path, scene, config, mcfg, hist, 0, 1)
     finally:
-        rt.trace = orig
+        rt.trace, gi_ops.rtao = orig, rtao
+        meshlet_frame.specular_directions = spec_dirs
     print(f"{path} frame 0: {len(calls)} rt.trace calls in "
           f"{time.time() - t0:.1f} s", flush=True)
     ao_radius = (mcfg.gi_cfg or GIConfig()).ao_radius
@@ -774,7 +855,22 @@ def rays(path: str, check: bool, goldens: str) -> None:
             rtao += 1
         else:
             names.append(next(other))
+    if len(made["rtao"]) != 1 or len(made["specular"]) != 1:
+        raise RuntimeError(f"{path} frame 0: {len(made['rtao'])} RTAO and "
+                           f"{len(made['specular'])} specular direction "
+                           "calls, not one of each")
+    n = len(calls)
     keep = {k: [] for k in ("origins", "dirs", "t_max")}
+    inputs = dict(pixel=np.full((n, RAYS_PER_CALL), -1, np.int32),
+                  plane=np.zeros((n, 2), np.int32),
+                  pos=np.zeros((n, RAYS_PER_CALL, 3), np.float32),
+                  normal=np.zeros((n, RAYS_PER_CALL, 3), np.float32),
+                  rough=np.zeros((n, RAYS_PER_CALL), np.float32))
+    frame_count = {m[0]["frame_count"] for m in made.values()}
+    if len(frame_count) != 1:
+        raise RuntimeError(f"{path}: the direction calls' frame counts "
+                           f"{frame_count} differ")
+    inputs["frame_count"] = np.array(frame_count.pop(), np.int32)
     for k, (o, d, t_max, _, t, leaf) in enumerate(calls):
         rng = np.random.default_rng(RAY_SEED + k)
         idx = torch.from_numpy(np.sort(rng.choice(o.shape[0], RAYS_PER_CALL,
@@ -792,13 +888,39 @@ def rays(path: str, check: bool, goldens: str) -> None:
         keep["origins"].append(o[idx].numpy())
         keep["dirs"].append(d[idx].numpy())
         keep["t_max"].append(t_max)
+        src = made["specular" if names[k] == "specular" else "rtao"][0] \
+            if names[k] != "probe" else None
+        if src is None:
+            continue
+        h, w = src["pos"].shape[:2]
+        if h * w != o.shape[0]:
+            raise RuntimeError(f"{path} call {names[k]}: {o.shape[0]} rays "
+                               f"from a {h}x{w} plane")
+        inputs["pixel"][k] = idx.numpy()
+        inputs["plane"][k] = (h, w)
+        for key in ("pos", "normal", "rough"):
+            if key in src:
+                x = src[key].reshape(h * w, -1)[idx].numpy()
+                inputs[key][k] = x.reshape(inputs[key][k].shape)
+        mine = cs.ray_directions(names[k], inputs, k, mcfg.gi_cfg,
+                                 torch.device("cpu"))
+        same = bool(torch.equal(mine.view(torch.int32),
+                                d[idx].view(torch.int32)))
+        print(f"{path} call {names[k]}: the kept rays' directions made "
+              f"from the recorded inputs alone ({h}x{w} plane, frame count "
+              f"{int(inputs['frame_count'])}) equal to the frame's: {same}",
+              flush=True)
+        if not same:
+            raise AssertionError(f"{path} call {names[k]}: the directions "
+                                 "made from the recorded inputs differ")
     out = os.path.join(goldens, f"{cell}.npz")
     np.savez_compressed(out, calls=np.array(names),
                         origins=np.stack(keep["origins"]),
                         dirs=np.stack(keep["dirs"]),
                         t_max=np.array(keep["t_max"], np.float64),
                         seed=np.array(RAY_SEED),
-                        call_rays=np.array([c[0].shape[0] for c in calls]))
+                        call_rays=np.array([c[0].shape[0] for c in calls]),
+                        **inputs)
     print(f"wrote {out} ({os.path.getsize(out)} B): {len(calls)} calls of "
           f"{RAYS_PER_CALL} rays; now `JAX_PLATFORMS=cpu python "
           f"tests/bench_goldens.py {cell}`", flush=True)
@@ -829,6 +951,10 @@ def main(argv) -> int:
     ap.add_argument("--port-dump", help="history: the port's side from a "
                     "`dump` directory (rendered on the card) instead of "
                     "the CPU")
+    ap.add_argument("--window", help="history: ROW,COLUMN of a 16x16 "
+                    "output window: after each frame, its pixels' levels, "
+                    "each image-like leaf's difference over it and the "
+                    "port's G-buffer there")
     ap.add_argument("--device", default="cpu", help="dump, devdiff: the "
                     "device")
     ap.add_argument("--funcs", help="devdiff: module alias.function, "
@@ -850,7 +976,9 @@ def main(argv) -> int:
         frames(args.cell, args.goldens, args.frames, args.save,
                args.timeout)
     elif args.mode == "history":
-        history(args.cell, args.frames, args.port_dump)
+        history(args.cell, args.frames, args.port_dump,
+                None if args.window is None else
+                tuple(int(v) for v in args.window.split(",")))
     elif args.mode == "devdiff":
         devdiff(args.cell, int(args.frame), args.device,
                 args.funcs.split(",") if args.funcs else DEVDIFF_FUNCS,

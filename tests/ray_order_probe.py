@@ -1,30 +1,46 @@
-"""One-off CPU probes of how the port's ray sets and ray tests round
-against chord_tpu's compiled ones (not tests: the tier-1 run's XLA keeps
-FMA, these compile chord_tpu without it, as the bench goldens are).
+"""One-off CPU probes of how the port's ray sets, ray tests, trig and
+short sums round against chord_tpu's compiled ones (not tests: the tier-1
+run's XLA keeps FMA, these compile chord_tpu without it, as the bench
+goldens are).
 
-    python tests/ray_order_probe.py order        # ~10 s
+    python tests/ray_order_probe.py order        # ~15 s
     python tests/ray_order_probe.py ddgi-frames  # ~10 s
     python tests/ray_order_probe.py directions   # ~1 min
+    python tests/ray_order_probe.py sites        # ~20 s
+    python tests/ray_order_probe.py trig         # ~15 min
 
 `order`: chord_tpu's jitted _ray_sphere, trace_dense_tri and trace_bvh
 (over a triangle and a sphere BVH, at the default budget and a short one)
 against the numpy f32 oracles of tests/test_torch_ray_rounding.py (each
-3-term dot summed (p0 + p1) + p2), and a size-3 jnp.sum against both
-association orders: which order XLA's CPU build uses.
+3-term dot summed (p0 + p1) + p2), a size-3 jnp.sum against both
+association orders, jnp.linalg.norm over 3 components against
+_util.norm3 and 1 / jnp.sqrt against f32(1) / sqrt_rn: what XLA's CPU
+build does.
 
 `ddgi-frames`: frames 0-63 on which the port's ddgi.ray_table (and
 screen_probe.ray_table) differs from chord_tpu's jitted
 `fib @ _jitter_rotation(f).T`, and those of them on which XLA's f32 cos or
-sin of the frame's angles differs from the f64 value rounded to f32.
+sin of the frame's angles differs from the port's (_util.sincosf_plain).
 
-`directions`: RTAO's per-pixel ray directions (ops/gi.py rtao: device cos
-and sin of the IGN azimuth) and the specular GI's GGX reflection
-directions (ops/screen_probe.py ggx_sample_normal, the frame's
-2 (v.h) h - v) at 128x64 over frames 0-7, each package with its own noise
-(the port's eager IGN, chord_tpu's jitted one), on seeded surface points
-of a triangle soup: the share of rays whose direction differs from
-chord_tpu's, and the share whose trace result (t bits or leaf; each
-package's own trace of its own rays over the same BVH) then differs.
+`directions`: RTAO's per-pixel ray directions (ops/gi.py rtao) and the
+specular GI's GGX reflection directions (renderer/meshlet_frame.py
+specular_directions against chord_tpu's frame lines, tests/
+bench_goldens.py jax_specular_directions) at 128x64 over frames 0-7, each
+package with its own noise (the port's eager IGN, chord_tpu's jitted one),
+on seeded surface points of a triangle soup seen from a seeded camera:
+the share of rays whose direction differs from chord_tpu's, and the share
+whose trace result (t bits or leaf; each package's own trace of its own
+rays over the same BVH) then differs.
+
+`sites`: the frame's other short norms, roots and 3-term sums (the sites
+named in `SITES`): on seeded 128x64 inputs the port's expression against
+chord_tpu's jitted one, the share of elements that differ.
+
+`trig`: _util.sincosf_plain on every f32 in (-120, 120), the fast
+reduction's range, against the C library's sinf / cosf (what XLA calls;
+a batch helper is compiled with `cc` into a temporary directory), and the
+count that differs with the reduction x - n * pi/2 rounded twice (the
+library's FMA build fuses it).
 
 XLA_FLAGS=--xla_cpu_max_isa=SSE4_2 and JAX_PLATFORMS=cpu are set here.
 """
@@ -99,6 +115,20 @@ def order() -> None:
                                  max_steps=steps)
         _equal(f"trace_bvh triangles, max_steps {steps} t", jt, wt)
         _equal(f"trace_bvh triangles, max_steps {steps} leaf", jl, wl)
+    import torch
+
+    from chord_tpu_torch.ops import _util
+
+    v = (rng.standard_normal((200000, 3)) * 10).astype(F32)
+    jn = np.asarray(jax.jit(lambda a: jnp.linalg.norm(a, axis=-1))(v))
+    _equal("jnp.linalg.norm of 3 against _util.norm3", jn,
+           _util.norm3(torch.from_numpy(v)).numpy())
+    _equal("jnp.linalg.norm of 3 against torch.linalg.vector_norm", jn,
+           torch.linalg.vector_norm(torch.from_numpy(v), dim=-1).numpy())
+    x = rng.uniform(1e-3, 100.0, 200000).astype(F32)
+    _equal("1 / jnp.sqrt against f32(1) / _util.sqrt_rn",
+           np.asarray(jax.jit(lambda a: 1.0 / jnp.sqrt(a))(x)),
+           (1.0 / _util.sqrt_rn(torch.from_numpy(x))).numpy())
     sp_ = spheres(700, 0)
     so, sd = rays(3000, 1)
     nb = rt.build_bvh_numpy(sp_)
@@ -122,9 +152,11 @@ def ddgi_frames() -> None:
     import jax
     import jax.numpy as jnp
 
+    import torch
+
     from chord_tpu.ops import ddgi as jd
     from chord_tpu.ops import screen_probe as jsp
-    from chord_tpu_torch.ops import ddgi
+    from chord_tpu_torch.ops import _util, ddgi
     from chord_tpu_torch.ops import screen_probe as sp
 
     n = jd.DDGIConfig().rays
@@ -154,11 +186,9 @@ def ddgi_frames() -> None:
                 off.append(f)
                 comps += int((a != b).sum())
             x = F32(f)
-            ang = (x * F32(2.3999632297286533), x * F32(tilt))
-            host = np.array([np.cos(np.float64(ang[0])),
-                             np.sin(np.float64(ang[0])),
-                             np.cos(np.float64(ang[1])),
-                             np.sin(np.float64(ang[1]))]).astype(F32)
+            ang = torch.tensor([x * F32(2.3999632297286533), x * F32(tilt)])
+            s_, c_ = _util.sincosf_plain(ang)
+            host = np.array([c_[0], s_[0], c_[1], s_[1]], F32)
             t = np.asarray(xla_trig(jnp.int32(f)))
             if (t != host).any():
                 trig_off[f] = [("cos a", "sin a", "cos b", "sin b")[k]
@@ -166,7 +196,7 @@ def ddgi_frames() -> None:
         print(f"{name} ({size} components a frame): differs from "
               f"chord_tpu's jitted rotation on frames {off} ({comps} of "
               f"{64 * size} components); XLA's f32 cos / sin differ from "
-              f"the f64 value rounded on frames {trig_off}", flush=True)
+              f"_util.sincosf_plain's on frames {trig_off}", flush=True)
 
 
 def directions(frames: int = 8, h: int = 64, w: int = 128) -> None:
@@ -174,13 +204,14 @@ def directions(frames: int = 8, h: int = 64, w: int = 128) -> None:
     import jax.numpy as jnp
     import torch
 
-    from chord_tpu.ops import bluenoise as jbn
+    from bench_goldens import jax_specular_directions
     from chord_tpu.ops import gi as jgi
     from chord_tpu.ops import rt as jrt
     from chord_tpu.ops import screen_probe as jsp
     from chord_tpu_torch.ops import gi, rt
     from chord_tpu_torch.ops import screen_probe as sp
     from chord_tpu_torch.ops.bluenoise import interleaved_gradient_noise
+    from chord_tpu_torch.renderer.meshlet_frame import specular_directions
     from rt_cases import tri_bvh, triangles
 
     v0, e1, e2 = (x * F32(0.3) for x in triangles(2000, 3))
@@ -198,8 +229,7 @@ def directions(frames: int = 8, h: int = 64, w: int = 128) -> None:
     flip = ((cam - pos) * nrm).sum(1, keepdims=True) < 0
     nrm = np.where(flip, -nrm, nrm).astype(F32)
     pos, nrm = pos.reshape(h, w, 3), nrm.reshape(h, w, 3)
-    view = (cam - pos) / np.linalg.norm(cam - pos, axis=-1, keepdims=True)
-    view = view.astype(F32)
+    pos_tw = (pos - cam).astype(F32)      # the frame's: camera at 0
     rough = rng.uniform(0.05, 0.9, (h, w)).astype(F32)
     cfg, jcfg = gi.GIConfig(), jgi.GIConfig()
 
@@ -217,18 +247,14 @@ def directions(frames: int = 8, h: int = 64, w: int = 128) -> None:
         ao = jgi.rtao(p, n, b, jcfg, frame_index=fc)
         return ao, [d for _, d in jcalls]
 
-    def j_ggx(n, v, r, fc):
-        u1 = jbn.interleaved_gradient_noise(h, w, fc)
-        u2 = jbn.interleaved_gradient_noise(h, w, fc + 31)
-        hh = jsp.ggx_sample_normal(n, v, r, u1, u2)
-        return 2.0 * jnp.sum(v * hh, -1, keepdims=True) * hh - v
-
     jrt.trace = spy(jcalls, jtrace)
     try:
         rtao_j = jax.jit(j_rtao)
-        ggx_j = jax.jit(j_ggx)
+        ggx_j = jax.jit(jax_specular_directions)
+        half_j = jax.jit(jsp.ggx_sample_normal)
         trace_j = jax.jit(lambda o, d, b, tm: jtrace(o, d, b, t_max=tm))
         tot = {k: np.zeros(3, np.int64) for k in ("rtao", "ggx")}
+        half_off = 0
         for f in range(frames):
             fc = jnp.int32(f)
             _, jd = rtao_j(pos, nrm, jb, fc)
@@ -244,14 +270,23 @@ def directions(frames: int = 8, h: int = 64, w: int = 128) -> None:
             org = pos + nrm * F32(0.05)
             pairs = [("rtao", np.asarray(a), b.numpy(), cfg.ao_radius)
                      for a, b in zip(jd, [d for _, d in pcalls])]
+            _, refl = specular_directions(
+                torch.from_numpy(pos_tw), torch.from_numpy(nrm),
+                torch.from_numpy(rough), torch.tensor(f, dtype=torch.int32))
+            pairs.append(("ggx", np.asarray(ggx_j(pos_tw, nrm, rough, fc)),
+                          refl.numpy(), 1e9))
+            # ggx_sample_normal alone, on the same view and noise
             u1 = interleaved_gradient_noise(h, w, f, device="cpu")
             u2 = interleaved_gradient_noise(h, w, f + 31, device="cpu")
-            v_t = torch.from_numpy(view)
-            hh = sp.ggx_sample_normal(torch.from_numpy(nrm), v_t,
+            view = pos_tw / -np.sqrt(((pos_tw[..., 0] * pos_tw[..., 0] +
+                                       pos_tw[..., 1] * pos_tw[..., 1]) +
+                                      pos_tw[..., 2] * pos_tw[..., 2]))[
+                ..., None]
+            hp = sp.ggx_sample_normal(torch.from_numpy(nrm),
+                                      torch.from_numpy(view),
                                       torch.from_numpy(rough), u1, u2)
-            refl = 2.0 * (v_t * hh).sum(-1, keepdim=True) * hh - v_t
-            pairs.append(("ggx", np.asarray(ggx_j(nrm, view, rough, fc)),
-                          refl.numpy(), 1e9))
+            hj = half_j(nrm, view, rough, u1.numpy(), u2.numpy())
+            half_off += int((np.asarray(hj) != hp.numpy()).any(-1).sum())
             for name, dj, dp, t_max in pairs:
                 moved = (dj != dp).any(-1)
                 tj, lj = trace_j(org, dj, jb, F32(t_max))
@@ -266,11 +301,238 @@ def directions(frames: int = 8, h: int = 64, w: int = 128) -> None:
                   f"direction differs from chord_tpu's on {moved} "
                   f"({moved / n:.4%}); trace result (t bits or leaf) "
                   f"differs on {hit} ({hit / n:.4%})", flush=True)
+        print(f"ggx_sample_normal alone on the same view and noise, frames "
+              f"0-{frames - 1}: differs from chord_tpu's on {half_off} of "
+              f"{frames * h * w} half-vectors", flush=True)
     finally:
         jrt.trace = jtrace
 
 
+def _site_inputs(h: int, w: int) -> dict:
+    """Seeded 128x64-class planes: camera-relative positions, unit
+    normals, nearly unit (interpolated) normals, probe positions."""
+    rng = np.random.default_rng(8)
+
+    def unit(shape):
+        v = rng.standard_normal(shape + (3,))
+        return (v / np.linalg.norm(v, axis=-1, keepdims=True)).astype(F32)
+
+    return dict(pos=rng.uniform(-20, 20, (h, w, 3)).astype(F32),
+                nrm=unit((h, w)),
+                nrm_i=(unit((h, w)) * rng.uniform(0.9, 1.1, (h, w, 1))
+                       ).astype(F32),
+                pos2=rng.uniform(-20, 20, (h, w, 3)).astype(F32),
+                dirs=(unit((h, w)) * rng.uniform(0.5, 2.0, (h, w, 1))
+                      ).astype(F32))
+
+
+def _sites():
+    """(site, inputs, the port's expression (torch), chord_tpu's (jnp)):
+    each site's statements as the port writes them and as chord_tpu does
+    (file:line of the port; the repaired sites as they were and as they
+    are)."""
+    import jax.numpy as jnp
+    import torch
+
+    from chord_tpu_torch.ops._util import dot3, norm3
+
+    vn = torch.linalg.vector_norm
+    jn = jnp.linalg.norm
+
+    def roll(x):
+        return torch.roll(x, (1, 3), (0, 1))
+
+    def jroll(x):
+        return jnp.roll(x, (1, 3), (0, 1))
+
+    def taps_port(norm, dot):
+        def f(p, n):
+            d = roll(p) - p
+            dist = norm(d)
+            dirn = d / torch.clamp_min(dist[..., None], 1e-6)
+            return dist, dot(dirn, n)
+        return f
+
+    def taps_jax(p, n):
+        d = jroll(p) - p
+        dist = jn(d, axis=-1)
+        dirn = d / jnp.maximum(dist[..., None], 1e-6)
+        return dist, jnp.sum(dirn * n, -1)
+
+    def probe_port(norm, dot):
+        def f(pp, p, n):
+            t = pp - p
+            dist = norm(t)
+            dr = t / torch.clamp_min(dist[..., None], 1e-6)
+            return dist, dot(dr, n)
+        return f
+
+    def probe_jax(pp, p, n):
+        t = pp - p
+        dist = jn(t, axis=-1)
+        dr = t / jnp.maximum(dist[..., None], 1e-6)
+        return dist, jnp.sum(dr * n, -1)
+
+    def unit_port(norm, eps):
+        return lambda x: (x / torch.clamp_min(norm(x)[..., None], eps),)
+
+    def unit_jax(eps):
+        return lambda x: (x / jnp.maximum(jn(x, axis=-1, keepdims=True),
+                                          eps),)
+
+    def ssr_port(norm, dot):
+        def f(p, n):
+            v = -p / torch.clamp_min(norm(p)[..., None], 1e-6)
+            return v, 2.0 * dot(v, n)[..., None] * n - v
+        return f
+
+    def ssr_jax(p, n):
+        v = -p / jnp.maximum(jn(p, axis=-1, keepdims=True), 1e-6)
+        return v, 2.0 * jnp.sum(v * n, -1, keepdims=True) * n - v
+
+    def edge_port(pc, ps, nc, ns):
+        nf = torch.clamp((nc * ns).sum(-1), 0.0, 1.0) ** 8
+        scale = torch.clamp_min(vn(pc, dim=-1), 1e-3)
+        df = torch.clamp(1.0 - vn(ps - pc, dim=-1) / scale, 0.0, 1.0)
+        return nf, df, (nf * df) ** 8.0
+
+    def edge_jax(pc, ps, nc, ns):
+        nf = jnp.clip(jnp.sum(nc * ns, -1), 0.0, 1.0) ** 8
+        scale = jnp.maximum(jn(pc, axis=-1), 1e-3)
+        df = jnp.clip(1.0 - jn(ps - pc, axis=-1) / scale, 0.0, 1.0)
+        return nf, df, (nf * df) ** 8.0
+
+    def norm3_port(x):
+        return (torch.sqrt((x * x).sum(dim=-1, keepdim=True)),)
+
+    def nov_port(p, n):
+        return (torch.clamp((-p / torch.clamp_min(vn(p, dim=-1, keepdim=True),
+                                                  1e-6) * n).sum(-1),
+                            1e-3, 1.0),)
+
+    def nov_jax(p, n):
+        return (jnp.clip(jnp.sum(-p / jnp.maximum(jn(p, axis=-1,
+                                                     keepdims=True), 1e-6)
+                                 * n, -1), 1e-3, 1.0),)
+
+    def vnorm(x):
+        return vn(x, dim=-1)
+
+    def sumdot(a, b):
+        return (a * b).sum(-1)
+
+    return [
+        ("ops/gi.py:258 ssao tap (dist, s)", ("pos", "nrm"),
+         taps_port(vnorm, sumdot), taps_jax),
+        ("ops/ddgi.py:359 probe (dist_tp, wrap dot), as it was",
+         ("pos2", "pos", "nrm"), probe_port(vnorm, sumdot), probe_jax),
+        ("ops/ddgi.py:359 probe (dist_tp, wrap dot), now",
+         ("pos2", "pos", "nrm"), probe_port(norm3, dot3), probe_jax),
+        ("ops/screen_probe.py:263 taps (dist, cosn), as it was",
+         ("pos", "nrm"), taps_port(vnorm, sumdot), taps_jax),
+        ("ops/screen_probe.py:263 taps (dist, cosn), now", ("pos", "nrm"),
+         taps_port(norm3, dot3), taps_jax),
+        ("ops/screen_probe.py:532 _edge_weight (nf, df, w)",
+         ("pos", "pos2", "nrm", "nrm_i"), edge_port, edge_jax),
+        ("ops/shading.py:135 resolve normal, as it was", ("nrm_i",),
+         unit_port(vnorm, 1e-8), unit_jax(1e-8)),
+        ("ops/shading.py:135 resolve normal, now", ("nrm_i",),
+         unit_port(norm3, 1e-8), unit_jax(1e-8)),
+        ("ops/shading.py:418 _norm3", ("dirs",), norm3_port,
+         lambda x: (jn(x, axis=-1, keepdims=True),)),
+        ("ops/ssr.py:46 view, reflection, as it was", ("pos", "nrm"),
+         ssr_port(vnorm, sumdot), ssr_jax),
+        ("ops/ssr.py:46 view, reflection, now", ("pos", "nrm"),
+         ssr_port(norm3, dot3), ssr_jax),
+        ("ops/atmosphere.py:279 sample_sky direction", ("dirs",),
+         unit_port(vnorm, 1e-8), unit_jax(1e-8)),
+        ("renderer/meshlet_frame.py:163 pixel_view_dirs", ("dirs",),
+         unit_port(vnorm, 1e-8), unit_jax(1e-8)),
+        ("renderer/meshlet_frame.py:538 _aerial dist", ("pos",),
+         lambda p: (vnorm(p),), lambda p: (jn(p, axis=-1),)),
+        ("renderer/meshlet_frame.py:706 specular nov", ("pos", "nrm"),
+         nov_port, nov_jax),
+    ]
+
+
+def sites(h: int = 64, w: int = 128) -> None:
+    import jax
+    import torch
+
+    x = _site_inputs(h, w)
+    for name, keys, port, jfn in _sites():
+        args = [x[k] for k in keys]
+        got = port(*(torch.from_numpy(a) for a in args))
+        want = jax.jit(jfn)(*args)
+        parts = []
+        for g, j in zip(got, want):
+            g, j = g.numpy(), np.asarray(j)
+            off = (g != j).any(-1) if g.ndim == 3 and g.shape[-1] > 1 \
+                else g != j
+            parts.append(f"{int(off.sum())} of {off.size} "
+                         f"({off.sum() / off.size:.4%})")
+        print(f"{name}: elements that differ from chord_tpu's jitted "
+              f"value {'; '.join(parts)}", flush=True)
+
+
+_LIBM_BATCH = r"""
+#include <math.h>
+void libm_sincosf(const float* x, float* s, float* c, long n) {
+  for (long i = 0; i < n; ++i) { s[i] = sinf(x[i]); c[i] = cosf(x[i]); }
+}
+"""
+
+
+def trig(chunk: int = 1 << 23) -> None:
+    import ctypes
+    import subprocess
+    import tempfile
+    import time
+
+    import torch
+
+    from chord_tpu_torch.ops import _util
+
+    with tempfile.TemporaryDirectory() as tmp:
+        src, lib = os.path.join(tmp, "b.c"), os.path.join(tmp, "b.so")
+        with open(src, "w") as f:
+            f.write(_LIBM_BATCH)
+        subprocess.run(["cc", "-O2", "-shared", "-fPIC", "-o", lib, src,
+                        "-lm"], check=True)
+        libm = ctypes.CDLL(lib)
+
+        def want(x):
+            s, c = np.empty_like(x), np.empty_like(x)
+            libm.libm_sincosf(*(ctypes.c_void_p(a.ctypes.data)
+                                for a in (x, s, c)), ctypes.c_long(x.size))
+            return s, c
+
+        def count(x):
+            got = _util.sincosf_plain(torch.from_numpy(x))
+            return sum(int((g.numpy().view(np.int32) != r.view(np.int32))
+                           .sum()) for g, r in zip(got, want(x)))
+
+        hpi = (_util._SC_HPI_HI, _util._SC_HPI_LO)
+        t0, n, off, off_unfused = time.time(), 0, 0, 0
+        for lo in range(0, 0x42F00000, chunk):     # up to 120.0f's bits
+            bits = np.arange(lo, min(lo + chunk, 0x42F00000), dtype=np.int32)
+            for sign in (0, np.int32(-2 ** 31)):
+                x = (bits | sign).view(F32)
+                off += count(x)
+                # the reduction rounded twice: x - round(n * pi/2)
+                _util._SC_HPI_HI, _util._SC_HPI_LO = hpi[0] + hpi[1], 0.0
+                try:
+                    off_unfused += count(x)
+                finally:
+                    _util._SC_HPI_HI, _util._SC_HPI_LO = hpi
+                n += x.size
+        print(f"sincosf_plain on every f32 in (-120, 120) ({n} values): "
+              f"{off} sin or cos values differ from the C library's; with "
+              f"the reduction rounded twice {off_unfused}; "
+              f"{time.time() - t0:.0f} s", flush=True)
+
+
 if __name__ == "__main__":
     mode = sys.argv[1] if len(sys.argv) > 1 else "order"
-    {"order": order, "ddgi-frames": ddgi_frames,
-     "directions": directions}[mode]()
+    {"order": order, "ddgi-frames": ddgi_frames, "directions": directions,
+     "sites": sites, "trig": trig}[mode]()

@@ -5,10 +5,26 @@ tests/test_rt.py's scene: sphere centres uniform in [-20, 20]^3, radii
 in [0.2, 1.5]; ray origins uniform in [-25, 25]^3, unit directions.
 """
 
+import ctypes
+import ctypes.util
+
 import numpy as np
 import torch
 
 from chord_tpu_torch.ops import rt
+
+
+def libm_sincosf(x):
+    """The C library's sinf and cosf of the f32 array x (what chord_tpu's
+    XLA calls for an f32 sin or cos on the CPU) -> (sin, cos)."""
+    libm = ctypes.CDLL(ctypes.util.find_library("m") or "libm.so.6")
+    out = []
+    for name in ("sinf", "cosf"):
+        fn = getattr(libm, name)
+        fn.restype, fn.argtypes = ctypes.c_float, [ctypes.c_float]
+        out.append(np.array([fn(float(v)) for v in np.ravel(x)],
+                            np.float32).reshape(np.shape(x)))
+    return out
 
 
 def spheres(n=200, seed=0):

@@ -2,14 +2,17 @@
 what chip_smoke.py's phase 13 holds to it, checked without tracing it.
 
 `tests/bench_parity.py rays all_exact` records a seeded 4,096 rays of each
-rt.trace call of the port's CPU frame 0 of chip_smoke's `all_exact` path;
-`tests/bench_goldens.py all_exact_rays` traces them through chord_tpu's
-own triangle BVH of the bench scene (without FMA) and records t, leaf and
-the BVH arrays' hashes. Here: the file and its manifest entry agree and
-stay small, the cell is the path chip_smoke runs, and chip_smoke.hold_rays
-passes on the golden's own results and fails on one ray's t an ulp off,
-on one ray's leaf, on a BVH array that hashes otherwise, and on the dense
-route.
+rt.trace call of the port's CPU frame 0 of chip_smoke's `all_exact` path,
+and for RTAO's and the specular GI's calls what their directions are made
+of; `tests/bench_goldens.py all_exact_rays` makes those directions with
+chord_tpu's own functions, traces every call through chord_tpu's own
+triangle BVH of the bench scene (without FMA) and records the directions,
+t, leaf and the BVH arrays' hashes. Here: the file and its manifest entry
+agree and stay small, the cell is the path chip_smoke runs, and
+chip_smoke.hold_rays passes on the golden's own results (the port's
+directions made from the recorded inputs equal to chord_tpu's) and fails
+on one direction an ulp off, on one ray's t an ulp off, on one ray's
+leaf, on a BVH array that hashes otherwise, and on the dense route.
 """
 
 import json
@@ -27,6 +30,7 @@ sys.path.insert(0, bg.REPO)
 import chip_smoke  # noqa: E402
 
 from chord_tpu_torch.ops import rt  # noqa: E402
+from chord_tpu_torch.ops.gi import GIConfig  # noqa: E402
 
 CELL = "all_exact_rays"
 
@@ -74,6 +78,32 @@ def test_ray_golden_is_the_paths_and_matches_its_manifest(golden):
     assert (data["t"][~miss] < np.broadcast_to(t_max,
                                                miss.shape)[~miss]).all()
     assert all(0.0 < s < 1.0 for s in rec["hit_share"])
+    # the held calls: their directions' inputs at the kept pixels
+    held = ["rtao0", "rtao1", "rtao2", "rtao3", "specular"]
+    assert rec["held_directions"] == sorted(held)
+    assert rec["port_directions_differ"] == {c: 0 for c in held}
+    assert rec["frame_count"] == int(data["frame_count"]) == 0
+    cfg = chip_smoke.configs(spec["path"])[1].gi_cfg
+    assert GIConfig(**rec["gi_cfg"]) == cfg == GIConfig(ao_mode="rtao")
+    assert data["pixel"].shape == data["rough"].shape == (
+        n, bp.RAYS_PER_CALL)
+    assert data["pos"].shape == data["normal"].shape == (
+        n, bp.RAYS_PER_CALL, 3)
+    assert data["plane"].shape == (n, 2)
+    for k, call in enumerate(rec["calls"]):
+        h, w = data["plane"][k]
+        assert chip_smoke.held_directions(data, k) == (call in held)
+        if call in held:
+            pix = data["pixel"][k]
+            assert (np.diff(pix) > 0).all() and 0 <= pix[0] and \
+                pix[-1] < h * w == rec["call_rays"][k]
+            # unit normals, zero on sky pixels (no surface)
+            length = np.linalg.norm(data["normal"][k], axis=-1)
+            assert (np.isclose(length, 1.0, atol=1e-5) | (length == 0)).all()
+            assert (length > 0).mean() > 0.5
+            assert (data["rough"][k] > 0).any() == (call == "specular")
+        else:
+            assert (h, w) == (0, 0) and (data["pixel"][k] == -1).all()
 
 
 def test_bvh_hashes_read_either_packages_arrays():
@@ -123,7 +153,21 @@ def test_phase13_holds_rays_and_fails_on_a_difference(golden, monkeypatch):
     monkeypatch.setattr(rt, "trace", _fake_trace(data))
     out = chip_smoke.hold_rays(CELL, bvh, "cpu")
     assert [out[f"{CELL}_{c}"]["differ"] for c in rec["calls"]] == [0] * 6
+    assert [out[f"{CELL}_{c}"]["direction_differ"] for c in rec["calls"]] \
+        == [0, 0, 0, 0, None, 0]
     assert out[f"{CELL}_probe"]["hit_share"] == rec["hit_share"][4]
+
+    # the rest on the golden's own directions, one of them an ulp off
+    def golden_dirs(name, d, k, cfg, dev, edit=None):
+        x = d["dirs"][k].copy()
+        if k == edit:
+            x[11, 1] = np.nextafter(x[11, 1], np.float32(2))
+        return torch.from_numpy(x)
+    monkeypatch.setattr(chip_smoke, "ray_directions",
+                        lambda *a: golden_dirs(*a, edit=5))
+    with pytest.raises(AssertionError, match=r"on calls \['specular'\]"):
+        chip_smoke.hold_rays(CELL, bvh, "cpu")
+    monkeypatch.setattr(chip_smoke, "ray_directions", golden_dirs)
     for kw, match in ((dict(t_edit=4), "differ from chord_tpu's on calls "
                        r"\['probe'\]"),
                       (dict(leaf_edit=0), r"\['rtao0'\]"),

@@ -20,7 +20,7 @@ import torch
 from chord_tpu_torch.asset.procedural import (bench_texture_pool,
                                               build_bistro_like,
                                               build_sponza_like)
-from chord_tpu_torch.ops import (_cuda, fusion_barrier, kernels,
+from chord_tpu_torch.ops import (_cuda, _util, fusion_barrier, kernels,
                                  mesh_shader, paged_texture, raster,
                                  row_gather, shadow, shadow_kernel,
                                  tile_reproject)
@@ -975,6 +975,41 @@ def _proto_inputs(d, h, w, seed=6):
 
 
 @pytest.mark.cuda
+def test_sincos_random_inputs(dev):
+    """The sincos kernel against its plain version on the card and on the
+    CPU, bit for bit: seeded angles of every range (the fast reduction
+    below 120, the integer one above, tiny, denormal, huge), a few
+    thousand f32 on each side of the multiples of pi/2 below 120, 0, -0,
+    inf and NaN; shapes kept, one launch a call, none for an empty
+    tensor; a non-contiguous or non-f32 tensor raises."""
+    rng = np.random.default_rng(23)
+    near = [np.arange(-3000, 3000) + np.float32(k * np.pi / 2).view(np.int32)
+            for k in range(1, 77)]
+    x = np.concatenate([
+        rng.uniform(-120, 120, 1 << 20), rng.uniform(-1, 1, 1 << 16),
+        10 ** rng.uniform(-45, 38.5, 1 << 16) * rng.choice([-1, 1], 1 << 16),
+        np.concatenate(near).astype(np.int32).view(np.float32),
+        [0.0, -0.0, np.inf, -np.inf, np.nan]]).astype(np.float32)
+    x = np.concatenate([x, -x])
+    t = torch.from_numpy(x).to(dev).reshape(2, -1)
+    before = _util.sincosf.launches
+    got = _util.sincosf(t)
+    torch.cuda.synchronize()
+    assert _util.sincosf.launches == before + 1
+    for ref in (_util.sincosf_plain(t), _util.sincosf_plain(t.cpu())):
+        for g, r in zip(got, ref):
+            assert g.shape == t.shape and g.dtype == torch.float32
+            assert torch.equal(g.cpu().view(torch.int32),
+                               r.cpu().view(torch.int32))
+    empty = _util.sincosf(torch.empty((0, 3), device=dev))
+    assert empty[0].shape == (0, 3) and _util.sincosf.launches == before + 1
+    with pytest.raises(ValueError, match="contiguous"):
+        _util.sincosf(t[:, ::2])
+    with pytest.raises(ValueError):
+        _util.sincosf(t.double())
+
+
+@pytest.mark.cuda
 def test_fusion_barrier_random_inputs(dev):
     """K9 against x.clone(), byte for byte, on every dtype and on byte
     counts and offsets that leave a scalar tail or an unaligned buffer; the
@@ -1078,7 +1113,9 @@ def test_proto_sampler_edge_inputs(dev, case):
 @pytest.mark.cuda
 def test_tool_paths_launch_their_kernels(dev):
     """tm_pallas launches K9 once per call (1 + 3), no other variant
-    launches a kernel; the card's first call agrees with the CPU's."""
+    launches it; each call's PCSS evaluate rotates its disk by the IGN
+    noise through the sincos kernel (1 + 3), and no other kernel runs; the
+    card's first call agrees with the CPU's."""
     for variant in ("tm_pallas", "tm_copy", "eval"):
         kernels.reset_launch_counts()
         res = repro_eval_kernel.run_variant(variant, dev)
@@ -1086,6 +1123,7 @@ def test_tool_paths_launch_their_kernels(dev):
         counts = kernels.launch_counts()
         assert counts.pop("fusion_barrier") == (4 if variant == "tm_pallas"
                                                 else 0)
+        assert counts.pop("sincos") == 4
         assert not any(counts.values())
         run, a = repro_eval_kernel.build(variant, "cpu")
         cpu = run(*a, 1)

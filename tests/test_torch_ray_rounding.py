@@ -13,10 +13,12 @@ one screen probe's ray hit leaf 15 on the card and leaf 123 in chord_tpu
 (t 8.228373 against 8.228368), which put a 19-level blob into the image
 (worst window 0.924 at bench size). The same holds for the BVH scan's
 node test (`_ray_sphere`) and triangle leaf test, the dense triangle test
-(`trace_dense_tri`, six (R,3) @ (3,chunk) products) and the two frame
-ray tables (the screen probes' and DDGI's). The oracles here are
-chord_tpu's formulas in numpy f32, summed and rooted as XLA does; every
-comparison is bit for bit, on every ray.
+(`trace_dense_tri`, six (R,3) @ (3,chunk) products), the two frame
+ray tables (the screen probes' and DDGI's) and the per-pixel directions
+of RTAO's fan and of the specular GI's GGX reflection, whose cos and sin
+are XLA's, the C library's sinf and cosf (ops/_util.sincosf). The oracles
+here are chord_tpu's formulas in numpy f32, summed and rooted as XLA does,
+with the C library's trig; every comparison is bit for bit, on every ray.
 """
 
 import functools
@@ -25,10 +27,13 @@ import numpy as np
 import pytest
 import torch
 
-from chord_tpu_torch.ops import ddgi, rt
+from chord_tpu_torch.ops import ddgi, gi, rt
 from chord_tpu_torch.ops import screen_probe as sp
 from chord_tpu_torch.ops._util import sqrt_rn
-from rt_cases import rays, spheres, tri_bvh, tri_rays, triangles
+from chord_tpu_torch.ops.bluenoise import interleaved_gradient_noise
+from chord_tpu_torch.renderer.meshlet_frame import specular_directions
+from rt_cases import (libm_sincosf, rays, spheres, tri_bvh, tri_rays,
+                      triangles)
 
 F32 = np.float32
 
@@ -67,13 +72,12 @@ def _trace_oracle(o, d, sph, chunk=512):
 
 def _jitter_oracle(base, f, tilt):
     """chord_tpu's base @ _jitter_rotation(f).T (ops/screen_probe.py,
-    ops/ddgi.py) in numpy f32: the angles' cos and sin taken in f64 and
-    rounded once (XLA's own f32 cos or sin is an ulp off on a few frames:
-    tests/ray_order_probe.py ddgi-frames), each product summed
-    (p0 + p1) + p2."""
+    ops/ddgi.py) in numpy f32: the angles' cos and sin the C library's
+    (XLA's f32 cos and sin; the f64 value rounded is an ulp off on frames
+    20, 32, 41 of DDGI's table, 16, 56, 57 of the probes'), each product
+    summed (p0 + p1) + p2."""
     a, b = F32(f) * F32(2.3999632297286533), F32(f) * F32(tilt)
-    ca, sa = F32(np.cos(np.float64(a))), F32(np.sin(np.float64(a)))
-    cb, sb = F32(np.cos(np.float64(b))), F32(np.sin(np.float64(b)))
+    (sa, sb), (ca, cb) = libm_sincosf(np.array([a, b], F32))
     rz = np.array([[ca, -sa, 0], [sa, ca, 0], [0, 0, 1]], F32)
     rx = np.array([[1, 0, 0], [0, cb, -sb], [0, sb, cb]], F32)
     rot = _dot3(rz[:, None, :], rx.T[None])            # rz @ rx
@@ -145,6 +149,113 @@ def test_probe_ray_dirs_round_as_xla():
         for frame in (f, torch.tensor(f, dtype=torch.int32)):
             got = sp.probe_ray_dirs(probes, frame, cfg).numpy()
             assert np.array_equal(got, want)
+
+
+def test_probe_ray_table_rounds_as_xla():
+    """The screen probes' table (tilt 1.1) for frames 0-63: the frames
+    whose XLA cos or sin is an ulp from the f64 value (16, 56, 57)
+    included."""
+    base = sp._octahedral_dirs(4).astype(F32)
+    for f in range(64):
+        assert np.array_equal(sp.ray_table(f, 16),
+                              _jitter_oracle(base, f, 1.1)), f
+
+
+# --- RTAO's fan and the specular GI's GGX reflection, per pixel --------------
+
+def _surface(h=64, w=128, seed=9):
+    """Seeded camera-relative positions, unit normals, roughness."""
+    rng = np.random.default_rng(seed)
+    pos = rng.uniform(-20, 20, (h, w, 3)).astype(F32)
+    n = rng.standard_normal((h, w, 3))
+    n = (n / np.linalg.norm(n, axis=-1, keepdims=True)).astype(F32)
+    return pos, n, rng.uniform(0.05, 0.9, (h, w)).astype(F32)
+
+
+def _basis(n):
+    """chord_tpu's branchless tangent basis (Duff et al.) of (...,3)."""
+    s = np.where(n[..., 2:3] >= 0, F32(1), F32(-1))
+    a = F32(-1) / (s + n[..., 2:3])
+    b = n[..., 0:1] * n[..., 1:2] * a
+    t1 = np.concatenate([F32(1) + s * n[..., 0:1] ** 2 * a, s * b,
+                         -s * n[..., 0:1]], -1)
+    t2 = np.concatenate([b, s + n[..., 1:2] ** 2 * a, -n[..., 1:2]], -1)
+    return t1, t2
+
+
+def _rtao_oracle(n, rot, k):
+    """chord_tpu's gi.rtao fan (ops/gi.py:359-367) in numpy f32: ray i of
+    k at azimuth rot + (i + 0.5) * pi (3 - sqrt 5), elevation cos
+    sqrt((i + 0.5) / k)."""
+    t1, t2 = _basis(n)
+    out = []
+    for i in range(k):
+        phi = rot + F32((i + 0.5) * (np.pi * (3.0 - np.sqrt(5.0))))
+        ct = np.float32(np.sqrt((i + 0.5) / k))
+        st = np.float32(np.sqrt(1.0 - ct * ct))
+        sn, cs = libm_sincosf(phi)
+        out.append(t1 * (cs * st)[..., None] + t2 * (sn * st)[..., None] +
+                   n * ct)
+    return out
+
+
+def _ggx_oracle(pos, n, rough, u1, u2):
+    """chord_tpu's specular directions (renderer/meshlet_frame.py:969-984,
+    ops/screen_probe.py:657-680) in numpy f32, the norm and the dots
+    summed (p0 + p1) + p2 -> (h, the reflected view)."""
+    v = -pos / np.maximum(np.sqrt(_dot3(pos, pos))[..., None], F32(1e-6))
+    a = np.maximum(rough * rough, F32(1e-4))[..., None]
+    u1c = np.clip(u1, F32(0), F32(0.999))[..., None]
+    t2 = (a * a) * u1c / (F32(1) - u1c)
+    cos_t = F32(1) / np.sqrt(F32(1) + t2)
+    sin_t = np.sqrt(np.maximum(F32(1) - cos_t * cos_t, F32(0)))
+    sn, cs = libm_sincosf(F32(2.0 * np.pi) * u2[..., None])
+    t1v, t2v = _basis(n)
+    h = t1v * (cs * sin_t) + t2v * (sn * sin_t) + n * cos_t
+    h = h / np.maximum(np.sqrt(_dot3(h, h))[..., None], F32(1e-8))
+    d = F32(2) * _dot3(v, h)[..., None] * h - v
+    h = np.where(_dot3(d, n)[..., None] > F32(1e-3), h, n)
+    return h, F32(2) * _dot3(v, h)[..., None] * h - v
+
+
+def test_rtao_directions_round_as_xla(monkeypatch):
+    """RTAO's 4 rays a pixel at 128x64, frames 0-7 (each frame's IGN
+    azimuth): the directions rt.trace is given, bit for bit."""
+    pos, n, _ = _surface()
+    cfg = gi.GIConfig(ao_mode="rtao")
+    seen = []
+
+    @functools.wraps(rt.trace)
+    def spy(o, d, b, t_max=1e9, max_steps=None):
+        seen.append(d.clone())
+        shape = o.shape[:-1]
+        return torch.full(shape, float(t_max)), torch.full(
+            shape, -1, dtype=torch.int32)
+    monkeypatch.setattr(rt, "trace", spy)
+    for f in range(8):
+        seen.clear()
+        gi.rtao(_t(pos), _t(n), None, cfg,
+                frame_index=torch.tensor(f, dtype=torch.int32))
+        ign = interleaved_gradient_noise(64, 128, f, device="cpu").numpy()
+        want = _rtao_oracle(n, ign * F32(2.0) * F32(np.pi), cfg.rtao_rays)
+        assert len(seen) == cfg.rtao_rays
+        for got, w in zip(seen, want):
+            assert np.array_equal(got.numpy(), w), f
+
+
+def test_specular_directions_round_as_xla():
+    """The specular GI's GGX half-vector and reflection at 128x64, frames
+    0-7 (the IGN pair of each frame), bit for bit."""
+    pos, n, rough = _surface(seed=10)
+    for f in range(8):
+        h, refl = specular_directions(_t(pos), _t(n), _t(rough),
+                                      torch.tensor(f, dtype=torch.int32))
+        u1 = interleaved_gradient_noise(64, 128, f, device="cpu").numpy()
+        u2 = interleaved_gradient_noise(64, 128, f + 31,
+                                        device="cpu").numpy()
+        want_h, want_refl = _ggx_oracle(pos, n, rough, u1, u2)
+        assert np.array_equal(h.numpy(), want_h), f
+        assert np.array_equal(refl.numpy(), want_refl), f
 
 
 # --- the BVH scan's sphere and triangle tests, the dense triangle test ------

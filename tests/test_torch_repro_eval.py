@@ -153,9 +153,10 @@ def test_eval_difference_is_the_jitted_noise():
 
 def test_tool_run_calls_the_barrier_per_call(monkeypatch, capsys):
     """tm_pallas calls K9's wrapper through the module attribute once per
-    call (1 + 3 steady), which kernels.capture_inputs sees; no other kernel
-    runs; on the CPU the plain copy runs and nothing launches. main()
-    takes the CPU under REPRO_CPU."""
+    call (1 + 3 steady), which kernels.capture_inputs sees; each call's
+    PCSS evaluate calls the sincos wrapper once (its IGN disk rotation);
+    no other kernel runs; on the CPU the plain versions run and nothing
+    launches. main() takes the CPU under REPRO_CPU."""
     monkeypatch.setenv("REPRO_CPU", "1")
     before = kernels.launch_counts()
     with kernels.capture_inputs() as captured:
@@ -165,6 +166,10 @@ def test_tool_run_calls_the_barrier_per_call(monkeypatch, capsys):
     for args, _ in calls:
         assert args[0].shape == (tool.HP, tool.WP)
         assert args[0].dtype == torch.float32
+    trig = captured.pop("sincos")
+    assert len(trig) == 4
+    for args, _ in trig:
+        assert args[0].shape == (tool.HP, tool.WP)
     assert not any(captured.values())
     assert kernels.launch_counts() == before
     assert res["out"][0].shape == (tool.HE, tool.WE)
