@@ -116,7 +116,13 @@ Phases (any failure raises and the script exits non-zero):
    version on every f32 in (-120, 120) in chunks and on 10^6 seeded
    inputs of every range, those also counted against this host's C
    library, and timed at a 1280x720 plane in turns with torch.sin +
-   torch.cos (sincos_checks).
+   torch.cos (sincos_checks). The powf kernel (csrc/powf.cu: chord_tpu's
+   XLA f32 power, the C library's powf, which the specular filters' edge
+   weights take on the card) likewise: bit-equal to its plain version on
+   every f32 in [2^-126, 1] with y = 8 and on seeded inputs of other
+   exponents, those also counted against this host's C library (with
+   XLA's flush to zero), and timed at the firefly clamp's eight 90x160
+   weight planes in turns with torch.pow (powf_checks).
 3. Builds the scenes (the two bistros share the Nanite DAG of their common
    meshes; the shadow, split and brick paths reuse the textured one; the
    flat Sponza pools with a per-frame instance table; the interior and the
@@ -163,7 +169,9 @@ Phases (any failure raises and the script exits non-zero):
    sincos kernel on its calls of the frame (the PCSS rotation on the
    shadow paths, the GGX azimuth on the GI paths, RTAO's four on
    `all_exact`), f64 operations at 34 TFLOP/s in its bound and
-   torch.sin + torch.cos as its yardstick.
+   torch.sin + torch.cos as its yardstick; the powf kernel on its two
+   calls a frame on the GI paths (f64 operations too; torch.pow its
+   yardstick).
 5. Each path's 16-frame sequence (4 frames on `all_exact`;
    render_sequence_meshlet(with_stats=True);
    on `flat`, DeferredRenderer.render frame by frame), with every launch
@@ -173,7 +181,8 @@ Phases (any failure raises and the script exits non-zero):
    times, 32 on the screen-probe paths; K5 32 times on `geo_tex` and
    `geo_tex_bricks`, 40 on the shadow paths: 32 plus the masked casters
    of the 8 frames that refresh cascade 0 or 1; K6 16 times; K7 64 times;
-   K8 16 times; the sincos kernel kernels.SINCOS_PER_FRAME a frame),
+   K8 16 times; the sincos kernel kernels.SINCOS_PER_FRAME a frame, the
+   powf kernel kernels.POWF_PER_FRAME),
    K5's palette per path (the share of textured texels
    its calls served from the palette, from the fallback mip and by the
    average colour, by channel count), masked draws on some frame of the
@@ -318,8 +327,8 @@ K10's work stats and K3 and K9's alternating rounds;
 plus each path's ms/frame and the launch floor),
 and before that the tools' JSON (each repro variant's first-call seconds
 and steady ms, the proto tool's coverage, match and ms, each app run's
-seconds, phase 9's and 13's image numbers, the sincos kernel's checks
-and times); the last line is
+seconds, phase 9's and 13's image numbers, the sincos and powf kernels'
+checks and times); the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
@@ -409,7 +418,7 @@ HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory
 F32_OPS_PER_S = 67e12         # H100 SXM f32 outside the tensor cores
 F64_OPS_PER_S = 34e12         # H100 SXM f64 outside the tensor cores
 # the kernels whose operations are f64 (the rest count f32)
-F64_KERNELS = ("sincos",)
+F64_KERNELS = ("sincos", "powf")
 
 
 def log(msg: str) -> None:
@@ -999,6 +1008,11 @@ def _ops(name: str, args, kwargs, cull: bool = True) -> float:
         a = args[0].abs()
         return float((a >= 2.0 ** -12).sum()) * 19 + float(
             (a >= 0.75).sum()) * 5
+    if name == "powf":
+        # f64, per element of this call's data above 2^-126 (below, none):
+        # the reduction (4), the log2 polynomial (12), times y (1), the
+        # exp2 reduction (4) and cubic (7), the scale (1)
+        return float((args[0] >= 2.0 ** -126).sum()) * 29
     return 0.0
 
 
@@ -1099,6 +1113,8 @@ def library_call(name: str, args):
         return lambda: args[0].clone()
     if name == "sincos":
         return lambda: (torch.sin(args[0]), torch.cos(args[0]))
+    if name == "powf":
+        return lambda: torch.pow(args[0], args[1])
     if name == "tile_reproject":
         import torch.nn.functional as F
 
@@ -1322,6 +1338,11 @@ def describe(name: str, args, kwargs) -> str:
         x = args[0]
         return (f"{'x'.join(map(str, x.shape))} angles in "
                 f"[{float(x.min()):.4g}, {float(x.max()):.4g}]")
+    if name == "powf":
+        x = args[0]
+        return (f"{'x'.join(map(str, x.shape))} ** {args[1]:g}, bases in "
+                f"[{float(x.min()):.4g}, {float(x.max()):.4g}], "
+                f"{float((x > 0).float().mean()):.3f} above 0")
     return " ".join("x".join(map(str, a.shape)) for a in args
                     if hasattr(a, "shape"))[:80]
 
@@ -3263,6 +3284,80 @@ def sincos_checks(dev, card: str) -> dict:
                 ms_rounds=runs[0], torch_sin_cos_ms_rounds=runs[1])
 
 
+# the powf kernel's exhaustive hold: bases a chunk; the seeded inputs; the
+# weight planes it is timed at (the firefly clamp's eight at 1280x720)
+POWF_CHUNK = 1 << 25
+POWF_SEEDED = 1_000_000
+POWF_PLANES = (8, 90, 160)
+
+
+def powf_checks(dev, card: str) -> dict:
+    """The powf kernel (csrc/powf.cu, chord_tpu's XLA f32 power on the
+    card): bit for bit its plain version on every f32 in [2^-126, 1] with
+    y = 8, the edge weight's exponent (in chunks; a difference fails);
+    POWF_SEEDED seeded inputs of several ranges and exponents against the
+    plain version (a difference fails) and against this host's C library
+    powf with XLA's flush to zero (counted and printed); then timed at
+    POWF_PLANES weight bases in turns with torch.pow -> numbers."""
+    import numpy as np
+    import torch
+
+    from chord_tpu_torch.ops import _util
+
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(
+        __file__)), "tests"))
+    from rt_cases import libm_powf
+
+    t0 = time.time()
+    lo, hi, n, bad = 0x00800000, 0x3F800001, 0, 0
+    for a in range(lo, hi, POWF_CHUNK):
+        x = torch.arange(a, min(a + POWF_CHUNK, hi), dtype=torch.int32,
+                         device=dev).view(torch.float32)
+        got, ref = _util.powf_cuda(x, 8.0), _util.powf_plain(x, 8.0)
+        bad += int((got.view(torch.int32) != ref.view(torch.int32)).sum())
+        n += x.numel()
+    torch.cuda.synchronize()
+    log(f"powf kernel on every f32 in [2^-126, 1] with y = 8 ({n} values, "
+        f"chunks of {POWF_CHUNK}) on {card}: {bad} differ from its plain "
+        f"version, in {time.time() - t0:.1f} s")
+    if bad:
+        raise AssertionError(f"powf kernel: {bad} values differ from its "
+                             "plain version in [2^-126, 1]")
+    rng = np.random.default_rng(23)
+    k = POWF_SEEDED // 4
+    x = np.concatenate([rng.random(k), rng.random(k) ** 30,
+                        rng.uniform(1, 100, k),
+                        rng.random(POWF_SEEDED - 3 * k)]).astype(np.float32)
+    plain_off = libm_off = 0
+    for y in (8.0, 0.5, 2.5, 16.0):
+        got = _util.powf_cuda(torch.from_numpy(x).to(dev), y).cpu().numpy()
+        ref = _util.powf_plain(torch.from_numpy(x), y).numpy()
+        plain_off += int((got.view(np.int32) != ref.view(np.int32)).sum())
+        libm_off += int((got.view(np.int32) != libm_powf(x, y).view(
+            np.int32)).sum())
+    libc = " ".join(platform.libc_ver())
+    log(f"powf kernel on {x.size} seeded inputs x 4 exponents (seed 23): "
+        f"{plain_off} values differ from the plain version on the CPU, "
+        f"{libm_off} from this host's C library ({libc}) powf, flushed to "
+        "zero as XLA")
+    if plain_off:
+        raise AssertionError(f"powf kernel: {plain_off} seeded values "
+                             "differ from the plain version")
+    base = torch.from_numpy(rng.random(POWF_PLANES).astype(
+        np.float32)).to(dev)
+    runs = alternate([lambda: _util.powf_cuda(base, 8.0),
+                      lambda: torch.pow(base, 8.0)])
+    ms, lib_ms = (statistics.median(r) for r in runs)
+    log(f"powf kernel at {'x'.join(map(str, POWF_PLANES))} bases on "
+        f"{card}: {spread(runs[0])} vs torch.pow {spread(runs[1])}, "
+        f"medians of {len(runs[0])} alternating rounds of 200 calls")
+    return dict(exhaustive_values=n, exhaustive_differ=bad,
+                seeded=int(x.size) * 4, seeded_differ_plain=plain_off,
+                seeded_differ_libm=libm_off, libc=libc,
+                planes=list(POWF_PLANES), ms=ms, torch_pow_ms=lib_ms,
+                ms_rounds=runs[0], torch_pow_ms_rounds=runs[1])
+
+
 def launch_floor(card: str) -> float:
     """The device time of an empty one-block launch (csrc/launch_floor.cu),
     timed as the kernels are -> ms."""
@@ -3311,6 +3406,7 @@ def main() -> int:
     floor_ms = launch_floor(smi)
     paged_edge_cases(dev)
     sincos = sincos_checks(dev, smi)
+    powf = powf_checks(dev, smi)
 
     scenes = bench_scenes(dev, FRAME_PATHS)
     rows, ms_per_frame, path_launches, kept = [], {}, {}, {}
@@ -3376,7 +3472,7 @@ def main() -> int:
     log(f"chip_smoke: all phases passed in {time.time() - t_start:.1f} s")
     print(json.dumps({"tools": tools, "goldens": golden,
                       "bench_goldens": bench_golden, "apps": apps,
-                      "sincos": sincos}))
+                      "sincos": sincos, "powf": powf}))
 
     order = ("name", "path", "route", "source", "replaces", "launches",
              "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",

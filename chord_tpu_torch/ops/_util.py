@@ -2,6 +2,7 @@
 
 from __future__ import annotations
 
+import ctypes
 import functools
 
 import numpy as np
@@ -47,12 +48,39 @@ def sqrt_rn(x: torch.Tensor) -> torch.Tensor:
     return torch.sqrt(x)
 
 
+def rsqrt_rn(x: torch.Tensor) -> torch.Tensor:
+    """1 / sqrt_rn(x): what chord_tpu's jitted lax.rsqrt computes on the
+    CPU (the root and the division each rounded to nearest). CUDA's
+    rsqrtf, which torch.rsqrt takes on the card, is an approximation."""
+    return 1.0 / sqrt_rn(x)
+
+
 def dot3(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """The dot of the last (size 3) axes, broadcast, summed in order:
     (a0 b0 + a1 b1) + a2 b2, as XLA's CPU build sums a 3-term jnp.sum or
     dot without FMA (tests/ray_order_probe.py order)."""
     return (a[..., 0] * b[..., 0] + a[..., 1] * b[..., 1]) + \
         a[..., 2] * b[..., 2]
+
+
+def fma_f32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor
+            ) -> torch.Tensor:
+    """f32 a * b + c rounded once, a fused multiply-add, the same on every
+    device: in f64 the product of two f32 is exact; the sum is taken to
+    odd (where TwoSum's error shows it inexact and its last bit is even,
+    the neighbour toward the error), so that rounding it to f32 is the one
+    rounding of the exact value. The libraries chord_tpu's XLA calls on
+    the CPU (OpenBLAS's kernels, the runtime's batched dot) fuse so."""
+    a, b, c = a.double(), b.double(), c.double()
+    p = a * b
+    s = p + c
+    z = s - p
+    err = (p - (s - z)) + (c - z)
+    even = (s.view(torch.int64) & 1) == 0
+    inf = torch.full((), float("inf"), dtype=torch.float64, device=s.device)
+    s = torch.where((err != 0) & even,
+                    torch.nextafter(s, torch.copysign(inf, err)), s)
+    return s.float()
 
 
 def norm3(x: torch.Tensor, keepdim: bool = False) -> torch.Tensor:
@@ -208,6 +236,152 @@ def sincosf(x: torch.Tensor):
 
 
 sincosf.launches = 0
+
+
+# --- powf: chord_tpu's f32 x ** y for a float y -----------------------------
+#
+# chord_tpu's `x ** 8.0` (a Python float exponent: the specular filters'
+# edge weight, chord_tpu screen_probe.py:631) is an XLA power, which its
+# CPU build computes by the C library's powf (glibc >= 2.28, ARM's
+# optimized-routines algorithm: log2 in f64 from a 16-entry table and a
+# degree-5 polynomial, times y, then exp2 from a 32-entry table and a
+# cubic), its f32 result flushed to zero below 2^-126 (XLA's threads run
+# with FTZ and DAZ; a jitted power differs from the library there only).
+# The constants are the library's (__powf_log2_data, __exp2f_data, found
+# byte for byte in glibc's libm.so.6). Its FMA build fuses the reduction
+# r = z * invc - 1: computed exactly here as (z * hi - 1) + z * lo, invc
+# split into 26 and 27 significant bits (z has 24: both products and the
+# difference, by Sterbenz, exact; the sum rounds once, as the fused one).
+# Its fused polynomial steps change no f32 result on the tests' inputs
+# (every f32 in [2^-126, 1] with y = 8, tests/ray_order_probe.py powf),
+# so they stay unfused. An integer exponent (`x ** 8`) is XLA's
+# integer_pow, repeated squaring, not this.
+
+_PW_LOG2 = tuple(tuple(float.fromhex(v) for v in p) for p in (
+    ("0x1.661ec79f8f3bep+0", "-0x1.efec65b963019p-2"),
+    ("0x1.571ed4aaf883dp+0", "-0x1.b0b6832d4fca4p-2"),
+    ("0x1.49539f0f010bp+0", "-0x1.7418b0a1fb77bp-2"),
+    ("0x1.3c995b0b80385p+0", "-0x1.39de91a6dcf7bp-2"),
+    ("0x1.30d190c8864a5p+0", "-0x1.01d9bf3f2b631p-2"),
+    ("0x1.25e227b0b8eap+0", "-0x1.97c1d1b3b7afp-3"),
+    ("0x1.1bb4a4a1a343fp+0", "-0x1.2f9e393af3c9fp-3"),
+    ("0x1.12358f08ae5bap+0", "-0x1.960cbbf788d5cp-4"),
+    ("0x1.0953f419900a7p+0", "-0x1.a6f9db6475fcep-5"),
+    ("0x1p+0", "0x0p+0"),
+    ("0x1.e608cfd9a47acp-1", "0x1.338ca9f24f53dp-4"),
+    ("0x1.ca4b31f026aap-1", "0x1.476a9543891bap-3"),
+    ("0x1.b2036576afce6p-1", "0x1.e840b4ac4e4d2p-3"),
+    ("0x1.9c2d163a1aa2dp-1", "0x1.40645f0c6651cp-2"),
+    ("0x1.886e6037841edp-1", "0x1.88e9c2c1b9ff8p-2"),
+    ("0x1.767dcf5534862p-1", "0x1.ce0a44eb17bccp-2")))
+_PW_A = tuple(float.fromhex(v) for v in (
+    "0x1.27616c9496e0bp-2", "-0x1.71969a075c67ap-2", "0x1.ec70a6ca7baddp-2",
+    "-0x1.7154748bef6c8p-1", "0x1.71547652ab82bp0"))
+# exp2: tab[i] = bits(2^(i/32)) - (i << 47)
+_PW_EXP2 = (
+    0x3ff0000000000000, 0x3fefd9b0d3158574, 0x3fefb5586cf9890f,
+    0x3fef9301d0125b51, 0x3fef72b83c7d517b, 0x3fef54873168b9aa,
+    0x3fef387a6e756238, 0x3fef1e9df51fdee1, 0x3fef06fe0a31b715,
+    0x3feef1a7373aa9cb, 0x3feedea64c123422, 0x3feece086061892d,
+    0x3feebfdad5362a27, 0x3feeb42b569d4f82, 0x3feeab07dd485429,
+    0x3feea47eb03a5585, 0x3feea09e667f3bcd, 0x3fee9f75e8ec5f74,
+    0x3feea11473eb0187, 0x3feea589994cce13, 0x3feeace5422aa0db,
+    0x3feeb737b0cdc5e5, 0x3feec49182a3f090, 0x3feed503b23e255d,
+    0x3feee89f995ad3ad, 0x3feeff76f2fb5e47, 0x3fef199bdd85529c,
+    0x3fef3720dcef9069, 0x3fef5818dcfba487, 0x3fef7c97337b9b5f,
+    0x3fefa4afa2a490da, 0x3fefd0765b6e4540)
+_PW_C = tuple(float.fromhex(v) for v in (
+    "0x1.c6af84b912394p-5", "0x1.ebfce50fac4f3p-3", "0x1.62e42ff0c52d6p-1"))
+_PW_SHIFT = float.fromhex("0x1.8p+47")          # 0x1.8p52 / 32
+_PW_OFLOW = float.fromhex("0x1.fffffffd1d571p+6")
+
+
+def _split26(v: float):
+    """v = hi + lo, hi with 26 significant bits (Veltkamp)."""
+    c = v * 134217729.0
+    hi = c - (c - v)
+    return hi, v - hi
+
+
+def powf_plain(x: torch.Tensor, y: float) -> torch.Tensor:
+    """Plain version of the powf kernel: f32 `x` >= 0 (or NaN) to the
+    power of the f32 `y` > 0, bit for bit what chord_tpu's XLA computes on
+    the CPU (glibc's powf, FTZ / DAZ), in f64 torch ops on x's device. A
+    negative x gives NaN."""
+    if x.dtype != torch.float32:
+        raise ValueError(f"powf takes float32 (got {x.dtype})")
+    y = float(np.float32(y))
+    if not 0.0 < y < float("inf"):
+        raise ValueError(f"powf takes a finite y > 0 (got {y})")
+    dev = x.device
+    f64 = dict(dtype=torch.float64, device=dev)
+    tab = torch.tensor(_PW_LOG2, **f64)
+    hi_lo = torch.tensor([_split26(c) for c, _ in _PW_LOG2], **f64)
+    t2 = torch.tensor(_PW_EXP2, dtype=torch.int64, device=dev)
+    xi = bits_i32(x).to(torch.int64) & 0xFFFFFFFF
+    tmp = (xi - 0x3F330000) & 0xFFFFFFFF
+    i = (tmp >> 19) & 15
+    top = tmp & 0xFF800000
+    z = bits_f32(((xi - top) & 0xFFFFFFFF).to(torch.int32)).double()
+    k = ((top ^ 0x80000000) - 0x80000000) >> 23
+    a0, a1, a2, a3, a4 = _PW_A
+    r = (z * hi_lo[i, 0] - 1.0) + z * hi_lo[i, 1]
+    r2 = r * r
+    lg = a0 * r + a1
+    p = a2 * r + a3
+    r4 = r2 * r2
+    q = a4 * r + (tab[i, 1] + k.double())
+    q = p * r2 + q
+    lg = lg * r4 + q
+    e = y * lg
+    kd = (e + _PW_SHIFT) - _PW_SHIFT          # e to a multiple of 1/32
+    rr = e - kd
+    kk = (kd * 32.0).to(torch.int64)
+    s = (t2[kk & 31] + kk * (1 << 47)).view(torch.float64)
+    c0, c1, c2 = _PW_C
+    zz = c0 * rr + c1
+    out = zz * (rr * rr) + (c2 * rr + 1.0)
+    out = (out * s).float()
+    zero = torch.zeros((), device=dev)
+    inf = torch.full((), float("inf"), device=dev)
+    out = torch.where(e > _PW_OFLOW, inf, out)
+    # underflow and FTZ; DAZ: a zero or subnormal x is 0
+    out = torch.where((e <= -150.0) | (out < 2.0 ** -126) |
+                      (x < 2.0 ** -126), zero, out)
+    out = torch.where(x == float("inf"), inf, out)
+    return torch.where(torch.isnan(x) | (x < 0), torch.full(
+        (), float("nan"), device=dev), out)
+
+
+def powf_cuda(x: torch.Tensor, y: float) -> torch.Tensor:
+    """Launch the powf kernel (csrc/powf.cu) on a contiguous f32 CUDA
+    tensor; an empty tensor launches nothing."""
+    _cuda.check(x, "x", torch.float32)
+    y = float(np.float32(y))
+    if not 0.0 < y < float("inf"):
+        raise ValueError(f"powf takes a finite y > 0 (got {y})")
+    out = torch.empty_like(x)
+    if x.numel() == 0:
+        return out
+    if x.numel() >= 2 ** 31:
+        raise ValueError("powf: at most 2^31 - 1 elements a call")
+    _cuda.launch("chord_powf", _cuda.ptr(x), _cuda.ptr(out),
+                 ctypes.c_float(y), _cuda.cint(x.numel()), _cuda.stream())
+    powf.launches += 1
+    return out
+
+
+def powf(x: torch.Tensor, y: float) -> torch.Tensor:
+    """f32 x ** y for a float y as chord_tpu's XLA computes it (glibc's
+    powf): a CPU tensor through powf_plain, a CUDA tensor through the
+    powf kernel (contiguous, or it raises). Callers reach it as
+    `_util.powf`, so kernels.capture_inputs sees the calls."""
+    if not x.is_cuda:
+        return powf_plain(x, y)
+    return powf_cuda(x, y)
+
+
+powf.launches = 0
 
 
 def jitter_rays(base: np.ndarray, frame: int, tilt: float) -> np.ndarray:

@@ -18,7 +18,8 @@ from typing import NamedTuple, Tuple
 import numpy as np
 import torch
 
-from ._util import centres, const, dot3, f2i, host_table, sincosf_plain
+from ._util import (centres, const, dot3, f2i, host_table, norm3,
+                    sincosf_plain)
 
 
 class AtmosphereParams(NamedTuple):
@@ -276,8 +277,7 @@ def _sky_view_trig():
 
 def sample_sky(lut: torch.Tensor, view_dir: torch.Tensor) -> torch.Tensor:
     """Sky-view LUT at (...,3) world directions -> (...,3)."""
-    d = view_dir / torch.clamp_min(torch.linalg.vector_norm(
-        view_dir, dim=-1, keepdim=True), 1e-8)
+    d = view_dir / torch.clamp_min(norm3(view_dir, keepdim=True), 1e-8)
     lat = torch.arcsin(torch.clamp(d[..., 1], -1.0, 1.0))
     lon = torch.remainder(torch.atan2(d[..., 2], d[..., 0]), 2.0 * np.pi)
     v = torch.where(lat < 0.0, 0.5 - torch.sqrt(-lat / np.pi),

@@ -11,6 +11,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ._util import const, dot3
+
 SRGB_TO_AP1 = np.array([
     [0.61309732, 0.07019422, 0.02061560],
     [0.33952285, 0.91635557, 0.10956983],
@@ -36,7 +38,13 @@ _RRT_SAT = 0.96
 
 
 def _mat3(c: torch.Tensor, m: np.ndarray) -> torch.Tensor:
-    return c @ torch.as_tensor(m, device=c.device)
+    """c @ m with each output summed (c0 m0 + c1 m1) + c2 m2, as XLA's CPU
+    build sums chord_tpu's (..., 3) @ (3, 3) (a BLAS or cuBLAS matmul sums
+    otherwise, and moves two thirds of the values by an ulp); m is a
+    cached device constant."""
+    mt = const(tuple(map(tuple, np.asarray(m, np.float32).tolist())),
+               c.device)
+    return (c[..., 0:1] * mt[0] + c[..., 1:2] * mt[1]) + c[..., 2:3] * mt[2]
 
 
 def srgb_to_acescg(c: torch.Tensor) -> torch.Tensor:
@@ -51,7 +59,7 @@ def acescg_to_srgb(c: torch.Tensor) -> torch.Tensor:
 
 def luminance_ap1(c: torch.Tensor) -> torch.Tensor:
     """AP1 relative luminance -> (...,)."""
-    return c @ torch.as_tensor(AP1_LUMA, device=c.device)
+    return dot3(c, const(tuple(AP1_LUMA.tolist()), c.device))
 
 
 def srgb_eotf_inv(c: torch.Tensor) -> torch.Tensor:

@@ -27,7 +27,7 @@ import numpy as np
 
 from . import _util, rt
 from . import sh as sh_ops
-from ._util import const, f2i
+from ._util import const, dot3, f2i, norm3, recip
 from .bluenoise import interleaved_gradient_noise
 from .post import upsample_nearest
 
@@ -161,10 +161,14 @@ def propagate(cache: torch.Tensor, cfg: GIConfig) -> torch.Tensor:
 
 
 def _sh_dot(sh: torch.Tensor, basis: torch.Tensor) -> torch.Tensor:
-    """Rgb-major SH rows (..., 27) . basis (..., 9) -> (..., 3)."""
-    return torch.stack([(sh[..., 0:NSH] * basis).sum(-1),
-                        (sh[..., NSH:2 * NSH] * basis).sum(-1),
-                        (sh[..., 2 * NSH:NFL] * basis).sum(-1)], dim=-1)
+    """Rgb-major SH rows (..., 27) . basis (..., 9) -> (..., 3), each
+    9-term dot summed in order, as XLA's CPU build sums chord_tpu's
+    jnp.sum over a short minor axis."""
+    p = sh[..., :NFL].reshape(sh.shape[:-1] + (3, NSH)) * basis[..., None, :]
+    s = p[..., 0]
+    for i in range(1, NSH):
+        s = s + p[..., i]
+    return s
 
 
 def sample_irradiance(cache: torch.Tensor, pos_w: torch.Tensor,
@@ -255,11 +259,11 @@ def ssao(depth: torch.Tensor, pos_tw: torch.Tensor, normal: torch.Tensor,
     taps = SSAO_TAPS[:cfg.ao_samples]
     for dy, dx in taps:
         d = torch.roll(pos_tw, (dy, dx), (0, 1)) - pos_tw
-        dist = torch.linalg.vector_norm(d, dim=-1)
+        dist = norm3(d)
         dirn = d / torch.clamp_min(dist[..., None], 1e-6)
-        s = (dirn * normal).sum(-1)
+        s = dot3(dirn, normal)
         a = torch.clamp(s - 0.1, 0.0, 1.0) * \
-            torch.clamp(1.0 - dist / cfg.ao_radius, 0.0, 1.0)
+            torch.clamp(1.0 - dist * recip(cfg.ao_radius), 0.0, 1.0)
         occ = occ + a
     ao = 1.0 - cfg.ao_strength * occ / len(taps)
     return torch.clamp(ao, 0.0, 1.0)

@@ -3,8 +3,9 @@
 One entry per kernel: the module, the wrapper that launches the CUDA
 kernel (and counts its launches in `wrapper.launches`), the plain PyTorch
 version with the same signature, the CUDA source, the chord_tpu Pallas
-kernel it replaces (the sincos kernel replaces none: it computes
-chord_tpu's XLA f32 sin and cos, glibc's sinf and cosf, on the card) and
+kernel it replaces (the sincos and powf kernels replace none: they
+compute chord_tpu's XLA f32 sin and cos and its f32 power, glibc's sinf,
+cosf and powf, on the card) and
 the paths (`paths`) that launch it: a frame path of PATHS, a tool path of
 TOOL_PATHS or an app run of APP_PATHS.
 `capture_inputs` records the arguments each wrapper receives while a frame
@@ -81,6 +82,10 @@ SINCOS_PER_FRAME = {p: (1 if p in SHADOW else 0) + (1 if p in GI_PATHS
                                                     else 0)
                     for p in PATHS}
 SINCOS_PER_FRAME["all_exact"] += 4
+# the powf kernel's calls a frame: the specular filters' edge weights on
+# the GI paths, one call for the firefly clamp's and one for the spatial
+# filter's
+POWF_PER_FRAME = {p: 2 if p in GI_PATHS else 0 for p in PATHS}
 # launches of a kernel on a path's run that the path fixes, per rank on
 # the sharded paths (K4:
 # TSR's history and, with screen probes, the GI diffuse history every
@@ -132,6 +137,9 @@ EXPECTED_LAUNCHES = {
 for _p, _n in SINCOS_PER_FRAME.items():
     if _n:
         EXPECTED_LAUNCHES[_p]["sincos"] = _n * run_frames(_p)
+for _p, _n in POWF_PER_FRAME.items():
+    if _n:
+        EXPECTED_LAUNCHES[_p]["powf"] = _n * run_frames(_p)
 # the viewer's PCSS calls rotate their disks too
 for _p in ("viewer_glb", "viewer_chtp"):
     EXPECTED_LAUNCHES[_p]["sincos"] = EXPECTED_LAUNCHES[_p]["pcss"]
@@ -203,6 +211,11 @@ KERNELS: List[Kernel] = [
            "chord_tpu/ops/gi.py:365, screen_probe.py:673, shadow.py:274, "
            "shadow_kernel.py:382",
            paths=SHADOW + ("viewer_glb", "viewer_chtp", "repro_eval")),
+    Kernel("powf", _util, "powf", _util.powf_plain,
+           "chord_tpu_torch/csrc/powf.cu",
+           "none: chord_tpu's XLA f32 power (glibc powf) at "
+           "chord_tpu/ops/screen_probe.py:631",
+           paths=GI_PATHS),
 ]
 
 

@@ -36,7 +36,7 @@ import numpy as np
 import torch
 
 from . import colorspace
-from ._util import dot3, sqrt_rn
+from ._util import dot3, recip, sqrt_rn
 
 
 class SceneBVH(NamedTuple):
@@ -540,10 +540,11 @@ def shade_hits(t: torch.Tensor, leaf: torch.Tensor, origins: torch.Tensor,
     emis = bvh.leaf_emissive[lf]
     if bvh.leaf_normal is not None:
         gn = bvh.leaf_normal[lf]
-        n = gn * -torch.sign((gn * dirs).sum(-1, keepdim=True) + 1e-12)
+        n = gn * -torch.sign(dot3(gn, dirs)[..., None] + 1e-12)
     else:
         n = -dirs
-    ndl = torch.clamp((n * sun_direction).sum(-1), 0.0, 1.0)
-    rad = alb * (sun_radiance * ndl[..., None] / np.pi + ambient) + emis
+    ndl = torch.clamp(dot3(n, sun_direction), 0.0, 1.0)
+    rad = alb * (sun_radiance * ndl[..., None] * recip(np.pi) + ambient) + \
+        emis
     return (torch.where(ok[..., None], rad, torch.zeros((), device=t.device)),
             ok.to(torch.float32))

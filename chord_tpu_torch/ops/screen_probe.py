@@ -526,14 +526,34 @@ def bilateral_upsample(diffuse_half: torch.Tensor, depth_half: torch.Tensor,
 # gi_spatial_filter_specular.hlsl, the shared history reprojection), at
 # the specular sample res -----------------------------------------------------
 
+def _edge_base(pos_c, nrm_c, pos_s, nrm_s):
+    """normal factor ^ 8 x distance factor, in chord_tpu's rounding: the
+    factor ^ 8 by repeated squaring (XLA's integer_pow), the dot and the
+    lengths summed (p0 + p1) + p2."""
+    nf = torch.clamp(dot3(nrm_c, nrm_s), 0.0, 1.0)
+    nf = nf * nf
+    nf = nf * nf
+    nf = nf * nf
+    scale = torch.clamp_min(norm3(pos_c), 1e-3)
+    df = torch.clamp(1.0 - norm3(pos_s - pos_c) / scale, 0.0, 1.0)
+    return nf * df
+
+
 def _edge_weight(pos_c, nrm_c, pos_s, nrm_s, sharp: float = 8.0):
-    """(normal factor ^ 8 x distance factor) ^ sharp."""
-    nf = torch.clamp((nrm_c * nrm_s).sum(-1), 0.0, 1.0) ** 8
-    scale = torch.clamp_min(torch.linalg.vector_norm(pos_c, dim=-1), 1e-3)
-    df = torch.clamp(
-        1.0 - torch.linalg.vector_norm(pos_s - pos_c, dim=-1) / scale,
-        0.0, 1.0)
-    return (nf * df) ** sharp
+    """(normal factor ^ 8 x distance factor) ^ sharp: the float power as
+    chord_tpu's XLA computes it (the C library's powf, _util.powf)."""
+    return _util.powf(_edge_base(pos_c, nrm_c, pos_s, nrm_s).contiguous(),
+                      sharp)
+
+
+def _edge_weights(pos_c, nrm_c, shifts, sharp: float = 8.0) -> list:
+    """_edge_weight against the centre's neighbours, pos_c / nrm_c rolled
+    by each (dy, dx) of `shifts`: the neighbours stacked, so that each
+    operation and the powf call serve them all."""
+    pos_s = torch.stack([torch.roll(pos_c, sh, (0, 1)) for sh in shifts])
+    nrm_s = torch.stack([torch.roll(nrm_c, sh, (0, 1)) for sh in shifts])
+    bases = _edge_base(pos_c, nrm_c, pos_s, nrm_s).contiguous()
+    return list(_util.powf(bases, sharp).unbind(0))
 
 
 def ggx_sample_normal(nrm: torch.Tensor, view: torch.Tensor,
@@ -579,14 +599,12 @@ def specular_firefly_clamp(spec: torch.Tensor, pos_q: torch.Tensor,
     dev = spec.device
     acc = torch.zeros_like(spec)
     wacc = torch.zeros(spec.shape[:2], device=dev)
-    for s in (1, 2):
-        for dy, dx in ((0, s), (0, -s), (s, 0), (-s, 0)):
-            p2 = torch.roll(pos_q, (dy, dx), (0, 1))
-            n2 = torch.roll(nrm_q, (dy, dx), (0, 1))
-            c2 = torch.roll(spec, (dy, dx), (0, 1))
-            w = _edge_weight(pos_q, nrm_q, p2, n2)
-            acc = acc + c2 * w[..., None]
-            wacc = wacc + w
+    shifts = [(dy, dx) for s in (1, 2)
+              for dy, dx in ((0, s), (0, -s), (s, 0), (-s, 0))]
+    weights = _edge_weights(pos_q, nrm_q, shifts)
+    for sh, w in zip(shifts, weights):
+        acc = acc + torch.roll(spec, sh, (0, 1)) * w[..., None]
+        wacc = wacc + w
     nb_mean = torch.where((wacc > 1e-5)[..., None],
                           acc / torch.clamp_min(wacc, 1e-5)[..., None], spec)
     lum = spec.amax(-1)
@@ -597,12 +615,8 @@ def specular_firefly_clamp(spec: torch.Tensor, pos_q: torch.Tensor,
 
     acc = cleaned
     wacc2 = torch.ones(spec.shape[:2], device=dev)
-    for dy, dx in ((0, 1), (0, -1), (1, 0), (-1, 0)):
-        p2 = torch.roll(pos_q, (dy, dx), (0, 1))
-        n2 = torch.roll(nrm_q, (dy, dx), (0, 1))
-        c2 = torch.roll(cleaned, (dy, dx), (0, 1))
-        w = _edge_weight(pos_q, nrm_q, p2, n2)
-        acc = acc + c2 * w[..., None]
+    for sh, w in zip(shifts[:4], weights[:4]):   # the stride-1 ones
+        acc = acc + torch.roll(cleaned, sh, (0, 1)) * w[..., None]
         wacc2 = wacc2 + w
     blurred = acc / wacc2[..., None]
 
@@ -613,9 +627,22 @@ def specular_firefly_clamp(spec: torch.Tensor, pos_q: torch.Tensor,
     padded = torch.nn.functional.pad(blurred, (0, 0, 0, pw - wq, 0, ph - hq))
     cnt = torch.nn.functional.pad(torch.ones((hq, wq, 1), device=dev),
                                   (0, 0, 0, pw - wq, 0, ph - hq))
-    stat = (padded.reshape(ph // t, t, pw // t, t, 3).sum((1, 3)) /
-            torch.clamp_min(cnt.reshape(ph // t, t, pw // t, t, 1)
-                            .sum((1, 3)), 1.0))
+    # each 4x4 tile summed as chord_tpu's XLA sums it on the CPU: with a
+    # pad (the plane not a multiple of 4) fused into the reduce, the 16 in
+    # order from 0, row by row; without one, each row's 4 in order and
+    # then the rows' sums (r0 + r2) + (r1 + r3)
+    blk = padded.reshape(ph // t, t, pw // t, t, 3)
+    if ph != hq or pw != wq:
+        tot = torch.zeros_like(blk[:, 0, :, 0])
+        for i in range(t):
+            for k in range(t):
+                tot = tot + blk[:, i, :, k]
+    else:
+        rows = [((blk[:, i, :, 0] + blk[:, i, :, 1]) + blk[:, i, :, 2]) +
+                blk[:, i, :, 3] for i in range(t)]
+        tot = (rows[0] + rows[2]) + (rows[1] + rows[3])
+    stat = tot / torch.clamp_min(cnt.reshape(ph // t, t, pw // t, t, 1)
+                                 .sum((1, 3)), 1.0)
     stat_full = stat.repeat_interleave(t, 0).repeat_interleave(t, 1)[:hq, :wq]
     lf = torch.clamp(rough_q / 0.25, 0.0, 1.0)
     rng = (0.3 + 0.2 * lf)[..., None] * (
@@ -630,19 +657,21 @@ def spatial_filter_specular(spec: torch.Tensor, pos_q: torch.Tensor,
     """Separable edge-aware specular blur (X then Y) whose weight grows
     with roughness; mirror pixels keep the raw trace."""
     rad_w = torch.clamp(rough_q / 0.25, 0.0, 1.0)
+    taps_ = [(axis, s, sign) for axis in (1, 0) for s in range(1, taps + 1)
+             for sign in (-1, 1)]
+    weights = _edge_weights(pos_q, nrm_q, [
+        (s * sign, 0) if axis == 0 else (0, s * sign)
+        for axis, s, sign in taps_])
     out = spec
     for axis in (1, 0):
         acc = out
         wacc = torch.ones(rough_q.shape, device=spec.device)
-        for s in range(1, taps + 1):
-            for sign in (-1, 1):
-                p2 = torch.roll(pos_q, s * sign, axis)
-                n2 = torch.roll(nrm_q, s * sign, axis)
-                c2 = torch.roll(out, s * sign, axis)
-                w = (_edge_weight(pos_q, nrm_q, p2, n2) * rad_w *
-                     0.7 ** (s - 1))
-                acc = acc + c2 * w[..., None]
-                wacc = wacc + w
+        for (ax, s, sign), ew in zip(taps_, weights):
+            if ax != axis:
+                continue
+            w = ew * rad_w * 0.7 ** (s - 1)
+            acc = acc + torch.roll(out, s * sign, axis) * w[..., None]
+            wacc = wacc + w
         out = acc / wacc[..., None]
     return out
 

@@ -19,13 +19,14 @@ linear ACEScg.
 from __future__ import annotations
 
 import math
+import weakref
 from typing import NamedTuple, Optional, Tuple
 
 import torch
 
 from . import colorspace, row_gather
 from . import texture as texture_ops
-from ._util import bits_f32, centres, norm3
+from ._util import bits_f32, centres, dot3, fma_f32, norm3, rsqrt_rn
 from .row_gather import pack_table
 from ..rhi.framebuffer import unpack_visibility
 
@@ -80,6 +81,83 @@ def _barycentrics_from_clip(c0, c1, c2, px_ndc, py_ndc):
     inv = 1.0 / torch.where(torch.abs(s) > 1e-20, s,
                             torch.ones((), device=s.device))
     return l0 * inv, l1 * inv, l2 * inv
+
+
+def rigid_delta(m: torch.Tensor, m_prev: torch.Tensor) -> torch.Tensor:
+    """(O,4,4) f32 inv(m) @ m_prev, the per-object motion delta, rounded
+    as chord_tpu's compiled jnp.linalg.inv and einsum (chord_tpu
+    shading.py:200-201) round it on the CPU, and the same on every device
+    (torch.linalg.inv is another LU, and on the card cuSOLVER's): the LU
+    of OpenBLAS's sgetf2 (left-looking; the pivot the first largest |x|;
+    its U rows' dots from the last term, its column update from the
+    first, each a product then fused multiply-adds; the multipliers scaled by the pivot's f32 reciprocal),
+    the two triangular solves of its strsm on the permuted identity
+    (fused updates, the diagonal's reciprocal), then XLA's batched dot,
+    a product then three fused multiply-adds. The fused steps go through
+    fma_f32."""
+    a = m.float().clone()
+    o = a.shape[0]
+    rows = torch.arange(o, device=a.device)
+    piv = []
+    for j in range(4):
+        col = a[:, :, j].clone()
+        for i, ip in enumerate(piv):       # the earlier row swaps
+            vi, vp = col[:, i].clone(), col[rows, ip]
+            col[:, i] = vp
+            col[rows, ip] = vi
+        for i in range(1, j):              # U: b_i -= dot(l_i, b)
+            s = a[:, i, i - 1] * col[:, i - 1]
+            for k in range(i - 2, -1, -1):
+                s = fma_f32(a[:, i, k], col[:, k], s)
+            col[:, i] = col[:, i] - s
+        if j:                              # b[j:] -= L[j:, :j] @ b[:j]
+            s = a[:, j:, 0] * col[:, 0:1]
+            for k in range(1, j):
+                s = fma_f32(a[:, j:, k], col[:, k:k + 1], s)
+            col[:, j:] = col[:, j:] - s
+        a[:, :, j] = col
+        jp = j + torch.argmax(torch.abs(col[:, j:]), dim=1)
+        piv.append(jp)
+        rj, rp = a[:, j, :j + 1].clone(), a[rows, jp, :j + 1]
+        a[:, j, :j + 1] = rp
+        a[rows, jp, :j + 1] = rj
+        a[:, j + 1:, j] = a[:, j + 1:, j] * (1.0 / a[:, j, j])[:, None]
+    perm = torch.arange(4, device=a.device).repeat(o, 1)
+    for i, ip in enumerate(piv):
+        vi, vp = perm[:, i].clone(), perm[rows, ip]
+        perm[:, i] = vp
+        perm[rows, ip] = vi
+    x = torch.eye(4, device=a.device)[perm]
+    for i in range(3):                     # L (unit) forward
+        x[:, i + 1:] = fma_f32(-a[:, i + 1:, i:i + 1], x[:, i:i + 1],
+                               x[:, i + 1:])
+    for i in range(3, -1, -1):             # U backward
+        x[:, i] = x[:, i] * (1.0 / a[:, i, i])[:, None]
+        if i:
+            x[:, :i] = fma_f32(-a[:, :i, i:i + 1], x[:, i:i + 1], x[:, :i])
+    b = m_prev.float()
+    d = x[:, :, 0:1] * b[:, None, 0] + 0.0       # its sum starts at +0
+    for k in range(1, 4):
+        d = fma_f32(x[:, :, k:k + 1], b[:, None, k], d)
+    return d
+
+
+_DELTA_MEMO: dict = {}
+
+
+def motion_delta(m: torch.Tensor, m_prev: torch.Tensor) -> torch.Tensor:
+    """rigid_delta of an instance table's matrices, made once for a pair of
+    tensors: a sequence's frames share one table, and the delta's ~400
+    small operations then run on its first frame only. Another tensor, or
+    one changed in place (its version counter moves), makes it anew."""
+    key = (m._version, m_prev._version)
+    last = _DELTA_MEMO.get("last")
+    if last is not None and last[0]() is m and last[1]() is m_prev and \
+            last[2] == key:
+        return last[3]
+    d = rigid_delta(m, m_prev)
+    _DELTA_MEMO["last"] = (weakref.ref(m), weakref.ref(m_prev), key, d)
+    return d
 
 
 def resolve_gbuffer(vis, pools, instances, view_tw_to_clip: torch.Tensor,
@@ -189,7 +267,7 @@ def resolve_gbuffer_raster_rt(
     slot, _tri = unpack_visibility(vis)
     valid = slot >= 0
 
-    inv_len = torch.rsqrt(torch.clamp_min(nx * nx + ny * ny + nz * nz, 1e-12))
+    inv_len = rsqrt_rn(torch.clamp_min(nx * nx + ny * ny + nz * nz, 1e-12))
     nrm = torch.stack([nx * inv_len, ny * inv_len, nz * inv_len], dim=-1)
     uv = torch.stack([u, v], dim=-1)
 
@@ -203,8 +281,7 @@ def resolve_gbuffer_raster_rt(
     pos_tw = ph[..., :3] / torch.where(torch.abs(ph[..., 3:4]) > 1e-12,
                                        ph[..., 3:4], one)
 
-    minv = torch.linalg.inv(instances.object_to_tw)
-    delta = torch.matmul(minv, instances.object_prev_to_tw)
+    delta = motion_delta(instances.object_to_tw, instances.object_prev_to_tw)
     delta_d = delta[draw_object.long()].reshape(-1, 16)
     if motion_div > 1:
         slot_m = post.decimate(slot, motion_div)
@@ -293,6 +370,14 @@ def _textured_maps(pools, mplanes, slot, valid, uv, pos_tw, nrm, base, metal,
     return base, metal, rough, emissive, nrm
 
 
+def _cross(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a x b over the last axis, as jnp.cross computes it (a1 b2 - a2 b1,
+    ...; torch.linalg.cross rounds otherwise)."""
+    return torch.stack([a[..., 1] * b[..., 2] - a[..., 2] * b[..., 1],
+                        a[..., 2] * b[..., 0] - a[..., 0] * b[..., 2],
+                        a[..., 0] * b[..., 1] - a[..., 1] * b[..., 0]], -1)
+
+
 def _normal_map(nrm, n_texel, n_layer, n_scale, slot, valid, uv, pos_tw):
     """Tangent-space normal mapping without stored tangents: the cotangent
     frame from screen-space differences of position and uv (Schüler's
@@ -309,17 +394,17 @@ def _normal_map(nrm, n_texel, n_layer, n_scale, slot, valid, uv, pos_tw):
     dp2 = torch.where(same_y[..., None], ddy(pos_tw), zero)
     du1 = torch.where(same_x[..., None], ddx(uv), zero)
     du2 = torch.where(same_y[..., None], ddy(uv), zero)
-    dp2perp = torch.linalg.cross(nrm, dp2, dim=-1)
-    dp1perp = torch.linalg.cross(dp1, nrm, dim=-1)
+    dp2perp = _cross(nrm, dp2)
+    dp1perp = _cross(dp1, nrm)
     t = dp2perp * du1[..., 0:1] + dp1perp * du2[..., 0:1]
     b = dp2perp * du1[..., 1:2] + dp1perp * du2[..., 1:2]
-    m2 = torch.maximum((t * t).sum(-1), (b * b).sum(-1))
-    inv = torch.rsqrt(torch.clamp_min(m2, 1e-24))[..., None]
+    m2 = torch.maximum(dot3(t, t), dot3(b, b))
+    inv = rsqrt_rn(torch.clamp_min(m2, 1e-24))[..., None]
     pert = (t * inv * (n_ts[..., 0:1] * n_scale) +
             b * inv * (n_ts[..., 1:2] * n_scale) +
             nrm * torch.clamp_min(n_ts[..., 2:3], 0.05))
-    pert = pert * torch.rsqrt(torch.clamp_min(
-        (pert * pert).sum(-1, keepdim=True), 1e-12))
+    pert = pert * rsqrt_rn(torch.clamp_min(
+        dot3(pert, pert)[..., None], 1e-12))
     ok = (n_layer >= 0) & (m2 > 1e-24) & same_x & same_y
     return torch.where(ok[..., None], pert, nrm)
 
@@ -415,7 +500,7 @@ def shade_blend_layer(vis_b, depth_b, depth_o, nx, ny, nz, u_b, v_b,
 
 
 def _norm3(x: torch.Tensor) -> torch.Tensor:
-    return torch.sqrt((x * x).sum(dim=-1, keepdim=True))
+    return norm3(x, keepdim=True)
 
 
 def shade_pixels(g: GBuffer, sun: SunLight,

@@ -16,7 +16,7 @@ from typing import NamedTuple, Tuple
 import numpy as np
 import torch
 
-from ._util import dot3, f2i, norm3
+from ._util import dot3, f2i, norm3, recip
 
 
 class SSRConfig(NamedTuple):
@@ -68,8 +68,8 @@ def trace(depth_q: torch.Tensor, color_prev: torch.Tensor,
         behind = ((z < scene_z) & (z > scene_z - cfg.thickness) &
                   (scene_z > 0.0))
         hit = on & behind & ~found
-        bx = torch.minimum(x, w - x) / (w * cfg.edge_fade)
-        by = torch.minimum(y, h - y) / (h * cfg.edge_fade)
+        bx = torch.minimum(x, w - x) * recip(w * cfg.edge_fade)
+        by = torch.minimum(y, h - y) * recip(h * cfg.edge_fade)
         fade = torch.clamp(torch.minimum(bx, by), 0.0, 1.0)
         found = found | hit
         hit_x = torch.where(hit, x, hit_x)
@@ -80,5 +80,5 @@ def trace(depth_q: torch.Tensor, color_prev: torch.Tensor,
     hit_col = torch.where(found[..., None], color_prev[fy, fx],
                           torch.zeros((), device=dev))
     # grazing reflections toward the camera are unreliable on screen
-    toward_cam = (r * v).sum(-1)
+    toward_cam = dot3(r, v)
     return hit_col, hit_conf * torch.clamp(1.0 - toward_cam, 0.0, 1.0)

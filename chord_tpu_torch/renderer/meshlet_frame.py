@@ -157,11 +157,11 @@ def pixel_view_dirs(h: int, w: int, clip_to_tw: torch.Tensor) -> torch.Tensor:
     py = ys[:, None, None].expand(h, w, 1)
     p = (px * clip_to_tw[0] + py * clip_to_tw[1] + 0.5 * clip_to_tw[2] +
          clip_to_tw[3])
-    pw = p[..., 3:4]
-    d = p[..., :3] / torch.where(torch.abs(pw) > 1e-9, pw,
-                                 torch.ones((), device=dev))
-    return d / torch.clamp_min(torch.linalg.vector_norm(d, dim=-1,
-                                                        keepdim=True), 1e-8)
+    pw = torch.where(torch.abs(p[..., 3:4]) > 1e-9, p[..., 3:4],
+                     torch.ones((), device=dev))
+    d = p[..., :3] / pw
+    # XLA rewrites (a / b) / c as a / (b * c)
+    return p[..., :3] / (pw * torch.clamp_min(norm3(d, keepdim=True), 1e-8))
 
 
 def render_shadow_cascade(pools, instances, view: DeviceView,
@@ -535,7 +535,7 @@ def _aerial(hdr, gbuf, sky_along_view, view: DeviceView):
     """Aerial perspective on geometry (reference lighting.hlsl:75-135; the
     closed-form slant path of ops/atmosphere.py)."""
     p_ap = atm.AtmosphereParams()
-    dist = torch.linalg.vector_norm(gbuf.position_tw, dim=-1)
+    dist = norm3(gbuf.position_tw)
     dir_y = gbuf.position_tw[..., 1] / torch.clamp_min(dist, 1e-6)
     alt_km = (view.cam_world_y * p_ap.km_per_unit
               if view.cam_world_y is not None else 0.2)
@@ -653,6 +653,13 @@ def specular_directions(pos_q: torch.Tensor, nrm_q: torch.Tensor,
     return h_ggx, 2.0 * dot3(v_q, h_ggx)[..., None] * h_ggx - v_q
 
 
+def specular_nov(pos: torch.Tensor, nrm: torch.Tensor) -> torch.Tensor:
+    """The specular GI's N.V (chord_tpu meshlet_frame.py:1033-1036), its
+    length and dot summed (p0 + p1) + p2."""
+    return torch.clamp(dot3(-pos / torch.clamp_min(norm3(pos, keepdim=True),
+                                                   1e-6), nrm), 1e-3, 1.0)
+
+
 def _specular_gi(view: DeviceView, history: FrameHistory, gbuf, depth,
                  motion_dilated, disocc, ao, sun_radiance,
                  mcfg: MeshletFrameConfig, gcfg: gi_ops.GIConfig,
@@ -702,9 +709,7 @@ def _specular_gi(view: DeviceView, history: FrameHistory, gbuf, depth,
             history.valid, rough_q, disocclusion=post.decimate(disocc, k))
     hh, ww = gbuf.valid.shape
     spec = post.upsample_nearest(spec_q, k, hh, ww)
-    nov = torch.clamp((-gbuf.position_tw / torch.clamp_min(
-        torch.linalg.vector_norm(gbuf.position_tw, dim=-1, keepdim=True),
-        1e-6) * gbuf.normal).sum(-1), 1e-3, 1.0)
+    nov = specular_nov(gbuf.position_tw, gbuf.normal)
     f0 = (0.04 * (1.0 - gbuf.metallic[..., None]) +
           gbuf.base_color * gbuf.metallic[..., None])
     env = brdf.env_specular_analytic(f0, gbuf.roughness, nov)

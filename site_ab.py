@@ -11,10 +11,12 @@ NAME as `chord_tpu_torch_NAME` (its relative imports stay inside it; its
 kernels build from its own csrc into its own build directory), so every
 design runs its own code in this one process. This checkout builds the
 bench scenes of `all` and `all_exact` (chip_smoke.bench_scenes) and
-records, from its own frames, the inputs of three stages: the specular GI
+records, from its own frames, the inputs of four stages: the specular GI
 (renderer.meshlet_frame._specular_gi, the `gi.specular` span and its
-filter chain) and the PCSS prepass (ops.shadow.shadow_prepass) of `all`'s
-fifth frame (every cascade holding depth), and RTAO (ops.gi.rtao, the
+filter chain), the G-buffer resolve (ops.shading.resolve_gbuffer_raster_rt,
+with the per-object motion delta) and the PCSS prepass
+(ops.shadow.shadow_prepass) of `all`'s fifth frame (every cascade holding
+depth), and RTAO (ops.gi.rtao, the
 `gi.ao` span) of `all_exact`'s first frame, whose four traces take the
 BVH scan for seconds: RTAO is timed with rt.trace stubbed, so its time is
 its directions and the rest of its own ops. Each design's stage then runs
@@ -27,8 +29,8 @@ frame paths are host-bound), and each design's kernel launches a call
 frames of `all`); then `all`'s 16-frame sequence through
 each design's render_sequence_meshlet from a fresh history, in turns
 (`--frame-runs` each), ms/frame on the host clock; then the same runs
-with the specular GI and the PCSS prepass of every frame timed between
-two synchronizes (the stages as the frame calls them). Prints each
+with the specular GI, the resolve and the PCSS prepass of every frame
+timed between two synchronizes (the stages as the frame calls them). Prints each
 stage's medians with the rounds' range, one JSON line with every round,
 and last the card's name and power limit.
 """
@@ -75,12 +77,13 @@ def load_design(name: str, root: Path):
 def _modules(pkg):
     return {k: importlib.import_module(f"{pkg.__name__}.{m}") for k, m in (
         ("frame", "renderer.meshlet_frame"), ("shadow", "ops.shadow"),
-        ("gi", "ops.gi"), ("rt", "ops.rt"), ("renderer", "renderer"))}
+        ("gi", "ops.gi"), ("rt", "ops.rt"), ("renderer", "renderer"),
+        ("shading", "ops.shading"))}
 
 
 def record(scenes, dev) -> dict:
     """This checkout's inputs of each stage: {stage: (args, kwargs)}."""
-    from chord_tpu_torch.ops import gi, shadow
+    from chord_tpu_torch.ops import gi, shading, shadow
     from chord_tpu_torch.renderer import meshlet_frame
 
     out = {}
@@ -104,7 +107,10 @@ def record(scenes, dev) -> dict:
     origs = [(meshlet_frame, "_specular_gi",
               recorder(meshlet_frame, "_specular_gi", "specular", at)),
              (shadow, "shadow_prepass",
-              recorder(shadow, "shadow_prepass", "prepass", at))]
+              recorder(shadow, "shadow_prepass", "prepass", at)),
+             (shading, "resolve_gbuffer_raster_rt",
+              recorder(shading, "resolve_gbuffer_raster_rt", "resolve",
+                       at))]
     try:
         config, mcfg = chip_smoke.configs("all", scenes["all"][3])
         hist = chip_smoke.history(config, mcfg, dev)
@@ -139,6 +145,9 @@ def stage_fn(mods, stage: str, args, kwargs):
         return lambda: mods["frame"]._specular_gi(*args, **kwargs)
     if stage == "prepass":
         return lambda: mods["shadow"].shadow_prepass(*args, **kwargs)
+    if stage == "resolve":
+        return lambda: mods["shading"].resolve_gbuffer_raster_rt(*args,
+                                                                 **kwargs)
 
     def rtao():
         rt, orig = mods["rt"], mods["rt"].trace
@@ -174,11 +183,14 @@ def in_turns(fns: dict, rounds: int, reps: int) -> dict:
 
 
 def _stage_timers(mods, store: dict):
-    """Wrap the design's specular GI and PCSS prepass (module attributes,
-    which its frame calls) with a host clock between two synchronizes;
-    each call's ms goes to store[stage] -> what to restore."""
+    """Wrap the design's specular GI, resolve and PCSS prepass (module
+    attributes, which its frame calls) with a host clock between two
+    synchronizes; each call's ms goes to store[stage] -> what to
+    restore."""
     undo = []
     for stage, mod, attr in (("specular", mods["frame"], "_specular_gi"),
+                             ("resolve", mods["shading"],
+                              "resolve_gbuffer_raster_rt"),
                              ("prepass", mods["shadow"], "shadow_prepass")):
         fn = getattr(mod, attr)
 
@@ -199,13 +211,15 @@ def frame_runs(designs: dict, scene, dev, runs: int,
                timers: bool = False) -> tuple:
     """`all`'s 16 frames through each design's render_sequence_meshlet,
     in turns -> ({design: [ms/frame a run]}, {design: {stage: [ms a
-    call]}}: with `timers`, each frame's specular GI and PCSS prepass
-    timed between synchronizes, which the run's ms/frame then includes)."""
+    call]}}: with `timers`, each frame's specular GI, resolve and PCSS
+    prepass timed between synchronizes, which the run's ms/frame then
+    includes)."""
     config, mcfg = chip_smoke.configs("all", scene[3])
     pools, inst, views, _, bvh = scene
     n = chip_smoke.FRAMES
     out = {k: [] for k in designs}
-    stages = {k: {"specular": [], "prepass": []} for k in designs}
+    stages = {k: {"specular": [], "resolve": [], "prepass": []}
+              for k in designs}
     for mods in designs.values():     # warm up: first-use builds and caches
         mods["renderer"].render_sequence_meshlet(
             pools, inst, chip_smoke.frames(views, 0, 2),
@@ -271,8 +285,9 @@ def main(argv) -> int:
     result = {}
     where = {"prepass": f"all frame {RECORD_FRAME}",
              "specular": f"all frame {RECORD_FRAME}",
+             "resolve": f"all frame {RECORD_FRAME}",
              "rtao": "all_exact frame 0, traces stubbed"}
-    for stage in ("prepass", "specular", "rtao"):
+    for stage in ("prepass", "specular", "resolve", "rtao"):
         a, kw = inputs[stage]
         fns = {n: stage_fn(m, stage, a, kw) for n, m in designs.items()}
         for fn in fns.values():          # build each design's kernels

@@ -14,6 +14,9 @@
     python tests/bench_parity.py ign [--no-fma]
     python tests/bench_parity.py images A.png B.png
     python tests/bench_parity.py rays all_exact [--check]
+    python tests/bench_parity.py specular all_4k 6 --no-fma [--frames 8]
+                                 [--texel 75,56] [--out DIR] [--reference DIR]
+                                 [--extra shading.resolve_gbuffer_raster_rt]
 
 `frames`: the port's plain path renders a bench_goldens cell frame by
 frame (chip_smoke's scene, configs and history, on the CPU) and each
@@ -55,6 +58,20 @@ each kept frame's image and history leaves written to DIR; `history
 `devdiff` (no JAX: for the card): in one frame of a cell rendered on a
 device, each call of the named functions (default the specular GI chain)
 rerun on the CPU on copies of its inputs, outputs compared.
+
+`specular`: the specular GI chain (SPECULAR_CHAIN: the dilated motion,
+the GGX sample, the cache radiance, SSR's march, the BVH rays on its
+misses and their shading, the firefly clamp, the spatial and temporal
+filters) of frame FRAME, chord_tpu (jitted, interpret mode) beside the
+port's CPU frames 0..FRAME (--frames N: 0..N-1); after every frame the
+gi_specular texels that differ by more than 1e-5; in frame FRAME each
+call in both packages, its inputs and outputs compared, the port's
+function rerun on chord_tpu's own inputs (a function that differs told
+apart from inputs that differ), and at --texel (the 180x320 plane's
+(75, 56) at 4K by default) the values and each discrete decision's
+operands in both. `--out DIR` keeps chord_tpu's side; `--reference DIR`
+reads it back (the port alone); `--extra module.function,...` records
+more of the frame's ops functions (a NamedTuple output field by field).
 
 `split`: the split's shadow service pass by pass (PCSS evaluate, phase
 expand, temporal blend) of one frame, the port's on chord_tpu's own
@@ -283,9 +300,11 @@ def strip_dump_rank(rank: int, device, job, out: str, keep) -> None:
         print(f"strip {rank} frame {i} on {device}: dumped", flush=True)
 
 
-# the DDGI update and the specular GI chain, as renderer/meshlet_frame.py
-# names them (module alias.function): devdiff's default
-DEVDIFF_FUNCS = ("ddgi_ops.ddgi_update", "mf.interleaved_gradient_noise",
+# the resolve's per-object motion delta, the DDGI update and the specular
+# GI chain, as renderer/meshlet_frame.py names them (module
+# alias.function): devdiff's default
+DEVDIFF_FUNCS = ("shading.motion_delta", "ddgi_ops.ddgi_update",
+                 "mf.interleaved_gradient_noise",
                  "sp.ggx_sample_normal",
                  "gi_ops.sample_radiance", "ssr_ops.trace", "rt.trace",
                  "rt.shade_hits", "sp.specular_firefly_clamp",
@@ -293,12 +312,19 @@ DEVDIFF_FUNCS = ("ddgi_ops.ddgi_update", "mf.interleaved_gradient_noise",
 
 
 def _to(x, device):
-    """Tensors (in tuples, lists, dicts and NamedTuples) copied to
-    `device`; anything else as it is."""
+    """Tensors (in tuples, lists, dicts, NamedTuples and dataclasses, as
+    the frame's pools and instance tables) copied to `device`; anything
+    else as it is."""
+    import dataclasses
+
     import torch
 
     if isinstance(x, torch.Tensor):
         return x.detach().to(device, copy=True)
+    if dataclasses.is_dataclass(x) and not isinstance(x, type):
+        return dataclasses.replace(x, **{
+            f.name: _to(getattr(x, f.name), device)
+            for f in dataclasses.fields(x) if f.init})
     if isinstance(x, tuple) and hasattr(x, "_fields"):
         return type(x)(*(_to(v, device) for v in x))
     if isinstance(x, (tuple, list)):
@@ -522,6 +548,348 @@ def history(cell: str, n: int | None, port_dump: str | None = None,
         if window is not None:
             _window_report(img, jimg, port, ref, window,
                            gbufs[0] if gbufs else None)
+
+
+# the specular GI chain (chord_tpu meshlet_frame.py:963-1044) and the
+# dilated motion that feeds its history fetch, in the frame's order:
+# (chord_tpu's ops module, the port's meshlet_frame alias, function)
+SPECULAR_CHAIN = (("post", "post", "tsr_prepare"),
+                  ("screen_probe", "sp", "ggx_sample_normal"),
+                  ("gi", "gi_ops", "sample_radiance"),
+                  ("ssr", "ssr_ops", "trace"),
+                  ("rt", "rt", "trace"),
+                  ("rt", "rt", "shade_hits"),
+                  ("screen_probe", "sp", "specular_firefly_clamp"),
+                  ("screen_probe", "sp", "spatial_filter_specular"),
+                  ("screen_probe", "sp", "temporal_specular"))
+SPECULAR_TOL = 1e-5     # a gi_specular texel differs beyond this
+
+
+def _named_arrays(f, a, kw) -> dict:
+    """A call's array arguments by parameter name (a NamedTuple's arrays
+    as name.field), for either package."""
+    import inspect
+
+    out = {}
+    for name, v in inspect.signature(f).bind(*a, **kw).arguments.items():
+        for key, x in ([(f"{name}.{k}", getattr(v, k)) for k in v._fields]
+                       if hasattr(v, "_fields") else [(name, v)]):
+            if hasattr(x, "shape") and hasattr(x, "dtype"):
+                out[key] = x
+    return out
+
+
+def _named_outputs(out) -> dict:
+    """A call's outputs: out0, out1, ... (a NamedTuple's arrays as
+    out.field)."""
+    if hasattr(out, "_fields"):
+        return {f"out.{k}": getattr(out, k) for k in out._fields
+                if hasattr(getattr(out, k), "shape")}
+    outs = out if isinstance(out, tuple) else (out,)
+    return {f"out{j}": x for j, x in enumerate(outs)}
+
+
+@contextlib.contextmanager
+def _jax_chain_recording(record: list, chain=SPECULAR_CHAIN):
+    """Inside: every call of chord_tpu's `chain` functions (inside a trace
+    too) appends (label, its arrays by name, its outputs) to `record`; the
+    label is the port's alias.function."""
+    import importlib
+
+    saved = []
+    for mod, alias, fn in chain:
+        owner = importlib.import_module(f"chord_tpu.ops.{mod}")
+        f = getattr(owner, fn)
+        saved.append((owner, fn, f))
+
+        @functools.wraps(f)
+        def wrapped(*a, _f=f, _n=f"{alias}.{fn}", **kw):
+            out = _f(*a, **kw)
+            record.append((_n, _named_arrays(_f, a, kw), _named_outputs(out)))
+            return out
+        setattr(owner, fn, wrapped)
+    try:
+        yield
+    finally:
+        for owner, fn, f in saved:
+            setattr(owner, fn, f)
+
+
+def _np_record(calls) -> list:
+    return [(n, {k: np.asarray(v) for k, v in a.items()},
+             {k: np.asarray(v) for k, v in o.items()}) for n, a, o in calls]
+
+
+def _pair_calls(jcalls, pcalls, chain=SPECULAR_CHAIN) -> list:
+    """(label, chord_tpu's call, the port's call) for each label of the
+    chain, its calls paired from the last (sample_radiance and rt.trace
+    also serve the diffuse probes, earlier in the frame)."""
+    pairs = []
+    for _, alias, fn in chain:
+        label = f"{alias}.{fn}"
+        js = [c for c in jcalls if c[0] == label]
+        ps = [c for c in pcalls if c[0] == label]
+        k = min(len(js), len(ps))
+        pairs += [(label, j, p) for j, p in zip(js[len(js) - k:],
+                                                ps[len(ps) - k:])]
+    return pairs
+
+
+def _at(x, texel, plane):
+    """x at the texel when its leading dims are the specular plane's."""
+    if x.ndim >= 2 and tuple(x.shape[:2]) == plane:
+        return np.asarray(x[texel[0], texel[1]], np.float64)
+    return None
+
+
+def _fmt(a) -> str:
+    return "[" + ", ".join(f"{float(v):.9g}" for v in np.ravel(a)) + "]"
+
+
+def _texel_line(what, j, p, texel, plane) -> str | None:
+    a, b = _at(j, texel, plane), _at(p, texel, plane)
+    if a is None:
+        return None
+    return (f"    {what} at {texel}: chord_tpu {_fmt(a)}, port {_fmt(b)}, "
+            f"|d| {np.abs(a - b).max():.3g}")
+
+
+def _rerun_on(pf, pa, pkw, jarrays):
+    """The port's function on chord_tpu's recorded arrays: the port's own
+    bound call with each array argument that chord_tpu's call has at the
+    same name and shape replaced by chord_tpu's values."""
+    import inspect
+
+    import torch
+
+    bound = inspect.signature(pf).bind(*pa, **pkw)
+    for name, v in list(bound.arguments.items()):
+        if hasattr(v, "_fields"):
+            rep = {}
+            for k in v._fields:
+                x, y = getattr(v, k), jarrays.get(f"{name}.{k}")
+                if isinstance(x, torch.Tensor) and y is not None and \
+                        tuple(y.shape) == tuple(x.shape):
+                    rep[k] = torch.from_numpy(np.array(y)).to(x.dtype)
+            bound.arguments[name] = v._replace(**rep)
+        elif isinstance(v, torch.Tensor) and name in jarrays and tuple(
+                jarrays[name].shape) == tuple(v.shape):
+            bound.arguments[name] = torch.from_numpy(
+                np.array(jarrays[name])).to(v.dtype)
+    return _named_outputs(pf(*bound.args, **bound.kwargs))
+
+
+def _decisions(pairs, texel, plane) -> None:
+    """The chain's discrete decisions at the texel, each computed in
+    float64 from either package's recorded operands."""
+    import torch
+
+    from chord_tpu_torch.ops import gi as tgi
+    from chord_tpu_torch.ops import screen_probe as tsp
+
+    r, c = texel
+    f64 = lambda x: np.asarray(x, np.float64)
+    for label, (_, ja, jo), (_, pf, pa, pkw, po) in pairs:
+        pn = {k: np.asarray(v) for k, v in _named_arrays(pf, pa, pkw).items()}
+        if label == "sp.ggx_sample_normal":
+            for who, a, h in (("chord_tpu", ja, jo["out0"]),
+                              ("port", pn, np.asarray(po["out0"]))):
+                n, v, h = (f64(x[r, c]) for x in (a["nrm"], a["view"], h))
+                d = 2.0 * (v @ h) * h - v
+                took = "normal" if np.allclose(h, n) else "sample"
+                print(f"    GGX ok (d.n > 1e-3): {who} d.n {d @ n:.9g}, "
+                      f"uses the {took}", flush=True)
+        elif label == "gi_ops.sample_radiance":
+            cfg = pa[4] if len(pa) > 4 else pkw["cfg"]
+            for who, pos in (("chord_tpu", ja["pos_w"]),
+                             ("port", pn["pos_w"])):
+                p = torch.from_numpy(np.array(pos[r, c]))[None]
+                cells = []
+                for k in range(cfg.cascades):
+                    g, inb = tgi._probe_coords(p, k, cfg, torch.zeros(3))
+                    cells.append(f"c{k} g+0.5 {_fmt(f64(g[0]) + 0.5)} in "
+                                 f"{bool(inb[0])}")
+                print(f"    cache cell pick floor(g + 0.5), {who}: "
+                      + "; ".join(cells), flush=True)
+        elif label == "sp.specular_firefly_clamp":
+            for who, a in (("chord_tpu", ja), ("port", pn)):
+                pos = torch.from_numpy(np.array(a["pos_q"]))
+                nrm = torch.from_numpy(np.array(a["nrm_q"]))
+                wacc = sum(tsp._edge_weights(
+                    pos, nrm, [(dy, dx) for s in (1, 2) for dy, dx in
+                               ((0, s), (0, -s), (s, 0), (-s, 0))]))
+                print(f"    firefly wacc > 1e-5 (the port's weights on "
+                      f"{who}'s inputs): {float(wacc[r, c]):.9g}", flush=True)
+        elif label == "sp.temporal_specular":
+            for who, m in (("chord_tpu", ja["motion_q"]),
+                           ("port", pn["motion_q"])):
+                mh, mw = m.shape[:2]
+                px = np.float32(c + 0.5) - m[r, c, 0] * np.float32(mw) * \
+                    np.float32(0.5)
+                py = np.float32(r + 0.5) + m[r, c, 1] * np.float32(mh) * \
+                    np.float32(0.5)
+                print(f"    history fetch trunc(x), trunc(y): {who} motion "
+                      f"{_fmt(m[r, c])}, x {px:.9g} y {py:.9g} -> "
+                      f"({int(py)}, {int(px)})", flush=True)
+
+
+def _specular_report(jcalls, pcalls, texel, chain=SPECULAR_CHAIN) -> None:
+    """Function by function: where the port's inputs first differ from
+    chord_tpu's, its outputs, and the port's function rerun on chord_tpu's
+    own inputs (a function that differs, told apart from inputs that
+    differ); at the texel the values and the decisions."""
+    pairs = _pair_calls(jcalls, pcalls, chain)
+    plane = None
+    for label, j, _ in pairs:
+        if label == "sp.temporal_specular":
+            plane = tuple(j[1]["spec"].shape[:2])
+    first = None
+    for label, (_, ja, jo), (_, pf, pa, pkw, po) in pairs:
+        pa_named = _named_arrays(pf, pa, pkw)
+        print(f"  {label}", flush=True)
+        for name in ja:
+            if name not in pa_named or tuple(ja[name].shape) != tuple(
+                    pa_named[name].shape):
+                continue
+            x = pa_named[name].numpy()
+            y = ja[name]
+            if x.dtype == bool:
+                x, y = x.astype(np.int8), y.astype(np.int8)
+            print(f"    in {name} {tuple(y.shape)} {_diff(x, y)}", flush=True)
+            if texel is not None and plane is not None:
+                line = _texel_line(f"in {name}", y, x, texel, plane)
+                if line:
+                    print(line, flush=True)
+        po = _named_outputs(po) if not isinstance(po, dict) else po
+        rerun = _rerun_on(pf, pa, pkw, ja)
+        for k, y in jo.items():
+            x, z = po[k].numpy(), rerun[k].numpy()
+            if y.dtype == bool:
+                x, y, z = (v.astype(np.int8) for v in (x, y, z))
+            print(f"    {k} {tuple(y.shape)} {_diff(x, y)}; on chord_tpu's "
+                  f"inputs {_diff(z, y)}", flush=True)
+            if texel is not None and plane is not None:
+                for what, v in ((k, x), (f"{k} on chord_tpu's inputs", z)):
+                    line = _texel_line(what, y, v, texel, plane)
+                    if line:
+                        print(line, flush=True)
+                a = _at(y, texel, plane)
+                if a is not None and first is None and np.abs(
+                        a - _at(x, texel, plane)).max() > 1e-4:
+                    first = (label, k, np.abs(a - _at(z, texel, plane)).max())
+    if texel is not None and plane is not None:
+        _decisions(pairs, texel, plane)
+        if first is None:
+            print(f"  at {texel} no output of the chain differs by more than "
+                  "1e-4", flush=True)
+        else:
+            print(f"  at {texel} the first output that differs by more than "
+                  f"1e-4: {first[0]} {first[1]}; on chord_tpu's own inputs "
+                  f"it differs by {first[2]:.3g}", flush=True)
+
+
+def specular(cell: str, frame: int, n: int | None, texel, out: str | None,
+             reference: str | None, extra=()) -> None:
+    """The specular GI chain of one frame, in both packages: chord_tpu
+    (jitted, interpret mode; --no-fma as the goldens) and the port's CPU
+    path render frames 0..n-1 (default FRAME); after each frame, the
+    gi_specular texels that differ from chord_tpu's by more than
+    SPECULAR_TOL; in frame FRAME each call of SPECULAR_CHAIN is recorded
+    in both and reported by _specular_report. `out` DIR keeps chord_tpu's
+    side (every frame's gi_specular, the recorded calls) and the port's
+    recorded calls as npz; `reference` DIR reads chord_tpu's side from
+    such a directory instead of rendering it (the port alone). `extra`
+    functions (ops module.function, as "shading.resolve_gbuffer_raster_rt")
+    are recorded and reported before the chain."""
+    import chip_smoke as cs
+
+    chain = tuple(tuple([f.split(".")[0]] + f.split(".")) for f in extra) \
+        + SPECULAR_CHAIN
+    n = n or frame + 1
+    scene, config, mcfg, hist = _port_cell(cell)
+    if reference is None:
+        import jax
+
+        import bench_goldens as bg
+        from chord_tpu.renderer.meshlet_frame import render_frame_meshlet
+
+        c = bg.setup_cell(cell)
+        if "strips" in bg.CELLS.get(cell, {}) or cell == cs.SPLIT:
+            raise SystemExit("specular steps one-process frames only")
+        record, labels = [], []
+
+        def frame_fn(pools, inst, view, h):
+            record.clear()
+            img, h, _ = render_frame_meshlet(pools, inst, view, h,
+                                             config=c["config"],
+                                             mcfg=c["mcfg"], bvh=c["bvh"])
+            labels[:] = [r[0] for r in record]
+            return img, h, [(r[1], r[2]) for r in record]
+        fn = jax.jit(frame_fn)
+        jhist = c["hist"]
+    if out:
+        os.makedirs(out, exist_ok=True)
+    for i in range(n):
+        t0 = time.time()
+        if reference is None:
+            with _jax_chain_recording(record, chain):
+                _, jhist, rec = fn(c["pools"], c["inst"], c["views"][i],
+                                   jhist)
+            jspec = np.asarray(jhist.gi_specular)
+            jcalls = (_np_record([(lab, a, o) for lab, (a, o) in
+                                  zip(labels, rec)]) if i == frame else None)
+            if out:
+                np.save(os.path.join(out, f"jax_gi_specular_f{i:02d}.npy"),
+                        jspec)
+                if jcalls is not None:
+                    np.savez(os.path.join(out, f"jax_calls_f{i:02d}.npz"),
+                             **_flat_calls(jcalls))
+        else:
+            jspec = np.load(os.path.join(reference,
+                                         f"jax_gi_specular_f{i:02d}.npy"))
+            jcalls = (_unflat_calls(np.load(os.path.join(
+                reference, f"jax_calls_f{i:02d}.npz")))
+                if i == frame else None)
+        pcalls = []
+        with _recording([f"{a}.{f}" for _, a, f in chain]
+                        if i == frame else (), pcalls):
+            _, hist, _ = cs.run_path(cell, scene, config, mcfg, hist, i,
+                                     i + 1)
+        pcalls = [(nm, f, a, kw, _named_outputs(o))
+                  for nm, f, a, kw, o in pcalls]
+        pspec = hist.gi_specular.numpy()
+        d = np.abs(pspec.astype(np.float64) - jspec).max(-1)
+        where = np.argwhere(d > SPECULAR_TOL)
+        print(f"{cell} frame {i}: gi_specular {pspec.shape[:2]} texels that "
+              f"differ by more than {SPECULAR_TOL:g}: {len(where)} "
+              f"{[tuple(int(v) for v in w) for w in where[:8]]}, max "
+              f"{d.max():.3g} ({time.time() - t0:.1f} s)", flush=True)
+        if i != frame:
+            continue
+        if out:
+            np.savez(os.path.join(out, f"port_calls_f{i:02d}.npz"),
+                     **_flat_calls([(nm, {k: v.numpy() for k, v in
+                                          _named_arrays(f, a, kw).items()},
+                                     {k: v.numpy() for k, v in o.items()})
+                                    for nm, f, a, kw, o in pcalls]))
+        print(f"{cell} frame {frame}: the specular chain, chord_tpu against "
+              "the port", flush=True)
+        _specular_report(jcalls, pcalls, texel, chain)
+
+
+def _flat_calls(calls) -> dict:
+    return {f"{i:02d}|{nm}|{kind}|{k}": v
+            for i, (nm, a, o) in enumerate(calls)
+            for kind, d in (("in", a), ("out", o)) for k, v in d.items()}
+
+
+def _unflat_calls(z) -> list:
+    calls = {}
+    for key in z.files:
+        i, nm, kind, k = key.split("|")
+        entry = calls.setdefault(int(i), (nm, {}, {}))
+        entry[1 if kind == "in" else 2][k] = z[key]
+    return [calls[i] for i in sorted(calls)]
 
 
 def split(cell: str, frame: int) -> None:
@@ -930,7 +1298,7 @@ def main(argv) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("mode", choices=("frames", "history", "split", "dump",
                                      "devdiff", "k2", "ign", "images",
-                                     "rays"))
+                                     "rays", "specular"))
     ap.add_argument("cell", nargs="?", default="nanite",
                     help="a cell; for images the first PNG")
     ap.add_argument("frame", nargs="?", default="0",
@@ -964,6 +1332,12 @@ def main(argv) -> int:
                     "go")
     ap.add_argument("--keep", help="dump: the frames written, e.g. 0,1,7 "
                     "(default every frame)")
+    ap.add_argument("--texel", default="75,56", help="specular: ROW,COLUMN "
+                    "of the specular plane whose decisions are reported")
+    ap.add_argument("--reference", help="specular: chord_tpu's side from "
+                    "an earlier run's --out directory")
+    ap.add_argument("--extra", help="specular: more ops functions to "
+                    "record, comma-separated module.function")
     args = ap.parse_args(argv[1:])
     if args.mode not in ("dump", "devdiff"):
         os.environ["JAX_PLATFORMS"] = "cpu"
@@ -993,6 +1367,11 @@ def main(argv) -> int:
         split(args.cell, int(args.frame))
     elif args.mode == "rays":
         rays(args.cell, args.check, args.goldens)
+    elif args.mode == "specular":
+        specular(args.cell, int(args.frame), args.frames,
+                 tuple(int(v) for v in args.texel.split(",")), args.out,
+                 args.reference,
+                 args.extra.split(",") if args.extra else ())
     elif args.mode == "images":
         import chip_smoke as cs
         print(json.dumps(cs.image_gates(cs.read_png(args.cell),

@@ -8,6 +8,7 @@ goldens are).
     python tests/ray_order_probe.py directions   # ~1 min
     python tests/ray_order_probe.py sites        # ~20 s
     python tests/ray_order_probe.py trig         # ~15 min
+    python tests/ray_order_probe.py powf         # ~5 min
 
 `order`: chord_tpu's jitted _ray_sphere, trace_dense_tri and trace_bvh
 (over a triangle and a sphere BVH, at the default budget and a short one)
@@ -35,6 +36,17 @@ rays over the same BVH) then differs.
 `sites`: the frame's other short norms, roots and 3-term sums (the sites
 named in `SITES`): on seeded 128x64 inputs the port's expression against
 chord_tpu's jitted one, the share of elements that differ.
+
+`sites` also holds the per-object motion delta (shading.rigid_delta
+against jitted jnp.linalg.inv and einsum on seeded rigid 4x4 matrices) and
+SSR's toward_cam; each repaired site prints "as it was" (the port's old
+expression) and "now" (the port's own function where it has one).
+
+`powf`: _util.powf_plain on every f32 in [2^-126, 1] with y = 8 (the
+edge weight's `** 8.0`; XLA's power on the CPU is the C library's powf
+with denormals flushed) and on seeded inputs of other exponents, against
+the C library's powf (compiled with `cc` as for `trig`) with XLA's flush,
+and jitted chord_tpu's `x ** 8.0` on a seeded sample.
 
 `trig`: _util.sincosf_plain on every f32 in (-120, 120), the fast
 reduction's range, against the C library's sinf / cosf (what XLA calls;
@@ -317,13 +329,45 @@ def _site_inputs(h: int, w: int) -> dict:
         v = rng.standard_normal(shape + (3,))
         return (v / np.linalg.norm(v, axis=-1, keepdims=True)).astype(F32)
 
-    return dict(pos=rng.uniform(-20, 20, (h, w, 3)).astype(F32),
-                nrm=unit((h, w)),
-                nrm_i=(unit((h, w)) * rng.uniform(0.9, 1.1, (h, w, 1))
-                       ).astype(F32),
-                pos2=rng.uniform(-20, 20, (h, w, 3)).astype(F32),
-                dirs=(unit((h, w)) * rng.uniform(0.5, 2.0, (h, w, 1))
-                      ).astype(F32))
+    x = dict(pos=rng.uniform(-20, 20, (h, w, 3)).astype(F32),
+             nrm=unit((h, w)),
+             nrm_i=(unit((h, w)) * rng.uniform(0.9, 1.1, (h, w, 1))
+                    ).astype(F32),
+             pos2=rng.uniform(-20, 20, (h, w, 3)).astype(F32),
+             dirs=(unit((h, w)) * rng.uniform(0.5, 2.0, (h, w, 1))
+                   ).astype(F32))
+    # neighbours near the centre (the edge weight's live range), a sun
+    # per pixel, and the instance table's rigid matrices (row vectors:
+    # scaled rotation, translation up to +-80; a tenth moved by up to 0.2)
+    rng = np.random.default_rng(9)
+    x["pos_near"] = (x["pos"] + rng.normal(0, 0.3, (h, w, 3))).astype(F32)
+    x["sun"] = unit((h, w))
+    nn = x["nrm"] + rng.normal(0, 0.15, (h, w, 3))
+    x["nrm_near"] = (nn / np.linalg.norm(nn, axis=-1, keepdims=True)
+                     ).astype(F32)
+    x["mats"], x["mats_prev"] = rigid_mats(rng, 875)
+    return x
+
+
+def rigid_mats(rng, n: int):
+    """n seeded rigid (O,4,4) f32 object matrices in chord_tpu's row-vector
+    convention and their previous frame's (a tenth moved by up to 0.2)."""
+    q = rng.standard_normal((n, 4))
+    q /= np.linalg.norm(q, axis=-1, keepdims=True)
+    w, a, b, c = q.T
+    rot = np.stack([1 - 2 * (b * b + c * c), 2 * (a * b - c * w),
+                    2 * (a * c + b * w), 2 * (a * b + c * w),
+                    1 - 2 * (a * a + c * c), 2 * (b * c - a * w),
+                    2 * (a * c - b * w), 2 * (b * c + a * w),
+                    1 - 2 * (a * a + b * b)], -1).reshape(n, 3, 3)
+    m = np.zeros((n, 4, 4))
+    m[:, :3, :3] = rot * rng.uniform(0.5, 3.0, (n, 1, 1))
+    m[:, 3, :3] = rng.uniform(-80, 80, (n, 3))
+    m[:, 3, 3] = 1.0
+    mp = m.copy()
+    moved = rng.random(n) < 0.1
+    mp[moved, 3, :3] += rng.uniform(-0.2, 0.2, (int(moved.sum()), 3))
+    return m.astype(F32), mp.astype(F32)
 
 
 def _sites():
@@ -334,7 +378,11 @@ def _sites():
     import jax.numpy as jnp
     import torch
 
-    from chord_tpu_torch.ops._util import dot3, norm3
+    from chord_tpu.ops import screen_probe as jsp
+    from chord_tpu_torch.ops import screen_probe as sp
+    from chord_tpu.ops import colorspace as jcs
+    from chord_tpu_torch.ops import colorspace, shading
+    from chord_tpu_torch.ops._util import dot3, norm3, recip
 
     vn = torch.linalg.vector_norm
     jn = jnp.linalg.norm
@@ -418,12 +466,96 @@ def _sites():
     def vnorm(x):
         return vn(x, dim=-1)
 
+    def edge_now(pc, ps, nc, ns):
+        base = sp._edge_base(pc, nc, ps, ns)
+        nf = torch.clamp(dot3(nc, ns), 0.0, 1.0)
+        nf = nf * nf
+        nf = nf * nf
+        return nf * nf, base, sp._edge_weight(pc, nc, ps, ns)
+
+    def edge_jax_parts(pc, ps, nc, ns):
+        nf = jnp.clip(jnp.sum(nc * ns, -1), 0.0, 1.0) ** 8
+        return nf, jsp_base(pc, ps, nc, ns), jsp._edge_weight(pc, nc, ps, ns)
+
+    def jsp_base(pc, ps, nc, ns):
+        nf = jnp.clip(jnp.sum(nc * ns, -1), 0.0, 1.0) ** 8
+        scale = jnp.maximum(jn(pc, axis=-1), 1e-3)
+        return nf * jnp.clip(1.0 - jn(ps - pc, axis=-1) / scale, 0.0, 1.0)
+
+    def toward_was(p, n):
+        v, r = ssr_port(norm3, dot3)(p, n)
+        return ((r * v).sum(-1),)
+
+    def toward_now(p, n):
+        v, r = ssr_port(norm3, dot3)(p, n)
+        return (dot3(r, v),)
+
+    def toward_jax(p, n):
+        v, r = ssr_jax(p, n)
+        return (jnp.sum(r * v, -1),)
+
+    def ssao_was(p, n):
+        dist, s_ = taps_port(vnorm, sumdot)(p, n)
+        return dist, s_, 1.0 - dist / 1.5
+
+    def ssao_now(p, n):
+        dist, s_ = taps_port(norm3, dot3)(p, n)
+        return dist, s_, 1.0 - dist * recip(1.5)
+
+    def ssao_jax(p, n):
+        dist, s_ = taps_jax(p, n)
+        return dist, s_, 1.0 - dist / 1.5
+
+    def nov_now(p, n):
+        return (torch.clamp(dot3(-p / torch.clamp_min(norm3(p, keepdim=True),
+                                                      1e-6), n), 1e-3, 1.0),)
+
+    # (the sun's radiance a plane: a constant factor XLA would fold)
+    def shade_was(gn, d, sun, rad):
+        n = gn * -torch.sign((gn * d).sum(-1, keepdim=True) + 1e-12)
+        ndl = torch.clamp((n * sun).sum(-1), 0.0, 1.0)
+        return (ndl, rad[..., 0] * ndl / np.pi)
+
+    def shade_now(gn, d, sun, rad):
+        n = gn * -torch.sign(dot3(gn, d)[..., None] + 1e-12)
+        ndl = torch.clamp(dot3(n, sun), 0.0, 1.0)
+        return (ndl, rad[..., 0] * ndl * recip(np.pi))
+
+    def shade_jax(gn, d, sun, rad):
+        n = gn * -jnp.sign(jnp.sum(gn * d, -1, keepdims=True) + 1e-12)
+        ndl = jnp.clip(jnp.sum(n * sun, -1), 0.0, 1.0)
+        return (ndl, rad[..., 0] * ndl / np.pi)
+
+    def srgb_was(c):
+        return (c @ torch.from_numpy(colorspace.SRGB_TO_AP1),)
+
+    def delta_was(m, mp):
+        return (torch.matmul(torch.linalg.inv(m), mp).reshape(-1, 16),)
+
+    def delta_now(m, mp):
+        return (shading.rigid_delta(m, mp).reshape(-1, 16),)
+
+    def delta_jax(m, mp):
+        return (jnp.einsum("oij,ojk->oik", jnp.linalg.inv(m), mp)
+                .reshape(-1, 16),)
+
     def sumdot(a, b):
         return (a * b).sum(-1)
 
     return [
-        ("ops/gi.py:258 ssao tap (dist, s)", ("pos", "nrm"),
-         taps_port(vnorm, sumdot), taps_jax),
+        ("ops/shading.py:206 motion delta inv(m) @ m_prev, as it was",
+         ("mats", "mats_prev"), delta_was, delta_jax),
+        ("ops/shading.py:206 motion delta, now (rigid_delta)",
+         ("mats", "mats_prev"), delta_now, delta_jax),
+        ("ops/colorspace.py:38 srgb_to_acescg, as it was", ("dirs",),
+         srgb_was, lambda c: (jcs.srgb_to_acescg(c),)),
+        ("ops/colorspace.py:38 srgb_to_acescg, now", ("dirs",),
+         lambda c: (colorspace.srgb_to_acescg(c),),
+         lambda c: (jcs.srgb_to_acescg(c),)),
+        ("ops/gi.py:258 ssao tap (dist, s, radius factor), as it was",
+         ("pos", "nrm"), ssao_was, ssao_jax),
+        ("ops/gi.py:258 ssao tap (dist, s, radius factor), now",
+         ("pos", "nrm"), ssao_now, ssao_jax),
         ("ops/ddgi.py:359 probe (dist_tp, wrap dot), as it was",
          ("pos2", "pos", "nrm"), probe_port(vnorm, sumdot), probe_jax),
         ("ops/ddgi.py:359 probe (dist_tp, wrap dot), now",
@@ -432,26 +564,47 @@ def _sites():
          ("pos", "nrm"), taps_port(vnorm, sumdot), taps_jax),
         ("ops/screen_probe.py:263 taps (dist, cosn), now", ("pos", "nrm"),
          taps_port(norm3, dot3), taps_jax),
-        ("ops/screen_probe.py:532 _edge_weight (nf, df, w)",
+        ("ops/screen_probe.py:532 _edge_weight (nf, df, w), as it was",
          ("pos", "pos2", "nrm", "nrm_i"), edge_port, edge_jax),
+        ("ops/screen_probe.py _edge_weight (nf, nf * df, w), now",
+         ("pos", "pos_near", "nrm", "nrm_near"), edge_now, edge_jax_parts),
+        ("ops/rt.py:546 shade_hits (ndl, ndl / pi), as it was",
+         ("nrm_i", "dirs", "sun", "pos"), shade_was, shade_jax),
+        ("ops/rt.py:546 shade_hits (ndl, ndl / pi), now",
+         ("nrm_i", "dirs", "sun", "pos"), shade_now, shade_jax),
         ("ops/shading.py:135 resolve normal, as it was", ("nrm_i",),
          unit_port(vnorm, 1e-8), unit_jax(1e-8)),
         ("ops/shading.py:135 resolve normal, now", ("nrm_i",),
          unit_port(norm3, 1e-8), unit_jax(1e-8)),
-        ("ops/shading.py:418 _norm3", ("dirs",), norm3_port,
+        ("ops/shading.py:418 _norm3, as it was", ("dirs",), norm3_port,
+         lambda x: (jn(x, axis=-1, keepdims=True),)),
+        ("ops/shading.py _norm3, now", ("dirs",),
+         lambda x: (shading._norm3(x),),
          lambda x: (jn(x, axis=-1, keepdims=True),)),
         ("ops/ssr.py:46 view, reflection, as it was", ("pos", "nrm"),
          ssr_port(vnorm, sumdot), ssr_jax),
         ("ops/ssr.py:46 view, reflection, now", ("pos", "nrm"),
          ssr_port(norm3, dot3), ssr_jax),
-        ("ops/atmosphere.py:279 sample_sky direction", ("dirs",),
-         unit_port(vnorm, 1e-8), unit_jax(1e-8)),
-        ("renderer/meshlet_frame.py:163 pixel_view_dirs", ("dirs",),
-         unit_port(vnorm, 1e-8), unit_jax(1e-8)),
-        ("renderer/meshlet_frame.py:538 _aerial dist", ("pos",),
+        ("ops/ssr.py:83 toward_cam, as it was", ("pos", "nrm"), toward_was,
+         toward_jax),
+        ("ops/ssr.py:83 toward_cam, now", ("pos", "nrm"), toward_now,
+         toward_jax),
+        ("ops/atmosphere.py:279 sample_sky direction, as it was",
+         ("dirs",), unit_port(vnorm, 1e-8), unit_jax(1e-8)),
+        ("ops/atmosphere.py:279 sample_sky direction, now", ("dirs",),
+         unit_port(norm3, 1e-8), unit_jax(1e-8)),
+        ("renderer/meshlet_frame.py:163 pixel_view_dirs, as it was",
+         ("dirs",), unit_port(vnorm, 1e-8), unit_jax(1e-8)),
+        ("renderer/meshlet_frame.py:163 pixel_view_dirs, now", ("dirs",),
+         unit_port(norm3, 1e-8), unit_jax(1e-8)),
+        ("renderer/meshlet_frame.py:538 _aerial dist, as it was", ("pos",),
          lambda p: (vnorm(p),), lambda p: (jn(p, axis=-1),)),
-        ("renderer/meshlet_frame.py:706 specular nov", ("pos", "nrm"),
-         nov_port, nov_jax),
+        ("renderer/meshlet_frame.py:538 _aerial dist, now", ("pos",),
+         lambda p: (norm3(p),), lambda p: (jn(p, axis=-1),)),
+        ("renderer/meshlet_frame.py:706 specular nov, as it was",
+         ("pos", "nrm"), nov_port, nov_jax),
+        ("renderer/meshlet_frame.py:706 specular nov, now", ("pos", "nrm"),
+         nov_now, nov_jax),
     ]
 
 
@@ -480,7 +633,79 @@ _LIBM_BATCH = r"""
 void libm_sincosf(const float* x, float* s, float* c, long n) {
   for (long i = 0; i < n; ++i) { s[i] = sinf(x[i]); c[i] = cosf(x[i]); }
 }
+void libm_powf(const float* x, float y, float* out, long n) {
+  for (long i = 0; i < n; ++i) out[i] = powf(x[i], y);
+}
 """
+
+
+def _libm():
+    """The C library's batch helpers, compiled with `cc` into a temporary
+    directory -> (ctypes library, the directory's cleanup)."""
+    import ctypes
+    import subprocess
+    import tempfile
+
+    tmp = tempfile.TemporaryDirectory()
+    src, lib = os.path.join(tmp.name, "b.c"), os.path.join(tmp.name, "b.so")
+    with open(src, "w") as f:
+        f.write(_LIBM_BATCH)
+    subprocess.run(["cc", "-O2", "-shared", "-fPIC", "-o", lib, src, "-lm"],
+                   check=True)
+    return ctypes.CDLL(lib), tmp
+
+
+def powf(chunk: int = 1 << 24) -> None:
+    import ctypes
+    import time
+
+    import jax
+    import torch
+
+    from chord_tpu_torch.ops import _util
+
+    libm, tmp = _libm()
+    libm.libm_powf.argtypes = [ctypes.c_void_p, ctypes.c_float,
+                               ctypes.c_void_p, ctypes.c_long]
+
+    def want(x, y):
+        out = np.empty_like(x)
+        libm.libm_powf(x.ctypes.data, y, out.ctypes.data, x.size)
+        out[np.abs(out) < 2.0 ** -126] = 0.0      # XLA's FTZ
+        out[np.abs(x) < 2.0 ** -126] = 0.0        # and DAZ
+        return out
+
+    def off(x, y):
+        got = _util.powf_plain(torch.from_numpy(x), y).numpy()
+        ref = want(x, y)
+        return int(((got != ref) & ~(np.isnan(got) & np.isnan(ref))).sum())
+
+    try:
+        t0, n, bad = time.time(), 0, 0
+        lo, hi = 0x00800000, 0x3F800000 + 1       # [2^-126, 1]
+        for a in range(lo, hi, chunk):
+            x = np.arange(a, min(a + chunk, hi), dtype=np.int32).view(F32)
+            bad += off(x, 8.0)
+            n += x.size
+        print(f"powf_plain(x, 8) on every f32 in [2^-126, 1] ({n} values): "
+              f"{bad} differ from the C library's powf (FTZ / DAZ); "
+              f"{time.time() - t0:.0f} s", flush=True)
+        rng = np.random.default_rng(11)
+        x = np.concatenate([rng.random(1 << 20), rng.random(1 << 16) * 100,
+                            rng.random(1 << 12) ** 30,
+                            [0.0, 1.0, np.inf, np.nan, 1e-45, 2.0 ** -126]]
+                           ).astype(F32)    # powf's domain: x >= 0
+        for y in (0.5, 2.5, 3.3, 16.0):
+            print(f"powf_plain(x, {y}) on {x.size} seeded inputs: "
+                  f"{off(x, y)} differ", flush=True)
+        xs = rng.random(1 << 20).astype(F32)
+        jit = np.asarray(jax.jit(lambda v: v ** 8.0)(xs))
+        got = _util.powf_plain(torch.from_numpy(xs), 8.0).numpy()
+        print(f"jitted chord_tpu x ** 8.0 on {xs.size} seeded inputs in "
+              f"[0, 1): {int((jit != got).sum())} differ from powf_plain",
+              flush=True)
+    finally:
+        tmp.cleanup()
 
 
 def trig(chunk: int = 1 << 23) -> None:
@@ -535,4 +760,4 @@ def trig(chunk: int = 1 << 23) -> None:
 if __name__ == "__main__":
     mode = sys.argv[1] if len(sys.argv) > 1 else "order"
     {"order": order, "ddgi-frames": ddgi_frames, "directions": directions,
-     "sites": sites, "trig": trig}[mode]()
+     "sites": sites, "trig": trig, "powf": powf}[mode]()

@@ -27,6 +27,21 @@ def libm_sincosf(x):
     return out
 
 
+def libm_powf(x, y):
+    """The C library's powf of the f32 array x and the f32 y, with XLA's
+    CPU flush to zero (DAZ on x, FTZ on the result): what chord_tpu's XLA
+    computes for an f32 x ** y with a float y."""
+    libm = ctypes.CDLL(ctypes.util.find_library("m") or "libm.so.6")
+    fn = libm.powf
+    fn.restype, fn.argtypes = ctypes.c_float, [ctypes.c_float,
+                                               ctypes.c_float]
+    xs = np.ravel(np.asarray(x, np.float32))
+    out = np.array([0.0 if abs(v) < 2.0 ** -126 else fn(float(v), y)
+                    for v in xs], np.float32)
+    out[np.abs(out) < 2.0 ** -126] = 0.0
+    return out.reshape(np.shape(x))
+
+
 def spheres(n=200, seed=0):
     rng = np.random.default_rng(seed)
     c = rng.uniform(-20, 20, (n, 3))

@@ -1010,6 +1010,39 @@ def test_sincos_random_inputs(dev):
 
 
 @pytest.mark.cuda
+def test_powf_random_inputs(dev):
+    """The powf kernel against its plain version on the card and on the
+    CPU, bit for bit: seeded bases in [0, 1] (the edge weights'), tiny
+    ones whose power flushes to 0, large ones, 0, 1, subnormal, inf, NaN
+    and a negative base, for the edge weight's exponent 8 and others;
+    shapes kept, one launch a call, none for an empty tensor; a
+    non-contiguous or non-f32 tensor raises."""
+    rng = np.random.default_rng(24)
+    x = np.concatenate([
+        rng.random(1 << 20), rng.random(1 << 14) ** 40,
+        rng.uniform(1, 300, 1 << 14),
+        [0.0, 1.0, 1e-45, 2.0 ** -126, np.inf, np.nan, -0.5]]).astype(
+            np.float32)
+    t = torch.from_numpy(x).to(dev).reshape(1, -1)
+    for y in (8.0, 0.5, 2.5, 16.0):
+        before = _util.powf.launches
+        got = _util.powf(t, y)
+        torch.cuda.synchronize()
+        assert _util.powf.launches == before + 1
+        for ref in (_util.powf_plain(t, y), _util.powf_plain(t.cpu(), y)):
+            assert got.shape == t.shape and got.dtype == torch.float32
+            assert torch.equal(got.cpu().view(torch.int32),
+                               ref.cpu().view(torch.int32))
+    before = _util.powf.launches
+    empty = _util.powf(torch.empty((0, 3), device=dev), 8.0)
+    assert empty.shape == (0, 3) and _util.powf.launches == before
+    with pytest.raises(ValueError, match="contiguous"):
+        _util.powf(t[:, ::2], 8.0)
+    with pytest.raises(ValueError):
+        _util.powf(t.double(), 8.0)
+
+
+@pytest.mark.cuda
 def test_fusion_barrier_random_inputs(dev):
     """K9 against x.clone(), byte for byte, on every dtype and on byte
     counts and offsets that leave a scalar tail or an unaligned buffer; the

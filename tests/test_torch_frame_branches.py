@@ -83,6 +83,12 @@ CASES = {
 }
 
 
+# the cases this file renders; `masked_peel` (chord_tpu's slowest compile
+# here) renders in tests/test_torch_frame_branches_peel.py, so that a run
+# that spreads test files over workers renders it beside the others
+FILE_CASES = sorted(c for c in CASES if c != "masked_peel")
+
+
 def peel_scene(procedural, scene_arrays, texture, cmath):
     """tests/test_torch_frame_tex.py's scene, with a second alpha-masked
     leaf card behind each of its three, shifted sideways, built with one
@@ -213,7 +219,7 @@ def runs():
     return get
 
 
-@pytest.mark.parametrize("case", sorted(CASES))
+@pytest.mark.parametrize("case", FILE_CASES)
 def test_branch_stats_match_exactly(runs, case):
     r = runs(case)
     j_stats, stats = r["jax"][1], r["torch"][1]
@@ -230,7 +236,7 @@ def test_branch_stats_match_exactly(runs, case):
         assert int(stats["draws_masked"].min()) > 0
 
 
-@pytest.mark.parametrize("case", sorted(CASES))
+@pytest.mark.parametrize("case", FILE_CASES)
 def test_branch_visibility_matches_exactly(runs, case):
     r = runs(case)
     j_vis, vis = r["jax"][2], r["torch"][2]
@@ -240,7 +246,7 @@ def test_branch_visibility_matches_exactly(runs, case):
     assert (vis[-1] != 0).mean() > 0.3
 
 
-@pytest.mark.parametrize("case", sorted(CASES))
+@pytest.mark.parametrize("case", FILE_CASES)
 def test_branch_images_match(runs, case):
     r = runs(case)
     j_imgs, imgs = r["jax"][0], r["torch"][0]
@@ -250,20 +256,6 @@ def test_branch_images_match(runs, case):
     diff = np.abs(imgs.astype(np.int32) - j_imgs.astype(np.int32))
     assert (diff <= 2).mean() >= 0.999, (diff.max(), (diff > 2).mean())
     assert imgs[-1].std() > 5.0
-
-
-def test_masked_peel_covers_and_changes_the_frame(runs):
-    """chord_tpu's palette covered every pixel (3 sampler calls a frame:
-    the resolve and the alpha tests of the two masked layers), and the
-    second masked layer changes the frame: the peel finds masked fragments
-    behind failed alpha tests."""
-    r = runs("masked_peel")
-    coverage = r["jax"][3]
-    assert len(coverage) == 3 * CASES["masked_peel"]["frames"], coverage
-    assert min(coverage) == 1.0, coverage
-    one_layer = _run_torch("masked_peel", masked_layers=1)
-    assert (one_layer[0] != r["torch"][0]).mean() > 0.005
-    assert (one_layer[2][-1] != r["torch"][2][-1]).mean() > 0.002
 
 
 class _Buffers:

@@ -108,9 +108,19 @@ def _port_run(mode, pools, inst, views, mcfg, bvh):
                                        with_stats=True)
 
 
-@pytest.fixture(scope="module", params=list(MODES))
+# the modes this file renders; `exact` (the slower) renders in
+# tests/test_torch_frame_gi_modes_exact.py, so that a run that spreads
+# test files over workers spreads the two modes
+FILE_MODES = ("ddgi",)
+
+
+@pytest.fixture(scope="module", params=FILE_MODES)
 def runs(request):
-    mode = request.param
+    return make_runs(request.param)
+
+
+def make_runs(mode):
+    """Both packages' three frames of `mode`, each over its own BVH."""
     m = MODES[mode]
     jm, tm = _mcfgs(mode)
     jb = jax_sponza(detail=1)
